@@ -1,0 +1,130 @@
+"""Configuration of the port's server: the YAML keys of veneur_tpu's
+config that this port implements, with the same names and defaults.
+
+A key the port does not implement (for example `forward_address`,
+`ssf_listen_addresses`, `grpc_address`, or `tpu.shards`) raises with the
+key's name: a configuration is never half-applied in silence. Durations
+accept Go-style strings ("10s", "500ms") or numbers of seconds.
+"""
+
+from __future__ import annotations
+
+import re
+import socket
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, List, Optional
+
+import yaml
+
+_DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
+_DURATION_UNITS = {"ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3,
+                   "s": 1.0, "m": 60.0, "h": 3600.0}
+
+
+def parse_duration(v: Any) -> float:
+    """Go-style duration to seconds."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    s = str(v).strip()
+    matches = _DURATION_RE.findall(s)
+    if not matches or "".join(f"{n}{u}" for n, u in matches) != s:
+        raise ValueError(f"invalid duration: {v!r}")
+    return sum(float(n) * _DURATION_UNITS[u] for n, u in matches)
+
+
+@dataclass
+class SinkConfig:
+    kind: str = ""
+    name: str = ""
+    config: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class TpuConfig:
+    """Column-store sizing (the `tpu:` block, kept under its name so one
+    YAML file serves both packages)."""
+
+    counter_capacity: int = 4096
+    gauge_capacity: int = 4096
+    histo_capacity: int = 4096
+    set_capacity: int = 1024
+    batch_cap: int = 8192
+    # set keys promote from the host tier to the device bank after this
+    # many samples in one interval; 0 = auto (16 on a card, 2048 on the
+    # CPU)
+    set_promote_samples: int = 0
+    # hard cap on promoted device rows (16 KB each)
+    set_max_dev_slots: int = 65536
+
+
+@dataclass
+class Config:
+    aggregates: List[str] = field(
+        default_factory=lambda: ["min", "max", "count"])
+    hostname: str = ""
+    interval: float = 10.0
+    metric_sinks: List[SinkConfig] = field(default_factory=list)
+    percentiles: List[float] = field(
+        default_factory=lambda: [0.5, 0.75, 0.99])
+    # SO_RCVBUF of each UDP listener socket
+    read_buffer_size_bytes: int = 2 * 1024 * 1024
+    statsd_listen_addresses: List[str] = field(default_factory=list)
+    tpu: TpuConfig = field(default_factory=TpuConfig)
+
+    def apply_defaults(self) -> "Config":
+        if not self.aggregates:
+            self.aggregates = ["min", "max", "count"]
+        if not self.hostname:
+            self.hostname = socket.gethostname()
+        if self.interval <= 0:
+            self.interval = 10.0
+        return self
+
+
+def _known(cls) -> set:
+    return {f.name for f in fields(cls)}
+
+
+def _check_keys(raw: dict, cls, where: str) -> None:
+    for key in raw:
+        if key not in _known(cls):
+            raise ValueError(
+                f"config key {where}{key!r} is not supported by "
+                f"veneur_tpu_torch")
+
+
+def config_from_dict(raw: Dict[str, Any]) -> Config:
+    """A Config from parsed YAML; raises on any key the port lacks."""
+    raw = dict(raw or {})
+    _check_keys(raw, Config, "")
+    cfg = Config()
+    for key, value in raw.items():
+        if key == "interval":
+            value = parse_duration(value)
+        elif key == "tpu":
+            value = dict(value or {})
+            _check_keys(value, TpuConfig, "tpu.")
+            value = TpuConfig(**value)
+        elif key == "metric_sinks":
+            sinks = []
+            for item in value or []:
+                item = dict(item or {})
+                _check_keys(item, SinkConfig, "metric_sinks.")
+                sinks.append(SinkConfig(**item))
+            value = sinks
+        elif key == "percentiles":
+            value = [float(p) for p in value]
+        setattr(cfg, key, value)
+    return cfg.apply_defaults()
+
+
+def read_config(path: Optional[str] = None,
+                overrides: Optional[dict] = None) -> Config:
+    """Load a YAML config file (plus `overrides`); see config_from_dict."""
+    raw: Dict[str, Any] = {}
+    if path:
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+    if overrides:
+        raw.update(overrides)
+    return config_from_dict(raw)

@@ -1,0 +1,176 @@
+"""Core metric data model.
+
+Behavioral parity with reference samplers/parser.go:25-104 (UDPMetric,
+MetricKey, MetricScope) and samplers/samplers.go:34-84 (InterMetric,
+Aggregate bitmask). These are the host-side boundary types; aggregation
+state itself lives in the device column store (veneur_tpu_torch.core.columnstore).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Union
+
+from veneur_tpu_torch.util import fnv, tagging
+
+
+class MetricScope(enum.IntEnum):
+    """Where a metric's aggregate is emitted (reference parser.go:95-100)."""
+
+    MIXED = 0
+    LOCAL_ONLY = 1
+    GLOBAL_ONLY = 2
+
+
+class MetricType(enum.IntEnum):
+    """Type of a flushed InterMetric (reference samplers.go:15-24)."""
+
+    COUNTER = 0
+    GAUGE = 1
+    STATUS = 2
+
+
+# Canonical wire-type names, as parsed from DogStatsD packets.
+COUNTER = "counter"
+GAUGE = "gauge"
+HISTOGRAM = "histogram"
+TIMER = "timer"
+SET = "set"
+STATUS = "status"
+# extension type (no reference equivalent): Circllhist log-linear
+# histogram — exact-merge bins instead of a t-digest. DogStatsD wire
+# type "l"; also the landing family for OTLP exponential histograms.
+LLHIST = "llhist"
+
+
+class Aggregate(enum.IntFlag):
+    """Histogram aggregate selection bitmask (reference samplers.go:49-84)."""
+
+    MIN = 1 << 0
+    MAX = 1 << 1
+    MEDIAN = 1 << 2
+    AVERAGE = 1 << 3
+    COUNT = 1 << 4
+    SUM = 1 << 5
+    HARMONIC_MEAN = 1 << 6
+
+
+AGGREGATES_LOOKUP: Dict[str, Aggregate] = {
+    "min": Aggregate.MIN,
+    "max": Aggregate.MAX,
+    "median": Aggregate.MEDIAN,
+    "avg": Aggregate.AVERAGE,
+    "count": Aggregate.COUNT,
+    "sum": Aggregate.SUM,
+    "hmean": Aggregate.HARMONIC_MEAN,
+}
+
+AGGREGATE_SUFFIX: Dict[Aggregate, str] = {
+    Aggregate.MIN: "min",
+    Aggregate.MAX: "max",
+    Aggregate.MEDIAN: "median",
+    Aggregate.AVERAGE: "avg",
+    Aggregate.COUNT: "count",
+    Aggregate.SUM: "sum",
+    Aggregate.HARMONIC_MEAN: "hmean",
+}
+
+
+@dataclass(frozen=True)
+class HistogramAggregates:
+    value: Aggregate = Aggregate(0)
+
+    @property
+    def count(self) -> int:
+        return bin(int(self.value)).count("1")
+
+    @staticmethod
+    def from_names(names: Sequence[str]) -> "HistogramAggregates":
+        v = Aggregate(0)
+        for n in names:
+            agg = AGGREGATES_LOOKUP.get(n)
+            if agg is not None:
+                v |= agg
+        return HistogramAggregates(v)
+
+
+@dataclass(frozen=True)
+class MetricKey:
+    """Identity of a timeseries: name, wire type, and deterministic tag string
+    (reference parser.go:100-104)."""
+
+    name: str
+    type: str
+    joined_tags: str = ""
+
+    def __str__(self) -> str:
+        return f"{self.name}|{self.type}|{self.joined_tags}"
+
+
+@dataclass
+class UDPMetric:
+    """One sample as provided by a client (reference parser.go:25-35)."""
+
+    key: MetricKey
+    digest: int = 0
+    digest64: int = 0
+    value: Union[float, str, int, None] = None
+    sample_rate: float = 1.0
+    tags: List[str] = field(default_factory=list)
+    scope: MetricScope = MetricScope.MIXED
+    timestamp: int = 0
+    message: str = ""
+    hostname: str = ""
+
+    @property
+    def name(self) -> str:
+        return self.key.name
+
+    @property
+    def type(self) -> str:
+        return self.key.type
+
+
+def update_tags(
+    name: str,
+    mtype: str,
+    tags: Optional[Sequence[str]],
+    extend_tags: Optional[tagging.ExtendTags],
+) -> tuple:
+    """Extend+sort tags and compute the (joined_tags, digest32, digest64)
+    triple; parity with UDPMetric.UpdateTags (reference parser.go:44-61),
+    plus the 64-bit digest used as the host dictionary key."""
+    et = extend_tags if extend_tags is not None else tagging.EMPTY
+    final = et.extend(list(tags) if tags else [])
+    joined = ",".join(final)
+    nb, tb, jb = name.encode(), mtype.encode(), joined.encode()
+    h32 = fnv.fnv1a_32(jb, fnv.fnv1a_32(tb, fnv.fnv1a_32(nb)))
+    h64 = fnv.fnv1a_64(jb, fnv.fnv1a_64(tb, fnv.fnv1a_64(nb)))
+    return final, joined, h32, h64
+
+
+# Route information: None means "every sink"; otherwise a set of sink names.
+RouteInformation = Optional[set]
+
+
+@dataclass(slots=True)
+class InterMetric:
+    """A completed metric ready for flushing by sinks
+    (reference samplers.go:34-47). Slotted: a 100k-key flush creates
+    hundreds of thousands of these per interval and the __dict__-free
+    layout measurably cuts that loop's GIL time."""
+
+    name: str
+    timestamp: int
+    value: float
+    tags: List[str]
+    type: MetricType
+    message: str = ""
+    hostname: str = ""
+    sinks: RouteInformation = None
+    # True for series replayed from the durable WAL into a historical
+    # interval (forward/backfill.py): `timestamp` is the ORIGINAL
+    # interval start, and timestamp-aware sinks (Cortex remote-write,
+    # Prometheus exposition) must render it explicitly
+    backfilled: bool = False

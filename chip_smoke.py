@@ -1,29 +1,46 @@
 #!/usr/bin/env python3
-"""Chip smoke test of veneur_tpu_torch: builds the CUDA kernels, holds each
-against its plain PyTorch version on the card, then runs the port's server
-end to end on the card at the README's 100k-key scale.
+"""Chip smoke test of veneur_tpu_torch: builds the CUDA kernels and the
+native parser, holds each kernel against its plain PyTorch version on the
+card, then runs the port's server end to end on the card.
 
     python3 chip_smoke.py
 
-Needs one CUDA card (it exits non-zero without one, and when the package
-is not beside it). Phases, each fatal on failure:
+Needs one CUDA card and g++ (it exits non-zero without either, and when
+the package is not beside it). Phases, each fatal on failure:
 
-  1. the card's name and power limit (nvidia-smi);
-  2. build every kernel from veneur_tpu_torch/csrc with nvcc;
+  1. the card's name and power limit (nvidia-smi), g++, torch and CUDA
+     versions, and whether grpc / google.protobuf import (planning data
+     for the forward slice; their absence is not a failure);
+  2. build every kernel from veneur_tpu_torch/csrc with nvcc and the
+     native parser from veneur_tpu_torch/native with g++;
   3. each kernel against its plain version on the card at the main path's
-     shapes, with its median time (CUDA events), the plain version's time
-     and the least time the card could take (its bound);
-  4. a Server on cuda:0 ingests ~0.88 M DogStatsD lines over loopback UDP
-     (40k counter, 20k gauge, 30k timer x 16 and 10k set x 32 keys) in
-     each of two intervals, flushes after each, and every series is
-     checked: counters, gauges and timer min/max/count exactly, timer
-     p50/p99 against the rank slack of the t-digest's k-scale, set
-     estimates against the reference HLL over the same members.
+     shapes, with its median time (CUDA events), the plain version's
+     time, a one-call PyTorch yardstick where one exists, and the least
+     time the card could take (its bound): K1 t-digest flush, K2 HLL
+     estimate, K3 llhist scatter-add (uniform and hot-key batches);
+  4. phase A: a Server on cuda:0 on the native pump ingests ~0.88 M
+     DogStatsD lines over loopback UDP (40k counter, 20k gauge, 30k timer
+     x 16 and 10k set x 32 keys) in each of two intervals, flushes after
+     each, and every series is checked: counters, gauges and timer
+     min/max/count exactly, timer p50/p99 against the rank slack of the
+     t-digest's k-scale, set estimates against the reference HLL;
+  5. phase B: a `histogram_encoding: circllhist` Server with two native
+     readers and 65 536 llhist rows takes 30k timer keys x 16, 5k `|l`
+     keys x 32 (rates 1 and 0.5, some values outside the bin window) and
+     20k counter keys from eight sender sockets, two intervals; every
+     `.count`, `.bucket` line and counter exactly, `.sum` against the
+     bins' midpoint sum, and every percentile against llhist_ref and
+     within one bin of the sample quantile of what was sent;
+  6. phase C: the numpy columnar decoder (`tpu.disable_native_parser`)
+     on a tenth of phase A's corpus plus 500 `|l` keys, with the checks
+     of phases A and B.
 
-It prints a `details` JSON line (every measurement, and the register
-and shared-memory use ptxas reported for each kernel), a `kernels` JSON
-line (with each kernel's launches counted in the server phase alone),
-and last `{"ok": true, "device": {...}}`.
+Before any value is checked, each phase asserts that the server received
+every line it was sent and that no ingest chunk failed to apply. It
+prints a `details` JSON line (every measurement, and the register and
+shared-memory use ptxas reported for each kernel), a `kernels` JSON line
+(with each kernel's launches counted in the server phases alone), and
+last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -42,7 +59,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # device memory rate by card name (NVIDIA data sheets), bytes/s; float32
-# rate outside the tensor cores, operations/s (H100 SXM: 67 TFLOP/s)
+# rate outside the tensor cores, operations/s (H100 SXM: 67 TFLOP/s),
+# also taken as the rate of int32 adds on the same cores
 _MEM_RATE = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
              "H100 NVL": 3.9e12, "H200": 4.8e12}
 _F32_RATE = {"H100 80GB HBM3": 67e12, "H100 PCIe": 51e12,
@@ -51,6 +69,8 @@ _F32_RATE = {"H100 80GB HBM3": 67e12, "H100 PCIe": 51e12,
 PS = (0.5, 0.9, 0.99)
 K1_TOL = dict(rtol=2e-5, atol=1e-4)  # tests/test_pallas.py:97
 K2_RTOL = 1e-5                       # tests/test_pallas.py:24
+LL_RTOL = 1e-5  # device float32 ranks against llhist_ref's float64 ones
+PAD_ROW = 2**31 - 1
 
 
 def _rate(table: dict, card: str) -> float:
@@ -58,6 +78,14 @@ def _rate(table: dict, card: str) -> float:
         if key in card:
             return rate
     raise RuntimeError(f"no published rate for card {card!r}")
+
+
+def _bound(card: str, nbytes: int, nops: int) -> dict:
+    bytes_ms = nbytes / _rate(_MEM_RATE, card) * 1e3
+    ops_ms = nops / _rate(_F32_RATE, card) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": nops}
 
 
 def _time_ms(fn, reps: int, runs: int = 5) -> float:
@@ -72,6 +100,31 @@ def _time_ms(fn, reps: int, runs: int = 5) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def _graph_time_ms(fn, reps: int, runs: int = 5) -> float:
+    """Device time of one call: `reps` calls captured in a CUDA graph and
+    replayed, timed with CUDA events (median over `runs` replays). The
+    host's per-call cost, which `_time_ms` includes whenever it exceeds
+    the device's, stays out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -130,17 +183,12 @@ def _check_k1(card: str, width: int, gen) -> dict:
     ms = _time_ms(lambda: tf.flush_packed_cuda(sm, sw, scal, ps), reps=20)
     plain_ms = _time_ms(lambda: tf.flush_packed_plain(sm, sw, scal, ps),
                         reps=3, runs=3)
-    nbytes = tf.bound_bytes(num_keys, width, len(PS))
     # per slot: a cumsum add, a multiply-add for the sum, a compare for n
     # and one per percentile
-    nops = num_keys * width * (4 + len(PS))
-    bytes_ms = nbytes / _rate(_MEM_RATE, card) * 1e3
-    ops_ms = nops / _rate(_F32_RATE, card) * 1e3
     return {"width": width, "num_keys": num_keys, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": nops}
+            **_bound(card, tf.bound_bytes(num_keys, width, len(PS)),
+                     num_keys * width * (4 + len(PS)))}
 
 
 def _check_k2(card: str, gen) -> dict:
@@ -163,46 +211,129 @@ def _check_k2(card: str, gen) -> dict:
     err = float((got - want).abs().max())
     ms = _time_ms(lambda: he.estimate_cuda(regs), reps=20)
     plain_ms = _time_ms(lambda: he.estimate_plain(regs), reps=2, runs=3)
-    nbytes = he.bound_bytes(num_rows)
-    nops = num_rows * he.M * 3  # per register: compare, power of two, add
-    bytes_ms = nbytes / _rate(_MEM_RATE, card) * 1e3
-    ops_ms = nops / _rate(_F32_RATE, card) * 1e3
+    # per register: compare, power of two, add
     return {"num_rows": num_rows, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": nops}
+            "plain_ms": plain_ms,
+            **_bound(card, he.bound_bytes(num_rows), num_rows * he.M * 3)}
 
 
-# -- phase 4: the server end to end -----------------------------------------
+K3_KEYS = 65_536  # phase B's llhist_capacity
 
-COUNTER_KEYS, GAUGE_KEYS, TIMER_KEYS, SET_KEYS = 40_000, 20_000, 30_000, 10_000
-TIMER_SAMPLES, SET_MEMBERS = 16, 32
+
+def _k3_batches(gen):
+    """(a) a full pending buffer of 8192 uniform samples, with PAD_ROW
+    padding, rows past the table and bins past the padded width; (b)
+    65 536 samples on 16 hot keys whose values cluster like latencies."""
+    from veneur_tpu_torch.ops import batch_llhist, llhist_ref
+    dev = torch.device("cuda")
+    n = 8192
+    rows = torch.randint(0, K3_KEYS, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bins = torch.randint(0, batch_llhist.BINS, (n,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    wts = torch.randint(1, 3, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rows[-256:] = PAD_ROW
+    rows[:64] = K3_KEYS + torch.arange(64, device=dev, dtype=torch.int32)
+    bins[64:128] = batch_llhist.BINS_PAD + 7
+    rng = np.random.default_rng(3)
+    m = 65_536
+    hot = (torch.from_numpy(rng.integers(0, 16, m).astype(np.int32)),
+           torch.from_numpy(llhist_ref.bin_index(
+               rng.lognormal(3.0, 0.6, m)).astype(np.int32)),
+           torch.ones(m, dtype=torch.int32))
+    return {"uniform": (rows, bins, wts),
+            "hot_keys": tuple(c.to(dev) for c in hot)}
+
+
+def _check_k3(card: str, gen) -> dict:
+    from veneur_tpu_torch.ops import llhist_apply as la
+    base = torch.randint(0, 1000, (K3_KEYS, la.BINS_PAD), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    out = {}
+    for label, (rows, bins, wts) in _k3_batches(gen).items():
+        got, want = base.clone(), base.clone()
+        la.apply_cuda(got, rows, bins, wts)
+        torch.cuda.synchronize()
+        la.apply_plain(want, rows, bins, wts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"llhist_apply ({label}) differs from its "
+                                 f"plain version")
+        err = float((got - want).abs().max())
+        del got, want
+        keep = ((rows >= 0) & (rows < K3_KEYS) & (bins >= 0)
+                & (bins < la.BINS_PAD))
+        flat = rows[keep].long() * la.BINS_PAD + bins[keep].long()
+        kept_wts = wts[keep]
+        regs = base.clone()
+        # device time from graph replays; the eager per-call time, which
+        # the wrapper's host cost sets at this size, beside it
+        def kernel():
+            la.apply_cuda(regs, rows, bins, wts)
+
+        ms = _graph_time_ms(kernel, reps=100)
+        eager_ms = _time_ms(kernel, reps=100)
+        # the plain version's boolean masks synchronise: eager only
+        plain_ms = _time_ms(lambda: la.apply_plain(regs, rows, bins, wts),
+                            reps=10, runs=3)
+        # the one-call yardstick, on inputs already masked (never used by
+        # the port)
+        library_ms = _graph_time_ms(
+            lambda: regs.view(-1).index_add_(0, flat, kept_wts), reps=100)
+        one = (torch.zeros_like(rows[:1]), bins[:1], wts[:1])
+        one_sample_ms = _graph_time_ms(lambda: la.apply_cuda(regs, *one),
+                                       reps=100)
+        registers = int(torch.unique(flat).numel())
+        del regs
+        out[label] = {"keys": K3_KEYS, "samples": int(rows.numel()),
+                      "kept": int(keep.sum()), "registers": registers,
+                      "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "one_sample_launch_ms": one_sample_ms,
+                      **_bound(card, la.bound_bytes(rows.numel(), registers),
+                               int(keep.sum()))}
+    return out
+
+
+# -- the server phases -------------------------------------------------------
+
 DGRAM_BYTES = 1400
-WINDOW_LINES = 1500  # in flight on loopback: well under the socket buffer
+# lines in flight: a pump's rings hold 4 x 65 536 samples per reader, but
+# when slow-path lines stall its dispatcher the socket buffers take the
+# rest, so the window is also held to half of what the receive buffers
+# the kernel granted can queue (a queued datagram costs its length plus
+# ~800 bytes, ~45 bytes per line); a Python reader drains its socket
+# between batches, as in slice 1
+PUMP_WINDOW = 40_000
+PY_WINDOW = 1_500
+_QUEUED_BYTES_PER_LINE = 45
 
 
-def _corpus(seed: int):
-    """One interval's lines (shuffled) and the expected series."""
+def _corpus(seed: int, keys: dict, ll_keys: int = 0):
+    """One interval's phase A/C lines (shuffled), the expected counter
+    and gauge series, the sorted timer samples, and the `|l` samples."""
     rng = np.random.default_rng(seed)
     lines = []
     expect = {}
-    cvals = rng.integers(1, 1000, COUNTER_KEYS)
-    crates = rng.choice([1.0, 0.5], COUNTER_KEYS)
-    for k in range(COUNTER_KEYS):
+    cvals = rng.integers(1, 1000, keys["counter"])
+    crates = rng.choice([1.0, 0.5], keys["counter"])
+    for k in range(keys["counter"]):
         lines.append(f"smoke.c{k}:{cvals[k]}|c|@{crates[k]}")
         expect[f"smoke.c{k}"] = float(math.trunc(cvals[k] / crates[k]))
-    gtext = np.char.mod("%.3f", rng.normal(0, 100, (GAUGE_KEYS, 2)))
-    for k in range(GAUGE_KEYS):
+    gtext = np.char.mod("%.3f", rng.normal(0, 100, (keys["gauge"], 2)))
+    for k in range(keys["gauge"]):
         for v in gtext[k]:
             lines.append(f"smoke.g{k}:{v}|g")
-    tvals = rng.gamma(2.0, 25.0, (TIMER_KEYS, TIMER_SAMPLES))
+    tvals = rng.gamma(2.0, 25.0, (keys["timer"], keys["timer_samples"]))
     ttext = np.char.mod("%.3f", tvals)
-    for k in range(TIMER_KEYS):
+    for k in range(keys["timer"]):
         for v in ttext[k]:
             lines.append(f"smoke.t{k}:{v}|ms")
-    for k in range(SET_KEYS):
-        for j in range(SET_MEMBERS):
+    for k in range(keys["set"]):
+        for j in range(keys["set_members"]):
             lines.append(f"smoke.s{k}:u{seed}-{k}-{j}|s")
+    llhists = _llhist_lines(rng, lines, "smoke.l", ll_keys, 32)
     order = rng.permutation(len(lines))
     lines = [lines[i] for i in order]
     # gauges: the value of each key's later line in send order wins
@@ -213,15 +344,52 @@ def _corpus(seed: int):
             last[name] = float(np.float32(float(rest.split("|", 1)[0])))
     expect.update(last)
     timers = np.sort(ttext.astype(np.float64).astype(np.float32), axis=1)
-    return lines, expect, timers
+    return lines, expect, timers, llhists
 
 
-def _set_reference(seed: int) -> np.ndarray:
+def _llhist_lines(rng, lines: list, prefix: str, num_keys: int,
+                  samples: int):
+    """Append `|l` lines: values spread log-uniformly over 1e-3..1e6,
+    one key in fifty with a value outside the bin window, rates 1 and
+    0.5. Returns (name prefix, values as parsed, per-key weights)."""
+    vals = 10.0 ** rng.uniform(-3, 6, (num_keys, samples))
+    vals[::50, 0] = 1e-12
+    vals[1::50, 0] = 3e16
+    text = np.char.mod("%.6g", vals)
+    rates = np.where(np.arange(num_keys) % 2, 0.5, 1.0)
+    for k in range(num_keys):
+        tail = "|l|@0.5" if rates[k] == 0.5 else "|l"
+        lines.extend(f"{prefix}{k}:{v}{tail}" for v in text[k])
+    return prefix, text.astype(np.float64), np.rint(1.0 / rates)
+
+
+def _phase_b_corpus(seed: int):
+    """Phase B: circllhist timers, explicit `|l` keys and counters."""
+    keys = PHASE_B_KEYS
+    rng = np.random.default_rng(seed)
+    lines, expect = [], {}
+    cvals = rng.integers(1, 1000, keys["counter"])
+    crates = rng.choice([1.0, 0.5], keys["counter"])
+    for k in range(keys["counter"]):
+        lines.append(f"cl.c{k}:{cvals[k]}|c|@{crates[k]}")
+        expect[f"cl.c{k}"] = float(math.trunc(cvals[k] / crates[k]))
+    ttext = np.char.mod("%.3f", rng.gamma(
+        2.0, 25.0, (keys["timer"], keys["timer_samples"])))
+    for k in range(keys["timer"]):
+        lines.extend(f"cl.t{k}:{v}|ms" for v in ttext[k])
+    timers = ("cl.t", ttext.astype(np.float64), np.ones(keys["timer"]))
+    ll = _llhist_lines(rng, lines, "cl.l", keys["llhist"],
+                       keys["llhist_samples"])
+    order = rng.permutation(len(lines))
+    return [lines[i] for i in order], expect, [timers, ll]
+
+
+def _set_reference(seed: int, num_keys: int, members: int) -> np.ndarray:
     from veneur_tpu_torch.ops import hll_ref
-    est = np.empty(SET_KEYS)
-    for k in range(SET_KEYS):
+    est = np.empty(num_keys)
+    for k in range(num_keys):
         h = hll_ref.HLL()
-        for j in range(SET_MEMBERS):
+        for j in range(members):
             h.insert(f"u{seed}-{k}-{j}".encode())
         est[k] = hll_ref.estimate_from_registers(h.regs)
     return est
@@ -242,20 +410,28 @@ def _datagrams(lines):
     return out, counts
 
 
-def _send(server, addr, dgrams, counts, base: int) -> float:
+def _send(server, addr, lines, base: int, window: int,
+          senders: int = 1) -> float:
     """Send paced by the server's received-line count, so loopback drops
-    nothing; returns when every line has been received (or raises)."""
+    nothing, round-robin over `senders` sockets; returns when every line
+    has been received (or raises)."""
+    dgrams, counts = _datagrams(lines)
     sent = base
     t0 = time.perf_counter()
-    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
-        for dgram, n in zip(dgrams, counts):
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(senders)]
+    try:
+        for i, (dgram, n) in enumerate(zip(dgrams, counts)):
             deadline = time.monotonic() + 30.0
-            while sent - server.stats["lines_received"] > WINDOW_LINES:
+            while sent - server.stats["lines_received"] > window:
                 if time.monotonic() > deadline:
                     raise AssertionError("server stopped receiving lines")
                 time.sleep(0.0005)
-            tx.sendto(dgram, addr)
+            socks[i % senders].sendto(dgram, addr)
             sent += n
+    finally:
+        for s in socks:
+            s.close()
     deadline = time.monotonic() + 60.0
     while server.stats["lines_received"] < sent:
         if time.monotonic() > deadline:
@@ -274,8 +450,7 @@ def _q_of_k(k):
     return (np.sin((np.clip(k, 0, 100) / 100.0 - 0.5) * math.pi) + 1.0) / 2.0
 
 
-def _check_interval(got: dict, expect: dict, timers: np.ndarray,
-                    set_ref: np.ndarray) -> dict:
+def _check_exact(got: dict, expect: dict) -> None:
     missing = [name for name in expect if name not in got]
     if missing:
         raise AssertionError(f"{len(missing)} series missing, e.g. "
@@ -284,8 +459,11 @@ def _check_interval(got: dict, expect: dict, timers: np.ndarray,
     if wrong:
         raise AssertionError(f"{len(wrong)} counter/gauge series wrong, "
                              f"e.g. {wrong[:3]}")
+
+
+def _check_timers(got: dict, timers: np.ndarray) -> int:
     n = timers.shape[1]
-    t = np.arange(TIMER_KEYS)
+    t = np.arange(timers.shape[0])
     for suffix, want in (("min", timers[:, 0]), ("max", timers[:, -1])):
         vals = np.array([got[f"smoke.t{k}.{suffix}"] for k in t])
         if not np.array_equal(vals, want.astype(np.float64)):
@@ -306,68 +484,234 @@ def _check_interval(got: dict, expect: dict, timers: np.ndarray,
         if below.any() or above.any():
             raise AssertionError(f"timer p{label} outside its slack for "
                                  f"{int(below.sum() + above.sum())} keys")
-    est = np.array([got[f"smoke.s{k}"] for k in range(SET_KEYS)])
+    return timers.shape[0] * 5
+
+
+def _check_sets(got: dict, set_ref: np.ndarray, members: int) -> dict:
+    est = np.array([got[f"smoke.s{k}"] for k in range(set_ref.shape[0])])
     if not np.array_equal(est, set_ref):
         raise AssertionError(
             f"set estimates differ from the reference HLL for "
             f"{int((est != set_ref).sum())} keys")
     # the reference estimator rounds floor(x + 1) (hyperloglog.go:225-231
     # parity), so allow its +1 on top of 2 %
-    rel = np.abs(est - SET_MEMBERS) / SET_MEMBERS
-    if not (np.abs(est - SET_MEMBERS) <= 0.02 * SET_MEMBERS + 1).all():
+    if not (np.abs(est - members) <= 0.02 * members + 1).all():
         raise AssertionError("set estimate beyond 2 % + 1 of the truth")
-    return {"series_checked": len(expect) + TIMER_KEYS * 5 + SET_KEYS,
-            "set_mean_rel_err": float(rel.mean())}
+    return {"set_mean_rel_err": float(np.mean(np.abs(est - members))
+                                      / members)}
 
 
-def _server_phase() -> dict:
+def _fmt_le(bound: float) -> str:
+    return "+Inf" if math.isinf(bound) else format(bound, ".12g")
+
+
+def _check_llhists(got: dict, buckets: dict, prefix: str,
+                   vals: np.ndarray, weights: np.ndarray) -> int:
+    """Every series of the llhist keys `<prefix><k>` against a host
+    reference built with llhist_ref from exactly the values sent:
+    `.count` and every `.bucket` line exactly, `.sum` against the bins'
+    midpoint sum, each percentile against llhist_ref.quantiles and
+    within one bin of the sample quantile. Returns series checked."""
+    from veneur_tpu_torch.ops import llhist_ref as ref
+    num_keys, samples = vals.shape
+    bins = ref.bin_index(vals.ravel()).reshape(num_keys, samples)
+    rank = np.empty(ref.BINS, np.int64)
+    rank[ref.ORDER] = np.arange(ref.BINS)  # bin id -> value-sorted slot
+    codes = np.arange(num_keys)[:, None] * ref.BINS + rank[bins]
+    uniq, per = np.unique(codes.ravel(), return_counts=True)
+    key_of, slot = uniq // ref.BINS, uniq % ref.BINS
+    w = per * weights[key_of].astype(np.int64)
+    starts = np.flatnonzero(np.r_[True, key_of[1:] != key_of[:-1]])
+    totals = np.add.reduceat(w, starts)
+    cum = np.cumsum(w) - np.repeat(np.cumsum(w)[starts] - w[starts],
+                                   np.diff(np.r_[starts, w.size]))
+    sums = np.add.reduceat(w * ref.MID_SORTED[slot], starts)
+    inv_cdf = np.quantile(vals, PS, axis=1, method="inverted_cdf").T
+    checked = 0
+    bad = []
+    for k in range(num_keys):
+        name = f"{prefix}{k}"
+        lo, hi = starts[k], (starts[k + 1] if k + 1 < num_keys else w.size)
+        want_b = {f"le:{_fmt_le(ref.UPPER_SORTED[s])}": float(c)
+                  for s, c in zip(slot[lo:hi].tolist(), cum[lo:hi].tolist())}
+        want_b["le:+Inf"] = float(totals[k])
+        if buckets.get(f"{name}.bucket") != want_b:
+            bad.append((name, "bucket"))
+        if got.get(f"{name}.count") != float(totals[k]):
+            bad.append((name, "count"))
+        if not math.isclose(got.get(f"{name}.sum", math.nan), sums[k],
+                            rel_tol=1e-12, abs_tol=1e-9):
+            bad.append((name, "sum"))
+        dense = np.zeros(ref.BINS, np.int64)
+        dense[ref.ORDER[slot[lo:hi]]] = w[lo:hi]
+        want_q = ref.quantiles(dense, PS)
+        for j, p in enumerate(PS):
+            q = got.get(f"{name}.{int(p * 100)}percentile", math.nan)
+            if not math.isclose(q, want_q[j], rel_tol=LL_RTOL,
+                                abs_tol=1e-12):
+                bad.append((name, p, q, want_q[j]))
+            x = inv_cdf[k, j]
+            if not ref.clamped_mask(x):
+                width = ref.BIN_WIDTH[ref.bin_index(x)]
+                if abs(q - x) > width * (1 + 1e-6) + 1e-9 * abs(x):
+                    bad.append((name, p, q, "sample quantile", x))
+        checked += len(want_b) + 2 + len(PS)
+    if bad:
+        raise AssertionError(f"{len(bad)} llhist series wrong, e.g. "
+                             f"{bad[:3]}")
+    return checked
+
+
+def _collect(sink) -> tuple:
+    """The flushed series by name, and the `.bucket` lines by name and
+    `le:` tag."""
+    got, buckets = {}, {}
+    for m in sink.wait_flush(timeout=600):
+        if m.name.endswith(".bucket"):
+            le = next(t for t in m.tags if t.startswith("le:"))
+            buckets.setdefault(m.name, {})[le] = m.value
+        else:
+            got[m.name] = m.value
+    return got, buckets
+
+
+def _server(cfg_extra: dict, tpu: dict, sink):
     from veneur_tpu_torch.config import config_from_dict
     from veneur_tpu_torch.core.server import Server
-    from veneur_tpu_torch.ops import hll_estimate, tdigest_flush
-    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
-
     cfg = config_from_dict({
         "statsd_listen_addresses": ["udp://127.0.0.1:0"],
         "interval": "1h",  # the smoke flushes by hand
         "percentiles": list(PS), "aggregates": ["min", "max", "count"],
         "read_buffer_size_bytes": 8 << 20, "hostname": "smoke",
-        "tpu": {"counter_capacity": 65536, "gauge_capacity": 32768,
-                "histo_capacity": 32768, "set_capacity": 16384,
-                "batch_cap": 8192}})
-    corpora = [_corpus(seed) for seed in (1, 2)]
-    set_refs = [_set_reference(seed) for seed in (1, 2)]
-    sink = ChannelMetricSink()
-    server = Server(cfg, extra_metric_sinks=[sink])  # cuda:0
-    report = {"intervals": []}
-    tdigest_flush.launches = 0
-    hll_estimate.launches = 0
+        **cfg_extra, "tpu": {"batch_cap": 8192, **tpu}})
+    return Server(cfg, extra_metric_sinks=[sink])  # cuda:0
+
+
+def _zero_launches():
+    from veneur_tpu_torch.ops import hll_estimate, llhist_apply, tdigest_flush
+    for mod in (tdigest_flush, hll_estimate, llhist_apply):
+        mod.launches = 0
+
+
+def _read_launches() -> dict:
+    from veneur_tpu_torch.ops import hll_estimate, llhist_apply, tdigest_flush
+    return {"tdigest_flush": tdigest_flush.launches,
+            "hll_estimate": hll_estimate.launches,
+            "llhist_apply": llhist_apply.launches}
+
+
+def _run_phase(name: str, server, intervals, window: int, senders: int,
+               check, path_kernels) -> dict:
+    """Drive one server through its intervals: send, flush, check. The
+    launch counts are zeroed just before and read just after."""
+    _zero_launches()
     server.start()
     try:
         addr = server.listen_addresses[0]
+        rcvbuf = sum(s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+                     for s in server._listeners[0]._socks)
+        window = min(window, rcvbuf // (2 * _QUEUED_BYTES_PER_LINE))
+        report = {"intervals": [], "rcvbuf_bytes": rcvbuf,
+                  "window_lines": window}
         base = 0
-        for (lines, expect, timers), set_ref in zip(corpora, set_refs):
-            dgrams, counts = _datagrams(lines)
-            ingest_s = _send(server, addr, dgrams, counts, base)
+        for corpus in intervals:
+            lines = corpus[0]
+            ingest_s = _send(server, addr, lines, base, window, senders)
             base += len(lines)
+            stats = server.stats_snapshot()
+            if stats["lines_received"] != base:
+                raise AssertionError(f"{name}: sent {base} lines, received "
+                                     f"{stats['lines_received']}")
+            if stats["ingest_dispatch_errors"]:
+                raise AssertionError(f"{name}: ingest dispatch errors "
+                                     f"{stats}")
             server.flush()
-            got = {m.name: m.value for m in sink.wait_flush(timeout=300)}
-            checked = _check_interval(got, expect, timers, set_ref)
+            got, buckets = _collect(server.metric_sinks[0])
             report["intervals"].append({
-                "lines": len(lines), "datagrams": len(dgrams),
-                "ingest_s": ingest_s, "lines_per_s": len(lines) / ingest_s,
-                "flush": dict(server.last_flush_timings), **checked})
+                "lines": len(lines), "ingest_s": ingest_s,
+                "lines_per_s": len(lines) / ingest_s,
+                "flush": dict(server.last_flush_timings),
+                **check(corpus, got, buckets)})
     finally:
         server.shutdown()
-    report["launches"] = {"tdigest_flush": tdigest_flush.launches,
-                          "hll_estimate": hll_estimate.launches}
+    report["launches"] = _read_launches()
     stats = server.stats_snapshot()
     report["stats"] = stats
-    if stats["lines_rejected"] or stats["llhist_rejected"]:
-        raise AssertionError(f"lines rejected: {stats}")
-    for name, count in report["launches"].items():
-        if count <= 0:
-            raise AssertionError(f"{name} was not launched by the server")
+    if stats["lines_rejected"] or stats["unknown_rejected"] \
+            or stats["ingest_dispatch_errors"]:
+        raise AssertionError(f"{name}: lines rejected: {stats}")
+    for kernel in path_kernels:
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"{name}: {kernel} was not launched by the "
+                                 f"server")
     return report
+
+
+PHASE_A_KEYS = {"counter": 40_000, "gauge": 20_000, "timer": 30_000,
+                "timer_samples": 16, "set": 10_000, "set_members": 32}
+PHASE_C_KEYS = {k: (v // 10 if k not in ("timer_samples", "set_members")
+                    else v) for k, v in PHASE_A_KEYS.items()}
+PHASE_C_LL_KEYS = 500
+PHASE_B_KEYS = {"counter": 20_000, "timer": 30_000, "timer_samples": 16,
+                "llhist": 5_000, "llhist_samples": 32}
+
+
+def _check_a_or_c(keys: dict):
+    def check(corpus, got, buckets) -> dict:
+        _lines, expect, timers, llhists, set_ref = corpus
+        _check_exact(got, expect)
+        checked = len(expect) + _check_timers(got, timers)
+        out = _check_sets(got, set_ref, keys["set_members"])
+        if llhists[1].size:
+            checked += _check_llhists(got, buckets, *llhists)
+        return {"series_checked": checked + keys["set"], **out}
+    return check
+
+
+def _phase_a() -> dict:
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    corpora = [_corpus(seed, PHASE_A_KEYS) + (_set_reference(
+        seed, PHASE_A_KEYS["set"], PHASE_A_KEYS["set_members"]),)
+        for seed in (1, 2)]
+    server = _server({}, {"counter_capacity": 65536,
+                          "gauge_capacity": 32768, "histo_capacity": 32768,
+                          "set_capacity": 16384}, ChannelMetricSink())
+    return _run_phase("phase A", server, corpora, PUMP_WINDOW, 1,
+                      _check_a_or_c(PHASE_A_KEYS),
+                      ("tdigest_flush", "hll_estimate"))
+
+
+def _phase_b() -> dict:
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    corpora = [_phase_b_corpus(seed) for seed in (3, 4)]
+    server = _server({"histogram_encoding": "circllhist", "num_readers": 2},
+                     {"counter_capacity": 32768, "llhist_capacity": 65536},
+                     ChannelMetricSink())
+
+    def check(corpus, got, buckets) -> dict:
+        _lines, expect, llhists = corpus
+        _check_exact(got, expect)
+        checked = len(expect)
+        for prefix, vals, weights in llhists:
+            checked += _check_llhists(got, buckets, prefix, vals, weights)
+        return {"series_checked": checked}
+    return _run_phase("phase B", server, corpora, PUMP_WINDOW, 8, check,
+                      ("llhist_apply",))
+
+
+def _phase_c() -> dict:
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    corpora = [_corpus(seed, PHASE_C_KEYS, PHASE_C_LL_KEYS) + (_set_reference(
+        seed, PHASE_C_KEYS["set"], PHASE_C_KEYS["set_members"]),)
+        for seed in (5, 6)]
+    server = _server({}, {"counter_capacity": 8192, "gauge_capacity": 4096,
+                          "histo_capacity": 4096, "set_capacity": 2048,
+                          "llhist_capacity": 1024,
+                          "disable_native_parser": True},
+                     ChannelMetricSink())
+    return _run_phase("phase C", server, corpora, PY_WINDOW, 1,
+                      _check_a_or_c(PHASE_C_KEYS),
+                      ("tdigest_flush", "hll_estimate", "llhist_apply"))
 
 
 def main() -> int:
@@ -379,6 +723,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    from veneur_tpu_torch import native
     from veneur_tpu_torch.ops import _cuda
 
     smi = subprocess.run(
@@ -386,12 +731,30 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60, check=True
+                         ).stdout.splitlines()[0]
+    print(f"{gxx}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    imports = {}
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            __import__(mod)
+            imports[mod] = True
+        except ImportError:
+            imports[mod] = False
+    print(f"imports (forward slice planning): {imports}", flush=True)
     card = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
     _cuda.build_all()
     build_s = time.perf_counter() - t0
-    print(f"built {[src.stem for src in _cuda.sources()]} in {build_s:.1f} s",
+    print(f"nvcc built {[src.stem for src in _cuda.sources()]} in "
+          f"{build_s:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    native.load()
+    native_build_s = time.perf_counter() - t0
+    print(f"g++ built {native.library_path().name} in {native_build_s:.1f} s",
           flush=True)
 
     gen = torch.Generator(device="cuda")
@@ -399,44 +762,67 @@ def main() -> int:
     k1 = _check_k1(card, 256, gen)
     k1_128 = _check_k1(card, 128, gen)
     k2 = _check_k2(card, gen)
+    k3 = _check_k3(card, gen)
     torch.cuda.empty_cache()
     for label, rec in (("tdigest_flush W=256", k1),
                        ("tdigest_flush W=128", k1_128),
-                       ("hll_estimate", k2)):
+                       ("hll_estimate", k2),
+                       ("llhist_apply uniform", k3["uniform"]),
+                       ("llhist_apply hot_keys", k3["hot_keys"])):
+        extra = (f", index_add_ {rec['library_ms']:.4f} ms, one-sample "
+                 f"launch {rec['one_sample_launch_ms']:.4f} ms, eager call "
+                 f"{rec['eager_ms']:.4f} ms" if "library_ms" in rec else "")
         print(f"{label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} "
-              f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}), "
-              f"max_abs_err {rec['max_abs_err']:.3g}", flush=True)
+              f"ms, bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}"
+              f"{extra}), max_abs_err {rec['max_abs_err']:.3g}", flush=True)
 
-    server = _server_phase()
-    for i, rec in enumerate(server["intervals"]):
-        print(f"interval {i}: {rec['lines']} lines at "
-              f"{rec['lines_per_s']:.0f} lines/s, flush "
-              f"{rec['flush']['total_s']:.3f} s, "
-              f"{rec['series_checked']} series checked", flush=True)
+    phases = {}
+    for name, run in (("A", _phase_a), ("B", _phase_b), ("C", _phase_c)):
+        phases[name] = rep = run()
+        torch.cuda.empty_cache()
+        for i, rec in enumerate(rep["intervals"]):
+            print(f"phase {name} interval {i}: {rec['lines']} lines at "
+                  f"{rec['lines_per_s']:.0f} lines/s, flush "
+                  f"{rec['flush']['total_s']:.3f} s (llhist bins "
+                  f"{rec['flush']['llhist_bins_s']:.3f} s), "
+                  f"{rec['series_checked']} series checked", flush=True)
+        print(f"phase {name} launches: {rep['launches']}", flush=True)
+
+    def launches(kernel):
+        return sum(p["launches"][kernel] for p in phases.values())
 
     kernels = [
         {"name": "tdigest_flush", "route": "cuda",
          "source": "veneur_tpu_torch/csrc/tdigest_flush.cu",
          "replaces": "veneur_tpu/ops/pallas_tdigest.py:82",
-         "launches": server["launches"]["tdigest_flush"],
+         "launches": launches("tdigest_flush"),
          **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by")},
          "library_ms": None},
         {"name": "hll_estimate", "route": "cuda",
          "source": "veneur_tpu_torch/csrc/hll_estimate.cu",
          "replaces": "veneur_tpu/ops/pallas_hll.py:51",
-         "launches": server["launches"]["hll_estimate"],
+         "launches": launches("hll_estimate"),
          **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by")},
          "library_ms": None},
+        {"name": "llhist_apply", "route": "cuda",
+         "source": "veneur_tpu_torch/csrc/llhist_apply.cu",
+         "replaces": "veneur_tpu/ops/pallas_llhist.py:55",
+         "launches": launches("llhist_apply"),
+         **{k: k3["uniform"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}},
     ]
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "Used" in ln or "spill" in ln]
              for name, log in _cuda.build_logs.items()}
     print(json.dumps({"details": {
-        "card": smi, "build_s": build_s, "ptxas": ptxas,
-        "tdigest_flush": [k1, k1_128], "hll_estimate": k2,
-        "server": server}}), flush=True)
+        "card": smi, "gxx": gxx, "torch": torch.__version__,
+        "cuda": torch.version.cuda, "imports": imports,
+        "build_s": build_s, "native_build_s": native_build_s,
+        "ptxas": ptxas, "tdigest_flush": [k1, k1_128], "hll_estimate": k2,
+        "llhist_apply": k3, "phases": phases}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

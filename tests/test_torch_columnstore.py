@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from veneur_tpu.core.columnstore import ColumnStore as JStore
 from veneur_tpu.core.flusher import flush_columnstore_batch as jflush
@@ -15,6 +16,7 @@ from veneur_tpu_torch import convert
 from veneur_tpu_torch.core.columnstore import ColumnStore as TStore
 from veneur_tpu_torch.core.flusher import flush_columnstore_batch as tflush
 from veneur_tpu_torch.samplers.metrics import HistogramAggregates as TAggs
+from veneur_tpu_torch.samplers.metrics import MetricKey, UDPMetric
 from veneur_tpu_torch.samplers.parser import Parser as TParser
 
 PS = [0.5, 0.9, 0.99]
@@ -90,12 +92,62 @@ def test_two_intervals_flush_like_jax():
 
 
 def test_llhist_samples_are_counted_not_lost_silently():
-    tstore = TStore(device="cpu", **SIZES)
+    """`|l` samples land in the llhist family (and, under circllhist,
+    timers too); a wire type no family takes is counted apart and not as
+    processed."""
+    tstore = TStore(device="cpu", histogram_encoding="circllhist", **SIZES)
     parser = TParser()
-    for line in (b"ll:3|l", b"ll:4|l", b"c:1|c"):
+    for line in (b"ll:3|l", b"ll:4|l", b"c:1|c", b"t:5|ms"):
         parser.parse_metric_fast(line, tstore.process)
-    assert tstore.llhist_rejected == 2
+    tstore.process(UDPMetric(key=MetricKey("odd", "unknown-type")))
+    assert tstore.unknown_rejected == 1
+    assert tstore.processed == 4
     assert int(tstore.counters.touched.sum()) == 1
+    assert int(tstore.llhists.touched.sum()) == 2  # ll and t
+    assert not tstore.histos.touched.any()
+    _out, bins, touched, _meta = tstore.llhists.snapshot_and_reset(
+        ps=(0.5,))
+    assert bins.sum() == 3 and touched.sum() == 2
+
+
+def test_histogram_encoding_is_checked():
+    with pytest.raises(ValueError, match="histogram_encoding"):
+        TStore(device="cpu", histogram_encoding="hdr")
+
+
+def test_llhist_table_snapshot_matches_jax():
+    """Per-sample adds, value batches and pre-binned batches through both
+    tables, over several buffer dispatches: the same touched rows, bins
+    and clamp accounting, and percentiles at float32 precision."""
+    sizes = dict(SIZES, llhist_capacity=4)
+    jstore, tstore = JStore(**sizes), TStore(device="cpu", **sizes)
+    rng = np.random.default_rng(9)
+    lines = [f"l{k}:{v:.5g}|l|@0.5".encode() for k in range(10)
+             for v in rng.lognormal(0, 6, 30) * rng.choice([-1, 1], 30)]
+    _feed(jstore, JParser(), lines)
+    _feed(tstore, TParser(), lines)
+    rows = rng.integers(0, 10, 500).astype(np.int32)
+    vals = rng.lognormal(0, 3, 500)
+    wts = 1.0 / rng.choice([1.0, 0.5, 0.1], 500)
+    bins = rng.integers(0, 4501, 500).astype(np.int32)
+    for store in (jstore, tstore):
+        store.llhists.add_batch(rows, vals, wts)
+        store.llhists.add_batch_binned(rows, bins, np.ones(500, np.int32),
+                                       clamped=3)
+    jout, jbins, jtouched, _ = jstore.llhists.snapshot_and_reset(PS)
+    tout, tbins, ttouched, _ = tstore.llhists.snapshot_and_reset(
+        ps=tuple(PS))
+    np.testing.assert_array_equal(ttouched, jtouched)
+    np.testing.assert_array_equal(tbins, jbins)
+    touched = np.flatnonzero(jtouched)
+    np.testing.assert_array_equal(tout["count"],
+                                  np.asarray(jout["count"])[touched])
+    np.testing.assert_allclose(tout["quantiles"],
+                               np.asarray(jout["quantiles"])[touched],
+                               rtol=1e-6)
+    assert tstore.llhists.samples_total == jstore.llhists.samples_total
+    assert tstore.llhists.clamped_total == jstore.llhists.clamped_total
+    assert tstore.llhists.capacity > 4  # rows outgrew the capacity
 
 
 def test_set_snapshot_estimates_and_registers_match_jax():
@@ -167,6 +219,18 @@ def test_jax_state_carried_into_the_port_flushes_equal():
     tstore.sets.state = convert.state_from_numpy("set", regs, "cpu")
     np.testing.assert_array_equal(
         convert.state_to_numpy("set", tstore.sets.state), regs)
+    # llhist registers: the store's corpus has none, so carry a table
+    # filled through the JAX package's own scatter
+    from veneur_tpu.ops import batch_llhist as jbl
+    rng = np.random.default_rng(3)
+    jregs = np.asarray(jbl._apply_batch_jnp(
+        jbl.init_state(8), rng.integers(0, 8, 300).astype(np.int32),
+        rng.integers(0, 4501, 300).astype(np.int32),
+        rng.integers(1, 9, 300).astype(np.int32)))
+    tregs = convert.state_from_numpy("llhist", jregs, "cpu")
+    assert tregs.dtype == torch.int32 and tuple(tregs.shape) == (8, 4608)
+    np.testing.assert_array_equal(convert.state_to_numpy("llhist", tregs),
+                                  jregs)
     jbatch, _ = jflush(jstore, False, PS, JAggs.from_names(AGGS))
     tbatch = tflush(tstore, PS, TAggs.from_names(AGGS))
     _assert_flushes_agree(jbatch, tbatch)
@@ -177,6 +241,8 @@ def test_jax_state_carried_into_the_port_flushes_equal():
     ("gauge", {"value": np.zeros(3, np.float64),
                "set": np.zeros(3, bool)}, TypeError),
     ("set", np.zeros((2, 100), np.int8), ValueError),
+    ("llhist", np.zeros((2, 4501), np.int32), ValueError),
+    ("llhist", np.zeros((2, 4608), np.int64), TypeError),
 ])
 def test_convert_rejects_foreign_layouts(family, state, error):
     with pytest.raises(error):

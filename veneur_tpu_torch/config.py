@@ -55,15 +55,37 @@ class TpuConfig:
     set_promote_samples: int = 0
     # hard cap on promoted device rows (16 KB each)
     set_max_dev_slots: int = 65536
+    # log-linear histogram rows (each is 18 KB of int32 bins on the
+    # device); size to the llhist-keyed cardinality, not total keys
+    llhist_capacity: int = 1024
+    # take the numpy columnar decoder instead of the native C++ parser
+    # and pump (the native library builds with g++ at first use, and a
+    # failed build raises rather than falling back)
+    disable_native_parser: bool = False
 
 
 @dataclass
 class Config:
     aggregates: List[str] = field(
         default_factory=lambda: ["min", "max", "count"])
+    # the family DogStatsD histogram/timer samples aggregate in:
+    # "tdigest" (reference parity) or "circllhist" (log-linear bins,
+    # exact merges); `|l` samples always use the circllhist family
+    histogram_encoding: str = "tdigest"
     hostname: str = ""
+    # pump chunk size in samples (bounds the hand-off batch and the
+    # per-chunk native memory)
+    ingest_batch_max_samples: int = 65536
+    # chunks each native reader cycles through its SPSC rings (min 3); a
+    # full ring blocks the reader, counted as a stall
+    ingest_ring_slots: int = 4
     interval: float = 10.0
+    # longest datagram taken; longer ones are dropped and counted as
+    # rejected lines
+    metric_max_length: int = 4096
     metric_sinks: List[SinkConfig] = field(default_factory=list)
+    # SO_REUSEPORT sockets (and native reader threads) per UDP address
+    num_readers: int = 1
     percentiles: List[float] = field(
         default_factory=lambda: [0.5, 0.75, 0.99])
     # SO_RCVBUF of each UDP listener socket
@@ -78,6 +100,8 @@ class Config:
             self.hostname = socket.gethostname()
         if self.interval <= 0:
             self.interval = 10.0
+        if self.metric_max_length <= 0:
+            self.metric_max_length = 4096
         return self
 
 

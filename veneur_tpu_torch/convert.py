@@ -7,6 +7,7 @@ The layouts are the same in both packages, one family at a time:
   gauge      {"value", "set"}          (K,) float32 / bool
   histogram  batch_tdigest state dict  (K, C) float32 grids + (K,) stats
   set        HLL registers             (D, 16384) int8
+  llhist     log-linear registers      (K, 4608) int32
 
 so a conversion is a checked copy. Give the JAX side as
 `{k: np.asarray(v) for k, v in state.items()}` (or `np.asarray(regs)`).
@@ -19,7 +20,7 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-from veneur_tpu_torch.ops import batch_hll, batch_tdigest
+from veneur_tpu_torch.ops import batch_hll, batch_llhist, batch_tdigest
 
 _F32 = np.dtype(np.float32)
 
@@ -31,7 +32,9 @@ LAYOUTS = {
                      for k in batch_tdigest.GRIDS},
                   **{k: (_F32, ()) for k in batch_tdigest.SCALAR_INIT}},
 }
-_SET_LAYOUT = (np.dtype(np.int8), (batch_hll.M,))
+# the families whose state is one register array
+_REGISTERS = {"set": (np.dtype(np.int8), (batch_hll.M,)),
+              "llhist": (np.dtype(np.int32), (batch_llhist.BINS_PAD,))}
 
 State = Union[Dict[str, np.ndarray], np.ndarray]
 
@@ -51,9 +54,10 @@ def state_from_numpy(family: str, state: State, device) -> Union[
     """The port's state of `family` on `device`, copied from the JAX
     package's state given as numpy arrays. Raises on a missing or extra
     key, a wrong dtype, or a shape that does not fit the family."""
-    if family == "set":
+    if family in _REGISTERS:
         regs = np.asarray(state)
-        _check(family, "registers", regs, *_SET_LAYOUT, regs.shape[0])
+        _check(family, "registers", regs, *_REGISTERS[family],
+               regs.shape[0])
         return torch.from_numpy(regs.copy()).to(device)
     layout = LAYOUTS[family]
     if set(state) != set(layout):
@@ -71,7 +75,7 @@ def state_from_numpy(family: str, state: State, device) -> Union[
 def state_to_numpy(family: str, state) -> State:
     """The port's state of `family` as numpy arrays in the JAX package's
     layout (host copies that share no memory with the tensors)."""
-    if family == "set":
+    if family in _REGISTERS:
         return state.detach().to("cpu", copy=True).numpy()
     return {k: state[k].detach().to("cpu", copy=True).numpy()
             for k in LAYOUTS[family]}

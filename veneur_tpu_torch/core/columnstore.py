@@ -1,11 +1,12 @@
 """The device column store: metric keys are rows, samples are batches
 (torch port of veneur_tpu/core/columnstore.py).
 
-Four device-resident tables, each on the store's `device`:
+Five device-resident tables, each on the store's `device`:
 
   counters  (K,)      f32 Kahan accumulator pair
   gauges    (K,)      f32 last-write-wins + set mask
   histos    (K, C)    t-digest centroid grids + per-key stats
+  llhists   (K, 4608) int32 log-linear histogram registers
   sets      (D, 16k)  HLL registers of the promoted set keys
 
 A host dictionary interns MetricKey (by 64-bit fnv1a digest) to a row id;
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.device import pick_device
-from veneur_tpu_torch.ops import batch_hll, batch_tdigest, hll_ref, scalars
+from veneur_tpu_torch.ops import (
+    batch_hll, batch_llhist, batch_tdigest, hll_ref, llhist_ref, scalars)
 from veneur_tpu_torch.samplers import metrics as m
 from veneur_tpu_torch.samplers.metrics import MetricScope, UDPMetric
 
@@ -141,6 +143,15 @@ class _BaseTable:
         self._n = 0
         return cols
 
+    def intern(self, metric: UDPMetric) -> int:
+        """Intern a metric's row WITHOUT marking it touched — for callers
+        that batch values themselves (the ordered gauge replay-merge in
+        core.ingest). Touched must only be set once the value is in a
+        pending buffer or the state, else a concurrent flush would emit a
+        touched-but-valueless row (a fabricated 0.0)."""
+        with self.lock:
+            return self.row_for(metric)
+
     def _dispatch_pending_locked(self):
         """Swap the pending buffer out under ``lock`` and apply it to the
         device state with ``lock`` released (``apply_lock`` held). Caller
@@ -178,6 +189,8 @@ class _BaseTable:
         no device work. Extra kwargs ride into the snap (ps)."""
         snap = dict(kw)
         with self.lock:
+            if self._idle_swap_locked(snap):
+                return snap
             snap["cols"] = self._swap_locked()
             with self.apply_lock:
                 snap["touched"] = self.touched.copy()
@@ -187,6 +200,12 @@ class _BaseTable:
                 snap["state"] = self._swap_device_locked()
                 snap["cap"] = self._state_capacity()
         return snap
+
+    def _idle_swap_locked(self, snap: dict) -> bool:
+        """Family-specific idle fast path (caller holds ``lock``):
+        return True to skip the generation swap entirely (the llhist
+        table skips its readout when untouched)."""
+        return False
 
     def _swap_extras_locked(self, snap: dict) -> None:
         """Capture family-specific host-side interval state into the
@@ -217,6 +236,8 @@ class _BaseTable:
     def readout(self, snap: dict) -> dict:
         """Background flush half: apply the snap's final pending columns
         to the captured generation and launch its readout kernels."""
+        if "state" not in snap:
+            return snap  # idle fast path: nothing was swapped
         state = snap.pop("state")
         cols = snap.pop("cols")
         if cols is not None:
@@ -795,6 +816,119 @@ class SetTable(_BaseTable):
                 snap["meta"])
 
 
+class LLHistTable(_BaseTable):
+    """Circllhist log-linear histograms: a dense (K, BINS_PAD) int32
+    register table (ops/batch_llhist). The host bins values
+    (llhist_ref.bin_index, or the native parser's bit-identical copy)
+    into (row, bin, weight) triples; the device applies each batch as
+    one scatter-add, kernel K3 on the card. Merges are register
+    additions, so the family is exact.
+
+    Weights are integral (1/sample_rate rounds to the nearest count);
+    `samples_total` and `clamped_total` count the weight binned and the
+    weight that fell outside the representable magnitude window."""
+
+    def _init_arrays(self):
+        self._prow = np.full(self.batch_cap, PAD_ROW, np.int32)
+        self._pbin = np.zeros(self.batch_cap, np.int32)
+        self._pwt = np.zeros(self.batch_cap, np.int32)
+        self._pcols = (self._prow, self._pbin, self._pwt)
+        self._n = 0
+        self.state = batch_llhist.init_state(self.capacity, self.device)
+        # monotonic sample/clamp accounting (mutated under `lock`)
+        self.samples_total = 0
+        self.clamped_total = 0
+
+    def _grow_arrays(self, new_cap):
+        self.state = _pad_cap(self.state, new_cap)
+
+    def add(self, metric: UDPMetric):
+        value = float(metric.value)
+        bin_idx = int(llhist_ref.bin_index(value))
+        # clamp into int32: registers are int32, and an absurd-but-valid
+        # sample rate (@1e-10) must saturate, not overflow the buffer
+        # assignment (same clamp as bin_batch_host and the C++ parser)
+        weight = min(max(1, round(1.0 / max(metric.sample_rate, 1e-9))),
+                     2**31 - 1)
+        with self.lock:
+            row = self.row_for(metric)
+            if row < 0:
+                return
+            self.samples_total += weight
+            if llhist_ref.clamped_mask(value):
+                self.clamped_total += weight
+            self._add_row_locked(row, bin_idx, weight)
+
+    def add_batch(self, rows, vals, weights) -> None:
+        """Pre-interned rows, raw values (binned here) and 1/sample_rate
+        float weights."""
+        bins, wts = batch_llhist.bin_batch_host(vals, weights)
+        with self.lock:
+            self.samples_total += int(wts.sum())
+            self.clamped_total += int(
+                wts[llhist_ref.clamped_mask(vals)].sum())
+            self._append_batch((np.asarray(rows, np.int32), bins, wts))
+
+    def add_batch_binned(self, rows, bins, wts, clamped: int = 0) -> None:
+        """ALREADY-binned samples: the native (C++) parser bins the `l`
+        wire type itself, so the hand-off is three int32 columns.
+        `clamped` is the parser's count of weight that fell outside the
+        bin window. The columns are copied into the pending buffers
+        before this returns (a pump chunk's views die at its release)."""
+        with self.lock:
+            self.samples_total += int(np.sum(wts, dtype=np.int64))
+            self.clamped_total += int(clamped)
+            self._append_batch((np.asarray(rows, np.int32),
+                                np.asarray(bins, np.int32),
+                                np.asarray(wts, np.int32)))
+
+    def _apply_cols_state(self, state, cols):
+        rows, bins, wts = (_to_device(c, self.device) for c in cols)
+        batch_llhist.apply_batch(state, rows, bins, wts)
+
+    def _fresh_state_at(self, capacity: int):
+        return batch_llhist.init_state(capacity, self.device)
+
+    def _reset_state_(self, captured) -> None:
+        captured.zero_()
+
+    def _idle_swap_locked(self, snap: dict) -> bool:
+        # every mutation path sets touched, so no pending samples and no
+        # touched rows means the state is still the all-zero table the
+        # last reset left: skip the swap and the readout
+        if self._n == 0 and not self.touched.any():
+            snap.update(packed=None, bins_dev=None,
+                        touched=self.touched.copy(), meta=list(self.meta))
+            return True
+        return False
+
+    def _readout_device(self, state, snap: dict) -> None:
+        """Launch the readout over the TOUCHED rows only: gather them
+        (18 KB each), then flush_packed on the gathered block. Every
+        touched row's output equals a whole-table readout's, and the
+        capacity-sized temporaries of the whole-table pass (value-order
+        copy, cumsum, float copy) are never made."""
+        rows = np.flatnonzero(snap["touched"])
+        sel = torch.index_select(
+            state, 0, torch.from_numpy(rows).to(self.device))
+        snap["packed"] = batch_llhist.flush_packed(sel, snap["ps"])
+        snap["bins_dev"] = sel  # the flusher's buckets, sum and count
+        snap["_recycle"] = state
+
+    @staticmethod
+    def snapshot_finish(snap: dict):
+        """(readout dict of np arrays over the touched rows in ascending
+        order, bins int64 (n_touched, BINS) in the same order, touched,
+        meta). Unlike the JAX package, whose readout spans every row,
+        the readout arrays are compact like the bins."""
+        if snap["packed"] is None:  # idle-family fast path
+            return ({}, np.zeros((0, llhist_ref.BINS), np.int64),
+                    snap["touched"], snap["meta"])
+        out = {k: _host(v) for k, v in snap["packed"].items()}
+        bins = _host(snap["bins_dev"][:, :llhist_ref.BINS]).astype(np.int64)
+        return out, bins, snap["touched"], snap["meta"]
+
+
 @dataclass
 class StatusEntry:
     value: float = 0.0
@@ -838,35 +972,51 @@ class StatusTable(_BaseTable):
 
 
 class ColumnStore:
-    """The four device families plus host-side status checks, every device
-    table on `device` (cuda:0 unless the caller asks for the CPU; see
-    device.pick_device).
+    """The five device families plus host-side status checks, every
+    device table on `device` (cuda:0 unless the caller asks for the CPU;
+    see device.pick_device).
 
-    Histogram/timer samples aggregate as t-digests. Circllhist samples
-    (`|l`) have no family in the port yet: they are counted in
-    `llhist_rejected` and dropped, with one log line."""
+    `histogram_encoding` chooses the family DogStatsD histogram/timer
+    samples aggregate in: "tdigest" (reference parity, approximate
+    merges) or "circllhist" (log-linear bins, exact merges). Explicit
+    `|l` samples always land in the llhist family."""
 
     def __init__(self, counter_capacity=1024, gauge_capacity=1024,
                  histo_capacity=1024, set_capacity=256, batch_cap=8192,
-                 set_promote_samples=0, set_max_dev_slots=0, device=None):
+                 set_promote_samples=0, set_max_dev_slots=0,
+                 llhist_capacity=1024, histogram_encoding="tdigest",
+                 device=None):
+        if histogram_encoding not in ("tdigest", "circllhist"):
+            raise ValueError(
+                f"unknown histogram_encoding: {histogram_encoding!r}")
+        self.histogram_encoding = histogram_encoding
         self.device = dev = pick_device(device)
         self.counters = CounterTable(dev, counter_capacity, batch_cap)
         self.gauges = GaugeTable(dev, gauge_capacity, batch_cap)
         self.histos = HistoTable(dev, histo_capacity, batch_cap)
+        self.llhists = LLHistTable(dev, llhist_capacity, batch_cap)
         self.sets = SetTable(dev, set_capacity, batch_cap,
                              promote_samples=set_promote_samples,
                              max_dev_slots=set_max_dev_slots)
         self.statuses = StatusTable(dev, batch_cap=batch_cap)
         for family, table in self.tables():
             table.family = family
-        self.llhist_rejected = 0
-        self._rejected_lock = threading.Lock()
+        # samples routed to a table, and samples of a wire type no
+        # family takes (neither counts the other)
+        self.processed = 0
+        self.unknown_rejected = 0
+        self._processed_lock = threading.Lock()
 
     def tables(self):
         """(family, table) pairs, every device family plus statuses."""
         return (("counter", self.counters), ("gauge", self.gauges),
-                ("histogram", self.histos), ("set", self.sets),
-                ("status", self.statuses))
+                ("histogram", self.histos), ("llhist", self.llhists),
+                ("set", self.sets), ("status", self.statuses))
+
+    def count_processed(self, n: int) -> None:
+        """Locked sample-count increment (readers race on += otherwise)."""
+        with self._processed_lock:
+            self.processed += n
 
     def process(self, metric: UDPMetric) -> None:
         """Route one parsed metric to its family table (the equivalent of
@@ -877,19 +1027,21 @@ class ColumnStore:
         elif t == m.GAUGE:
             self.gauges.add(metric)
         elif t in (m.HISTOGRAM, m.TIMER):
-            self.histos.add(metric)
+            if self.histogram_encoding == "circllhist":
+                self.llhists.add(metric)
+            else:
+                self.histos.add(metric)
+        elif t == m.LLHIST:
+            self.llhists.add(metric)
         elif t == m.SET:
             self.sets.add(metric)
         elif t == m.STATUS:
             self.statuses.add(metric)
         else:
-            with self._rejected_lock:
-                self.llhist_rejected += 1
-                first = self.llhist_rejected == 1
-            if first:
-                logger.warning(
-                    "dropping %s samples: the port has no llhist family "
-                    "yet (counted in llhist_rejected)", t)
+            with self._processed_lock:
+                self.unknown_rejected += 1
+            return
+        self.count_processed(1)
 
     def apply_all_pending(self):
         for _family, table in self.tables():

@@ -8,12 +8,16 @@ samplers.go:359-514):
 * Mixed-scope and local-only histograms/timers emit percentiles AND the
   configured aggregates from the locally-ingested stats; global-only
   rows emit them from the digest ("global" aggregate values).
+* Log-linear histograms emit the configured percentiles, the midpoint
+  `.sum`, the exact `.count`, and Prometheus-shaped cumulative
+  `.bucket` counters tagged `le:<bound>` (JAX flusher.py:818-875).
 * Sets emit their HLL estimate as a gauge.
 * Counters, gauges and status checks emit every touched row.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from dataclasses import dataclass
@@ -22,6 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from veneur_tpu_torch.core.columnstore import ColumnStore
+from veneur_tpu_torch.ops import llhist_ref
 from veneur_tpu_torch.samplers.metrics import (
     Aggregate, HistogramAggregates, InterMetric, MetricScope, MetricType,
 )
@@ -30,6 +35,16 @@ from veneur_tpu_torch.samplers.metrics import (
 def _percentile_name(name: str, p: float) -> str:
     # reference naming truncates: 0.999 -> "99percentile" (samplers.go:498)
     return f"{name}.{int(p * 100)}percentile"
+
+
+def _fmt_le(bound: float) -> str:
+    return "+Inf" if math.isinf(bound) else format(bound, ".12g")
+
+
+# `le:<bound>` tag strings for every sorted llhist bin plus the final
+# `le:+Inf`, index-aligned with BucketSection.csum columns
+LE_TAGS = tuple([f"le:{_fmt_le(u)}" for u in llhist_ref.UPPER_SORTED]
+                + ["le:+Inf"])
 
 
 # plain-int aggregate masks (IntFlag's __and__ allocates per test)
@@ -55,21 +70,43 @@ class FlushSection:
     mtype: MetricType
 
 
+@dataclass
+class BucketSection:
+    """Cumulative llhist bucket columns: one row per emitted llhist, the
+    full cumulative sum over its value-sorted bins. A row materializes
+    as COUNTER `<name>` lines tagged `le:<bound>` for every NONZERO
+    sorted bin (mask `nz`) plus an unconditional `le:+Inf` line carrying
+    `csum[:, -1]`. The `le:` tag strings are shared and index-aligned via
+    `LE_TAGS`; `tags` rows are base tag-list refs (copy before
+    mutating)."""
+
+    names: np.ndarray  # object ndarray of str ("<base>.bucket")
+    tags: np.ndarray   # object ndarray of List[str] (base tags, no le:)
+    csum: np.ndarray   # (rows, bins) float64 cumulative counts
+    nz: np.ndarray     # (rows, bins) bool — sorted bin is nonzero
+
+    def line_count(self) -> int:
+        return int(self.nz.sum()) + self.names.shape[0]
+
+
 class FlushBatch:
     """Columnar flush result. len() counts metrics; materialize() yields
     the List[InterMetric] (cached, thread-safe — sink flush threads share
     one materialization)."""
 
     def __init__(self, timestamp: int, sections: List[FlushSection],
-                 extras: List[InterMetric]):
+                 extras: List[InterMetric],
+                 bucket_sections: Optional[List[BucketSection]] = None):
         self.timestamp = timestamp
         self.sections = sections
+        self.bucket_sections: List[BucketSection] = bucket_sections or []
         self.extras = extras  # statuses: carry message/hostname fields
         self._materialized: Optional[List[InterMetric]] = None
         self._mat_lock = threading.Lock()
 
     def __len__(self) -> int:
         return (sum(s.names.shape[0] for s in self.sections)
+                + sum(b.line_count() for b in self.bucket_sections)
                 + len(self.extras))
 
     def materialize(self) -> List[InterMetric]:
@@ -85,6 +122,22 @@ class FlushBatch:
                         for n, v, t in zip(sec.names.tolist(),
                                            sec.values.tolist(),
                                            sec.tags.tolist()))
+                les = LE_TAGS
+                for bs in self.bucket_sections:
+                    nz, csum = bs.nz, bs.csum
+                    for i, (nm, base) in enumerate(zip(bs.names.tolist(),
+                                                       bs.tags.tolist())):
+                        row = csum[i]
+                        tags = list(base)
+                        for k in np.flatnonzero(nz[i]).tolist():
+                            out.append(InterMetric(
+                                name=nm, timestamp=ts, value=float(row[k]),
+                                tags=tags + [les[k]],
+                                type=MetricType.COUNTER))
+                        out.append(InterMetric(
+                            name=nm, timestamp=ts, value=float(row[-1]),
+                            tags=tags + ["le:+Inf"],
+                            type=MetricType.COUNTER))
                 out.extend(self.extras)
                 self._materialized = out
             return self._materialized
@@ -105,6 +158,7 @@ def swap_columnstore(store: ColumnStore, percentiles: Sequence[float],
         "full_ps": full_ps,
         "all_ps": all_ps,
         "histogram": store.histos.swap_out(ps=all_ps),
+        "llhist": store.llhists.swap_out(ps=full_ps),
         "counter": store.counters.swap_out(),
         "gauge": store.gauges.swap_out(),
         "set": store.sets.swap_out(),
@@ -123,7 +177,8 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     FlushBatch. Touches no live table state beyond the recycle of the
     drained generations, so it may run concurrently with ingest.
     `timings`, when given, receives per-phase wall seconds (dispatch /
-    device_sync / assembly)."""
+    device_sync / assembly, and inside device_sync the llhist family's
+    device-to-host copy of its touched rows' bins, llhist_bins_s)."""
     t0 = time.perf_counter()
     now = swap["now"]
     sections: List[FlushSection] = []
@@ -134,6 +189,7 @@ def readout_columnstore(store: ColumnStore, swap: dict,
 
     # ---- phase 1: launch every device readout, wait for nothing --------
     h_snap = store.histos.readout(swap["histogram"])
+    ll_snap = store.llhists.readout(swap["llhist"])
     c_snap = store.counters.readout(swap["counter"])
     g_snap = store.gauges.readout(swap["gauge"])
     # sets are host-dominant: the estimate of the promoted rows is copied
@@ -149,6 +205,9 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     c_vals, c_touched, c_meta = store.counters.snapshot_finish(c_snap)
     g_vals, g_touched, g_meta = store.gauges.snapshot_finish(g_snap)
     out, h_touched, h_meta = store.histos.snapshot_finish(h_snap)
+    t_bins = time.perf_counter()
+    ll_out, ll_bins, ll_touched, ll_meta = \
+        store.llhists.snapshot_finish(ll_snap)
     t_sync = time.perf_counter()
     # copies done: reset the drained generations in place as the next
     # interval's spares (no-op for the set snap, whose bank escaped into
@@ -156,6 +215,7 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     store.counters.recycle(c_snap)
     store.gauges.recycle(g_snap)
     store.histos.recycle(h_snap)
+    store.llhists.recycle(ll_snap)
     store.sets.recycle(set_snap)
 
     # ---- counters & gauges ---------------------------------------------
@@ -231,6 +291,43 @@ def readout_columnstore(store: ColumnStore, swap: dict,
             np.asarray(estimates, np.float64)[sr],
             stab.flush_tags(sr, s_meta), MetricType.GAUGE))
 
+    # ---- log-linear histograms ------------------------------------------
+    # percentiles/sum/count columnarize like every other family; the
+    # variable-length cumulative buckets become a BucketSection, exploded
+    # per row only by materialize(). The readout and the bins are both
+    # compact over the touched rows, in ascending row order.
+    bucket_sections: List[BucketSection] = []
+    llr = np.flatnonzero(ll_touched)
+    if llr.size:
+        lltab = store.llhists
+        tags_ll = lltab.flush_tags(llr, ll_meta)
+        quants = np.asarray(ll_out["quantiles"], np.float64)
+        for j, p in enumerate(full_ps):
+            sections.append(FlushSection(
+                lltab.flush_names(
+                    p, llr, ll_meta,
+                    lambda m, p=p: _percentile_name(m.name, p)),
+                quants[:, j], tags_ll, MetricType.GAUGE))
+        # count and sum from the HOST-side int64 bins: the count must
+        # equal the le:+Inf bucket exactly (both are the same registers)
+        sections.append(FlushSection(
+            lltab.flush_names("sum", llr, ll_meta,
+                              lambda m: f"{m.name}.sum"),
+            ll_bins.astype(np.float64) @ llhist_ref.BIN_MID,
+            tags_ll, MetricType.GAUGE))
+        sections.append(FlushSection(
+            lltab.flush_names("count", llr, ll_meta,
+                              lambda m: f"{m.name}.count"),
+            ll_bins.sum(axis=1).astype(np.float64),
+            tags_ll, MetricType.COUNTER))
+        c_sorted = ll_bins[:, llhist_ref.ORDER]
+        bucket_sections.append(BucketSection(
+            lltab.flush_names("bucket", llr, ll_meta,
+                              lambda m: f"{m.name}.bucket"),
+            tags_ll,
+            np.cumsum(c_sorted, axis=1, dtype=np.float64),
+            c_sorted != 0))
+
     # ---- status checks --------------------------------------------------
     extras: List[InterMetric] = []
     for row in np.flatnonzero(st_touched).tolist():
@@ -244,8 +341,9 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     if timings is not None:
         timings["dispatch_s"] = t_dispatch - t0
         timings["device_sync_s"] = t_sync - t_dispatch
+        timings["llhist_bins_s"] = t_sync - t_bins
         timings["assembly_s"] = time.perf_counter() - t_sync
-    return FlushBatch(now, sections, extras)
+    return FlushBatch(now, sections, extras, bucket_sections)
 
 
 def flush_columnstore_batch(store: ColumnStore,

@@ -17,7 +17,15 @@ the package is not beside it). Phases, each fatal on failure:
      shapes, with its median time (CUDA events), the plain version's
      time, a one-call PyTorch yardstick where one exists, and the least
      time the card could take (its bound): K1 t-digest flush, K2 HLL
-     estimate, K3 llhist scatter-add (uniform and hot-key batches);
+     estimate, K3 llhist scatter-add (a uniform 8192-sample buffer,
+     hot keys, a 65 536-sample pump chunk at phase B's shape, and
+     sender-ordered samples; each also against index_add_'s eager call),
+     the host cost of the pieces of K3's launch path, then K3's table
+     route (one 65 536-sample chunk through LLHistTable: one packed
+     block, one copy, one launch; against the per-batch route, eight
+     pieces of 8192 each with three pageable copies and a launch, and
+     beside the packed block's copy from pinned memory) and a stress of
+     256 back-to-back chunks;
   4. phase A: a Server on cuda:0 on the native pump ingests ~0.88 M
      DogStatsD lines over loopback UDP (40k counter, 20k gauge, 30k timer
      x 16 and 10k set x 32 keys) in each of two intervals, flushes after
@@ -88,29 +96,33 @@ def _bound(card: str, nbytes: int, nops: int) -> dict:
             "bytes": nbytes, "ops": nops}
 
 
-def _time_ms(fn, reps: int, runs: int = 5) -> float:
-    """Median over `runs` of the mean time of `reps` back-to-back calls,
-    from CUDA events, after one warm-up call."""
+def _timed_ms(run, calls: int) -> float:
+    """One run of `run` between CUDA events, per call of its `calls`."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _repeated(fn, reps: int):
+    """`reps` back-to-back calls of fn, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+
+    def run():
         for _ in range(reps):
             fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    return run
 
 
-def _graph_time_ms(fn, reps: int, runs: int = 5) -> float:
-    """Device time of one call: `reps` calls captured in a CUDA graph and
-    replayed, timed with CUDA events (median over `runs` replays). The
-    host's per-call cost, which `_time_ms` includes whenever it exceeds
-    the device's, stays out."""
+def _captured(fn, reps: int):
+    """`reps` calls of fn captured in a CUDA graph, after one warm-up
+    call; returns the graph's replay. Timing a replay leaves the host's
+    per-call cost, which back-to-back calls include whenever it exceeds
+    the device's, out."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -119,16 +131,33 @@ def _graph_time_ms(fn, reps: int, runs: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    return graph.replay
+
+
+def _time_ms(fn, reps: int, runs: int = 5) -> float:
+    """Median over `runs` of the mean time of `reps` back-to-back calls."""
+    run = _repeated(fn, reps)
+    return float(np.median([_timed_ms(run, reps) for _ in range(runs)]))
+
+
+def _graph_time_ms(fn, reps: int, runs: int = 5) -> float:
+    """Device time of one call: median over `runs` graph replays."""
+    replay = _captured(fn, reps)
+    return float(np.median([_timed_ms(replay, reps) for _ in range(runs)]))
+
+
+def _turns_ms(fa, fb, reps: int, graph: bool, runs: int = 8):
+    """Per-call times of fa and fb timed in turns (a, b, b, a, ...), so
+    that drift in the host's or the card's clocks falls on both: medians
+    over `runs` each, from graph replays or from back-to-back calls."""
+    make = _captured if graph else _repeated
+    ra, rb = make(fa, reps), make(fb, reps)
+    ta, tb = [], []
+    for i in range(runs):
+        for run, out in (((ra, ta), (rb, tb)) if i % 2 == 0
+                         else ((rb, tb), (ra, ta))):
+            out.append(_timed_ms(run, reps))
+    return float(np.median(ta)), float(np.median(tb))
 
 
 # -- phase 3: kernels against their plain versions --------------------------
@@ -217,33 +246,48 @@ def _check_k2(card: str, gen) -> dict:
             **_bound(card, he.bound_bytes(num_rows), num_rows * he.M * 3)}
 
 
-K3_KEYS = 65_536  # phase B's llhist_capacity
+K3_KEYS = 65_536      # phase B's llhist_capacity
+K3_LIVE_ROWS = 35_000  # phase B's llhist keys (timers and `|l` keys)
+K3_CHUNK = 65_536      # ingest_batch_max_samples: one pump chunk
 
 
-def _k3_batches(gen):
-    """(a) a full pending buffer of 8192 uniform samples, with PAD_ROW
-    padding, rows past the table and bins past the padded width; (b)
-    65 536 samples on 16 hot keys whose values cluster like latencies."""
+def _k3_batches():
+    """K3's inputs, made with numpy from seeds: (a) a full pending buffer
+    of 8192 uniform samples; (b) 65 536 samples on 16 hot keys whose
+    values cluster like latencies; (c) a pump chunk at phase B's shape,
+    65 536 samples over 35 000 rows, uniform over the 4501 live bins;
+    (d) 2048 keys x 32 consecutive samples each, values lognormal per
+    key, the order of a client's buffered packets. (a) and (c) carry
+    padding and out-of-range rows and bins."""
     from veneur_tpu_torch.ops import batch_llhist, llhist_ref
-    dev = torch.device("cuda")
-    n = 8192
-    rows = torch.randint(0, K3_KEYS, (n,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    bins = torch.randint(0, batch_llhist.BINS, (n,), generator=gen,
-                         device=dev, dtype=torch.int32)
-    wts = torch.randint(1, 3, (n,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    rows[-256:] = PAD_ROW
-    rows[:64] = K3_KEYS + torch.arange(64, device=dev, dtype=torch.int32)
-    bins[64:128] = batch_llhist.BINS_PAD + 7
     rng = np.random.default_rng(3)
+
+    def uniform(n, live_rows, pad):
+        """PAD_ROW padding at the end, 64 rows past the table and 64 bins
+        past the padded width at the front, as a pending buffer holds."""
+        rows = rng.integers(0, live_rows, n).astype(np.int32)
+        bins = rng.integers(0, batch_llhist.BINS, n).astype(np.int32)
+        wts = rng.integers(1, 3, n).astype(np.int32)
+        rows[-pad:] = PAD_ROW
+        rows[:64] = K3_KEYS + np.arange(64, dtype=np.int32)
+        bins[64:128] = batch_llhist.BINS_PAD + 7
+        return rows, bins, wts
+
     m = 65_536
-    hot = (torch.from_numpy(rng.integers(0, 16, m).astype(np.int32)),
-           torch.from_numpy(llhist_ref.bin_index(
-               rng.lognormal(3.0, 0.6, m)).astype(np.int32)),
-           torch.ones(m, dtype=torch.int32))
-    return {"uniform": (rows, bins, wts),
-            "hot_keys": tuple(c.to(dev) for c in hot)}
+    hot = (rng.integers(0, 16, m).astype(np.int32),
+           llhist_ref.bin_index(rng.lognormal(3.0, 0.6, m)).astype(np.int32),
+           np.ones(m, np.int32))
+    keys = rng.choice(K3_LIVE_ROWS, 2048, replace=False).astype(np.int32)
+    mu = rng.uniform(0.0, 7.0, 2048)  # 1 ms .. 1 s medians
+    vals = rng.lognormal(mu[:, None], 0.3, (2048, 32))
+    ordered = (np.repeat(keys, 32),
+               llhist_ref.bin_index(vals.ravel()).astype(np.int32),
+               np.ones(2048 * 32, np.int32))
+    cases = {"uniform": uniform(8192, K3_KEYS, 256), "hot_keys": hot,
+             "pump_chunk": uniform(K3_CHUNK, K3_LIVE_ROWS, 1024),
+             "sender_ordered": ordered}
+    return {label: tuple(torch.from_numpy(c).cuda() for c in cols)
+            for label, cols in cases.items()}
 
 
 def _check_k3(card: str, gen) -> dict:
@@ -251,7 +295,8 @@ def _check_k3(card: str, gen) -> dict:
     base = torch.randint(0, 1000, (K3_KEYS, la.BINS_PAD), generator=gen,
                          device="cuda", dtype=torch.int32)
     out = {}
-    for label, (rows, bins, wts) in _k3_batches(gen).items():
+    cases = _k3_batches()
+    for label, (rows, bins, wts) in cases.items():
         got, want = base.clone(), base.clone()
         la.apply_cuda(got, rows, bins, wts)
         torch.cuda.synchronize()
@@ -267,20 +312,21 @@ def _check_k3(card: str, gen) -> dict:
         flat = rows[keep].long() * la.BINS_PAD + bins[keep].long()
         kept_wts = wts[keep]
         regs = base.clone()
-        # device time from graph replays; the eager per-call time, which
-        # the wrapper's host cost sets at this size, beside it
+        # device time from graph replays and the eager per-call time
+        # (which the host's cost sets at these sizes), each in turns
+        # with index_add_'s
         def kernel():
             la.apply_cuda(regs, rows, bins, wts)
 
-        ms = _graph_time_ms(kernel, reps=100)
-        eager_ms = _time_ms(kernel, reps=100)
+        def library():  # the one-call yardstick, on inputs already masked
+            regs.view(-1).index_add_(0, flat, kept_wts)
+
+        ms, library_ms = _turns_ms(kernel, library, 100, graph=True)
+        eager_ms, library_eager_ms = _turns_ms(kernel, library, 100,
+                                               graph=False)
         # the plain version's boolean masks synchronise: eager only
         plain_ms = _time_ms(lambda: la.apply_plain(regs, rows, bins, wts),
                             reps=10, runs=3)
-        # the one-call yardstick, on inputs already masked (never used by
-        # the port)
-        library_ms = _graph_time_ms(
-            lambda: regs.view(-1).index_add_(0, flat, kept_wts), reps=100)
         one = (torch.zeros_like(rows[:1]), bins[:1], wts[:1])
         one_sample_ms = _graph_time_ms(lambda: la.apply_cuda(regs, *one),
                                        reps=100)
@@ -288,11 +334,137 @@ def _check_k3(card: str, gen) -> dict:
         del regs
         out[label] = {"keys": K3_KEYS, "samples": int(rows.numel()),
                       "kept": int(keep.sum()), "registers": registers,
-                      "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
-                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "max_abs_err": err, "ms": ms,
+                      "eager_ms": eager_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms,
+                      "library_eager_ms": library_eager_ms,
                       "one_sample_launch_ms": one_sample_ms,
                       **_bound(card, la.bound_bytes(rows.numel(), registers),
                                int(keep.sum()))}
+    rows, bins, wts = cases["uniform"]
+    out["launch_path_us"] = _k3_launch_path_us(rows, bins, wts, base)
+    del base
+    out["table_route"] = _check_k3_table_route()
+    out["stress"] = _check_k3_stress()
+    return out
+
+
+def _k3_host_chunk(rng, n: int):
+    from veneur_tpu_torch.ops import batch_llhist
+    return (rng.integers(0, K3_LIVE_ROWS, n).astype(np.int32),
+            rng.integers(0, batch_llhist.BINS, n).astype(np.int32),
+            rng.integers(1, 3, n).astype(np.int32))
+
+
+def _check_k3_table_route(reps: int = 20) -> dict:
+    """One 65 536-sample host chunk into LLHistTable.add_batch_binned
+    (one packed block, one copy, one launch), timed to a synchronise,
+    beside the per-batch route written out (8 pieces of 8192, each three
+    pageable copies and one launch) and, as the yardstick of the staging
+    choice, the packed block's copy and launch alone from pageable memory
+    (the port's) and from a pinned buffer. In turns (forward, then
+    backward); every table must end equal."""
+    from veneur_tpu_torch.core.columnstore import LLHistTable
+    from veneur_tpu_torch.ops import batch_llhist
+    from veneur_tpu_torch.ops import llhist_apply as la
+    dev = torch.device("cuda")
+    chunk = _k3_host_chunk(np.random.default_rng(11), K3_CHUNK)
+    table = LLHistTable(dev, K3_KEYS, batch_cap=8192)
+    regs = {name: torch.zeros_like(table.state)
+            for name in ("per_batch", "pageable_block", "pinned_block")}
+    pinned = torch.empty((3, K3_CHUNK), dtype=torch.int32, pin_memory=True)
+
+    def per_batch():
+        for i in range(0, K3_CHUNK, 8192):
+            la.apply_cuda(regs["per_batch"],
+                          *(torch.from_numpy(c[i:i + 8192]).to(dev)
+                            for c in chunk))
+
+    def pinned_block():
+        pinned.numpy()[:] = batch_llhist.pack([chunk])
+        la.apply_cuda(regs["pinned_block"],
+                      *pinned.to(dev, non_blocking=True))
+
+    routes = {"table": lambda: table.add_batch_binned(*chunk),
+              "per_batch": per_batch,
+              "pageable_block": lambda: batch_llhist.apply_packed(
+                  regs["pageable_block"], batch_llhist.pack([chunk])),
+              "pinned_block": pinned_block}
+    names = list(routes)
+    times = {name: [] for name in names}
+    host = {name: [] for name in names}  # until the call returns
+    launches = {name: [] for name in names}
+    for i in range(reps):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            before = la.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name]()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            launches[name].append(la.launches - before)
+    table.apply_pending()
+    torch.cuda.synchronize()
+    if table._n or any(not torch.equal(table.state, r)
+                       for r in regs.values()):
+        raise AssertionError("LLHistTable's route, the per-batch route and "
+                             "the block copies left different tables")
+    if set(launches["table"]) != {1}:
+        raise AssertionError(f"a 65 536-sample chunk took "
+                             f"{launches['table']} launches, not one")
+    return {"samples": K3_CHUNK, "calls": reps,
+            "ms": {name: float(np.median(times[name])) for name in names},
+            "host_ms": {name: float(np.median(host[name]))
+                        for name in names},
+            "launches_per_chunk": {name: launches[name][0]
+                                   for name in names}}
+
+
+def _check_k3_stress(calls: int = 256, n: int = 20_000) -> dict:
+    """Back-to-back add_batch_binned calls of distinct 20 000-sample
+    chunks, then apply_pending(): the table must equal the plain version
+    over the concatenation."""
+    from veneur_tpu_torch.core.columnstore import LLHistTable
+    from veneur_tpu_torch.ops import llhist_apply as la
+    dev = torch.device("cuda")
+    rows, bins, wts = _k3_host_chunk(np.random.default_rng(12), calls * n)
+    table = LLHistTable(dev, K3_KEYS, batch_cap=8192)
+    before = la.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, calls * n, n):
+        table.add_batch_binned(rows[i:i + n], bins[i:i + n], wts[i:i + n])
+    table.apply_pending()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = torch.zeros_like(table.state)
+    la.apply_plain(want, *(torch.from_numpy(c).to(dev)
+                           for c in (rows, bins, wts)))
+    if not torch.equal(table.state, want):
+        raise AssertionError("stress: the table differs from the plain "
+                             "version over the concatenation")
+    return {"calls": calls, "samples": calls * n,
+            "launches": la.launches - before, "seconds": seconds}
+
+
+def _k3_launch_path_us(rows, bins, wts, regs, calls: int = 5000) -> dict:
+    """Host microseconds per call of the launch path's pieces: the
+    wrapper's checks, the public current-stream accessor against the raw
+    one it uses, and the current-device lookup."""
+    from veneur_tpu_torch.ops import llhist_apply as la
+    pieces = {
+        "check": lambda: la._check(regs, rows, bins, wts, kernel=True),
+        "current_stream": lambda: torch.cuda.current_stream(0).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "current_device": torch.cuda.current_device}
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
     return out
 
 
@@ -614,6 +786,7 @@ def _run_phase(name: str, server, intervals, window: int, senders: int,
         report = {"intervals": [], "rcvbuf_bytes": rcvbuf,
                   "window_lines": window}
         base = 0
+        seen = _read_launches()
         for corpus in intervals:
             lines = corpus[0]
             ingest_s = _send(server, addr, lines, base, window, senders)
@@ -626,12 +799,15 @@ def _run_phase(name: str, server, intervals, window: int, senders: int,
                 raise AssertionError(f"{name}: ingest dispatch errors "
                                      f"{stats}")
             server.flush()
+            now = _read_launches()
             got, buckets = _collect(server.metric_sinks[0])
             report["intervals"].append({
                 "lines": len(lines), "ingest_s": ingest_s,
                 "lines_per_s": len(lines) / ingest_s,
                 "flush": dict(server.last_flush_timings),
+                "launches": {k: now[k] - seen[k] for k in now},
                 **check(corpus, got, buckets)})
+            seen = now
     finally:
         server.shutdown()
     report["launches"] = _read_launches()
@@ -764,17 +940,28 @@ def main() -> int:
     k2 = _check_k2(card, gen)
     k3 = _check_k3(card, gen)
     torch.cuda.empty_cache()
+    k3_cases = ("uniform", "hot_keys", "pump_chunk", "sender_ordered")
     for label, rec in (("tdigest_flush W=256", k1),
                        ("tdigest_flush W=128", k1_128),
                        ("hll_estimate", k2),
-                       ("llhist_apply uniform", k3["uniform"]),
-                       ("llhist_apply hot_keys", k3["hot_keys"])):
-        extra = (f", index_add_ {rec['library_ms']:.4f} ms, one-sample "
-                 f"launch {rec['one_sample_launch_ms']:.4f} ms, eager call "
-                 f"{rec['eager_ms']:.4f} ms" if "library_ms" in rec else "")
-        print(f"{label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} "
-              f"ms, bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}"
+                       *((f"llhist_apply {c}", k3[c]) for c in k3_cases)):
+        extra = (f", index_add_ {rec['library_ms']:.5f} ms, one-sample launch "
+                 f"{rec['one_sample_launch_ms']:.5f} ms; eager call "
+                 f"{rec['eager_ms']:.5f} ms, index_add_ eager "
+                 f"{rec['library_eager_ms']:.5f} ms"
+                 if "library_ms" in rec else "")
+        print(f"{label}: {rec['ms']:.5f} ms (plain {rec['plain_ms']:.3f} "
+              f"ms, bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}"
               f"{extra}), max_abs_err {rec['max_abs_err']:.3g}", flush=True)
+    route, stress = k3["table_route"], k3["stress"]
+    print(f"llhist table route, one {route['samples']}-sample chunk, "
+          f"median ms (host ms): " + ", ".join(
+              f"{name} {ms:.4f} ({route['host_ms'][name]:.4f})"
+              for name, ms in route["ms"].items()) + "; stress "
+          f"{stress['calls']} x {stress['samples'] // stress['calls']} "
+          f"samples in {stress['launches']} launches, "
+          f"{stress['seconds']:.4f} s, equal; launch path us "
+          f"{k3['launch_path_us']}", flush=True)
 
     phases = {}
     for name, run in (("A", _phase_a), ("B", _phase_b), ("C", _phase_c)):
@@ -785,7 +972,8 @@ def main() -> int:
                   f"{rec['lines_per_s']:.0f} lines/s, flush "
                   f"{rec['flush']['total_s']:.3f} s (llhist bins "
                   f"{rec['flush']['llhist_bins_s']:.3f} s), "
-                  f"{rec['series_checked']} series checked", flush=True)
+                  f"{rec['series_checked']} series checked, K3 launches "
+                  f"{rec['launches']['llhist_apply']}", flush=True)
         print(f"phase {name} launches: {rep['launches']}", flush=True)
 
     def launches(kernel):
@@ -810,9 +998,9 @@ def main() -> int:
          "source": "veneur_tpu_torch/csrc/llhist_apply.cu",
          "replaces": "veneur_tpu/ops/pallas_llhist.py:55",
          "launches": launches("llhist_apply"),
-         **{k: k3["uniform"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}},
+         **{k: k3["pump_chunk"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "eager_ms", "library_eager_ms")}},
     ]
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "Used" in ln or "spill" in ln]

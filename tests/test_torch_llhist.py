@@ -86,23 +86,146 @@ def test_k3_drops_negative_indices():
     assert int(regs.abs().sum()) == 0
 
 
-@pytest.mark.parametrize("bad", ["dtype", "width", "length", "device"])
+@pytest.mark.parametrize("bad", ["dtype", "width", "length", "device",
+                                 "columns_noncontiguous",
+                                 "regs_noncontiguous", "rank"])
 def test_k3_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """apply (and with it the plain version) and apply_cuda's thin check
+    raise on what the kernel does not take, each with its reason: the
+    cases after "device" go through apply_cuda, whose structural checks
+    come before the device check, so they are reached on a CPU tensor."""
     regs = torch.zeros((4, tbl.BINS_PAD), dtype=torch.int32)
     rows = torch.zeros(3, dtype=torch.int32)
     bins = torch.zeros(3, dtype=torch.int32)
     wts = torch.ones(3, dtype=torch.int32)
+    match = None
     if bad == "dtype":
         wts = wts.long()
     elif bad == "width":
         regs = torch.zeros((4, 4501), dtype=torch.int32)
     elif bad == "length":
         bins = bins[:2]
-    with pytest.raises(ValueError):
-        if bad == "device":  # a CPU table never reaches the kernel
+    elif bad == "device":
+        match = "CUDA device"
+    elif bad == "columns_noncontiguous":
+        # the plain version takes strided columns, the kernel does not
+        bins = torch.zeros(6, dtype=torch.int32)[::2]
+        match = "wts must be contiguous"
+    elif bad == "regs_noncontiguous":
+        regs = torch.zeros((4, 2 * tbl.BINS_PAD), dtype=torch.int32)[:, ::2]
+        match = "regs must be contiguous"
+    elif bad == "rank":
+        rows, match = torch.zeros((3, 1), dtype=torch.int32), "1-D int32"
+    with pytest.raises(ValueError, match=match):
+        if match is not None:  # a CPU table never reaches the kernel
             llhist_apply.apply_cuda(regs, rows, bins, wts)
         else:
             llhist_apply.apply(regs, rows, bins, wts)
+
+
+def _chunk(rng, n, num_keys=K):
+    """Binned samples as a pump chunk hands them over: interned rows,
+    bins inside the live window, weights 1 or 2."""
+    return (rng.integers(0, num_keys, n).astype(np.int32),
+            rng.integers(0, tbl.BINS, n).astype(np.int32),
+            rng.integers(1, 3, n).astype(np.int32))
+
+
+def _jax_table(cols_list):
+    """The JAX package's scatter of the concatenated columns into an
+    empty (K, BINS_PAD) table."""
+    cat = [np.concatenate([c[j] for c in cols_list]) for j in range(3)]
+    return np.asarray(jbl._apply_batch_jnp(
+        jnp.zeros((K, tbl.BINS_PAD), jnp.int32), *map(jnp.asarray, cat)))
+
+
+@pytest.mark.parametrize("pending", [0, 5000])
+@pytest.mark.parametrize("chunk", [0, 1, 8191, 8192, 8193, 65536])
+def test_llhist_table_whole_chunk_apply(monkeypatch, chunk, pending):
+    """A batch that overflows the pending buffer goes to the device with
+    the pending samples in ONE apply of the last whole multiple of
+    batch_cap; only the remainder stays pending. The table equals the
+    JAX package's scatter over the concatenated inputs, bit for bit,
+    before and after apply_pending."""
+    from veneur_tpu_torch.core.columnstore import LLHistTable
+    batch_cap = 8192
+    calls = []
+    real = llhist_apply.apply
+
+    def counting(regs, rows, bins, wts):
+        calls.append(int(rows.shape[0]))
+        return real(regs, rows, bins, wts)
+
+    monkeypatch.setattr(llhist_apply, "apply", counting)
+    rng = np.random.default_rng(chunk + pending)
+    table = LLHistTable(torch.device("cpu"), K, batch_cap=batch_cap)
+    first, second = _chunk(rng, pending), _chunk(rng, chunk)
+    table.add_batch_binned(*first)
+    assert calls == [] and table._n == pending
+    table.add_batch_binned(*second)
+    total = pending + chunk
+    staged = total - total % batch_cap
+    assert calls == ([staged] if staged else [])
+    assert table._n == total - staged < batch_cap
+    cat = [np.concatenate([first[j], second[j]]) for j in range(3)]
+    np.testing.assert_array_equal(
+        table.state.numpy(), _jax_table([tuple(c[:staged] for c in cat)]))
+    assert table.touched[cat[0]].all()
+    table.apply_pending()
+    assert len(calls) == (staged > 0) + (total > staged)
+    assert table._n == 0
+    np.testing.assert_array_equal(table.state.numpy(),
+                                  _jax_table([first, second]))
+
+
+def test_llhist_table_copies_caller_columns():
+    """add_batch_binned copies the caller's columns before it returns,
+    both the part it applies and the part it buffers: a pump chunk's
+    arrays die at its release. Overwriting them afterwards changes no
+    flushed series."""
+    from veneur_tpu_torch.core.columnstore import LLHistTable
+    rng = np.random.default_rng(7)
+    chunks = [_chunk(rng, 5000), _chunk(rng, 20000), _chunk(rng, 300)]
+    originals = [tuple(c.copy() for c in cols) for cols in chunks]
+    table = LLHistTable(torch.device("cpu"), K, batch_cap=8192)
+    control = LLHistTable(torch.device("cpu"), K, batch_cap=8192)
+    for cols, orig in zip(chunks, originals):
+        control.add_batch_binned(*(c.copy() for c in orig))
+        table.add_batch_binned(*cols)
+        for c in cols:  # the caller reuses its memory
+            c[:] = rng.integers(0, K, c.shape[0])
+    got_out, got_bins, got_touched, _ = table.snapshot_and_reset(ps=PS)
+    want_out, want_bins, want_touched, _ = control.snapshot_and_reset(ps=PS)
+    np.testing.assert_array_equal(got_touched, want_touched)
+    np.testing.assert_array_equal(got_bins, want_bins)
+    for key in want_out:
+        np.testing.assert_array_equal(got_out[key], want_out[key])
+    ref = _jax_table(originals)
+    np.testing.assert_array_equal(
+        got_bins, ref[np.flatnonzero(got_touched), :tbl.BINS])
+
+
+def test_pack_returns_a_private_padded_block():
+    """pack concatenates the pieces into its own (3, m) block, m a
+    multiple of 4, padded with samples the kernel drops; apply_packed
+    of the block adds exactly the pieces' samples."""
+    a = [np.arange(4, dtype=np.int32) + 10 * j for j in range(3)]
+    b = [np.arange(3, dtype=np.int32) + 100 * j for j in range(3)]
+    block = tbl.pack([tuple(a), tuple(b)])
+    want = [np.r_[np.arange(4) + 10 * j, np.arange(3) + 100 * j]
+            for j in range(3)]
+    for c in a + b:  # the caller reuses its memory
+        c[:] = -1
+    assert block.shape == (3, 8) and block.dtype == np.int32
+    for j in range(3):
+        np.testing.assert_array_equal(block[j, :7], want[j])
+    assert block[0, 7] < 0 and block[2, 7] == 0
+    regs = torch.zeros((K, tbl.BINS_PAD), dtype=torch.int32)
+    tbl.apply_packed(regs, block)
+    ref = np.asarray(jbl._apply_batch_jnp(
+        jnp.zeros((K, tbl.BINS_PAD), jnp.int32),
+        *(jnp.asarray(w.astype(np.int32)) for w in want)))
+    np.testing.assert_array_equal(regs.numpy(), ref)
 
 
 def _registers(rng, num_keys):

@@ -826,7 +826,14 @@ class LLHistTable(_BaseTable):
 
     Weights are integral (1/sample_rate rounds to the nearest count);
     `samples_total` and `clamped_total` count the weight binned and the
-    weight that fell outside the representable magnitude window."""
+    weight that fell outside the representable magnitude window.
+
+    Whole-chunk apply: when a batch brings more samples than the pending
+    buffer has free, the pending samples and the incoming ones up to the
+    last whole multiple of `batch_cap` go to the device together, packed
+    into one block (batch_llhist.pack), brought over by one copy and
+    applied by one launch; only the remainder, fewer than `batch_cap`, is
+    buffered."""
 
     def _init_arrays(self):
         self._prow = np.full(self.batch_cap, PAD_ROW, np.int32)
@@ -882,9 +889,69 @@ class LLHistTable(_BaseTable):
                                 np.asarray(bins, np.int32),
                                 np.asarray(wts, np.int32)))
 
+    def _append_batch(self, columns, touch_rows=None) -> None:
+        """Whole-chunk apply (see the class note). Caller holds `lock`;
+        touched flags are set in the lock hold that packs or buffers
+        their samples."""
+        rows, bins, wts = columns
+        n = rows.shape[0]
+        i = 0
+        while self._n + n - i >= self.batch_cap:
+            total = self._n + n - i
+            take = total - total % self.batch_cap - self._n
+            self._launch_locked((rows[i:i + take], bins[i:i + take],
+                                 wts[i:i + take]))
+            i += take  # the lock was released: re-read the pending fill
+        if i < n:
+            at, k = self._n, n - i
+            self._prow[at:at + k] = rows[i:]
+            self._pbin[at:at + k] = bins[i:]
+            self._pwt[at:at + k] = wts[i:]
+            self.touched[rows[i:]] = True
+            self._n = at + k
+
+    def _dispatch_pending_locked(self):
+        if self._n:
+            self._launch_locked()
+
+    def _launch_locked(self, incoming=()) -> None:
+        """Pack the pending samples and the `incoming` (rows, bins, wts)
+        columns into one private block in this `lock` hold, with the
+        incoming rows marked touched, empty the pending buffer, and apply
+        the block to the live state with one copy and one launch, under
+        ``apply_lock`` with ``lock`` released (the protocol of
+        _BaseTable._dispatch_pending_locked). Caller holds ``lock`` on
+        entry and on return."""
+        n = self._n
+        pieces = [(self._prow[:n], self._pbin[:n], self._pwt[:n])]
+        if incoming:
+            pieces.append(incoming)
+        block = batch_llhist.pack(pieces)
+        self._n = 0
+        if incoming:
+            # intp indices: numpy's int32 fancy-index path is ~2x slower
+            self.touched[incoming[0].astype(np.intp)] = True
+        self.apply_lock.acquire()
+        self.lock.release()
+        try:
+            # a _grow may have replaced the state: read it under apply_lock
+            batch_llhist.apply_packed(self.state, block)
+        finally:
+            self.apply_lock.release()
+            self.lock.acquire()
+
+    def _swap_locked(self):
+        """Copy out the filled part of the pending columns and reset: a
+        launch empties the buffers without re-padding them, so
+        nothing past the fill point may be read."""
+        if self._n == 0:
+            return None
+        cols = tuple(c[: self._n].copy() for c in self._pcols)
+        self._n = 0
+        return cols
+
     def _apply_cols_state(self, state, cols):
-        rows, bins, wts = (_to_device(c, self.device) for c in cols)
-        batch_llhist.apply_batch(state, rows, bins, wts)
+        batch_llhist.apply_packed(state, batch_llhist.pack([cols]))
 
     def _fresh_state_at(self, capacity: int):
         return batch_llhist.init_state(capacity, self.device)

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -35,6 +35,8 @@ _BUILD_TIMEOUT_S = 600
 
 _lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# (library, symbol) -> entry point with argtypes set; read without the lock
+_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # kernel name -> nvcc/ptxas output of its build in this process (registers,
 # shared memory and spills per kernel, from -Xptxas -v)
 build_logs: Dict[str, str] = {}
@@ -107,17 +109,25 @@ def build_all() -> Dict[str, Path]:
 def kernel(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of kernel library `name`, built on first
     use. Every entry point returns the launch's cudaGetLastError() as
-    an int (0 = launched)."""
+    an int (0 = launched). The function object is resolved once, with its
+    argtypes and restype set; later calls take no lock and assign
+    nothing."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            paths = build_all()
-            if name not in paths:
-                raise RuntimeError(f"no kernel source csrc/{name}.cu")
-            lib = _libs[name] = ctypes.CDLL(str(paths[name]))
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = _fns.get((name, symbol))
+        if fn is None:
+            lib = _libs.get(name)
+            if lib is None:
+                paths = build_all()
+                if name not in paths:
+                    raise RuntimeError(f"no kernel source csrc/{name}.cu")
+                lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[(name, symbol)] = fn
     return fn
 
 

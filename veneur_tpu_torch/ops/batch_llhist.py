@@ -62,6 +62,29 @@ def apply_batch(regs: torch.Tensor, rows: torch.Tensor, bins: torch.Tensor,
     return llhist_apply.apply(regs, rows, bins, weights)
 
 
+def pack(pieces) -> np.ndarray:
+    """K3's input for one launch as one private (3, m) int32 block: the
+    concatenation of `pieces`, each a (rows, bins, wts) triple of host
+    columns, padded to m, a multiple of 4, with samples the kernel drops
+    (row -1), so that every column starts on a 16-byte boundary (the
+    kernel's vector loads). The caller's columns may be reused as soon
+    as this returns."""
+    n = sum(len(p[0]) for p in pieces)
+    block = np.empty((3, (n + 3) & ~3), np.int32)
+    for j in range(3):
+        np.concatenate([p[j] for p in pieces], out=block[j, :n])
+    block[0, n:], block[1:, n:] = -1, 0
+    return block
+
+
+def apply_packed(regs: torch.Tensor, block: np.ndarray) -> torch.Tensor:
+    """Apply a pack()ed block to `regs` in place: ONE host-to-device copy
+    of the block (synchronous, from pageable memory; on the CPU the
+    tensor shares the block) and one launch of K3."""
+    rows, bins, wts = torch.from_numpy(block).to(regs.device)
+    return llhist_apply.apply(regs, rows, bins, wts)
+
+
 def flush_packed(regs: torch.Tensor, ps: Sequence[float]
                  ) -> Dict[str, torch.Tensor]:
     """One-pass readout of `regs` (K, BINS_PAD) int32:

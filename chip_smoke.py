@@ -8,9 +8,8 @@ card, then runs the port's server end to end on the card.
 Needs one CUDA card and g++ (it exits non-zero without either, and when
 the package is not beside it). Phases, each fatal on failure:
 
-  1. the card's name and power limit (nvidia-smi), g++, torch and CUDA
-     versions, and whether grpc / google.protobuf import (planning data
-     for the forward slice; their absence is not a failure);
+  1. the card's name and power limit (nvidia-smi), g++, torch, CUDA,
+     grpc and protobuf versions;
   2. build every kernel from veneur_tpu_torch/csrc with nvcc and the
      native parser from veneur_tpu_torch/native with g++;
   3. each kernel against its plain version on the card at the main path's
@@ -41,10 +40,25 @@ the package is not beside it). Phases, each fatal on failure:
      within one bin of the sample quantile of what was sent;
   6. phase C: the numpy columnar decoder (`tpu.disable_native_parser`)
      on a tenth of phase A's corpus plus 500 `|l` keys, with the checks
-     of phases A and B.
+     of phases A and B;
+  7. phase D, the forward tier: two local Servers on the native pump
+     forward to one global Server over gRPC (127.0.0.1), all on cuda:0.
+     Each local takes phase A's key set and 5 000 `|l` keys x 32 in each
+     of two intervals, half of the counter and gauge keys global-only
+     (each global-only gauge sent by one local), set members overlapping
+     by half. Per interval both locals flush (the export flush, K1; the
+     forward send) and the global, which merged their state, flushes.
+     Checked: the locals' mixed counters and gauges and timer min/max/
+     count exactly, and no forwarded series among them; the global's
+     counters (the sum), gauges, every llhist `.count` and `.bucket`
+     line exactly, timer p50/p99 within the rank slack of both locals'
+     samples, set estimates equal to the reference HLL over the union;
+     the forward accounting (forwarded, imported, FlowCounts) and that
+     no row took the proto fallback encoder.
 
 Before any value is checked, each phase asserts that the server received
-every line it was sent and that no ingest chunk failed to apply. It
+every line it was sent and that no ingest chunk failed to apply (phase D
+also that no forward send or import merge failed). It
 prints a `details` JSON line (every measurement, and the register and
 shared-memory use ptxas reported for each kernel), a `kernels` JSON line
 (with each kernel's launches counted in the server phases alone), and
@@ -633,17 +647,21 @@ def _check_exact(got: dict, expect: dict) -> None:
                              f"e.g. {wrong[:3]}")
 
 
-def _check_timers(got: dict, timers: np.ndarray) -> int:
+def _check_timers(got: dict, timers: np.ndarray, aggregates: bool = True,
+                  percentiles: bool = True) -> int:
+    """Timer series of the keys `smoke.t<k>` against their sorted samples:
+    min/max/count exactly, p50/p99 within the t-digest's rank slack."""
     n = timers.shape[1]
     t = np.arange(timers.shape[0])
-    for suffix, want in (("min", timers[:, 0]), ("max", timers[:, -1])):
-        vals = np.array([got[f"smoke.t{k}.{suffix}"] for k in t])
-        if not np.array_equal(vals, want.astype(np.float64)):
-            raise AssertionError(f"timer {suffix} differs")
-    counts = np.array([got[f"smoke.t{k}.count"] for k in t])
-    if not (counts == n).all():
-        raise AssertionError("timer counts differ")
-    for p, label in ((0.5, "50"), (0.99, "99")):
+    if aggregates:
+        for suffix, want in (("min", timers[:, 0]), ("max", timers[:, -1])):
+            vals = np.array([got[f"smoke.t{k}.{suffix}"] for k in t])
+            if not np.array_equal(vals, want.astype(np.float64)):
+                raise AssertionError(f"timer {suffix} differs")
+        counts = np.array([got[f"smoke.t{k}.count"] for k in t])
+        if not (counts == n).all():
+            raise AssertionError("timer counts differ")
+    for p, label in (((0.5, "50"), (0.99, "99")) if percentiles else ()):
         # the t-digest's slack: one k-unit either side of p on the
         # arcsine scale, widened by one sample for the interpolation
         # between neighbouring centroids' midpoints
@@ -656,19 +674,21 @@ def _check_timers(got: dict, timers: np.ndarray) -> int:
         if below.any() or above.any():
             raise AssertionError(f"timer p{label} outside its slack for "
                                  f"{int(below.sum() + above.sum())} keys")
-    return timers.shape[0] * 5
+    return timers.shape[0] * (3 * aggregates + 2 * percentiles)
 
 
-def _check_sets(got: dict, set_ref: np.ndarray, members: int) -> dict:
+def _check_sets(got: dict, set_ref: np.ndarray, members: int,
+                slack: int = 1) -> dict:
     est = np.array([got[f"smoke.s{k}"] for k in range(set_ref.shape[0])])
     if not np.array_equal(est, set_ref):
         raise AssertionError(
             f"set estimates differ from the reference HLL for "
             f"{int((est != set_ref).sum())} keys")
     # the reference estimator rounds floor(x + 1) (hyperloglog.go:225-231
-    # parity), so allow its +1 on top of 2 %
-    if not (np.abs(est - members) <= 0.02 * members + 1).all():
-        raise AssertionError("set estimate beyond 2 % + 1 of the truth")
+    # parity), so allow its +1 (slack) on top of 2 %
+    if not (np.abs(est - members) <= 0.02 * members + slack).all():
+        raise AssertionError(f"set estimate beyond 2 % + {slack} of the "
+                             f"truth")
     return {"set_mean_rel_err": float(np.mean(np.abs(est - members))
                                       / members)}
 
@@ -890,6 +910,217 @@ def _phase_c() -> dict:
                       ("tdigest_flush", "hll_estimate", "llhist_apply"))
 
 
+PHASE_D_LL_KEYS = 5_000
+# per local and interval: the global-only counter and gauge halves, every
+# timer, set and llhist key
+PHASE_D_FORWARDED = (PHASE_A_KEYS["counter"] // 2 + PHASE_A_KEYS["gauge"] // 2
+                     + PHASE_A_KEYS["timer"] + PHASE_A_KEYS["set"]
+                     + PHASE_D_LL_KEYS)
+
+
+def _phase_d_corpus(seed: int, local: int):
+    """One local's interval of phase D: phase A's key set, half of the
+    counter keys and half of the gauge keys global-only (the global-only
+    gauge names carry the local's index, so each is sent by one local),
+    set members j in [16 local, 16 local + 32) (the two locals overlap by
+    half), and PHASE_D_LL_KEYS `|l` keys x 32. Returns the lines, the
+    series the local flushes (mixed counters and gauges), the global-only
+    counters and gauges, the sorted timer samples and the llhist values."""
+    keys = PHASE_A_KEYS
+    rng = np.random.default_rng(100 * seed + local)
+    lines, local_expect, global_expect = [], {}, {}
+    half = keys["counter"] // 2
+    cvals = rng.integers(1, 1000, keys["counter"])
+    crates = rng.choice([1.0, 0.5], keys["counter"])
+    for k in range(keys["counter"]):
+        value = float(math.trunc(cvals[k] / crates[k]))
+        if k < half:
+            lines.append(f"smoke.fc{k}:{cvals[k]}|c|@{crates[k]}"
+                         f"|#veneurglobalonly")
+            global_expect[f"smoke.fc{k}"] = value
+        else:
+            lines.append(f"smoke.c{k}:{cvals[k]}|c|@{crates[k]}")
+            local_expect[f"smoke.c{k}"] = value
+    half = keys["gauge"] // 2
+    gtext = np.char.mod("%.3f", rng.normal(0, 100, (keys["gauge"], 2)))
+    for k in range(keys["gauge"]):
+        name, tail = ((f"smoke.fg{local}.{k}", "|g|#veneurglobalonly")
+                      if k < half else (f"smoke.g{k}", "|g"))
+        lines.extend(f"{name}:{v}{tail}" for v in gtext[k])
+    ttext = np.char.mod("%.3f", rng.gamma(
+        2.0, 25.0, (keys["timer"], keys["timer_samples"])))
+    for k in range(keys["timer"]):
+        lines.extend(f"smoke.t{k}:{v}|ms" for v in ttext[k])
+    members = range(16 * local, 16 * local + keys["set_members"])
+    for k in range(keys["set"]):
+        lines.extend(f"smoke.s{k}:u{seed}-{k}-{j}|s" for j in members)
+    _prefix, ll_vals, ll_weights = _llhist_lines(
+        rng, lines, "smoke.l", PHASE_D_LL_KEYS, 32)
+    order = rng.permutation(len(lines))
+    lines = [lines[i] for i in order]
+    for line in lines:  # gauges: each key's later line in send order wins
+        if line.startswith(("smoke.g", "smoke.fg")):
+            name, rest = line.split(":", 1)
+            value = float(np.float32(float(rest.split("|", 1)[0])))
+            (global_expect if name.startswith("smoke.fg")
+             else local_expect)[name] = value
+    timers = np.sort(ttext.astype(np.float64).astype(np.float32), axis=1)
+    return lines, local_expect, global_expect, timers, ll_vals, ll_weights
+
+
+def _phase_d_interval(seed: int):
+    """Both locals' corpora of one interval and the global's references:
+    counters summed, gauges united, the timers' and llhists' samples
+    joined, the set reference over the union's 48 members."""
+    parts = [_phase_d_corpus(seed, local) for local in (0, 1)]
+    global_expect = {}
+    for part in parts:
+        for name, value in part[2].items():
+            global_expect[name] = global_expect.get(name, 0.0) + value \
+                if name.startswith("smoke.fc") else value
+    timers = np.sort(np.concatenate([p[3] for p in parts], axis=1), axis=1)
+    ll_vals = np.concatenate([p[4] for p in parts], axis=1)
+    set_ref = _set_reference(seed, PHASE_A_KEYS["set"],
+                             16 + PHASE_A_KEYS["set_members"])
+    return parts, (global_expect, timers, ll_vals, parts[0][5], set_ref)
+
+
+def _phase_d() -> dict:
+    """The forward tier on the card: two local Servers on the native pump
+    forward to one global Server over gRPC on 127.0.0.1, all on cuda:0.
+    Per interval: ingest on both locals, flush both (the export flush and
+    the forward send), check that the global imported both, flush it."""
+    from veneur_tpu_torch.forward import convert
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    keys = PHASE_A_KEYS
+    intervals = [_phase_d_interval(seed) for seed in (7, 8)]
+    gserver = _server({"grpc_address": "127.0.0.1:0",
+                       "statsd_listen_addresses": []},
+                      {"counter_capacity": 32768, "gauge_capacity": 32768,
+                       "histo_capacity": 32768, "set_capacity": 16384,
+                       "llhist_capacity": 8192}, ChannelMetricSink())
+    fallback_before = convert.proto_fallback_rows
+    _zero_launches()
+    gserver.start()
+    locals_ = []
+    try:
+        imp = gserver.import_server
+        for _ in range(2):
+            server = _server({"forward_address": imp.address},
+                             {"counter_capacity": 65536,
+                              "gauge_capacity": 32768,
+                              "histo_capacity": 32768,
+                              "set_capacity": 16384,
+                              "llhist_capacity": 8192}, ChannelMetricSink())
+            server.start()
+            locals_.append(server)
+        windows = []
+        for server in locals_:
+            rcvbuf = sum(sk.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+                         for sk in server._listeners[0]._socks)
+            windows.append(min(PUMP_WINDOW,
+                               rcvbuf // (2 * _QUEUED_BYTES_PER_LINE)))
+        report = {"intervals": []}
+        bases = [0, 0]
+        seen = _read_launches()
+        for parts, (g_expect, timers, ll_vals, ll_w, set_ref) in intervals:
+            rec = {"ingest_s": [], "local_flush": [], "lines": []}
+            for i, (server, part) in enumerate(zip(locals_, parts)):
+                rec["ingest_s"].append(_send(
+                    server, server.listen_addresses[0], part[0], bases[i],
+                    windows[i]))
+                bases[i] += len(part[0])
+                rec["lines"].append(len(part[0]))
+            for i, server in enumerate(locals_):
+                stats = server.stats_snapshot()
+                if (stats["lines_received"] != bases[i] or stats["lost_lines"]
+                        or stats["ingest_dispatch_errors"]):
+                    raise AssertionError(f"phase D local {i}: {stats}")
+            merge_before = dict(imp.merge_s)
+            bytes_before = imp.v1_bytes
+            for server in locals_:
+                server.flush()
+                rec["local_flush"].append(dict(server.last_flush_timings))
+            for i, server in enumerate(locals_):
+                stats = server.stats_snapshot()
+                if stats["forward_errors"]:
+                    raise AssertionError(f"phase D local {i} forward "
+                                         f"errors: {stats}")
+            want_imported = sum(s.stats_snapshot()["forwarded_total"]
+                                for s in locals_)
+            if imp.imported_total != want_imported or imp.errors:
+                raise AssertionError(
+                    f"phase D: the global imported {imp.imported_total} "
+                    f"metrics with {imp.errors} errors, the locals "
+                    f"forwarded {want_imported}")
+            rec["merge_s"] = {k: imp.merge_s[k] - merge_before[k]
+                              for k in imp.merge_s}
+            rec["v1_body_bytes"] = (imp.v1_bytes - bytes_before) / 2
+            gserver.flush()
+            rec["global_flush"] = dict(gserver.last_flush_timings)
+            now = _read_launches()
+            rec["launches"] = {k: now[k] - seen[k] for k in now}
+            seen = now
+            checked = 0
+            for i, (server, part) in enumerate(zip(locals_, parts)):
+                got, buckets = _collect(server.metric_sinks[0])
+                _check_exact(got, part[1])
+                checked += len(part[1]) + _check_timers(
+                    got, part[3], percentiles=False)
+                leaked = [n for n in got if n.startswith(
+                    ("smoke.fc", "smoke.fg", "smoke.s", "smoke.l"))
+                    or "percentile" in n]
+                if leaked or buckets:
+                    raise AssertionError(f"phase D local {i} flushed "
+                                         f"forwarded series: {leaked[:3]}")
+                flow = server.forward_client.last_flow
+                if flow != {"received": PHASE_D_FORWARDED,
+                            "merged": PHASE_D_FORWARDED,
+                            "duplicate": False}:
+                    raise AssertionError(f"phase D local {i}: FlowCounts "
+                                         f"{flow}")
+            got, buckets = _collect(gserver.metric_sinks[0])
+            _check_exact(got, g_expect)
+            checked += len(g_expect) + _check_timers(got, timers,
+                                                     aggregates=False)
+            # at 48 members three of a set's members can share HLL
+            # registers, each shared one reading a member less: the
+            # reference HLL itself reads one key of seed 7's 10 000 two
+            # below the truth
+            rec.update(_check_sets(got, set_ref,
+                                   16 + keys["set_members"], slack=2))
+            checked += keys["set"] + _check_llhists(
+                got, buckets, "smoke.l", ll_vals, ll_w)
+            if any(n.startswith("smoke.c") for n in got):
+                raise AssertionError("phase D: the global flushed the "
+                                     "locals' mixed counters")
+            rec["series_checked"] = checked
+            report["intervals"].append(rec)
+    finally:
+        for server in locals_:
+            server.shutdown()
+        gserver.shutdown()
+    report["launches"] = _read_launches()
+    report["stats"] = {"locals": [s.stats_snapshot() for s in locals_],
+                       "global": gserver.stats_snapshot()}
+    for i, stats in enumerate(report["stats"]["locals"]):
+        if stats["forwarded_total"] != 2 * PHASE_D_FORWARDED:
+            raise AssertionError(f"phase D local {i} forwarded "
+                                 f"{stats['forwarded_total']}")
+    if report["stats"]["global"]["imported_total"] != 4 * PHASE_D_FORWARDED:
+        raise AssertionError(f"phase D: the global imported "
+                             f"{report['stats']['global']}")
+    report["proto_fallback_rows"] = \
+        convert.proto_fallback_rows - fallback_before
+    if report["proto_fallback_rows"]:
+        raise AssertionError(f"phase D: {report['proto_fallback_rows']} "
+                             f"rows took the proto fallback encoder")
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase D: {kernel} was not launched")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -910,16 +1141,12 @@ def main() -> int:
     gxx = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True, timeout=60, check=True
                          ).stdout.splitlines()[0]
-    print(f"{gxx}; torch {torch.__version__}, CUDA {torch.version.cuda}",
-          flush=True)
-    imports = {}
-    for mod in ("grpc", "google.protobuf"):
-        try:
-            __import__(mod)
-            imports[mod] = True
-        except ImportError:
-            imports[mod] = False
-    print(f"imports (forward slice planning): {imports}", flush=True)
+    import google.protobuf
+    import grpc
+    versions = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                "grpc": grpc.__version__,
+                "protobuf": google.protobuf.__version__}
+    print(f"{gxx}; {versions}", flush=True)
     card = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
@@ -975,6 +1202,27 @@ def main() -> int:
                   f"{rec['series_checked']} series checked, K3 launches "
                   f"{rec['launches']['llhist_apply']}", flush=True)
         print(f"phase {name} launches: {rep['launches']}", flush=True)
+    phases["D"] = rep = _phase_d()
+    torch.cuda.empty_cache()
+    for i, rec in enumerate(rep["intervals"]):
+        for j, flush in enumerate(rec["local_flush"]):
+            print(f"phase D interval {i} local {j}: {rec['lines'][j]} lines "
+                  f"in {rec['ingest_s'][j]:.2f} s, flush "
+                  f"{flush['total_s']:.3f} s (dispatch "
+                  f"{flush['dispatch_s']:.4f}, device sync "
+                  f"{flush['device_sync_s']:.4f}, forward encode "
+                  f"{flush['forward_encode_s']:.3f}, forward "
+                  f"{flush['forward_s']:.3f})", flush=True)
+        g = rec["global_flush"]
+        merge = ", ".join(f"{k} {v:.3f}" for k, v in rec["merge_s"].items())
+        print(f"phase D interval {i} global: import s over both bodies "
+              f"{merge}; V1 body {rec['v1_body_bytes']:.0f} bytes per local; "
+            f"flush {g['total_s']:.3f} s (swap {g['swap_s']:.4f}, dispatch "
+            f"{g['dispatch_s']:.4f}, device sync {g['device_sync_s']:.4f}, "
+            f"assembly {g['assembly_s']:.3f}, sinks {g['sinks_s']:.3f}); "
+            f"{rec['series_checked']} series checked; launches "
+            f"{rec['launches']}", flush=True)
+    print(f"phase D launches: {rep['launches']}", flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())
@@ -1006,8 +1254,7 @@ def main() -> int:
                     if "Used" in ln or "spill" in ln]
              for name, log in _cuda.build_logs.items()}
     print(json.dumps({"details": {
-        "card": smi, "gxx": gxx, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "imports": imports,
+        "card": smi, "gxx": gxx, **versions,
         "build_s": build_s, "native_build_s": native_build_s,
         "ptxas": ptxas, "tdigest_flush": [k1, k1_128], "hll_estimate": k2,
         "llhist_apply": k3, "phases": phases}}), flush=True)

@@ -84,7 +84,7 @@ def test_two_intervals_flush_like_jax():
         _feed(jstore, jparser, lines)
         _feed(tstore, tparser, lines)
         jbatch, _ = jflush(jstore, False, PS, JAggs.from_names(AGGS))
-        tbatch = tflush(tstore, PS, TAggs.from_names(AGGS))
+        tbatch, _ = tflush(tstore, False, PS, TAggs.from_names(AGGS))
         _assert_flushes_agree(jbatch, tbatch)
         assert len(tbatch) == len(jbatch)
     assert tstore.sets._dev_cap > 8  # the dense bank climbed its ladder
@@ -194,7 +194,7 @@ def test_add_batch_matches_jax_add_batch():
         store.sets.add_batch(set_rows, set_idx, set_rho)
     assert tstore.sets._nslots == jstore.sets._nslots > 0
     jbatch, _ = jflush(jstore, False, PS, JAggs.from_names(AGGS))
-    tbatch = tflush(tstore, PS, TAggs.from_names(AGGS))
+    tbatch, _ = tflush(tstore, False, PS, TAggs.from_names(AGGS))
     _assert_flushes_agree(jbatch, tbatch)
 
 
@@ -232,7 +232,7 @@ def test_jax_state_carried_into_the_port_flushes_equal():
     np.testing.assert_array_equal(convert.state_to_numpy("llhist", tregs),
                                   jregs)
     jbatch, _ = jflush(jstore, False, PS, JAggs.from_names(AGGS))
-    tbatch = tflush(tstore, PS, TAggs.from_names(AGGS))
+    tbatch, _ = tflush(tstore, False, PS, TAggs.from_names(AGGS))
     _assert_flushes_agree(jbatch, tbatch)
 
 

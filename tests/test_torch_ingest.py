@@ -191,7 +191,7 @@ def test_ingesters_flush_the_jax_series(kind):
                 jing.ingest_buffer(buf)
                 ting.ingest_buffer(buf)
         jbatch, _ = jflush(jstore, False, PS, JAggs.from_names(AGGS))
-        tbatch = tflush(tstore, PS, TAggs.from_names(AGGS))
+        tbatch, _ = tflush(tstore, False, PS, TAggs.from_names(AGGS))
         want, got = _series(jbatch), _series(tbatch)
         assert set(got) == set(want)
         for key, value in want.items():

@@ -190,9 +190,9 @@ def test_device_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("forward_address", "127.0.0.1:8128"),
+    ("forward_wal", True),
     ("ssf_listen_addresses", ["udp://127.0.0.1:0"]),
-    ("grpc_address", "127.0.0.1:0"),
+    ("grpc_tls_certificate", "cert.pem"),
     ("tpu", {"shards": 4}),
 ])
 def test_config_rejects_features_the_port_lacks(key, value):
@@ -204,7 +204,7 @@ def test_cli_validates_config(tmp_path):
     cfg = tmp_path / "c.yaml"
     cfg.write_text("interval: 5s\npercentiles: [0.5]\n")
     bad = tmp_path / "bad.yaml"
-    bad.write_text("forward_address: x:1\n")
+    bad.write_text("forward_only: true\n")
     from veneur_tpu_torch.cmd import veneur
     assert veneur.main(["-f", str(cfg), "-validate-config"]) == 0
     assert veneur.main(["-f", str(bad), "-validate-config"]) == 1

@@ -1,9 +1,10 @@
 """Configuration of the port's server: the YAML keys of veneur_tpu's
 config that this port implements, with the same names and defaults.
 
-A key the port does not implement (for example `forward_address`,
-`ssf_listen_addresses`, `grpc_address`, or `tpu.shards`) raises with the
-key's name: a configuration is never half-applied in silence. Durations
+A key the port does not implement (for example `forward_only`,
+`forward_wal`, `ssf_listen_addresses`, `grpc_tls_certificate`, or
+`tpu.shards`) raises with the key's name: a configuration is never
+half-applied in silence. Durations
 accept Go-style strings ("10s", "500ms") or numbers of seconds.
 """
 
@@ -68,6 +69,11 @@ class TpuConfig:
 class Config:
     aggregates: List[str] = field(
         default_factory=lambda: ["min", "max", "count"])
+    # host:port of the global server's import endpoint; set, this server
+    # is local and forwards its mergeable state there every interval
+    forward_address: str = ""
+    # host:port the import server (gRPC /forwardrpc.Forward) listens on
+    grpc_address: str = ""
     # the family DogStatsD histogram/timer samples aggregate in:
     # "tdigest" (reference parity) or "circllhist" (log-linear bins,
     # exact merges); `|l` samples always use the circllhist family
@@ -92,6 +98,11 @@ class Config:
     read_buffer_size_bytes: int = 2 * 1024 * 1024
     statsd_listen_addresses: List[str] = field(default_factory=list)
     tpu: TpuConfig = field(default_factory=TpuConfig)
+
+    @property
+    def is_local(self) -> bool:
+        """A server is local iff it forwards (reference server.go:1447)."""
+        return self.forward_address != ""
 
     def apply_defaults(self) -> "Config":
         if not self.aggregates:

@@ -15,6 +15,11 @@ buffers and are applied to the device tensors in fixed-size padded
 batches, so the device sees a few large dispatches per second instead of
 one per packet.
 
+The import server merges forwarded state into the live generation with
+each table's `merge_batch`: intern and touch under ``lock``, then apply
+under ``apply_lock`` acquired while ``lock`` is still held, the order
+every batch apply keeps.
+
 State is interval-scoped: a flush swaps the live device generation out,
 reads it out, and recycles it as the next spare (the map-swap trick of
 reference worker.go:470-489); the key dictionary persists so steady-state
@@ -78,6 +83,10 @@ class RowMeta:
     digest32: int
     scope: MetricScope
     wire_type: str  # counter/gauge/histogram/timer/set/status
+    # per-row cache of the metricpb wire prefix/suffix (serialized fields
+    # 1-3 and field 9) the forward encoder frames each row with; identity
+    # only, so it lives for the row's lifetime
+    pb_frame: tuple = None
 
 
 class _BaseTable:
@@ -377,6 +386,14 @@ class _BaseTable:
         with self.lock:
             self._append_batch(columns)
 
+    def _intern_stubs_locked(self, stubs) -> np.ndarray:
+        """Intern the import path's metric stubs and mark them touched
+        (caller holds ``lock``): int32 rows, one per stub."""
+        rows = np.fromiter((self.row_for(s) for s in stubs), np.int32,
+                           len(stubs))
+        self.touched[rows] = True
+        return rows
+
     def _add_row_locked(self, row: int, *values) -> None:
         """Buffer one sample for an interned row (caller holds lock)."""
         self.touched[row] = True
@@ -397,6 +414,9 @@ class CounterTable(_BaseTable):
         self._prate = np.ones(self.batch_cap, np.float32)
         self._pcols = (self._prow, self._pval, self._prate)
         self._n = 0
+        # imported counters are exact int64 sums that float32 would
+        # quantize: they accumulate on the host in float64
+        self._import_acc = np.zeros(self.capacity, np.float64)
 
     def _grow_arrays(self, new_cap):
         self.state = {k: _pad_cap(v, new_cap) for k, v in self.state.items()}
@@ -411,6 +431,21 @@ class CounterTable(_BaseTable):
     def _apply_cols_state(self, state, cols):
         rows, vals, rates = (_to_device(c, self.device) for c in cols)
         scalars.apply_counters(state, rows, vals, rates)
+
+    def merge_batch(self, stubs: List[UDPMetric], values) -> None:
+        """Import-path merge: intern, touch and accumulate in one ``lock``
+        hold, so a flush never sees a touched row without its value."""
+        with self.lock:
+            rows = self._intern_stubs_locked(stubs)
+            if self._import_acc.shape[0] < self.capacity:
+                grown = np.zeros(self.capacity, np.float64)
+                grown[: self._import_acc.shape[0]] = self._import_acc
+                self._import_acc = grown
+            np.add.at(self._import_acc, rows, np.asarray(values, np.float64))
+
+    def _swap_extras_locked(self, snap: dict) -> None:
+        snap["import_acc"] = self._import_acc
+        self._import_acc = np.zeros(self.capacity, np.float64)
 
     def _fresh_state_at(self, capacity: int):
         return scalars.init_counters(capacity, self.device)
@@ -427,6 +462,8 @@ class CounterTable(_BaseTable):
         # f64 readout recovers the exact total from the Kahan pair
         values = (_host(snap["dev"][0]).astype(np.float64)
                   - _host(snap["dev"][1]).astype(np.float64))
+        import_acc = snap["import_acc"]
+        values[: import_acc.shape[0]] += import_acc
         return values, snap["touched"], snap["meta"]
 
 
@@ -450,6 +487,20 @@ class GaugeTable(_BaseTable):
     def _apply_cols_state(self, state, cols):
         rows, vals = (_to_device(c, self.device) for c in cols)
         scalars.apply_gauges(state, rows, vals)
+
+    def merge_batch(self, stubs: List[UDPMetric], values) -> None:
+        """Import-path merge: overwrite. Interned and touched under
+        ``lock``; the state update takes ``apply_lock`` before ``lock`` is
+        released, so it orders after any batch already swapped out."""
+        with self.lock:
+            rows = self._intern_stubs_locked(stubs)
+            self.apply_lock.acquire()
+        try:
+            scalars.merge_gauges(
+                self.state, _to_device(rows, self.device),
+                _to_device(np.asarray(values, np.float32), self.device))
+        finally:
+            self.apply_lock.release()
 
     def _fresh_state_at(self, capacity: int):
         return scalars.init_gauges(capacity, self.device)
@@ -516,6 +567,28 @@ class HistoTable(_BaseTable):
             state, *(_to_device(c, self.device)
                      for c in (rows, vals, wts, slots)))
 
+    def merge_batch(self, stubs: List[UDPMetric], in_means, in_weights,
+                    in_min, in_max, in_recip) -> None:
+        """Import-path digest merge: interned and touched under ``lock``,
+        the state update under ``apply_lock`` taken before ``lock`` is
+        released."""
+        with self.lock:
+            rows = self._intern_stubs_locked(stubs)
+            self.apply_lock.acquire()
+        try:
+            batch_tdigest.merge_centroid_rows(
+                self.state, *(_to_device(np.asarray(c, dtype), self.device)
+                              for c, dtype in (
+                                  (rows, np.int32), (in_means, np.float32),
+                                  (in_weights, np.float32),
+                                  (in_min, np.float32), (in_max, np.float32),
+                                  (in_recip, np.float32))))
+            # the merge folds the staging of every row with staged weight,
+            # so the whole occupancy map resets
+            self._staged_counts[:] = 0
+        finally:
+            self.apply_lock.release()
+
     def _fresh_state_at(self, capacity: int):
         return batch_tdigest.init_state(capacity, self.device)
 
@@ -531,17 +604,27 @@ class HistoTable(_BaseTable):
         self._apply_cols_state(state, cols, snap.pop("staged"))
 
     def _readout_device(self, state, snap: dict) -> None:
-        # the t-digest flush: sort, then kernel K1 on the card
-        snap["packed"] = batch_tdigest.flush_quantiles_packed(
-            state, snap["ps"], fold_staging=True)
+        """The t-digest flush: sort, then kernel K1 on the card. A server
+        that forwards (need_export) takes the forwarding flush, which
+        also recompresses the sorted centroids into the export grid."""
+        if snap.pop("need_export", False):
+            snap["packed"], snap["export"] = \
+                batch_tdigest.flush_export_packed(state, snap["ps"])
+        else:
+            snap["packed"] = batch_tdigest.flush_quantiles_packed(
+                state, snap["ps"], fold_staging=True)
+            snap["export"] = None
         snap["_recycle"] = state
 
     @staticmethod
     def snapshot_finish(snap: dict):
-        """(flush outputs dict of np arrays, touched, meta)."""
+        """(flush outputs dict of np arrays, centroid export (means,
+        weights, dmin, dmax, drecip) or None, touched, meta)."""
         out = batch_tdigest.unpack_flush(_host(snap["packed"]),
                                          len(snap["ps"]))
-        return out, snap["touched"], snap["meta"]
+        export = (batch_tdigest.unpack_export(_host(snap["export"]))
+                  if snap["export"] is not None else None)
+        return out, export, snap["touched"], snap["meta"]
 
 
 class _SetRegisters:
@@ -720,6 +803,36 @@ class SetTable(_BaseTable):
     def _apply_cols_state(self, state, cols):
         rows, idxs, rhos = (_to_device(c, self.device) for c in cols)
         batch_hll.apply_batch(state, rows, idxs, rhos)
+
+    def merge_batch(self, stubs: List[UDPMetric], in_regs) -> None:
+        """Import-path HLL merge (register max). Imported rows arrive
+        dense, so they promote at once; rows past the slot limit fold
+        into the host COO tier instead (nonzero registers become (idx,
+        rho) pairs)."""
+        with self.lock:
+            rows = self._intern_stubs_locked(stubs)
+            regs = np.asarray(in_regs, np.int8)
+            for r in rows.tolist():
+                if self._slot_of[r] < 0:
+                    self._promote_locked(r)
+            target = self._slot_of[rows]
+            capped = target < 0
+            for j in np.flatnonzero(capped).tolist():
+                nz = np.flatnonzero(regs[j])
+                if nz.size:
+                    self._coo.append((np.full(nz.size, rows[j], np.int32),
+                                      nz.astype(np.int32),
+                                      regs[j][nz].astype(np.int32)))
+            target, regs = target[~capped], regs[~capped]
+            self.apply_lock.acquire()
+        try:
+            if target.size:
+                # a promotion may have grown the bank: read it here
+                batch_hll.merge_rows(self.state,
+                                     _to_device(target, self.device),
+                                     _to_device(regs, self.device))
+        finally:
+            self.apply_lock.release()
 
     def _state_capacity(self) -> int:
         return self._dev_cap
@@ -958,6 +1071,23 @@ class LLHistTable(_BaseTable):
 
     def _reset_state_(self, captured) -> None:
         captured.zero_()
+
+    def merge_batch(self, stubs: List[UDPMetric], in_bins) -> None:
+        """Import-path merge: register add. Interned and touched under
+        ``lock``; the state update takes ``apply_lock`` before ``lock`` is
+        released."""
+        with self.lock:
+            rows = self._intern_stubs_locked(stubs)
+            padded = batch_llhist.pad_rows_to_device(in_bins)
+            self.samples_total += int(padded.sum(dtype=np.int64))
+            self.apply_lock.acquire()
+        try:
+            if rows.size:
+                batch_llhist.merge_rows(self.state,
+                                        _to_device(rows, self.device),
+                                        _to_device(padded, self.device))
+        finally:
+            self.apply_lock.release()
 
     def _idle_swap_locked(self, snap: dict) -> bool:
         # every mutation path sets touched, so no pending samples and no

@@ -1,18 +1,24 @@
-"""Flush generation: device snapshots -> columnar FlushBatch (torch port of
-the columnar flush in veneur_tpu/core/flusher.py).
+"""Flush generation: device snapshots -> columnar FlushBatch + forwardable
+state (torch port of the columnar flush in veneur_tpu/core/flusher.py).
 
-The port's server does not forward, so it flushes as a server without a
-forward_address does in the reference (flusher.go:26-122,
-samplers.go:359-514):
+Semantic parity with reference flusher.go:26-122 and samplers.go:359-514.
+A server is local iff it forwards (`forward_address` set):
 
-* Mixed-scope and local-only histograms/timers emit percentiles AND the
-  configured aggregates from the locally-ingested stats; global-only
-  rows emit them from the digest ("global" aggregate values).
+* Counters and gauges: global-only rows forward on a local server and
+  flush on the global one; mixed and local-only rows flush locally.
+* Histograms/timers: on a local server a global-only row emits nothing,
+  mixed rows emit only the configured aggregates (from the locally
+  ingested stats), and local-only rows emit percentiles and aggregates;
+  every non-local row's digest is exported. A global server emits
+  percentiles and aggregates for every row, global-only rows with
+  digest-derived ("global") aggregate values.
+* Sets emit their HLL estimate as a gauge: on a local server only the
+  local-only rows, and the others forward their registers.
 * Log-linear histograms emit the configured percentiles, the midpoint
-  `.sum`, the exact `.count`, and Prometheus-shaped cumulative
-  `.bucket` counters tagged `le:<bound>` (JAX flusher.py:818-875).
-* Sets emit their HLL estimate as a gauge.
-* Counters, gauges and status checks emit every touched row.
+  `.sum`, the exact `.count`, and Prometheus-shaped cumulative `.bucket`
+  counters tagged `le:<bound>` (JAX flusher.py:818-875); on a local
+  server the non-local rows forward their bins instead.
+* Status checks emit every touched row.
 """
 
 from __future__ import annotations
@@ -20,16 +26,38 @@ from __future__ import annotations
 import math
 import threading
 import time
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from veneur_tpu_torch.core.columnstore import ColumnStore
+from veneur_tpu_torch.core.columnstore import ColumnStore, RowMeta
 from veneur_tpu_torch.ops import llhist_ref
 from veneur_tpu_torch.samplers.metrics import (
     Aggregate, HistogramAggregates, InterMetric, MetricScope, MetricType,
 )
+
+
+@dataclass
+class ForwardableState:
+    """Host-side snapshot of mergeable state bound for the global tier
+    (the equivalent of reference worker.go:180-217 ForwardableMetrics)."""
+
+    counters: List[Tuple[RowMeta, float]] = field(default_factory=list)
+    gauges: List[Tuple[RowMeta, float]] = field(default_factory=list)
+    # (meta, means, weights, min, max, reciprocal_sum)
+    histograms: List[Tuple[RowMeta, np.ndarray, np.ndarray, float, float,
+                           float]] = field(default_factory=list)
+    # (meta, registers)
+    sets: List[Tuple[RowMeta, np.ndarray]] = field(default_factory=list)
+    # (meta, llhist bins int64): exact-merge family, registers ADD
+    llhists: List[Tuple[RowMeta, np.ndarray]] = field(default_factory=list)
+    # pre-serialized metricpb frames (forward/convert.forwardable_to_wire)
+    wire: Optional[List[bytes]] = None
+
+    def __len__(self):
+        return (len(self.counters) + len(self.gauges) + len(self.histograms)
+                + len(self.sets) + len(self.llhists))
 
 
 def _percentile_name(name: str, p: float) -> str:
@@ -143,13 +171,16 @@ class FlushBatch:
             return self._materialized
 
 
-def swap_columnstore(store: ColumnStore, percentiles: Sequence[float],
+def swap_columnstore(store: ColumnStore, is_local: bool,
+                     percentiles: Sequence[float],
+                     collect_forward: bool = True,
                      timings: Optional[dict] = None) -> dict:
     """Critical-path half of the flush: swap every family's pending
     columns and device generation out at ONE interval boundary, with no
     device readout work (each table's swap_out is O(1) under its locks).
     Ingest continues into the fresh generations the moment this returns.
-    Statuses are host-only and snapshot in full here."""
+    Statuses are host-only and snapshot in full here. A local server that
+    collects forwardable state asks the t-digest table for the export."""
     t0 = time.perf_counter()
     full_ps = tuple(percentiles)
     all_ps = tuple(sorted(set(full_ps) | {0.5}))  # median always computable
@@ -157,7 +188,8 @@ def swap_columnstore(store: ColumnStore, percentiles: Sequence[float],
         "now": int(time.time()),
         "full_ps": full_ps,
         "all_ps": all_ps,
-        "histogram": store.histos.swap_out(ps=all_ps),
+        "histogram": store.histos.swap_out(
+            ps=all_ps, need_export=is_local and collect_forward),
         "llhist": store.llhists.swap_out(ps=full_ps),
         "counter": store.counters.swap_out(),
         "gauge": store.gauges.swap_out(),
@@ -169,22 +201,28 @@ def swap_columnstore(store: ColumnStore, percentiles: Sequence[float],
     return swap
 
 
-def readout_columnstore(store: ColumnStore, swap: dict,
+def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
                         aggregates: HistogramAggregates,
-                        timings: Optional[dict] = None) -> FlushBatch:
+                        collect_forward: bool = True,
+                        timings: Optional[dict] = None
+                        ) -> Tuple[FlushBatch, ForwardableState]:
     """Readout half of the flush: launch every swapped generation's
     readout kernels, synchronise once, copy to the host, and assemble the
-    FlushBatch. Touches no live table state beyond the recycle of the
-    drained generations, so it may run concurrently with ingest.
+    FlushBatch and the ForwardableState (empty unless `is_local` and
+    `collect_forward`). Touches no live table state beyond the recycle of
+    the drained generations, so it may run concurrently with ingest.
     `timings`, when given, receives per-phase wall seconds (dispatch /
     device_sync / assembly, and inside device_sync the llhist family's
     device-to-host copy of its touched rows' bins, llhist_bins_s)."""
     t0 = time.perf_counter()
     now = swap["now"]
+    fwd = ForwardableState()
     sections: List[FlushSection] = []
     full_ps = swap["full_ps"]
     ps_index = {p: i for i, p in enumerate(swap["all_ps"])}
+    need_export = is_local and collect_forward
     full_bits = int(aggregates.value)
+    local_code = int(MetricScope.LOCAL_ONLY)
     global_code = int(MetricScope.GLOBAL_ONLY)
 
     # ---- phase 1: launch every device readout, wait for nothing --------
@@ -195,7 +233,7 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     # sets are host-dominant: the estimate of the promoted rows is copied
     # to the host inside readout
     set_snap = store.sets.readout(swap["set"])
-    estimates, _registers, s_touched, s_meta = \
+    estimates, registers, s_touched, s_meta = \
         store.sets.snapshot_finish(set_snap)
     st_vals, st_touched, st_meta = swap["status"]
     t_dispatch = time.perf_counter()
@@ -204,7 +242,7 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     store.synchronize()
     c_vals, c_touched, c_meta = store.counters.snapshot_finish(c_snap)
     g_vals, g_touched, g_meta = store.gauges.snapshot_finish(g_snap)
-    out, h_touched, h_meta = store.histos.snapshot_finish(h_snap)
+    out, export, h_touched, h_meta = store.histos.snapshot_finish(h_snap)
     t_bins = time.perf_counter()
     ll_out, ll_bins, ll_touched, ll_meta = \
         store.llhists.snapshot_finish(ll_snap)
@@ -219,23 +257,39 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     store.sets.recycle(set_snap)
 
     # ---- counters & gauges ---------------------------------------------
-    def scalar_family(table, vals, touched, meta_list, mtype):
+    def scalar_family(table, vals, touched, meta_list, mtype, fwd_list):
         rows = np.flatnonzero(touched)
+        vals_sel = np.asarray(vals, np.float64)[rows]
+        if is_local and rows.size:
+            fwd_mask = table.scope_code[rows] == global_code
+            if collect_forward:
+                fwd_list.extend(
+                    (meta_list[r], v)
+                    for r, v in zip(rows[fwd_mask].tolist(),
+                                    vals_sel[fwd_mask].tolist()))
+            rows, vals_sel = rows[~fwd_mask], vals_sel[~fwd_mask]
         if rows.size:
             sections.append(FlushSection(
                 table.flush_names("", rows, meta_list, lambda m: m.name),
-                np.asarray(vals, np.float64)[rows],
-                table.flush_tags(rows, meta_list), mtype))
+                vals_sel, table.flush_tags(rows, meta_list), mtype))
 
     scalar_family(store.counters, c_vals, c_touched, c_meta,
-                  MetricType.COUNTER)
-    scalar_family(store.gauges, g_vals, g_touched, g_meta, MetricType.GAUGE)
+                  MetricType.COUNTER, fwd.counters)
+    scalar_family(store.gauges, g_vals, g_touched, g_meta, MetricType.GAUGE,
+                  fwd.gauges)
 
     # ---- histograms & timers -------------------------------------------
     hr = np.flatnonzero(h_touched)
     if hr.size:
         htab = store.histos
-        use_global = htab.scope_code[hr] == global_code
+        scope = htab.scope_code[hr]
+        local_only = scope == local_code
+        global_only = scope == global_code
+        # on a local server a global-only row emits no aggregates, and
+        # only local-only rows emit percentiles
+        a_on = np.where(global_only & is_local, 0, full_bits)
+        use_global = global_only & (not is_local)
+        emit_ps = local_only | (not is_local)
         cols = {k: np.asarray(out[k], np.float64)[hr]
                 for k in ("lmin", "lmax", "lsum", "lweight", "lrecip",
                           "min", "max", "sum", "count", "hmean")}
@@ -243,7 +297,8 @@ def readout_columnstore(store: ColumnStore, swap: dict,
         tags_hr = htab.flush_tags(hr, h_meta)
 
         def agg_section(suffix, bit, mask, values, mtype=MetricType.GAUGE):
-            if not (full_bits & bit) or not mask.any():
+            mask = mask & ((a_on & bit) != 0)
+            if not mask.any():
                 return
             sections.append(FlushSection(
                 htab.flush_names(
@@ -275,21 +330,44 @@ def readout_columnstore(store: ColumnStore, swap: dict,
                     quants[:, ps_index[0.5]])
         agg_section("hmean", _A_HMEAN,
                     use_global | ((lrecip != 0) & (lweight != 0)), hmean)
-        for p in full_ps:
-            sections.append(FlushSection(
-                htab.flush_names(
-                    p, hr, h_meta,
-                    lambda m, p=p: _percentile_name(m.name, p)),
-                quants[:, ps_index[p]], tags_hr, MetricType.GAUGE))
+        if full_ps and emit_ps.any():
+            pr, pq, ptags = hr[emit_ps], quants[emit_ps], tags_hr[emit_ps]
+            for p in full_ps:
+                sections.append(FlushSection(
+                    htab.flush_names(
+                        p, pr, h_meta,
+                        lambda m, p=p: _percentile_name(m.name, p)),
+                    pq[:, ps_index[p]], ptags, MetricType.GAUGE))
+
+        fr = hr[~local_only]
+        if need_export and fr.size:
+            # one fancy-index copy into compact float32 matrices, then row
+            # views: each row is the (C,) float32 row the native digest
+            # encoder takes
+            exp_means, exp_weights, exp_min, exp_max, exp_recip = export
+            cm, cw = exp_means[fr], exp_weights[fr]
+            cmin, cmax = exp_min[fr].tolist(), exp_max[fr].tolist()
+            crecip = exp_recip[fr].tolist()
+            fwd.histograms.extend(
+                (h_meta[row], cm[j], cw[j], cmin[j], cmax[j], crecip[j])
+                for j, row in enumerate(fr.tolist()))
 
     # ---- sets -----------------------------------------------------------
     sr = np.flatnonzero(s_touched)
     if sr.size:
         stab = store.sets
-        sections.append(FlushSection(
-            stab.flush_names("", sr, s_meta, lambda m: m.name),
-            np.asarray(estimates, np.float64)[sr],
-            stab.flush_tags(sr, s_meta), MetricType.GAUGE))
+        er = sr
+        if is_local:
+            s_local = stab.scope_code[sr] == local_code
+            if collect_forward:
+                fwd.sets.extend((s_meta[row], registers[row].copy())
+                                for row in sr[~s_local].tolist())
+            er = sr[s_local]
+        if er.size:
+            sections.append(FlushSection(
+                stab.flush_names("", er, s_meta, lambda m: m.name),
+                np.asarray(estimates, np.float64)[er],
+                stab.flush_tags(er, s_meta), MetricType.GAUGE))
 
     # ---- log-linear histograms ------------------------------------------
     # percentiles/sum/count columnarize like every other family; the
@@ -298,10 +376,20 @@ def readout_columnstore(store: ColumnStore, swap: dict,
     # compact over the touched rows, in ascending row order.
     bucket_sections: List[BucketSection] = []
     llr = np.flatnonzero(ll_touched)
+    quants = np.asarray(ll_out.get("quantiles", ()), np.float64)
+    if is_local and llr.size:
+        # bins and readout are compact over llr: split both by scope
+        fwd_mask = store.llhists.scope_code[llr] != local_code
+        if need_export:
+            fwd.llhists.extend(
+                (ll_meta[row], ll_bins[j])
+                for j, row in zip(np.flatnonzero(fwd_mask).tolist(),
+                                  llr[fwd_mask].tolist()))
+        llr, ll_bins, quants = (llr[~fwd_mask], ll_bins[~fwd_mask],
+                                quants[~fwd_mask])
     if llr.size:
         lltab = store.llhists
         tags_ll = lltab.flush_tags(llr, ll_meta)
-        quants = np.asarray(ll_out["quantiles"], np.float64)
         for j, p in enumerate(full_ps):
             sections.append(FlushSection(
                 lltab.flush_names(
@@ -343,13 +431,18 @@ def readout_columnstore(store: ColumnStore, swap: dict,
         timings["device_sync_s"] = t_sync - t_dispatch
         timings["llhist_bins_s"] = t_sync - t_bins
         timings["assembly_s"] = time.perf_counter() - t_sync
-    return FlushBatch(now, sections, extras, bucket_sections)
+    return FlushBatch(now, sections, extras, bucket_sections), fwd
 
 
-def flush_columnstore_batch(store: ColumnStore,
+def flush_columnstore_batch(store: ColumnStore, is_local: bool,
                             percentiles: Sequence[float],
                             aggregates: HistogramAggregates,
-                            timings: Optional[dict] = None) -> FlushBatch:
+                            collect_forward: bool = True,
+                            timings: Optional[dict] = None
+                            ) -> Tuple[FlushBatch, ForwardableState]:
     """Synchronous flush: swap + readout in one call."""
-    swap = swap_columnstore(store, percentiles, timings=timings)
-    return readout_columnstore(store, swap, aggregates, timings=timings)
+    swap = swap_columnstore(store, is_local, percentiles,
+                            collect_forward=collect_forward, timings=timings)
+    return readout_columnstore(store, swap, is_local, aggregates,
+                               collect_forward=collect_forward,
+                               timings=timings)

@@ -1,6 +1,13 @@
 """The port's server: DogStatsD over UDP into the device column store,
-flushed every interval to the metric sinks (the local aggregation loop
-of veneur_tpu/core/server.py, without forwarding).
+flushed every interval to the metric sinks (the aggregation loop of
+veneur_tpu/core/server.py), and the two ends of the forward tier.
+
+With `forward_address` set the server is local: each flush also collects
+the mergeable state of its non-local rows (forward/convert.py encodes it)
+and, after the sinks, sends it to the global server's import endpoint
+(forward/client.py). With `grpc_address` set it runs that endpoint
+(forward/server.py), which merges what the locals send into this
+server's tables on its device.
 
 UDP datagrams reach the store through the batch ingest plane
 (core/ingest.py): by default the native C++ pump parses them into
@@ -31,6 +38,9 @@ from veneur_tpu_torch.core.flusher import flush_columnstore_batch
 from veneur_tpu_torch.core.ingest import BatchIngester, PyBatchIngester
 from veneur_tpu_torch.core.networking import Listener, start_statsd
 from veneur_tpu_torch.device import pick_device
+from veneur_tpu_torch.forward.client import ForwardClient
+from veneur_tpu_torch.forward.convert import forwardable_to_wire
+from veneur_tpu_torch.forward.server import ImportServer
 from veneur_tpu_torch.samplers.metrics import HistogramAggregates
 from veneur_tpu_torch.samplers.parser import ParseError, Parser
 
@@ -84,9 +94,12 @@ class Server:
         self._flush_lock = threading.Lock()
         self._shutdown = threading.Event()
         self._flush_thread: Optional[threading.Thread] = None
+        # the forward tier's two ends, built by start()
+        self.forward_client: Optional[ForwardClient] = None
+        self.import_server: Optional[ImportServer] = None
         # per-phase wall seconds of the last flush (swap / dispatch /
-        # device_sync, with its llhist_bins copy / assembly / sinks /
-        # total)
+        # device_sync, with its llhist_bins copy / assembly / sinks, and
+        # on a local server forward_encode / forward / total)
         self.last_flush_timings: Dict[str, float] = {}
 
     # -- ingest ----------------------------------------------------------
@@ -145,8 +158,10 @@ class Server:
 
     def stats_snapshot(self) -> Dict[str, int]:
         """Line counters, dispatch errors, the llhist family's sample and
-        clamp totals, samples of unknown wire type, and the pumps'
-        reader stalls and lines lost at shutdown."""
+        clamp totals, samples of unknown wire type, the pumps' reader
+        stalls and lines lost at shutdown, and the forward tier's
+        counts: metrics forwarded and failed sends (a local server),
+        metrics imported and failed merges (a global one)."""
         with self._stats_lock:
             out = dict(self.stats)
         llhists = self.store.llhists
@@ -156,6 +171,11 @@ class Server:
         pumps = [lst.pump for lst in self._listeners if lst.pump is not None]
         out["stalls"] = sum(p.stalls() for p in pumps)
         out["lost_lines"] = sum(p.lost_lines() for p in pumps)
+        fc, imp = self.forward_client, self.import_server
+        out["forwarded_total"] = fc.stats["forwarded_total"] if fc else 0
+        out["forward_errors"] = fc.errors if fc else 0
+        out["imported_total"] = imp.imported_total if imp else 0
+        out["import_errors"] = imp.errors if imp else 0
         return out
 
     # -- lifecycle -------------------------------------------------------
@@ -163,6 +183,12 @@ class Server:
     def start(self) -> None:
         for sink in self.metric_sinks:
             sink.start(self)
+        if self.config.forward_address:
+            self.forward_client = ForwardClient(self.config.forward_address,
+                                                deadline=self.interval)
+        if self.config.grpc_address:
+            self.import_server = ImportServer(self, self.config.grpc_address)
+            self.import_server.start()
         for address in self.config.statsd_listen_addresses:
             self._listeners.append(start_statsd(
                 address, self, self.config.num_readers,
@@ -184,14 +210,21 @@ class Server:
 
     def flush(self) -> None:
         """One flush pass (reference flusher.go:26-122): swap every table
-        out, read it out on the device, hand the batch to every sink.
+        out, read it out on the device, hand the batch to every sink and,
+        on a local server, the forwardable state to the global one.
         Raises afterwards if an ingest chunk failed to apply."""
         with self._flush_lock:
             t0 = time.perf_counter()
             timings: Dict[str, float] = {}
-            batch = flush_columnstore_batch(
-                self.store, self.percentiles, self.aggregates,
+            fc = self.forward_client
+            batch, fwd = flush_columnstore_batch(
+                self.store, self.config.is_local, self.percentiles,
+                self.aggregates, collect_forward=fc is not None,
                 timings=timings)
+            if fc is not None:
+                t_enc = time.perf_counter()
+                fwd.wire = forwardable_to_wire(fwd)
+                timings["forward_encode_s"] = time.perf_counter() - t_enc
             with self._events_lock:
                 events, self._events = self._events, []
             t_sinks = time.perf_counter()
@@ -204,18 +237,26 @@ class Server:
                     logger.exception("sink %s flush failed", sink.name())
             end = time.perf_counter()
             timings["sinks_s"] = end - t_sinks
-            timings["total_s"] = end - t0
+            if fc is not None:
+                fc.forward(fwd)
+                timings["forward_s"] = time.perf_counter() - end
+            timings["total_s"] = time.perf_counter() - t0
             self.last_flush_timings = timings
         self._raise_dispatch_error()
 
     def shutdown(self) -> None:
-        """Stop the listeners and the flush loop, then the sinks. Raises
-        afterwards if an ingest chunk failed to apply."""
+        """Stop the listeners and the flush loop, then the forward tier
+        and the sinks. Raises afterwards if an ingest chunk failed to
+        apply."""
         self._shutdown.set()
         for listener in self._listeners:
             listener.close()
         if self._flush_thread is not None:
             self._flush_thread.join(timeout=self.interval + 60.0)
+        if self.import_server is not None:
+            self.import_server.stop()
+        if self.forward_client is not None:
+            self.forward_client.close()
         for sink in self.metric_sinks:
             sink.stop()
         self._raise_dispatch_error()

@@ -12,11 +12,13 @@ output: there is no switch that turns the native code off and no silent
 fall back. The numpy columnar decoder (core/batchdecode.py) is chosen
 explicitly, by `tpu.disable_native_parser: true`.
 
-What this slice uses: the intern table (`Engine`), the batch parser
-(`NativeParser`) and the pump (`Pump`). The SSF, import, route,
-digest-encode, metric-wrap, row-unregister (idle-row reclamation),
-per-socket reader and load-generator entry points of the library wait
-for their slices.
+What the port uses: the intern table (`Engine`), the batch parser
+(`NativeParser`) and the pump (`Pump`) on the ingest side; the MetricList
+import parser (`parse_metric_list`, `decode_import_key`) and the digest
+encoder and metric wrapper (`vnt_digest_encode`, `vnt_metric_wrap`,
+called by forward/convert.py) on the forward tier. The SSF, route,
+row-unregister (idle-row reclamation), per-socket reader and
+load-generator entry points of the library wait for their slices.
 """
 
 from __future__ import annotations
@@ -154,6 +156,26 @@ def _declare(lib) -> None:
     lib.vnt_pump_stop.argtypes = [ctypes.c_void_p]
     lib.vnt_pump_free.restype = None
     lib.vnt_pump_free.argtypes = [ctypes.c_void_p]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.vnt_import_count.restype = i64
+    lib.vnt_import_count.argtypes = [ctypes.c_void_p, i64]
+    lib.vnt_import_parse.restype = i64
+    lib.vnt_import_parse.argtypes = [
+        ctypes.c_void_p, i64, i64, ctypes.c_double,
+        u8p, i64,
+        i64p, i64p, f64p, i64, i64p,            # counters
+        i64p, i64p, f64p, i64, i64p,            # gauges
+        i64p, i64p, f32p, f32p, f64p, f64p, f64p, i64, i64p,  # histos
+        i64p, i64p, i64p, i64p, i64, i64p,      # sets
+    ]
+    lib.vnt_digest_encode.restype = i64
+    lib.vnt_digest_encode.argtypes = [
+        f32p, f32p, i64, i64, f64p, f64p, f64p, ctypes.c_double,
+        u8p, i64, i64p]
+    lib.vnt_metric_wrap.restype = i64
+    lib.vnt_metric_wrap.argtypes = [
+        u8p, i64p, u8p, i64p, u8p, i64p, i64, u8p, i64, i64p]
 
 
 def load():
@@ -430,3 +452,115 @@ class Pump:
     def __del__(self):
         self.close()
 
+
+class ImportBatch:
+    """Output of parse_metric_list: per-family batches decoded straight
+    from a MetricList wire body. Keys are the self-delimiting identity
+    byte strings the import server caches stubs under; `consumed` counts
+    every metric the parser walked, including ones of a family it does
+    not decode (llhists), which it skips."""
+
+    __slots__ = ("consumed", "c_keys", "c_vals", "g_keys", "g_vals",
+                 "h_keys", "h_means", "h_weights", "h_min", "h_max",
+                 "h_recip", "s_keys", "s_payloads")
+
+
+def parse_metric_list(body: bytes, grid_slots: int, compression: float):
+    """Decode a forwardrpc.MetricList request natively: counters and
+    gauges as float64 values, digests re-bucketed into (n, grid_slots)
+    float32 grids, set payloads as raw bytes. Returns an ImportBatch, or
+    None when the body is empty or does not parse (the caller parses it
+    with upb instead)."""
+    lib = load()
+    if not body:
+        return None
+    n = lib.vnt_import_count(body, len(body))
+    if n < 0:
+        return None
+    cap = max(1, int(n))
+    key_cap = len(body) + 16 * cap + 64
+    key_buf = np.empty(key_cap, np.uint8)
+    koff = [np.empty(cap, np.int64) for _ in range(4)]
+    klen = [np.empty(cap, np.int64) for _ in range(4)]
+    c_vals = np.empty(cap, np.float64)
+    g_vals = np.empty(cap, np.float64)
+    h_means = np.empty((cap, grid_slots), np.float32)
+    h_weights = np.empty((cap, grid_slots), np.float32)
+    h_min = np.empty(cap, np.float64)
+    h_max = np.empty(cap, np.float64)
+    h_recip = np.empty(cap, np.float64)
+    s_payoff = np.empty(cap, np.int64)
+    s_paylen = np.empty(cap, np.int64)
+    ns = [ctypes.c_int64() for _ in range(4)]
+    i64, f32, f64 = ctypes.c_int64, ctypes.c_float, ctypes.c_double
+    rc = lib.vnt_import_parse(
+        body, len(body), grid_slots, float(compression),
+        _ptr(key_buf, ctypes.c_uint8), key_cap,
+        _ptr(koff[0], i64), _ptr(klen[0], i64), _ptr(c_vals, f64), cap,
+        ctypes.byref(ns[0]),
+        _ptr(koff[1], i64), _ptr(klen[1], i64), _ptr(g_vals, f64), cap,
+        ctypes.byref(ns[1]),
+        _ptr(koff[2], i64), _ptr(klen[2], i64),
+        _ptr(h_means, f32), _ptr(h_weights, f32), _ptr(h_min, f64),
+        _ptr(h_max, f64), _ptr(h_recip, f64), cap, ctypes.byref(ns[2]),
+        _ptr(koff[3], i64), _ptr(klen[3], i64),
+        _ptr(s_payoff, i64), _ptr(s_paylen, i64), cap, ctypes.byref(ns[3]))
+    if rc < 0:
+        return None
+    mv = memoryview(key_buf)  # slice per key: no full-buffer copy
+
+    def keys_of(i):
+        offs = koff[i][:ns[i].value].tolist()
+        lens = klen[i][:ns[i].value].tolist()
+        return [bytes(mv[o:o + ln]) for o, ln in zip(offs, lens)]
+
+    out = ImportBatch()
+    out.consumed = int(rc)
+    out.c_keys = keys_of(0)
+    out.c_vals = c_vals[:ns[0].value]
+    out.g_keys = keys_of(1)
+    out.g_vals = g_vals[:ns[1].value]
+    nh = ns[2].value
+    out.h_keys = keys_of(2)
+    out.h_means = h_means[:nh]
+    out.h_weights = h_weights[:nh]
+    out.h_min = h_min[:nh]
+    out.h_max = h_max[:nh]
+    out.h_recip = h_recip[:nh]
+    out.s_keys = keys_of(3)
+    out.s_payloads = [body[o:o + ln] for o, ln in zip(
+        s_payoff[:ns[3].value].tolist(), s_paylen[:ns[3].value].tolist())]
+    return out
+
+
+def decode_import_key(key: bytes):
+    """Inverse of the C encoder's identity-key layout:
+    [type][scope][varint nlen][name][varint tcount]{[varint tlen][tag]}*
+    Returns (type_enum, scope_enum, name, [tags]). Decoding is STRICT
+    utf-8 (raises UnicodeDecodeError/IndexError on bad input), as upb
+    rejects invalid string fields: a lenient decode would let a poisoned
+    metric flow downstream with a mangled name."""
+    mtype, scope = key[0], key[1]
+    pos = 2
+
+    def varint(p):
+        v = 0
+        shift = 0
+        while True:
+            b = key[p]
+            p += 1
+            v |= (b & 0x7F) << shift
+            if not (b & 0x80):
+                return v, p
+            shift += 7
+
+    nlen, pos = varint(pos)
+    name = key[pos:pos + nlen].decode("utf-8")
+    pos += nlen
+    tcount, pos = varint(pos)
+    tags = []
+    for _ in range(tcount):
+        tlen, pos = varint(pos)
+        tags.append(key[pos:pos + tlen].decode("utf-8"))
+        pos += tlen
+    return mtype, scope, name, tags

@@ -40,6 +40,23 @@ def merge(regs_a: torch.Tensor, regs_b: torch.Tensor) -> torch.Tensor:
     return torch.maximum(regs_a, regs_b)
 
 
+def merge_rows(regs: torch.Tensor, rows, in_regs) -> torch.Tensor:
+    """Merge whole incoming register rows (the import path) in place: a
+    per-key register max, as one scatter-max along the key axis (the
+    set ingest's int8 scatter-max). Rows outside [0, K) are dropped:
+    they are redirected to row 0 with all-zero registers, which cannot
+    raise a register."""
+    num_keys = regs.shape[0]
+    if num_keys == 0 or rows.shape[0] == 0:
+        return regs
+    rows = rows.long()
+    valid = (rows >= 0) & (rows < num_keys)
+    idx = torch.where(valid, rows, 0)[:, None].expand(-1, regs.shape[1])
+    src = torch.where(valid[:, None], in_regs.to(torch.int8), 0)
+    regs.scatter_reduce_(0, idx, src, "amax", include_self=True)
+    return regs
+
+
 def estimate(regs: torch.Tensor) -> torch.Tensor:
     """Per-key LogLog-Beta estimate (kernel K2 on the card)."""
     return hll_estimate.estimate(regs)

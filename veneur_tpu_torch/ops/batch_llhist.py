@@ -62,6 +62,29 @@ def apply_batch(regs: torch.Tensor, rows: torch.Tensor, bins: torch.Tensor,
     return llhist_apply.apply(regs, rows, bins, weights)
 
 
+def merge_rows(regs: torch.Tensor, rows, in_regs) -> torch.Tensor:
+    """Merge whole incoming bin rows (the import path) in place: register
+    add. Duplicate rows in one batch accumulate; rows outside [0, K) are
+    dropped."""
+    rows = rows.long()
+    keep = (rows >= 0) & (rows < regs.shape[0])
+    regs.index_add_(0, rows[keep], in_regs[keep])
+    return regs
+
+
+def pad_rows_to_device(in_bins) -> np.ndarray:
+    """(n, BINS)-or-(n, BINS_PAD) host bins -> (n, BINS_PAD) int32 for
+    merge_rows. Counts clip into int32 (a single interval cannot
+    overflow it)."""
+    arr = np.asarray(in_bins)
+    arr = np.clip(arr, 0, np.iinfo(np.int32).max).astype(np.int32)
+    if arr.shape[1] == BINS_PAD:
+        return arr
+    out = np.zeros((arr.shape[0], BINS_PAD), np.int32)
+    out[:, :arr.shape[1]] = arr[:, :BINS_PAD]
+    return out
+
+
 def pack(pieces) -> np.ndarray:
     """K3's input for one launch as one private (3, m) int32 block: the
     concatenation of `pieces`, each a (rows, bins, wts) triple of host

@@ -21,7 +21,11 @@ State updates happen IN PLACE on the state dict's tensors, where the JAX
 package donated the buffers to its jitted kernels. Rows outside [0, K) are
 dropped (see ops/scalars.py for why torch needs the explicit masking).
 
-The flush's post-sort interpolation is kernel K1 (ops/tdigest_flush.py).
+The flush's post-sort interpolation is kernel K1 (ops/tdigest_flush.py),
+in the plain flush and in the forwarding flush (flush_export_packed),
+whose recompress of the same sorted arrays stays torch. The import path
+merges serialized digests with merge_centroid_rows (torch; plain XLA in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -277,6 +281,49 @@ def compact(state):
     return state
 
 
+def merge_centroid_rows(state, rows, in_means, in_weights, in_min, in_max,
+                        in_recip):
+    """Merge externally serialized digests into the table in place (the
+    import path, parity with reference worker.go:444-457 /
+    merging_digest.go:374-389).
+
+    rows: (B,) int target row per incoming digest (rows outside [0, K)
+      are dropped); in_means/in_weights: (B, C) centroid grids;
+      in_min/in_max/in_recip: (B,).
+
+    The incoming grids overlay on a per-key grid (same-row digests
+    pre-blend by slot), then one sort and recompress over [main | staging
+    | incoming] merges them with the store. Rows with neither incoming
+    nor staged weight keep their grids verbatim; every other row leaves
+    with empty staging."""
+    num_keys = state["wv"].shape[0]
+    if num_keys == 0 or rows.shape[0] == 0:
+        return state
+    rows = rows.long()
+    valid = (rows >= 0) & (rows < num_keys)
+    idx = torch.where(valid, rows, 0)
+    state["dmin"].scatter_reduce_(0, idx, torch.where(valid, in_min, _INF),
+                                  "amin", include_self=True)
+    state["dmax"].scatter_reduce_(0, idx, torch.where(valid, in_max, -_INF),
+                                  "amax", include_self=True)
+    state["drecip"].index_add_(0, idx, torch.where(valid, in_recip, 0.0))
+    w = torch.where(valid[:, None], in_weights, 0.0)
+    grid_w = torch.zeros((num_keys, C), dtype=torch.float32,
+                         device=w.device).index_add_(0, idx, w)
+    grid_wv = torch.zeros_like(grid_w).index_add_(0, idx, w * in_means)
+    grid_m = torch.where(grid_w > 0, grid_wv / grid_w.clamp(min=1e-30), 0.0)
+    cat_m, cat_w = _fold_grids(state)
+    new_m, new_w = _recompress(torch.cat([cat_m, grid_m], dim=-1),
+                               torch.cat([cat_w, grid_w], dim=-1))
+    touched = ((grid_w.sum(dim=-1) > 0)
+               | (state["sweights"].sum(dim=-1) > 0))[:, None]
+    state["wv"].copy_(torch.where(touched, new_m * new_w, state["wv"]))
+    state["weights"].copy_(torch.where(touched, new_w, state["weights"]))
+    state["sweights"].masked_fill_(touched, 0.0)
+    state["swv"].masked_fill_(touched, 0.0)
+    return state
+
+
 def _sorted_centroids(state, fold_staging: bool):
     """The flush preamble: (optionally) fold staging, then the per-row
     mean sort with weightless slots keyed to +inf."""
@@ -299,6 +346,84 @@ def flush_quantiles_packed(state, percentiles: Sequence[float],
     sm, sw = _sorted_centroids(state, fold_staging)
     return tdigest_flush.flush_packed(
         sm, sw, tdigest_flush.scalars_of(state), percentiles)
+
+
+def flush_export_packed(state, percentiles: Sequence[float]):
+    """The forwarding flush: fold staging, sort ONCE, run the quantile
+    phase from the sorted pre-merge centroids (kernel K1 on the card),
+    and recompress the same sorted arrays into the <= C export grid.
+
+    Returns (flush_packed (K, P+10), export_packed (K, 2C+3):
+    [means | weights | dmin dmax drecip]); unpack on the host with
+    unpack_flush / unpack_export."""
+    sm, sw = _sorted_centroids(state, fold_staging=True)  # (K, 2C)
+    packed = tdigest_flush.flush_packed(
+        sm, sw, tdigest_flush.scalars_of(state), percentiles)
+    new_m, new_w = _recompress_sorted(sm, sw, torch.cumsum(sw, dim=-1))
+    export = torch.cat([new_m, new_w, state["dmin"][:, None],
+                        state["dmax"][:, None], state["drecip"][:, None]],
+                       dim=-1)
+    return packed, export
+
+
+def unpack_export(export: np.ndarray):
+    """Host-side inverse of flush_export_packed's export half: views
+    (means (K, C), weights (K, C), dmin, dmax, drecip) of one host array
+    (float32, so each row is the (C,) float32 row the native digest
+    encoder takes)."""
+    return (export[:, :C], export[:, C:2 * C], export[:, 2 * C],
+            export[:, 2 * C + 1], export[:, 2 * C + 2])
+
+
+def pack_centroids_many(means_list, weights_list, cap: int = C):
+    """Host-side: re-bucket each of a chunk's incoming centroid lists (a
+    serialized digest may carry up to ceil(pi*compression/2) ~ 158
+    centroids) into <= cap k-scale slots, by the arcsine rule of each
+    centroid's mid-rank, with one lexsort and one scatter-add for the
+    whole chunk. Returns (K, cap) float32 means/weights.
+
+    The within-digest cumsum is the chunk's cumsum less an exclusive
+    prefix base, so it can round differently from a per-digest cumsum and
+    move mass one adjacent slot, which the digest grid re-buckets on
+    merge anyway (the JAX package's pack_centroids_many, bit for bit)."""
+    K = len(means_list)
+    out_m = np.zeros((K, cap), np.float32)
+    out_w = np.zeros((K, cap), np.float32)
+    if K == 0:
+        return out_m, out_w
+    lens = np.fromiter((len(x) for x in means_list), np.int64, K)
+    if int(lens.sum()) == 0:
+        return out_m, out_w
+    m = np.concatenate([np.asarray(x, np.float64) for x in means_list])
+    w = np.concatenate([np.asarray(x, np.float64) for x in weights_list])
+    seg = np.repeat(np.arange(K), lens)
+    order = np.lexsort((m, seg))  # mean order within each digest
+    m, w = m[order], w[order]
+    tot = np.bincount(seg, weights=w, minlength=K)
+    starts = np.zeros(K, np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    cw = np.cumsum(w)
+    base = np.where(starts > 0, cw[starts - 1], 0.0)
+    seg_cw = cw - np.repeat(base, lens)
+    live = np.repeat(tot > 0, lens)
+    q_mid = np.zeros_like(seg_cw)
+    denom = np.repeat(np.where(tot > 0, tot, 1.0), lens)
+    q_mid[live] = ((seg_cw - w * 0.5) / denom)[live]
+    k = COMPRESSION * (np.arcsin(np.clip(2 * q_mid - 1, -1, 1)) / math.pi
+                       + 0.5)
+    bucket = np.clip(np.floor(k).astype(np.int64), 0, cap - 1)
+    flat = seg * cap + bucket
+    acc_w = np.zeros(K * cap, np.float64)
+    acc_wv = np.zeros(K * cap, np.float64)
+    wl = np.where(live, w, 0.0)  # weightless digests drop out
+    np.add.at(acc_w, flat, wl)
+    np.add.at(acc_wv, flat, wl * m)
+    acc_w = acc_w.reshape(K, cap)
+    acc_wv = acc_wv.reshape(K, cap)
+    nz = acc_w > 0
+    out_w[nz] = acc_w[nz]
+    out_m[nz] = acc_wv[nz] / acc_w[nz]
+    return out_m, out_w
 
 
 def unpack_flush(packed: np.ndarray, num_percentiles: int):

@@ -3,7 +3,7 @@
 Counters accumulate trunc(value / rate) per sample (parity with reference
 samplers/samplers.go:109-111, which truncates each contribution to int64);
 gauges are last-write-wins within and across batches (reference
-samplers.go:160-162).
+samplers.go:160-162), and an imported gauge overwrites (merge_gauges).
 
 Both update the state dict IN PLACE, where the JAX package donated the
 state buffers to its jitted kernels.
@@ -85,3 +85,11 @@ def apply_gauges(state: dict, rows, values) -> dict:
     state["value"].copy_(torch.where(touched, picked, state["value"]))
     state["set"] |= touched
     return state
+
+
+def merge_gauges(state: dict, rows, in_values) -> dict:
+    """Import-path merge, in place: overwrite (reference
+    samplers.go:200-202). Within one import batch the last value wins,
+    the reference's nondeterministic-order caveat (README.md:229); the
+    arithmetic is apply_gauges'."""
+    return apply_gauges(state, rows, in_values)

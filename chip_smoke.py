@@ -54,11 +54,29 @@ the package is not beside it). Phases, each fatal on failure:
      line exactly, timer p50/p99 within the rank slack of both locals'
      samples, set estimates equal to the reference HLL over the union;
      the forward accounting (forwarded, imported, FlowCounts) and that
-     no row took the proto fallback encoder.
+     no row took the proto fallback encoder;
+  8. phase E, forward resilience: one local (phase D's per-local corpus,
+     `carryover_max_intervals: 3`, `forward_retry_max_attempts: 3`,
+     `circuit_breaker_failure_threshold: 3`) and one global at a fixed
+     127.0.0.1 port, all on cuda:0. E1: interval 1 as in phase D; in
+     interval 2 the global's import server is down, the send fails after
+     its retries and the carryover holds the interval's 75 000 rows; in
+     interval 3 the import server is back at the same address and one
+     send carries intervals 2 and 3 merged, and the global's flush is
+     checked against the union (counters summed, interval 3's gauges,
+     samples and set members of both). E2: a local with `forward_wal:
+     true` appends (fsync'd) an interval while the global is down and
+     is shut down; a fresh local on the same spool replays the segment
+     to the restarted global (`wal_stale_after_intervals: 0.001` on
+     both, 3.6 s), which files it in its backfill plane; two global
+     flushes emit every series of it `backfilled`, at the interval's
+     original start, checked as above; the segment, put back after its
+     replay, replays again and is dropped as a duplicate.
 
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
-also that no forward send or import merge failed). It
+also that no forward send or import merge failed, phase E that only the
+outage's sends failed). It
 prints a `details` JSON line (every measurement, and the register and
 shared-memory use ptxas reported for each kernel), a `kernels` JSON line
 (with each kernel's launches counted in the server phases alone), and
@@ -570,13 +588,17 @@ def _phase_b_corpus(seed: int):
     return [lines[i] for i in order], expect, [timers, ll]
 
 
-def _set_reference(seed: int, num_keys: int, members: int) -> np.ndarray:
+def _set_reference(seed: int, num_keys: int, members: int,
+                   more_seeds=()) -> np.ndarray:
+    """The reference HLL's estimate per key over members u<seed>-<k>-<j>,
+    j < members, of `seed` and each of `more_seeds`."""
     from veneur_tpu_torch.ops import hll_ref
     est = np.empty(num_keys)
     for k in range(num_keys):
         h = hll_ref.HLL()
-        for j in range(members):
-            h.insert(f"u{seed}-{k}-{j}".encode())
+        for s in (seed, *more_seeds):
+            for j in range(members):
+                h.insert(f"u{s}-{k}-{j}".encode())
         est[k] = hll_ref.estimate_from_registers(h.regs)
     return est
 
@@ -985,6 +1007,49 @@ def _phase_d_interval(seed: int):
     return parts, (global_expect, timers, ll_vals, parts[0][5], set_ref)
 
 
+def _pump_window(server) -> int:
+    """Lines in flight to the server's pump that its sockets' receive
+    buffers hold (PUMP_WINDOW at most)."""
+    rcvbuf = sum(sk.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+                 for sk in server._listeners[0]._socks)
+    return min(PUMP_WINDOW, rcvbuf // (2 * _QUEUED_BYTES_PER_LINE))
+
+
+def _check_local(server, part, phase: str) -> int:
+    """A local's own series of one interval: its mixed counters and
+    gauges, timer min/max/count, and none of what it forwarded."""
+    got, buckets = _collect(server.metric_sinks[0])
+    _check_exact(got, part[1])
+    leaked = [n for n in got if n.startswith(
+        ("smoke.fc", "smoke.fg", "smoke.s", "smoke.l")) or "percentile" in n]
+    if leaked or buckets:
+        raise AssertionError(f"{phase} flushed forwarded series: "
+                             f"{leaked[:3]}")
+    return len(part[1]) + _check_timers(got, part[3], percentiles=False)
+
+
+def _check_global(got: dict, buckets: dict, expect: dict,
+                  timers: np.ndarray, ll_vals: np.ndarray, ll_w: np.ndarray,
+                  set_ref: np.ndarray, members: int, phase: str,
+                  aggregates: bool = False) -> dict:
+    """A global's series of what the locals forwarded: counters and
+    gauges exactly, timer percentiles (and min/max/count where
+    `aggregates`) against the samples, set estimates against the
+    reference HLL and within 2 % + 2 of the truth (at 48 members three of
+    a set's members can share HLL registers, each shared one reading a
+    member less), every llhist series, and none of the locals' mixed
+    counters."""
+    _check_exact(got, expect)
+    checked = len(expect) + _check_timers(got, timers, aggregates=aggregates)
+    out = _check_sets(got, set_ref, members, slack=2)
+    checked += len(set_ref) + _check_llhists(got, buckets, "smoke.l",
+                                             ll_vals, ll_w)
+    if any(n.startswith("smoke.c") for n in got):
+        raise AssertionError(f"{phase}: the global flushed the locals' "
+                             f"mixed counters")
+    return {"series_checked": checked, **out}
+
+
 def _phase_d() -> dict:
     """The forward tier on the card: two local Servers on the native pump
     forward to one global Server over gRPC on 127.0.0.1, all on cuda:0.
@@ -1014,12 +1079,7 @@ def _phase_d() -> dict:
                               "llhist_capacity": 8192}, ChannelMetricSink())
             server.start()
             locals_.append(server)
-        windows = []
-        for server in locals_:
-            rcvbuf = sum(sk.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
-                         for sk in server._listeners[0]._socks)
-            windows.append(min(PUMP_WINDOW,
-                               rcvbuf // (2 * _QUEUED_BYTES_PER_LINE)))
+        windows = [_pump_window(server) for server in locals_]
         report = {"intervals": []}
         bases = [0, 0]
         seen = _read_launches()
@@ -1063,16 +1123,7 @@ def _phase_d() -> dict:
             seen = now
             checked = 0
             for i, (server, part) in enumerate(zip(locals_, parts)):
-                got, buckets = _collect(server.metric_sinks[0])
-                _check_exact(got, part[1])
-                checked += len(part[1]) + _check_timers(
-                    got, part[3], percentiles=False)
-                leaked = [n for n in got if n.startswith(
-                    ("smoke.fc", "smoke.fg", "smoke.s", "smoke.l"))
-                    or "percentile" in n]
-                if leaked or buckets:
-                    raise AssertionError(f"phase D local {i} flushed "
-                                         f"forwarded series: {leaked[:3]}")
+                checked += _check_local(server, part, f"phase D local {i}")
                 flow = server.forward_client.last_flow
                 if flow != {"received": PHASE_D_FORWARDED,
                             "merged": PHASE_D_FORWARDED,
@@ -1080,21 +1131,10 @@ def _phase_d() -> dict:
                     raise AssertionError(f"phase D local {i}: FlowCounts "
                                          f"{flow}")
             got, buckets = _collect(gserver.metric_sinks[0])
-            _check_exact(got, g_expect)
-            checked += len(g_expect) + _check_timers(got, timers,
-                                                     aggregates=False)
-            # at 48 members three of a set's members can share HLL
-            # registers, each shared one reading a member less: the
-            # reference HLL itself reads one key of seed 7's 10 000 two
-            # below the truth
-            rec.update(_check_sets(got, set_ref,
-                                   16 + keys["set_members"], slack=2))
-            checked += keys["set"] + _check_llhists(
-                got, buckets, "smoke.l", ll_vals, ll_w)
-            if any(n.startswith("smoke.c") for n in got):
-                raise AssertionError("phase D: the global flushed the "
-                                     "locals' mixed counters")
-            rec["series_checked"] = checked
+            rec.update(_check_global(got, buckets, g_expect, timers,
+                                     ll_vals, ll_w, set_ref,
+                                     16 + keys["set_members"], "phase D"))
+            rec["series_checked"] += checked
             report["intervals"].append(rec)
     finally:
         for server in locals_:
@@ -1118,6 +1158,301 @@ def _phase_d() -> dict:
     for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
         if report["launches"][kernel] <= 0:
             raise AssertionError(f"phase D: {kernel} was not launched")
+    return report
+
+
+PHASE_E_STALE = 0.001  # wal_stale_after_intervals: 3.6 s of the 1 h interval
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _restart_import(gserver, address: str) -> None:
+    """A fresh import server for `gserver` at the address the stopped one
+    held (a gRPC server does not start twice)."""
+    from veneur_tpu_torch.forward.server import ImportServer
+    gserver.import_server = ImportServer(gserver, address)
+    gserver.import_server.start()
+    if gserver.import_server.address != address:
+        raise AssertionError(f"phase E: import server rebound to "
+                             f"{gserver.import_server.address}, not {address}")
+
+
+def _await_channel(server) -> float:
+    """Wait (at most 30 s) until the local's channel to the restarted
+    global is up again; returns the seconds waited. gRPC holds a channel
+    that lost its peer in a reconnect backoff of up to 2 s, and the
+    retry policy's three attempts (at most 0.6 s of backoff) can all
+    fall inside it: the interval would then wait in the carryover for
+    the next flush, lossless but outside this check."""
+    import grpc
+    t0 = time.perf_counter()
+    grpc.channel_ready_future(server.forward_client._channel).result(
+        timeout=30)
+    return time.perf_counter() - t0
+
+
+_LOCAL_TIMING_KEYS = ("total_s", "forward_encode_s", "forward_s",
+                      "carryover_merge_s", "wal_append_s", "spool_drain_s")
+
+
+def _phase_e_local(extra: dict, listen: bool = True):
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    cfg = {"carryover_max_intervals": 3, "forward_retry_max_attempts": 3,
+           "circuit_breaker_failure_threshold": 3, **extra}
+    if not listen:
+        cfg["statsd_listen_addresses"] = []
+    return _server(cfg, {"counter_capacity": 65536, "gauge_capacity": 32768,
+                         "histo_capacity": 32768, "set_capacity": 16384,
+                         "llhist_capacity": 8192}, ChannelMetricSink())
+
+
+def _ingest_e(server, part, base: int) -> float:
+    ingest_s = _send(server, server.listen_addresses[0], part[0], base,
+                     _pump_window(server))
+    stats = server.stats_snapshot()
+    if (stats["lines_received"] != base + len(part[0]) or stats["lost_lines"]
+            or stats["ingest_dispatch_errors"]):
+        raise AssertionError(f"phase E local: {stats}")
+    return ingest_s
+
+
+def _phase_e() -> dict:
+    """Forward resilience on the card. E1: one local (phase D's per-local
+    key set, on the pump) and one global at a fixed 127.0.0.1 port, all
+    on cuda:0; the global's import server is down for interval 2 and back
+    at the same address for interval 3, whose one send carries intervals
+    2 and 3 merged by the carryover. E2: a local with `forward_wal: true`
+    appends its interval while the global is down, is shut down, and a
+    fresh local on the same spool replays it to the restarted global,
+    which files it in its backfill plane under the original interval;
+    the segment put back after its replay replays again and is
+    deduplicated."""
+    import shutil
+    import tempfile
+    from veneur_tpu_torch.forward import convert
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    keys = PHASE_A_KEYS
+    members = keys["set_members"]
+    address = f"127.0.0.1:{_free_port()}"
+    gserver = _server({"grpc_address": address, "statsd_listen_addresses": [],
+                       "wal_stale_after_intervals": PHASE_E_STALE},
+                      {"counter_capacity": 32768, "gauge_capacity": 32768,
+                       "histo_capacity": 32768, "set_capacity": 16384,
+                       "llhist_capacity": 8192}, ChannelMetricSink())
+    local = _phase_e_local({"forward_address": address})
+    spool_dir = tempfile.mkdtemp(prefix="smoke-wal-")
+    wal_cfg = {"forward_address": address, "forward_wal": True,
+               "carryover_spool_dir": spool_dir,
+               "wal_stale_after_intervals": PHASE_E_STALE}
+    fallback_before = convert.proto_fallback_rows
+    report = {"intervals": []}
+    started = [gserver]
+    _zero_launches()
+    gserver.start()
+    try:
+        local.start()
+        started.append(local)
+        seen = _read_launches()
+        parts = {seed: _phase_d_corpus(seed, 0) for seed in (11, 12, 13)}
+        base = 0
+        # -- E1: an outage the carryover absorbs ----------------------------
+        for i, seed in enumerate((11, 12, 13)):
+            part = parts[seed]
+            rec = {"interval": f"E1.{i + 1}", "lines": len(part[0])}
+            if i == 1:
+                gserver.import_server.stop()
+            if i == 2:
+                _restart_import(gserver, address)
+            rec["ingest_s"] = _ingest_e(local, part, base)
+            base += len(part[0])
+            if i == 2:
+                rec["channel_wait_s"] = _await_channel(local)
+            imp = gserver.import_server
+            merge_before = dict(imp.merge_s)
+            retries_before = local.stats_snapshot()["forward_retries"]
+            local.flush()
+            rec["local_flush"] = {k: local.last_flush_timings.get(k, 0.0)
+                                  for k in _LOCAL_TIMING_KEYS}
+            stats = local.stats_snapshot()
+            rec["retries"] = stats["forward_retries"] - retries_before
+            rec["checked_local"] = _check_local(local, part, "phase E1")
+            if i == 1:
+                if (stats["forward_errors"] != 1 or rec["retries"] < 1
+                        or stats["carryover_depth"] != 1
+                        or stats["carryover_pending"] != PHASE_D_FORWARDED
+                        or stats["carryover_shed"]):
+                    raise AssertionError(f"phase E1 outage: {stats}")
+                rec["stats"] = stats
+                report["intervals"].append(rec)
+                continue
+            flow = local.forward_client.last_flow
+            if (flow != {"received": PHASE_D_FORWARDED,
+                         "merged": PHASE_D_FORWARDED, "duplicate": False}
+                    or imp.imported_total != PHASE_D_FORWARDED or imp.errors
+                    or stats["forward_errors"] != (1 if i else 0)):
+                raise AssertionError(f"phase E1 interval {i + 1}: flow "
+                                     f"{flow}, imported {imp.imported_total}"
+                                     f", {stats}")
+            if i == 2 and (stats["carryover_merged"] != PHASE_D_FORWARDED
+                           or stats["carryover_shed"]
+                           or stats["carryover_depth"]):
+                raise AssertionError(f"phase E1 recovery: {stats}")
+            rec["merge_s"] = {k: imp.merge_s[k] - merge_before[k]
+                              for k in imp.merge_s}
+            rec["v1_body_bytes"] = imp.v1_bytes
+            gserver.flush()
+            rec["global_flush"] = dict(gserver.last_flush_timings)
+            got, buckets = _collect(gserver.metric_sinks[0])
+            if i == 0:
+                rec.update(_check_global(
+                    got, buckets, part[2], part[3], part[4], part[5],
+                    _set_reference(seed, keys["set"], members), members,
+                    "phase E1"))
+            else:
+                # the union of intervals 2 and 3: counters summed, gauges
+                # interval 3's, samples and set members of both
+                old = parts[12]
+                expect = dict(part[2])
+                for name, value in old[2].items():
+                    if name.startswith("smoke.fc"):
+                        expect[name] += value
+                rec.update(_check_global(
+                    got, buckets, expect,
+                    np.sort(np.concatenate([old[3], part[3]], axis=1),
+                            axis=1),
+                    np.concatenate([old[4], part[4]], axis=1), part[5],
+                    _set_reference(12, keys["set"], members, (13,)),
+                    2 * members, "phase E1"))
+            rec["stats"] = stats
+            report["intervals"].append(rec)
+        report["e1_launches"] = {k: v - seen[k]
+                                 for k, v in _read_launches().items()}
+        # -- E2: a crash that the WAL replays --------------------------------
+        seen = _read_launches()
+        part = _phase_d_corpus(14, 0)
+        rec = {"interval": "E2", "lines": len(part[0])}
+        gserver.import_server.stop()
+        wal_local = _phase_e_local(wal_cfg)
+        wal_local.start()
+        started.append(wal_local)
+        rec["ingest_s"] = _ingest_e(wal_local, part, 0)
+        wal_local.flush()
+        rec["local_flush"] = {k: wal_local.last_flush_timings.get(k, 0.0)
+                              for k in _LOCAL_TIMING_KEYS}
+        rec["checked_local"] = _check_local(wal_local, part, "phase E2")
+        stats = wal_local.stats_snapshot()
+        spool = wal_local.forward_client.spool
+        seg = spool.oldest()
+        if (stats["wal_appended"] != PHASE_D_FORWARDED
+                or stats["spool_depth"] != 1 or stats["wal_acked"]
+                or stats["forward_errors"] != 1 or seg is None):
+            raise AssertionError(f"phase E2 append: {stats}")
+        rec["segment_bytes"] = seg.nbytes
+        stamp = seg.interval_unix
+        wal_local.shutdown()  # the crash: the send never landed
+        started.remove(wal_local)
+        fresh = _phase_e_local(wal_cfg, listen=False)
+        fresh.start()
+        started.append(fresh)
+        spool = fresh.forward_client.spool
+        if spool.replayed_total != 1 or spool.oldest().path != seg.path:
+            raise AssertionError(f"phase E2: the fresh local's spool "
+                                 f"replayed {spool.replayed_total}")
+        saved = seg.path + ".saved"
+        shutil.copyfile(seg.path, saved)
+        _restart_import(gserver, address)
+        rec["channel_wait_s"] = _await_channel(fresh)
+        wait = stamp + PHASE_E_STALE * 3600.0 + 0.5 - time.time()
+        if wait > 0:
+            time.sleep(wait)
+        rec["replay_age_s"] = time.time() - stamp
+        imp = gserver.import_server
+        fresh.flush()  # no traffic: the pending spool alone dispatches
+        rec["replay_flush"] = {k: fresh.last_flush_timings.get(k, 0.0)
+                               for k in _LOCAL_TIMING_KEYS}
+        stats = fresh.stats_snapshot()
+        flow = fresh.forward_client.last_flow
+        if (stats["wal_acked"] != PHASE_D_FORWARDED or stats["spool_depth"]
+                or flow != {"received": PHASE_D_FORWARDED,
+                            "merged": PHASE_D_FORWARDED,
+                            "duplicate": False}
+                or gserver.backfill.open_intervals != 1
+                or imp.imported_total != PHASE_D_FORWARDED):
+            raise AssertionError(f"phase E2 replay: {stats}, flow {flow}, "
+                                 f"backfill open "
+                                 f"{gserver.backfill.open_intervals}")
+        rec["backfill_merge_s"] = imp.merge_s["backfill"]
+        filed, live = [], []
+        for _ in range(2):  # the generation roll, then the idle close
+            gserver.flush()
+            for m in gserver.metric_sinks[0].wait_flush(timeout=600):
+                (filed if m.backfilled else live).append(m)
+            rec.setdefault("global_flush", []).append(
+                dict(gserver.last_flush_timings))
+        rec["backfilled_series"] = len(filed)
+        if any(m.name.startswith("smoke.") for m in live):
+            raise AssertionError("phase E2: replayed series in the live "
+                                 "flush")
+        bad_ts = [m for m in filed if m.timestamp != int(stamp)]
+        if not filed or bad_ts:
+            raise AssertionError(f"phase E2: {len(bad_ts)} of {len(filed)} "
+                                 f"backfilled series off the original "
+                                 f"interval {int(stamp)}")
+        got, buckets = {}, {}
+        for m in filed:
+            if m.name.endswith(".bucket"):
+                le = next(t for t in m.tags if t.startswith("le:"))
+                buckets.setdefault(m.name, {})[le] = m.value
+            else:
+                got[m.name] = m.value
+        rec.update(_check_global(
+            got, buckets, part[2], part[3], part[4], part[5],
+            _set_reference(14, keys["set"], members), members, "phase E2",
+            aggregates=True))
+        # exactly once: the segment put back after its replay (an ack the
+        # crash lost) replays again and is dropped by the token dedupe
+        fresh.shutdown()
+        started.remove(fresh)
+        os.replace(saved, seg.path)
+        merged_before = gserver.backfill.merged_total
+        again = _phase_e_local(wal_cfg, listen=False)
+        again.start()
+        started.append(again)
+        _await_channel(again)
+        again.flush()
+        flow = again.forward_client.last_flow
+        gserver.flush()
+        after = [m for m in gserver.metric_sinks[0].wait_flush(timeout=600)
+                 if m.name.startswith("smoke.")]
+        if (flow is None or not flow["duplicate"]
+                or again.stats_snapshot()["spool_depth"]
+                or imp.duplicates_dropped_total != 1
+                or gserver.backfill.merged_total != merged_before
+                or gserver.backfill.open_intervals or after):
+            raise AssertionError(f"phase E2 second replay: flow {flow}, "
+                                 f"duplicates {imp.duplicates_dropped_total}"
+                                 f", {len(after)} series moved")
+        rec["second_replay_flow"] = flow
+        rec["launches"] = {k: v - seen[k] for k, v in _read_launches().items()}
+        report["intervals"].append(rec)
+    finally:
+        for server in reversed(started):
+            server.shutdown()
+        shutil.rmtree(spool_dir, ignore_errors=True)
+    report["launches"] = _read_launches()
+    report["global"] = gserver.stats_snapshot()
+    report["proto_fallback_rows"] = \
+        convert.proto_fallback_rows - fallback_before
+    if report["proto_fallback_rows"]:
+        raise AssertionError(f"phase E: {report['proto_fallback_rows']} rows "
+                             f"took the proto fallback encoder")
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase E: {kernel} was not launched")
     return report
 
 
@@ -1223,6 +1558,39 @@ def main() -> int:
             f"{rec['series_checked']} series checked; launches "
             f"{rec['launches']}", flush=True)
     print(f"phase D launches: {rep['launches']}", flush=True)
+    phases["E"] = rep = _phase_e()
+    torch.cuda.empty_cache()
+    for rec in rep["intervals"]:
+        flush = rec["local_flush"]
+        line = (f"phase E {rec['interval']}: {rec['lines']} lines in "
+                f"{rec['ingest_s']:.2f} s; local flush " + ", ".join(
+                    f"{k} {flush[k]:.4f}" for k in _LOCAL_TIMING_KEYS))
+        if "retries" in rec:
+            line += f"; retries {rec['retries']}"
+        if "segment_bytes" in rec:
+            replay = rec["replay_flush"]
+            line += (f"; segment {rec['segment_bytes']} bytes; replay "
+                     f"{rec['replay_age_s']:.1f} s after the interval "
+                     f"began, flush " + ", ".join(
+                         f"{k} {replay[k]:.4f}" for k in _LOCAL_TIMING_KEYS)
+                     + f"; global backfill merge {rec['backfill_merge_s']:.3f}"
+                     f" s, drain s " + ", ".join(
+                         f"{g.get('backfill_drain_s', 0.0):.3f}"
+                         for g in rec["global_flush"])
+                     + f", {rec['backfilled_series']} backfilled series")
+        elif "merge_s" in rec:
+            g = rec["global_flush"]
+            line += ("; global import s " + ", ".join(
+                f"{k} {v:.3f}" for k, v in rec["merge_s"].items())
+                + f"; global flush {g['total_s']:.3f} s (backfill drain "
+                f"{g['backfill_drain_s']:.4f})")
+        if "series_checked" in rec:
+            line += f"; {rec['series_checked']} series checked"
+        if "launches" in rec:
+            line += f"; launches {rec['launches']}"
+        print(line, flush=True)
+    print(f"phase E launches: {rep['launches']} (E1 {rep['e1_launches']})",
+          flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())

@@ -190,7 +190,7 @@ def test_device_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("forward_wal", True),
+    ("forward_tls_certificate", "cert.pem"),
     ("ssf_listen_addresses", ["udp://127.0.0.1:0"]),
     ("grpc_tls_certificate", "cert.pem"),
     ("tpu", {"shards": 4}),

@@ -2,10 +2,11 @@
 config that this port implements, with the same names and defaults.
 
 A key the port does not implement (for example `forward_only`,
-`forward_wal`, `ssf_listen_addresses`, `grpc_tls_certificate`, or
-`tpu.shards`) raises with the key's name: a configuration is never
-half-applied in silence. Durations
-accept Go-style strings ("10s", "500ms") or numbers of seconds.
+`forward_tls_certificate`, `ssf_listen_addresses`, `grpc_tls_certificate`,
+`reshard_spool_dir`, `chaos_forward_fail_rate` or `tpu.shards`) raises
+with the key's name: a configuration is never half-applied in silence.
+Durations accept Go-style strings ("10s", "500ms") or numbers of
+seconds.
 """
 
 from __future__ import annotations
@@ -69,9 +70,38 @@ class TpuConfig:
 class Config:
     aggregates: List[str] = field(
         default_factory=lambda: ["min", "max", "count"])
+    # the global's backfill plane: at most this many historical intervals
+    # open (0 disables it: stale imports merge into the live interval)
+    backfill_max_open_intervals: int = 8
+    # durable carryover spill (util/spool.py): carryover past its bound
+    # is serialized into this directory instead of shed, drained oldest-
+    # first when the global recovers, and replayed on restart; empty =
+    # shed at the bound. Its bounds, and those of the quarantine/
+    # subdirectory that takes undeliverable segments:
+    carryover_spool_dir: str = ""
+    carryover_spool_max_bytes: int = 256 * 1024 * 1024
+    carryover_spool_max_segments: int = 1024
+    carryover_spool_quarantine_max_bytes: int = 64 * 1024 * 1024
+    carryover_spool_quarantine_max_segments: int = 256
+    # failed forward intervals merge into the next snapshot for at most
+    # this many consecutive intervals (0 disables the carryover)
+    carryover_max_intervals: int = 3
+    # the forward's circuit breaker: consecutive failures to open, and
+    # how long it stays open before its one half-open probe (duration)
+    circuit_breaker_failure_threshold: int = 3
+    circuit_breaker_recovery: float = 30.0
     # host:port of the global server's import endpoint; set, this server
     # is local and forwards its mergeable state there every interval
     forward_address: str = ""
+    # forward retry: jittered exponential backoff inside the interval's
+    # budget (base and max are durations)
+    forward_retry_max_attempts: int = 3
+    forward_retry_base: float = 0.2
+    forward_retry_max: float = 2.0
+    # with carryover_spool_dir set, append every forwardable interval to
+    # the spool (fsync'd, stamped with its interval start) before it is
+    # sent; the spool's drain is the only send path
+    forward_wal: bool = False
     # host:port the import server (gRPC /forwardrpc.Forward) listens on
     grpc_address: str = ""
     # the family DogStatsD histogram/timer samples aggregate in:
@@ -98,6 +128,14 @@ class Config:
     read_buffer_size_bytes: int = 2 * 1024 * 1024
     statsd_listen_addresses: List[str] = field(default_factory=list)
     tpu: TpuConfig = field(default_factory=TpuConfig)
+    # WAL segments (and, at the global, stamped imports) older than this
+    # many intervals are backfill: drained behind fresh segments under the
+    # replay limiter, bucketed by their original interval at the global
+    wal_stale_after_intervals: float = 2.0
+    # the replay limiter, metrics per second (0 = full speed), and its
+    # burst in seconds of that rate
+    wal_replay_rate_limit: float = 0.0
+    wal_replay_burst: float = 2.0
 
     @property
     def is_local(self) -> bool:
@@ -114,6 +152,10 @@ class Config:
         if self.metric_max_length <= 0:
             self.metric_max_length = 4096
         return self
+
+
+_DURATION_FIELDS = {"interval", "forward_retry_base", "forward_retry_max",
+                    "circuit_breaker_recovery"}
 
 
 def _known(cls) -> set:
@@ -134,7 +176,7 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
     _check_keys(raw, Config, "")
     cfg = Config()
     for key, value in raw.items():
-        if key == "interval":
+        if key in _DURATION_FIELDS:
             value = parse_duration(value)
         elif key == "tpu":
             value = dict(value or {})

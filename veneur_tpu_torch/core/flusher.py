@@ -52,12 +52,16 @@ class ForwardableState:
     sets: List[Tuple[RowMeta, np.ndarray]] = field(default_factory=list)
     # (meta, llhist bins int64): exact-merge family, registers ADD
     llhists: List[Tuple[RowMeta, np.ndarray]] = field(default_factory=list)
-    # pre-serialized metricpb frames (forward/convert.forwardable_to_wire)
+    # pre-serialized metricpb frames (forward/convert.forwardable_to_wire);
+    # a carryover merge invalidates them (util/resilience.py)
     wire: Optional[List[bytes]] = None
 
     def __len__(self):
         return (len(self.counters) + len(self.gauges) + len(self.histograms)
                 + len(self.sets) + len(self.llhists))
+
+    def invalidate_wire(self) -> None:
+        self.wire = None
 
 
 def _percentile_name(name: str, p: float) -> str:

@@ -16,8 +16,14 @@ register max, llhist register add (reference worker.go:410-467).
 
 Both answer with FlowCounts and drop a repeated idempotency token. A merge
 that raises answers INTERNAL and is counted in `errors`; it is never
-acknowledged. Backfill of stale intervals, trace spans, the peer-shard
-gauge, TLS, RPC stats and ignored tags are a later slice.
+acknowledged.
+
+An import stamped (`x-veneur-interval`) with an interval older than the
+owning server's `backfill_after_s` (a WAL or spool replay of a
+historical interval) merges into the server's backfill plane
+(forward/backfill.py), bucketed by its original interval, instead of the
+live tables. Trace spans, the peer-shard gauge, TLS, RPC stats and
+ignored tags are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from veneur_tpu_torch.forward.convert import (_SCOPE_FROM_PB,
                                               import_scope,
                                               metric_key_of_proto)
 from veneur_tpu_torch.forward.protos import forward_pb2, metric_pb2
-from veneur_tpu_torch.forward.wire import TokenDeduper, encode_flow_counts
+from veneur_tpu_torch.forward.wire import (TokenDeduper, encode_flow_counts,
+                                           extract_interval)
 from veneur_tpu_torch.ops import batch_tdigest, hll_ref
 from veneur_tpu_torch.samplers.metrics import (MetricKey, MetricScope,
                                                UDPMetric, update_tags)
@@ -55,11 +62,13 @@ def _raw(b):
 
 
 class ImportServer:
-    """Owned by a global `Server` (`server.store` is where merges land).
-    `imported_total` counts metrics received and `v1_bytes` the bytes of
-    the V1 bodies; `merge_s` holds the cumulative wall seconds of each
-    family's merges (each synchronised with the device before it is
-    counted), of the V1 native parse and of the V1 keys' stub lookups."""
+    """Owned by a global `Server` (`server.store` is where merges land;
+    `server.backfill` and `server.backfill_after_s`, when present, route
+    stale stamped imports). `imported_total` counts metrics received and
+    `v1_bytes` the bytes of the V1 bodies; `merge_s` holds the cumulative
+    wall seconds of each family's merges (each synchronised with the
+    device before it is counted), of the V1 native parse, of the V1
+    keys' stub lookups and of the backfill merges."""
 
     STUB_CACHE_MAX = 1_000_000
 
@@ -92,6 +101,7 @@ class ImportServer:
         self.merge_s: Dict[str, float] = {f: 0.0 for f in FAMILIES}
         self.merge_s["parse"] = 0.0
         self.merge_s["stubs"] = 0.0
+        self.merge_s["backfill"] = 0.0
         # identity key -> UDPMetric stub: forward streams repeat the same
         # keys every interval, so update_tags/fnv run once per key
         self._stub_cache: dict = {}
@@ -147,12 +157,27 @@ class ImportServer:
         is far cheaper than tens of thousands of stream messages. The
         reference importer retired this endpoint
         (sources/proxy/server.go:138-142); its proxy still accepts it."""
-        resp = self._import(ctx, lambda: self._merge_v1(body))
+        stale_iv = self._stale_interval(ctx)
+        if stale_iv:
+            def merge():
+                with self._lock:
+                    self.v1_bytes += len(body)
+                return self._merge_backfill(
+                    forward_pb2.MetricList.FromString(body).metrics,
+                    stale_iv)
+        else:
+            def merge():
+                return self._merge_v1(body)
+        resp = self._import(ctx, merge)
         return (encode_flow_counts(0, 0, duplicate=True) if resp is None
                 else resp)
 
     def _send_metrics_v2(self, request_iterator, ctx):
+        stale_iv = self._stale_interval(ctx)
+
         def merge():
+            if stale_iv:
+                return self._merge_backfill(request_iterator, stale_iv)
             buf = _MergeBuffer(self)
             count = 0
             for pbm in request_iterator:
@@ -167,6 +192,40 @@ class ImportServer:
                 pass
             return encode_flow_counts(0, 0, duplicate=True)
         return resp
+
+    # -- timestamp-faithful backfill --------------------------------------
+
+    def _stale_interval(self, ctx) -> float:
+        """The RPC's interval stamp when it names an interval old enough
+        to backfill (and the owning server runs a backfill plane); 0.0
+        routes the import to the live tables. Live forwards carry no
+        stamp, so only WAL and spool replays of historical intervals
+        divert."""
+        if getattr(self._server, "backfill", None) is None:
+            return 0.0
+        stale_after = getattr(self._server, "backfill_after_s", 0.0)
+        if stale_after <= 0:
+            return 0.0
+        iv = extract_interval(ctx)
+        if iv > 0 and time.time() - iv >= stale_after:
+            return iv
+        return 0.0
+
+    def _merge_backfill(self, metrics, iv: float) -> tuple:
+        """Merge upb Metrics into the backfill plane's interval buckets
+        instead of the live tables: the per-metric field-11 stamp picks
+        the bucket, the RPC stamp is the fallback. Returns (received,
+        merged) for the FlowCounts response."""
+        t0 = time.perf_counter()
+        plane = self._server.backfill
+        received = merged = 0
+        for pbm in metrics:
+            received += 1
+            if plane.merge_proto(pbm, iv):
+                merged += 1
+        with self._lock:
+            self.merge_s["backfill"] += time.perf_counter() - t0
+        return received, merged
 
     # -- merges ------------------------------------------------------------
 

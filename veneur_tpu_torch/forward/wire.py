@@ -1,7 +1,9 @@
 """Forward-plane wire helpers of the forward client and the import server
-(the part of veneur_tpu/forward/wire.py this slice uses): metricpb frame
-assembly, the FlowCounts response codec, the idempotency token and the
-V1-then-V2 transport policy. Free of torch: nothing here aggregates.
+(the part of veneur_tpu/forward/wire.py the port uses): metricpb frame
+assembly, the FlowCounts response codec, the idempotency token, the
+interval stamp of replayed segments and the V1-then-V2 transport policy.
+Free of torch: nothing here aggregates. The shard and trace metadata
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -119,6 +121,76 @@ IDEMPOTENCY_KEY = "x-veneur-idempotency-token"
 def token_metadata(token: str):
     """Metadata tuple for one send attempt; None disables the header."""
     return ((IDEMPOTENCY_KEY, token),) if token else None
+
+
+# gRPC metadata key carrying the interval-start unix timestamp (seconds,
+# "%.3f") of a replayed segment, so a receiving tier can bucket stale
+# backfill under the interval it belongs to instead of folding it into
+# the current flush. Absent from un-upgraded peers; extraction degrades
+# to 0.0 and the receiver merges into the live interval.
+INTERVAL_KEY = "x-veneur-interval"
+
+# metricpb.Metric's interval field (field 11, int64 unix seconds): the
+# per-metric copy of the same stamp, set on WAL segment bytes so a
+# segment is self-describing even off its spool. proto3 unknown-field
+# rules make it invisible to reference Go peers and the native V1
+# parser alike.
+INTERVAL_FIELD_NUMBER = 11
+
+
+def interval_metadata(interval_unix: float):
+    """Metadata tuple stamping one send's interval; None when
+    unstamped."""
+    if not interval_unix:
+        return None
+    return ((INTERVAL_KEY, format(float(interval_unix), ".3f")),)
+
+
+def extract_interval(ctx) -> float:
+    """Interval-start unix seconds from a gRPC ServicerContext's
+    invocation metadata; 0.0 when absent or undecodable."""
+    value = metadata_value(ctx, INTERVAL_KEY)
+    if not value:
+        return 0.0
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+def stamp_interval_wire(metric_bytes: bytes, interval_unix: float) -> bytes:
+    """Append metricpb.Metric's interval field (field 11, varint) to
+    one already-serialized Metric — field concatenation is valid proto3
+    wire format (last value wins), so the native digest encoder's
+    output never needs to know about the stamp."""
+    value = int(interval_unix)
+    if value <= 0:
+        return metric_bytes
+    out = bytearray(metric_bytes)
+    out.append(INTERVAL_FIELD_NUMBER << 3)  # wire type 0 (varint)
+    _append_varint(out, value)
+    return bytes(out)
+
+
+def metadata_value(ctx, key: str):
+    """One metadata entry's value (None when absent)."""
+    try:
+        for k, value in (ctx.invocation_metadata() or ()):
+            if k == key:
+                return value
+    except Exception:
+        pass
+    return None
+
+
+def combine_metadata(*parts):
+    """Concatenate metadata tuples, skipping Nones; None when empty (the
+    gRPC call layer treats None as 'no metadata')."""
+    out = []
+    for part in parts:
+        if part:
+            out.extend(part)
+    return tuple(out) if out else None
 
 
 class TokenDeduper:

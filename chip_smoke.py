@@ -1389,7 +1389,9 @@ def _phase_e() -> dict:
         filed, live = [], []
         for _ in range(2):  # the generation roll, then the idle close
             gserver.flush()
-            for m in gserver.metric_sinks[0].wait_flush(timeout=600):
+            # flush() joined the sink threads; a flush with nothing to
+            # deliver dispatches no sink, so read what arrived
+            for m in gserver.metric_sinks[0].drain():
                 (filed if m.backfilled else live).append(m)
             rec.setdefault("global_flush", []).append(
                 dict(gserver.last_flush_timings))
@@ -1426,7 +1428,7 @@ def _phase_e() -> dict:
         again.flush()
         flow = again.forward_client.last_flow
         gserver.flush()
-        after = [m for m in gserver.metric_sinks[0].wait_flush(timeout=600)
+        after = [m for m in gserver.metric_sinks[0].drain()
                  if m.name.startswith("smoke.")]
         if (flow is None or not flow["duplicate"]
                 or again.stats_snapshot()["spool_depth"]
@@ -1453,6 +1455,370 @@ def _phase_e() -> dict:
     for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
         if report["launches"][kernel] <= 0:
             raise AssertionError(f"phase E: {kernel} was not launched")
+    return report
+
+
+# -- phase F: the sink plane at full width ----------------------------------
+
+PHASE_F_LL_KEYS = 5_000
+
+
+class _Fake:
+    """A capturing HTTP endpoint on 127.0.0.1: keeps each request's raw
+    body (decoded by the checks, after the flush, so that the sink's
+    send time is the transport's) and answers 200."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        outer = self
+        self.bodies = []
+        self._lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                pass
+
+            def do_POST(self):  # noqa: N802
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                with outer._lock:
+                    outer.bodies.append(
+                        (self.path, self.headers.get("Content-Encoding"),
+                         body))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        name="fake-http", daemon=True)
+        self._thread.start()
+
+    @property
+    def url(self) -> str:
+        host, port = self.httpd.server_address
+        return f"http://{host}:{port}"
+
+    def take(self) -> list:
+        with self._lock:
+            out, self.bodies = self.bodies, []
+        return out
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+def _dd_row(s: dict) -> tuple:
+    return (s["metric"], s["type"], s["host"], s.get("device"),
+            tuple(s["tags"]), s["interval"], s["points"][0][0],
+            s["points"][0][1])
+
+
+def _check_datadog(sink, bodies, metrics) -> dict:
+    """The fake's series (each body gunzipped and parsed) against the
+    sink's own per-InterMetric rendering `_dd_metric` of the channel
+    sink's list, compared as parsed JSON with key order normalised."""
+    import gzip
+
+    from veneur_tpu_torch.samplers.metrics import MetricType
+    got, raw, plain = [], 0, 0
+    for path, encoding, body in bodies:
+        if not path.startswith("/api/v1/series") or encoding != "gzip":
+            raise AssertionError(f"phase F datadog: unexpected request "
+                                 f"{path} ({encoding})")
+        raw += len(body)
+        body = gzip.decompress(body)
+        plain += len(body)
+        got.extend(_dd_row(s) for s in json.loads(body)["series"])
+    want = [_dd_row(sink._dd_metric(m)) for m in metrics
+            if m.type != MetricType.STATUS]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"phase F datadog: {len(got)} series posted, "
+                             f"{len(want)} expected, or values differ")
+    return {"bodies": len(bodies), "body_bytes": raw,
+            "json_bytes": plain, "series": len(got)}
+
+
+def _check_cortex(sink, bodies, metrics) -> dict:
+    """The fake's remote-write (snappy-decoded, decode_write_request)
+    against the sink's own `_series` of every InterMetric, series by
+    series in order, values exact; and the literal-only snappy encode of
+    the whole uncompressed write timed on its own."""
+    from veneur_tpu_torch.samplers.metrics import MetricType
+    from veneur_tpu_torch.sinks.cortex import decode_write_request
+    from veneur_tpu_torch.util.http import snappy_decode, snappy_encode
+    raw = [body for _path, _enc, body in bodies]
+    plain = b"".join(snappy_decode(body) for body in raw)
+    t0 = time.perf_counter()
+    got = decode_write_request(plain)
+    decode_s = time.perf_counter() - t0
+    want = [sink._series(m) for m in metrics
+            if m.type != MetricType.STATUS]
+    if len(got) != len(want) or any(
+            sorted(labels.items()) != list(w[0]) or value != w[1]
+            or ts != w[2] for (labels, value, ts), w in zip(got, want)):
+        raise AssertionError(f"phase F cortex: {len(got)} series posted, "
+                             f"{len(want)} expected, or a series differs")
+    t0 = time.perf_counter()
+    snappy_encode(plain)
+    snappy_s = time.perf_counter() - t0
+    return {"bodies": len(raw), "body_bytes": sum(map(len, raw)),
+            "write_bytes": len(plain), "series": len(got),
+            "snappy_encode_s": snappy_s, "decode_s": decode_s}
+
+
+def _check_prometheus(sink, metrics) -> dict:
+    """The exposition scraped over HTTP against `render_exposition` of
+    the channel sink's list, byte for byte."""
+    from veneur_tpu_torch.sinks.prometheus import render_exposition
+    from veneur_tpu_torch.util.http import get
+    t0 = time.perf_counter()
+    status, body = get(f"http://127.0.0.1:{sink.expose_port}/metrics",
+                       timeout=120)
+    scrape_s = time.perf_counter() - t0
+    want = render_exposition(metrics).encode()
+    if status != 200 or body != want:
+        raise AssertionError(f"phase F prometheus: scrape {status}, "
+                             f"{len(body)} bytes against {len(want)}")
+    return {"body_bytes": len(body), "series": body.count(b"\n"),
+            "scrape_s": scrape_s}
+
+
+_F_SINKS = ("channel", "datadog", "cortex", "prometheus")
+
+
+def _phase_f() -> dict:
+    """The sink plane at full width: one server on cuda:0 with the
+    channel sink (the reference) and the datadog, cortex and prometheus
+    sinks, each datadog and cortex pointed at a capturing fake, phase
+    A's corpus plus 5 000 `|l` keys x 32, two intervals (the encoders'
+    fragment caches cold, then warm)."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    dd_fake, cx_fake = _Fake(), _Fake()
+    corpora = [_corpus(seed, PHASE_A_KEYS, PHASE_F_LL_KEYS) + (
+        _set_reference(seed, PHASE_A_KEYS["set"],
+                       PHASE_A_KEYS["set_members"]),) for seed in (21, 22)]
+    server = _server({"metric_sinks": [
+        {"kind": "datadog", "name": "datadog",
+         "config": {"datadog_api_key": "smoke",
+                    "datadog_api_hostname": dd_fake.url}},
+        {"kind": "cortex", "name": "cortex",
+         "config": {"url": cx_fake.url + "/api/v1/push"}},
+        {"kind": "prometheus", "name": "prometheus",
+         "config": {"expose_address": "127.0.0.1:0"}}]},
+        {"counter_capacity": 65536, "gauge_capacity": 32768,
+         "histo_capacity": 32768, "set_capacity": 16384,
+         "llhist_capacity": 8192}, ChannelMetricSink())
+    channel, dd, cx, prom = server.metric_sinks
+    check = _check_a_or_c(PHASE_A_KEYS)
+    _zero_launches()
+    server.start()
+    try:
+        window = _pump_window(server)
+        report = {"intervals": [], "window_lines": window}
+        base = 0
+        seen = _read_launches()
+        for corpus in corpora:
+            lines = corpus[0]
+            ingest_s = _send(server, server.listen_addresses[0], lines,
+                             base, window)
+            base += len(lines)
+            stats = server.stats_snapshot()
+            if (stats["lines_received"] != base or stats["lost_lines"]
+                    or stats["ingest_dispatch_errors"]):
+                raise AssertionError(f"phase F: sent {base} lines: {stats}")
+            server.flush()
+            now = _read_launches()
+            timings = dict(server.last_flush_timings)
+            metrics = channel.drain()
+            rec = {"lines": len(lines), "ingest_s": ingest_s,
+                   "lines_per_s": len(lines) / ingest_s, "flush": timings,
+                   "launches": {k: now[k] - seen[k] for k in now},
+                   "channel_series": len(metrics)}
+            seen = now
+            bad = {name: timings[f"sink:{name}"] for name in _F_SINKS
+                   if timings[f"sink:{name}"].get("status") != "ok"}
+            errors = {k: v for k, v in server.stats_snapshot().items()
+                      if k.startswith(("flush.", "resilience.")) and v}
+            if bad or errors:
+                raise AssertionError(f"phase F: sink records {bad}, "
+                                     f"counts {errors}")
+            for sink in (dd, cx, prom):
+                if sink.last_egress is None \
+                        or sink.last_egress[2] != "columnar":
+                    raise AssertionError(f"phase F: {sink.name()} took "
+                                         f"{sink.last_egress}")
+            got, buckets = {}, {}
+            for m in metrics:
+                if m.name.endswith(".bucket"):
+                    le = next(t for t in m.tags if t.startswith("le:"))
+                    buckets.setdefault(m.name, {})[le] = m.value
+                else:
+                    got[m.name] = m.value
+            t0 = time.perf_counter()
+            rec.update(check(corpus, got, buckets))
+            rec["sinks"] = {
+                "datadog": _check_datadog(dd, dd_fake.take(), metrics),
+                "cortex": _check_cortex(cx, cx_fake.take(), metrics),
+                "prometheus": _check_prometheus(prom, metrics)}
+            rec["check_s"] = time.perf_counter() - t0
+            report["intervals"].append(rec)
+    finally:
+        server.shutdown()
+        dd_fake.close()
+        cx_fake.close()
+    report["launches"] = _read_launches()
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase F: {kernel} was not launched")
+    return report
+
+
+# -- phase F2: the thread plane ----------------------------------------------
+
+F2_INTERVAL_S = 5.0
+# series per F2 interval: 600 counters, 400 timers with min, max, count
+# and the percentiles
+F2_SERIES = 600 + 400 * (3 + len(PS))
+
+
+def _f2_sinks():
+    """A sink that blocks from its second flush on, and one that raises
+    on its first."""
+    import threading
+
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    class Blocking(ChannelMetricSink):
+        def __init__(self):
+            super().__init__("blocking")
+            self.calls = 0
+            self.release = threading.Event()
+
+        def flush_batch(self, batch):
+            self.calls += 1
+            if self.calls >= 2:
+                self.release.wait(timeout=120.0)
+            super().flush_batch(batch)
+
+    class FailsOnce(ChannelMetricSink):
+        def __init__(self):
+            super().__init__("fails_once")
+            self.calls = 0
+
+        def flush_batch(self, batch):
+            self.calls += 1
+            if self.calls == 1:
+                raise RuntimeError("the sink is down")
+            super().flush_batch(batch)
+
+    return Blocking(), FailsOnce()
+
+
+def _f2_lines(interval: int) -> list:
+    rng = np.random.default_rng(40 + interval)
+    lines = [f"f2.i{interval}.c{k}:{rng.integers(1, 99)}|c"
+             for k in range(600)]
+    for k in range(400):
+        lines += [f"f2.i{interval}.t{k}:{v:.3f}|ms"
+                  for v in rng.gamma(2.0, 20.0, 4)]
+    return lines
+
+
+def _phase_f2() -> dict:
+    """The thread plane on the card: a server with `interval: 5s` runs
+    four intervals on its own flush loop with the datadog sink (to a
+    fake), a sink that blocks from its second flush and one that raises
+    on its first, `circuit_breaker_failure_threshold: 2`."""
+    import gzip
+
+    from veneur_tpu_torch.config import config_from_dict
+    from veneur_tpu_torch.core.server import Server
+    fake = _Fake()
+    blocking, fails_once = _f2_sinks()
+    cfg = config_from_dict({
+        "statsd_listen_addresses": ["udp://127.0.0.1:0"],
+        "interval": f"{F2_INTERVAL_S:g}s", "hostname": "smoke",
+        "percentiles": list(PS), "circuit_breaker_failure_threshold": 2,
+        "circuit_breaker_recovery": "1h",
+        "metric_sinks": [{"kind": "datadog", "name": "datadog", "config": {
+            "datadog_api_key": "smoke",
+            "datadog_api_hostname": fake.url}}],
+        "tpu": {"counter_capacity": 4096, "histo_capacity": 2048}})
+    server = Server(cfg, extra_metric_sinks=[blocking, fails_once])
+    _zero_launches()
+    report = {"flushes": []}
+    sent = 0
+    server.start()
+    try:
+        prev = server.last_flush_timings
+        for i in range(4):
+            lines = _f2_lines(i)
+            _send(server, server.listen_addresses[0], lines, sent,
+                  PUMP_WINDOW)
+            sent += len(lines)
+            deadline = time.monotonic() + 3 * F2_INTERVAL_S
+            while server.last_flush_timings is prev:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase F2: flush {i + 1} did "
+                                         f"not happen")
+                time.sleep(0.01)
+            prev = timings = server.last_flush_timings
+            records = {name: dict(timings[f"sink:{name}"]) for name in
+                       ("datadog", "blocking", "fails_once")}
+            stats = server.stats_snapshot()
+            report["flushes"].append({
+                "total_s": timings["total_s"], "sinks_s": timings["sinks_s"],
+                "records": records,
+                "counts": {k: v for k, v in stats.items()
+                           if k.startswith(("flush.", "resilience."))}})
+            if timings["total_s"] > F2_INTERVAL_S + 0.5:
+                raise AssertionError(f"phase F2: flush {i + 1} took "
+                                     f"{timings['total_s']:.3f} s")
+        report["lines_received"] = server.stats_snapshot()["lines_received"]
+        report["breaker"] = server._sink_breakers["metric:blocking"].state
+    finally:
+        blocking.release.set()
+        server.shutdown()
+        fake.close()
+    report["launches"] = _read_launches()
+    flushes = report["flushes"]
+    status = [[f["records"][n]["status"] for f in flushes]
+              for n in ("datadog", "blocking", "fails_once")]
+    counts = flushes[-1]["counts"]
+    if status[0] != ["ok"] * 4:
+        raise AssertionError(f"phase F2: datadog records {status[0]}")
+    if (status[1] != ["ok", "timed_out", "skipped", "skipped"]
+            or report["breaker"] != "open"
+            or counts["flush.sink_skipped_total#sink:metric:blocking"] != 2
+            or counts["resilience.breaker_state#target:metric:blocking"]
+            != 1):
+        raise AssertionError(f"phase F2: blocking sink {status[1]}, "
+                             f"breaker {report['breaker']}, {counts}")
+    # the failed first batch arrives with the second as its retry
+    received = []
+    while not fails_once.queue.empty():
+        received.append(sorted({m.name.split(".")[1]
+                                for m in fails_once.queue.get_nowait()}))
+    if (status[2] != ["error", "ok", "ok", "ok"]
+            or received != [["i0", "i1"], ["i2"], ["i3"]]
+            or counts["flush.spill_retry_total"] != F2_SERIES
+            or counts["flush.spill_shed_total"]):
+        raise AssertionError(f"phase F2: failing sink {status[2]}, "
+                             f"received {received}, {counts}")
+    per_interval = [0] * 4
+    for path, encoding, body in fake.take():
+        for series in json.loads(gzip.decompress(body))["series"]:
+            per_interval[int(series["metric"].split(".")[1][1:])] += 1
+    if per_interval != [F2_SERIES] * 4 or report["lines_received"] \
+            != sent:
+        raise AssertionError(f"phase F2: datadog series per interval "
+                             f"{per_interval}, lines {sent} sent, "
+                             f"{report['lines_received']} received")
+    report["datadog_series_per_interval"] = per_interval
     return report
 
 
@@ -1591,6 +1957,45 @@ def main() -> int:
         print(line, flush=True)
     print(f"phase E launches: {rep['launches']} (E1 {rep['e1_launches']})",
           flush=True)
+    phases["F"] = rep = _phase_f()
+    torch.cuda.empty_cache()
+    for i, rec in enumerate(rep["intervals"]):
+        flush = rec["flush"]
+        print(f"phase F interval {i}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s; flush "
+              f"{flush['total_s']:.3f} s (assembly {flush['assembly_s']:.3f}"
+              f", sinks {flush['sinks_s']:.3f}); " + "; ".join(
+                  f"{name} duration {flush['sink:' + name]['duration_s']:.3f}"
+                  f" cpu {flush['sink:' + name]['cpu_s']:.3f}"
+                  + (f" encode {flush['sink:' + name]['encode_s']:.3f} send "
+                     f"{flush['sink:' + name]['send_s']:.3f}"
+                     if flush["sink:" + name]["encoder"] else "")
+                  for name in _F_SINKS), flush=True)
+        sinks = rec["sinks"]
+        print(f"phase F interval {i}: channel {rec['channel_series']} "
+              f"series; datadog {sinks['datadog']['series']} series in "
+              f"{sinks['datadog']['bodies']} bodies, "
+              f"{sinks['datadog']['body_bytes']} gzip bytes "
+              f"({sinks['datadog']['json_bytes']} JSON); cortex "
+              f"{sinks['cortex']['series']} series, "
+              f"{sinks['cortex']['body_bytes']} snappy bytes "
+              f"({sinks['cortex']['write_bytes']} raw, snappy encode "
+              f"{sinks['cortex']['snappy_encode_s']:.3f} s); prometheus "
+              f"{sinks['prometheus']['series']} lines, "
+              f"{sinks['prometheus']['body_bytes']} bytes; "
+              f"{rec['series_checked']} series checked; launches "
+              f"{rec['launches']}", flush=True)
+    print(f"phase F launches: {rep['launches']}", flush=True)
+    phases["F2"] = rep = _phase_f2()
+    for i, rec in enumerate(rep["flushes"]):
+        print(f"phase F2 flush {i + 1}: total {rec['total_s']:.3f} s, sinks "
+              f"{rec['sinks_s']:.3f} s; " + ", ".join(
+                  f"{name} {r['status']}" for name, r in
+                  rec["records"].items()), flush=True)
+    print(f"phase F2: blocking sink's breaker {rep['breaker']}, counts "
+          f"{rep['flushes'][-1]['counts']}, datadog series per interval "
+          f"{rep['datadog_series_per_interval']}; launches "
+          f"{rep['launches']}", flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())

@@ -39,6 +39,35 @@ class SinkConfig:
     kind: str = ""
     name: str = ""
     config: Dict[str, Any] = field(default_factory=dict)
+    # per-sink filters (reference flusher.go:138-213): a metric whose
+    # name or any tag is longer than the limit, or with more tags than
+    # max_tags, is dropped for this sink; strip_tags are TagMatcher
+    # configs (util/matcher.py); add_tags are key -> value. Any of them
+    # set sends this sink the materialised InterMetric list.
+    max_name_length: int = 0
+    max_tag_length: int = 0
+    max_tags: int = 0
+    strip_tags: List[Dict[str, Any]] = field(default_factory=list)
+    add_tags: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class SinkRoutingConfig:
+    """One `metric_sink_routing` entry: metrics matching any rule in
+    `match` go to the `matched` sinks, the rest to `not_matched`
+    (YAML: `sinks: {matched: [...], not_matched: [...]}`)."""
+
+    name: str = ""
+    match: List[Dict[str, Any]] = field(default_factory=list)
+    matched: List[str] = field(default_factory=list)
+    not_matched: List[str] = field(default_factory=list)
+
+
+@dataclass
+class Features:
+    """The `features:` block; the port takes only the routing switch."""
+
+    enable_metric_sink_routing: bool = False
 
 
 @dataclass
@@ -90,6 +119,7 @@ class Config:
     # how long it stays open before its one half-open probe (duration)
     circuit_breaker_failure_threshold: int = 3
     circuit_breaker_recovery: float = 30.0
+    features: Features = field(default_factory=Features)
     # host:port of the global server's import endpoint; set, this server
     # is local and forwards its mergeable state there every interval
     forward_address: str = ""
@@ -119,9 +149,16 @@ class Config:
     # longest datagram taken; longer ones are dropped and counted as
     # rejected lines
     metric_max_length: int = 4096
+    # per-metric sink selection, applied when
+    # features.enable_metric_sink_routing is on
+    metric_sink_routing: List[SinkRoutingConfig] = field(
+        default_factory=list)
     metric_sinks: List[SinkConfig] = field(default_factory=list)
     # SO_REUSEPORT sockets (and native reader threads) per UDP address
     num_readers: int = 1
+    # concurrent POSTs of one Datadog flush (the sink's
+    # datadog_num_workers overrides it)
+    num_workers: int = 1
     percentiles: List[float] = field(
         default_factory=lambda: [0.5, 0.75, 0.99])
     # SO_RCVBUF of each UDP listener socket
@@ -170,6 +207,27 @@ def _check_keys(raw: dict, cls, where: str) -> None:
                 f"veneur_tpu_torch")
 
 
+def _routing_config(item) -> SinkRoutingConfig:
+    """One metric_sink_routing entry, parsed as the JAX package parses
+    it (veneur_tpu/config.py:533-541)."""
+    item = dict(item or {})
+    for key in item:
+        if key not in ("name", "match", "sinks"):
+            raise ValueError(
+                f"config key 'metric_sink_routing.{key}' is not supported "
+                f"by veneur_tpu_torch")
+    sinks = dict(item.get("sinks", {}) or {})
+    for key in sinks:
+        if key not in ("matched", "not_matched"):
+            raise ValueError(
+                f"config key 'metric_sink_routing.sinks.{key}' is not "
+                f"supported by veneur_tpu_torch")
+    return SinkRoutingConfig(
+        name=item.get("name", ""), match=item.get("match", []) or [],
+        matched=sinks.get("matched", []) or [],
+        not_matched=sinks.get("not_matched", []) or [])
+
+
 def config_from_dict(raw: Dict[str, Any]) -> Config:
     """A Config from parsed YAML; raises on any key the port lacks."""
     raw = dict(raw or {})
@@ -189,6 +247,12 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
                 _check_keys(item, SinkConfig, "metric_sinks.")
                 sinks.append(SinkConfig(**item))
             value = sinks
+        elif key == "features":
+            value = dict(value or {})
+            _check_keys(value, Features, "features.")
+            value = Features(**value)
+        elif key == "metric_sink_routing":
+            value = [_routing_config(item) for item in value or []]
         elif key == "percentiles":
             value = [float(p) for p in value]
         setattr(cfg, key, value)

@@ -13,6 +13,15 @@ this server's tables on its device, and stale replayed intervals into
 the backfill plane (forward/backfill.py), whose closed buckets flush
 with their original timestamps beside the live series.
 
+Each metric sink flushes on a thread of its own (the sink plane of
+veneur_tpu/core/server.py): at most one thread per sink, a sink whose
+previous flush still runs is skipped, each sink has a circuit breaker
+built from the `circuit_breaker_*` keys, a failed batch is retried once
+with the next interval, and the flush waits for the sink threads and the
+forward thread together, outside its lock, until one interval after it
+began. Sinks without per-sink filters or routing take the columnar
+`flush_batch`; the others get the materialised InterMetric list.
+
 UDP datagrams reach the store through the batch ingest plane
 (core/ingest.py): by default the native C++ pump parses them into
 columns; `tpu.disable_native_parser: true` selects the numpy columnar
@@ -33,12 +42,12 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from veneur_tpu_torch import sinks as sinks_mod
-from veneur_tpu_torch.config import Config
+from veneur_tpu_torch.config import Config, SinkConfig
 from veneur_tpu_torch.core.columnstore import ColumnStore
-from veneur_tpu_torch.core.flusher import flush_columnstore_batch
+from veneur_tpu_torch.core.flusher import FlushBatch, flush_columnstore_batch
 from veneur_tpu_torch.core.ingest import BatchIngester, PyBatchIngester
 from veneur_tpu_torch.core.networking import Listener, start_statsd
 from veneur_tpu_torch.core.overload import TokenBucket
@@ -47,10 +56,11 @@ from veneur_tpu_torch.forward.backfill import BackfillPlane
 from veneur_tpu_torch.forward.client import ForwardClient
 from veneur_tpu_torch.forward.convert import forwardable_to_wire
 from veneur_tpu_torch.forward.server import ImportServer
-from veneur_tpu_torch.samplers.metrics import HistogramAggregates
+from veneur_tpu_torch.samplers.metrics import HistogramAggregates, InterMetric
 from veneur_tpu_torch.samplers.parser import ParseError, Parser
 from veneur_tpu_torch.util.resilience import (Carryover, CircuitBreaker,
                                               RetryPolicy)
+from veneur_tpu_torch.util.matcher import SinkRoutingMatcher, TagMatcher
 from veneur_tpu_torch.util.spool import CarryoverSpool
 
 logger = logging.getLogger("veneur_tpu_torch.server")
@@ -84,6 +94,31 @@ class Server:
             if factory is None:
                 raise ValueError(f"unknown metric sink kind: {sc.kind}")
             self.metric_sinks.append(factory(sc, config))
+        # per-sink filters, only for sinks with an active one (an entry
+        # here sends that sink the materialised list), and the routing
+        # rules
+        self._sink_filters: Dict[str, SinkConfig] = {
+            sc.name or sc.kind: sc for sc in config.metric_sinks
+            if (sc.strip_tags or sc.add_tags or sc.max_name_length
+                or sc.max_tag_length or sc.max_tags)}
+        self._routing: Optional[List[SinkRoutingMatcher]] = None
+        if config.features.enable_metric_sink_routing:
+            self._routing = [SinkRoutingMatcher(rc)
+                             for rc in config.metric_sink_routing]
+        # the sink plane, keyed `metric:<sink name>`: the last flush
+        # thread per sink (a sink whose thread is alive is skipped, so a
+        # hung sink holds one thread), its consecutive skips, its
+        # breaker, the batch awaiting its one retry, and its counters
+        # under the JAX package's self-metric names. _sink_lock guards
+        # the spill, the counters and the per-flush records the threads
+        # write.
+        self._sink_flush_threads: Dict[str, threading.Thread] = {}
+        self._sink_skip_depth: Dict[str, int] = {}
+        self._sink_breakers: Dict[str, CircuitBreaker] = {}
+        self._sink_spill: Dict[str, List[InterMetric]] = {}
+        self._sink_counts: Dict[str, Dict[str, int]] = {
+            name: {} for name in _SINK_COUNTERS}
+        self._sink_lock = threading.Lock()
         # DogStatsD lines: received = parsed + rejected (parse errors and
         # oversized datagrams), plus pump chunks whose apply raised
         self.stats: Dict[str, int] = {"lines_received": 0,
@@ -131,12 +166,18 @@ class Server:
             self.backfill_after_s = (config.wal_stale_after_intervals
                                      * self.interval)
         # per-phase wall seconds of the last flush (swap / dispatch /
-        # device_sync, with its llhist_bins copy / assembly / sinks, on a
-        # global server backfill_drain, and on a local server
-        # forward_encode / forward (the forward thread, when it ended
-        # within the flush's wait) with its carryover_merge / wal_append /
-        # spool_drain / total)
-        self.last_flush_timings: Dict[str, float] = {}
+        # device_sync, with its llhist_bins copy / assembly / sinks, from
+        # the sink threads' dispatch to their join, on a global server
+        # backfill_drain, and on a local server forward_encode / forward
+        # (the forward thread, when it ended within the flush's wait)
+        # with its carryover_merge / wal_append / spool_drain / total),
+        # and per metric sink a `sink:<name>` record: status, duration_s,
+        # cpu_s (the sink thread's own CPU seconds: the sink threads share
+        # the interpreter lock, so a wall time includes the others' turns)
+        # and the sink's note_egress (encode_s, send_s, encoder). A sink
+        # thread that outlives the flush lands its record later, marked
+        # `late`.
+        self.last_flush_timings: Dict[str, Any] = {}
 
     # -- ingest ----------------------------------------------------------
 
@@ -195,11 +236,13 @@ class Server:
     def stats_snapshot(self) -> Dict[str, int]:
         """Line counters, dispatch errors, the llhist family's sample and
         clamp totals, samples of unknown wire type, the pumps' reader
-        stalls and lines lost at shutdown, and the forward tier's
-        counts: metrics forwarded and failed sends (a local server),
-        metrics imported and failed merges (a global one)."""
+        stalls and lines lost at shutdown, the forward tier's counts:
+        metrics forwarded and failed sends (a local server), metrics
+        imported and failed merges (a global one), and the sink plane's
+        (see _sink_plane_stats)."""
         with self._stats_lock:
             out = dict(self.stats)
+        out.update(self._sink_plane_stats())
         llhists = self.store.llhists
         out["llhist_samples"] = llhists.samples_total
         out["llhist_clamped"] = llhists.clamped_total
@@ -295,12 +338,13 @@ class Server:
     def flush(self) -> None:
         """One flush pass (reference flusher.go:26-122): swap every table
         out, read it out on the device, add the backfill plane's closed
-        intervals, hand the batch to every sink and, on a local server,
-        the forwardable state to the forward thread, which it waits for
-        up to one interval from the flush's start. Raises afterwards if
-        an ingest chunk failed to apply or a forward thread raised."""
+        intervals, start every sink's flush thread and, on a local
+        server, the forward thread with the forwardable state, then wait
+        for all of them, outside the flush lock, up to one interval from
+        the flush's start. Raises afterwards if an ingest chunk failed to
+        apply or a forward thread raised."""
         t0 = time.perf_counter()
-        timings: Dict[str, float] = {}
+        timings: Dict[str, Any] = {}
         with self._flush_lock:
             fc = self.forward_client
             interval_start = self._interval_start_unix
@@ -326,20 +370,20 @@ class Server:
             with self._events_lock:
                 events, self._events = self._events, []
             t_sinks = time.perf_counter()
-            for sink in self.metric_sinks:
-                try:
-                    sink.flush_batch(batch)
-                    if events:
-                        sink.flush_other_samples(events)
-                except Exception:
-                    logger.exception("sink %s flush failed", sink.name())
-            timings["sinks_s"] = time.perf_counter() - t_sinks
+            dispatched = self._dispatch_sinks(batch, events, timings)
+        # bounded wait outside the flush lock: a hung sink or send holds
+        # up neither the next flush nor shutdown past the interval; the
+        # stragglers run on and are skipped next interval
+        deadline = t0 + self.interval
+        for _key, thread, _record in dispatched:
+            thread.join(max(0.0, deadline - time.perf_counter()))
+        timings["sinks_s"] = time.perf_counter() - t_sinks
+        self._sweep_timed_out(dispatched)
         if forward is not None:
-            # bounded wait outside the flush lock: a hung send holds up
-            # neither the next flush nor shutdown past the interval
             thread, record = forward
-            thread.join(max(0.0, t0 + self.interval - time.perf_counter()))
+            thread.join(max(0.0, deadline - time.perf_counter()))
             if thread.is_alive():
+                self._count("flush.timeout_total", "forward")
                 logger.error("forward still running %.1f s into the "
                              "flush", time.perf_counter() - t0)
             else:
@@ -349,6 +393,216 @@ class Server:
         self.last_flush_timings = timings
         self._raise_dispatch_error()
         self._raise_forward_error()
+
+    # -- the sink plane --------------------------------------------------
+
+    def _count(self, name: str, key: str, n: int = 1) -> None:
+        with self._sink_lock:
+            per = self._sink_counts[name]
+            per[key] = per.get(key, 0) + n
+
+    def _sink_breaker(self, key: str) -> CircuitBreaker:
+        """Get-or-create the per-sink breaker (same knobs as forward)."""
+        breaker = self._sink_breakers.get(key)
+        if breaker is None:
+            cfg = self.config
+            breaker = self._sink_breakers[key] = CircuitBreaker(
+                failure_threshold=cfg.circuit_breaker_failure_threshold,
+                recovery_time=cfg.circuit_breaker_recovery, name=key)
+        return breaker
+
+    def _sink_plane_stats(self) -> Dict[str, int]:
+        """The sink plane's counts under the JAX package's self-metric
+        names (the port has no statsd client yet): each counter's total,
+        and per sink `<name>#sink:metric:<sink>` — the skips, the
+        intervals refused by an open breaker, the spilled metrics retried
+        and shed, the threads still running at the flush deadline
+        (`flush.timeout_total#sink:forward` counts the forward thread's)
+        — and per sink the gauges `resilience.breaker_state
+        #target:<key>` (0 closed, 1 open, 2 half-open),
+        `flush.sink_pileup_depth` and `flush.spill_pending`."""
+        out: Dict[str, int] = {}
+        with self._sink_lock:
+            for name, per in self._sink_counts.items():
+                out[name] = sum(per.values())
+                for key, n in per.items():
+                    out[f"{name}#sink:{key}"] = n
+            for key, spill in self._sink_spill.items():
+                out[f"flush.spill_pending#sink:{key}"] = len(spill)
+        for key, depth in list(self._sink_skip_depth.items()):
+            out[f"flush.sink_pileup_depth#sink:{key}"] = depth
+        for key, breaker in list(self._sink_breakers.items()):
+            out[f"resilience.breaker_state#target:{key}"] = \
+                breaker.state_code
+        return out
+
+    def _dispatch_sinks(self, batch: FlushBatch, events: List,
+                        timings: Dict[str, Any]) -> List[tuple]:
+        """Start each metric sink's flush thread for this interval (the
+        caller holds _flush_lock); returns [(key, thread, record)]. A
+        sink is dispatched only when there is something for it: metrics,
+        events, or its spill."""
+        if self._routing is not None and len(batch):
+            # routing annotates each metric with its sinks, so it needs
+            # objects; materialised once, shared by every sink thread
+            for metric in batch.materialize():
+                route = set()
+                for rule in self._routing:
+                    route.update(rule.route(metric.name, metric.tags))
+                metric.sinks = route
+        dispatched: List[tuple] = []
+        for sink in self.metric_sinks:
+            key = f"metric:{sink.name()}"
+            record: Dict[str, Any] = {"duration_s": 0.0, "cpu_s": 0.0,
+                                      "encode_s": None, "send_s": None,
+                                      "encoder": None}
+            timings[f"sink:{sink.name()}"] = record
+            with self._sink_lock:
+                spilled = key in self._sink_spill
+            if not (len(batch) or events or spilled):
+                record["status"] = "idle"
+                continue
+            prev = self._sink_flush_threads.get(key)
+            if prev is not None and prev.is_alive():
+                # one flush thread per sink: a hung sink's interval is
+                # skipped, and every skip is a failure its hung thread
+                # will never report, so it feeds the breaker
+                depth = self._sink_skip_depth.get(key, 0) + 1
+                self._sink_skip_depth[key] = depth
+                logger.warning("sink %s: previous flush still running; "
+                               "skipping (pileup depth %d)", key, depth)
+                self._count("flush.sink_skipped_total", key)
+                record.update(status="skipped", pileup_depth=depth)
+                self._sink_breaker(key).record_failure()
+                continue
+            self._sink_skip_depth.pop(key, None)
+            if not self._sink_breaker(key).allow():
+                # open breaker: no thread; the interval is dropped
+                # (counted) until the half-open probe closes it again
+                self._count("flush.sink_breaker_open_total", key)
+                record["status"] = "breaker_open"
+                continue
+            thread = threading.Thread(
+                target=self._timed_sink_flush,
+                args=(key, sink, record, batch, events),
+                name=f"flush-{key}", daemon=True)
+            self._sink_flush_threads[key] = thread
+            thread.start()
+            dispatched.append((key, thread, record))
+        return dispatched
+
+    def _sweep_timed_out(self, dispatched: List[tuple]) -> None:
+        """Mark every sink thread that has not finished by the deadline
+        `timed_out`, count it and feed its breaker (the hang is a failure
+        it will not report itself; when it later fails, that does not
+        count again)."""
+        stuck = 0
+        with self._sink_lock:
+            for key, _thread, record in dispatched:
+                if "status" in record:
+                    continue
+                record["status"] = "timed_out"
+                stuck += 1
+                per = self._sink_counts["flush.timeout_total"]
+                per[key] = per.get(key, 0) + 1
+                self._sink_breakers[key].record_failure()
+        if stuck:
+            logger.error("flush exceeded the %.1f s interval; %d sink(s) "
+                         "still running", self.interval, stuck)
+
+    def _timed_sink_flush(self, key: str, sink, record: Dict[str, Any],
+                          batch: FlushBatch, events: List) -> None:
+        """Body of one sink flush thread: the delivery, its duration and
+        egress report, and the breaker fed by what the delivery showed."""
+        before = getattr(sink, "last_egress", None)
+        start, cpu0 = time.perf_counter(), time.thread_time()
+        try:
+            ok = self._flush_sink_safe(key, sink, batch, events)
+        except Exception:
+            logger.exception("sink %s: flush thread failed", key)
+            ok = False
+        duration = time.perf_counter() - start
+        cpu = time.thread_time() - cpu0
+        egress = getattr(sink, "last_egress", None)
+        with self._sink_lock:
+            was_timed_out = record.get("status") == "timed_out"
+            # None: nothing was delivered, so the breaker learns nothing
+            # (a quiet interval must not reset a failure streak or close
+            # a half-open breaker without a real probe)
+            if ok:
+                self._sink_breakers[key].record_success()
+            elif ok is False and not was_timed_out:
+                self._sink_breakers[key].record_failure()
+            if was_timed_out:
+                record["late"] = True
+            record["status"] = "error" if ok is False else "ok"
+            record["duration_s"] = duration
+            record["cpu_s"] = cpu
+            if egress is not None and egress is not before:
+                record["encode_s"], record["send_s"], record["encoder"] = \
+                    egress
+
+    def _flush_sink_safe(self, key: str, sink, batch: FlushBatch,
+                         events=()) -> Optional[bool]:
+        """Deliver events and metrics to one sink. True/False for a
+        delivery attempt, None when there was nothing to deliver. A
+        batch that fails is kept for one retry, prepended to the next
+        interval's; a retry that fails is shed."""
+        ok = True
+        if events:
+            try:
+                sink.flush_other_samples(events)
+            except Exception:
+                logger.exception("sink %s flush_other_samples failed",
+                                 sink.name())
+                ok = False
+        with self._sink_lock:
+            spill = self._sink_spill.pop(key, None)
+        if spill:
+            self._count("flush.spill_retry_total", key, len(spill))
+        if not len(batch) and not spill:
+            return ok if events else None
+        name = sink.name()
+        sc = self._sink_filters.get(name)
+        current: Optional[List[InterMetric]] = None
+        try:
+            if sc is None and self._routing is None and not spill:
+                # columnar path: no filter, no routing, no spill (a
+                # duck-typed sink with only flush() gets the list)
+                flush_batch = getattr(sink, "flush_batch", None)
+                if flush_batch is not None:
+                    flush_batch(batch)
+                else:
+                    sink.flush(batch.materialize())
+                return ok
+            selected = [m for m in batch.materialize()
+                        if m.sinks is None or name in m.sinks]
+            if sc is not None:
+                selected = _apply_sink_filters(selected, sc)
+            current = selected
+            sink.flush(spill + selected if spill else selected)
+            return ok
+        except Exception:
+            logger.exception("sink %s flush failed", name)
+            if spill:
+                self._count("flush.spill_shed_total", key, len(spill))
+                logger.error("sink %s: shedding %d spilled metrics after "
+                             "a failed retry", key, len(spill))
+            if current is None:
+                # failed before selection: spill only this sink's share
+                try:
+                    current = [m for m in batch.materialize()
+                               if m.sinks is None or name in m.sinks]
+                    if sc is not None:
+                        current = _apply_sink_filters(current, sc)
+                except Exception:
+                    logger.exception("sink %s: selection failed while "
+                                     "spilling; shedding the interval", key)
+                    current = []
+            if current:
+                with self._sink_lock:
+                    self._sink_spill[key] = current
+            return False
 
     def _dispatch_forward(self, fc: ForwardClient, fwd,
                           interval_start: float):
@@ -401,8 +655,9 @@ class Server:
             raise RuntimeError("a forward thread raised") from exc
 
     def shutdown(self) -> None:
-        """Stop the listeners and the flush loop, then the forward tier
-        and the sinks. Raises afterwards if an ingest chunk failed to
+        """Stop the listeners and the flush loop, then the forward tier,
+        wait up to one interval for the sink threads, and stop the
+        sinks. Raises afterwards if an ingest chunk failed to
         apply."""
         self._shutdown.set()
         for listener in self._listeners:
@@ -416,7 +671,49 @@ class Server:
             self.import_server.stop()
         if self.forward_client is not None:
             self.forward_client.close()
+        # a sink's last delivery ends before the sink stops
+        deadline = time.perf_counter() + self.interval
+        for thread in list(self._sink_flush_threads.values()):
+            thread.join(max(0.0, deadline - time.perf_counter()))
         for sink in self.metric_sinks:
             sink.stop()
         self._raise_dispatch_error()
         self._raise_forward_error()
+
+
+# the sink plane's counters (JAX self-metric names)
+_SINK_COUNTERS = ("flush.sink_skipped_total", "flush.sink_breaker_open_total",
+                  "flush.spill_retry_total", "flush.spill_shed_total",
+                  "flush.timeout_total")
+
+
+def _apply_sink_filters(metrics: List[InterMetric], sc: SinkConfig
+                        ) -> List[InterMetric]:
+    """Per-sink filtering: max name/tag limits, strip/add tags
+    (reference flusher.go:138-213; veneur_tpu/core/server.py
+    _apply_sink_filters)."""
+    strip = [TagMatcher.from_config(t) for t in sc.strip_tags]
+    out = []
+    for metric in metrics:
+        if sc.max_name_length and len(metric.name) > sc.max_name_length:
+            continue
+        tags = metric.tags
+        if strip:
+            tags = [t for t in tags
+                    if not any(sm.match(t) for sm in strip)]
+        if sc.add_tags:
+            tags = sorted(set(tags) | {
+                f"{k}:{v}" if v else k for k, v in sc.add_tags.items()})
+        if sc.max_tag_length and any(len(t) > sc.max_tag_length
+                                     for t in tags):
+            continue
+        if sc.max_tags and len(tags) > sc.max_tags:
+            continue
+        if tags is not metric.tags:
+            metric = InterMetric(
+                name=metric.name, timestamp=metric.timestamp,
+                value=metric.value, tags=tags, type=metric.type,
+                message=metric.message, hostname=metric.hostname,
+                sinks=metric.sinks, backfilled=metric.backfilled)
+        out.append(metric)
+    return out

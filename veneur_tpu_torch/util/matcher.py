@@ -1,0 +1,106 @@
+"""Name/tag matchers for sink routing and tag stripping.
+
+Semantic parity with reference util/matcher/matcher.go: name kinds
+any/exact/prefix/regex; tag kinds exact/prefix/regex with an `unset` flag
+meaning the tag must NOT be present; a rule matches when the name matches
+and every tag matcher is satisfied; a rule list matches if any rule does.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Sequence
+
+
+class NameMatcher:
+    def __init__(self, kind: str = "any", value: str = ""):
+        self.kind = kind
+        self.value = value
+        if kind == "regex":
+            self._regex = re.compile(value)
+        elif kind not in ("any", "exact", "prefix"):
+            raise ValueError(f'unknown matcher kind "{kind}"')
+
+    @staticmethod
+    def from_config(cfg: Dict) -> "NameMatcher":
+        cfg = cfg or {}
+        return NameMatcher(cfg.get("kind", "any"), cfg.get("value", ""))
+
+    def match(self, name: str) -> bool:
+        if self.kind == "any":
+            return True
+        if self.kind == "exact":
+            return name == self.value
+        if self.kind == "prefix":
+            return name.startswith(self.value)
+        return self._regex.search(name) is not None
+
+
+class TagMatcher:
+    def __init__(self, kind: str = "exact", value: str = "", unset: bool = False):
+        self.kind = kind
+        self.value = value
+        self.unset = unset
+        if kind == "regex":
+            self._regex = re.compile(value)
+        elif kind not in ("exact", "prefix"):
+            raise ValueError(f'unknown matcher kind "{kind}"')
+
+    @staticmethod
+    def from_config(cfg: Dict) -> "TagMatcher":
+        cfg = cfg or {}
+        return TagMatcher(cfg.get("kind", "exact"), cfg.get("value", ""),
+                          bool(cfg.get("unset", False)))
+
+    def match(self, tag: str) -> bool:
+        if self.kind == "exact":
+            return tag == self.value
+        if self.kind == "prefix":
+            return tag.startswith(self.value)
+        return self._regex.search(tag) is not None
+
+
+class Matcher:
+    def __init__(self, name: NameMatcher, tags: List[TagMatcher]):
+        self.name = name
+        self.tags = tags
+
+    @staticmethod
+    def from_config(cfg: Dict) -> "Matcher":
+        cfg = cfg or {}
+        return Matcher(
+            NameMatcher.from_config(cfg.get("name", {})),
+            [TagMatcher.from_config(t) for t in cfg.get("tags", []) or []])
+
+    def match(self, name: str, tags: Sequence[str]) -> bool:
+        if not self.name.match(name):
+            return False
+        for tm in self.tags:
+            found = any(tm.match(tag) for tag in tags)
+            if found and tm.unset:
+                return False
+            if not found and not tm.unset:
+                return False
+        return True
+
+
+def match_any(matchers: Sequence[Matcher], name: str,
+              tags: Sequence[str]) -> bool:
+    return any(rule.match(name, tags) for rule in matchers)
+
+
+class SinkRoutingMatcher:
+    """One metric_sink_routing entry: rules -> matched/not_matched sink
+    lists (reference SinkRoutingConfig, flusher.go:97-113)."""
+
+    def __init__(self, routing_config):
+        self.name = routing_config.name
+        self.matchers = [Matcher.from_config(c)
+                         for c in routing_config.match]
+        self.matched = list(routing_config.matched)
+        self.not_matched = list(routing_config.not_matched)
+
+    def route(self, name: str, tags: Sequence[str]) -> List[str]:
+        if match_any(self.matchers, name, tags):
+            return self.matched
+        return self.not_matched

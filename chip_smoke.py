@@ -72,6 +72,30 @@ the package is not beside it). Phases, each fatal on failure:
      flushes emit every series of it `backfilled`, at the interval's
      original start, checked as above; the segment, put back after its
      replay, replays again and is dropped as a duplicate.
+  9. phase F, the sink plane: phase A's corpus plus 5 000 `|l` keys x
+     32 into the channel, datadog, cortex and prometheus sinks (the
+     datadog and cortex ones at capturing fakes on 127.0.0.1), two
+     intervals; each fake's series equal to the sink's own rendering;
+ 10. phase F2, the thread plane: `interval: 5s`, four intervals on the
+     server's flush loop, a blocking and a failing sink beside datadog:
+     the deadline join, the skips, the breaker and the spill;
+ 11. phase G, the operator surface: phase F's corpus plus 500 host-tier
+     set keys into a server with the HTTP API, `stats_address` at its
+     own UDP listener, the diagnostics loop, the flush watchdog and 64
+     alert rules at 1 s (8 of them crossed by the corpus). Readiness
+     turns 503 when the last flush is set back past the watchdog's
+     budget. Eight HTTP readers query `/query` from interval 2's ingest
+     through its flush, and every query they send must be answered 200;
+     one diagnostics round runs after the ingest; then, ingest stopped,
+     336 rows of every family are queried (t-digest p50/p99 through K1,
+     promoted sets through K2, host-tier sets, llhist, counters, gauges)
+     and must equal the flush that follows bit for bit; the 8 rules fire
+     and 56 stay idle; `/metrics` parses and carries the route,
+     torch.cuda device-memory, query and alert rows; the first flush's
+     self-metrics and the diagnostics gauges (`mem.rss_bytes`, the
+     torch.cuda `device.bytes_in_use`) come out of the second; each
+     kernel launch is booked to the flush, the queries, the alert loop
+     or ingest.
 
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
@@ -809,9 +833,9 @@ def _zero_launches():
 
 def _read_launches() -> dict:
     from veneur_tpu_torch.ops import hll_estimate, llhist_apply, tdigest_flush
-    return {"tdigest_flush": tdigest_flush.launches,
-            "hll_estimate": hll_estimate.launches,
-            "llhist_apply": llhist_apply.launches}
+    return {"tdigest_flush": int(tdigest_flush.launches),
+            "hll_estimate": int(hll_estimate.launches),
+            "llhist_apply": int(llhist_apply.launches)}
 
 
 def _run_phase(name: str, server, intervals, window: int, senders: int,
@@ -1822,6 +1846,606 @@ def _phase_f2() -> dict:
     return report
 
 
+# -- phase G: the operator surface at full width -------------------------------
+
+PHASE_G_HOST_SETS = 500    # set keys of 4 members: they stay on the host tier
+PHASE_G_READERS = 8
+PHASE_G_READER_HZ = 10.0
+PHASE_G_PIN = {"timer": 48, "llhist": 32, "counter": 48, "gauge": 48,
+               "set": 48, "host_set": 32}
+# routes phase G must see in the http.route rows
+_G_ROUTES = ("/healthcheck", "/healthcheck/ready", "/query", "/alerts",
+             "/metrics", "/debug/flush", "/debug/events")
+
+
+def _g_rules() -> list:
+    """64 rules shaped like tests/test_query.py:471-505, eight kinds over
+    keys 0-7. Key 0's rule of each kind has a threshold the corpus
+    crosses (`for: 0`); the other 56 can never fire."""
+    rules = []
+    for i in range(8):
+        cross = i == 0
+        high = 1e12
+        rules += [
+            {"id": f"c{i}", "metric": f"smoke.c{i}", "kind": "count",
+             "op": ">", "threshold": 0.0 if cross else high},
+            {"id": f"r{i}", "metric": f"smoke.c{i}", "kind": "rate",
+             "op": ">", "threshold": 0.0 if cross else high},
+            {"id": f"g{i}", "metric": f"smoke.g{i}", "kind": "value",
+             "op": ">", "threshold": -high if cross else high},
+            {"id": f"t{i}", "metric": f"smoke.t{i}", "kind": "quantile",
+             "q": 0.99, "op": ">", "threshold": 0.0 if cross else high},
+            {"id": f"l{i}", "metric": f"smoke.l{i}", "kind": "quantile",
+             "q": 0.5, "op": ">", "threshold": 0.0 if cross else high},
+            {"id": f"s{i}", "metric": f"smoke.s{i}", "kind": "cardinality",
+             "op": ">", "threshold": 16.0 if cross else high},
+            {"id": f"b{i}", "metric": f"smoke.l{i}",
+             "kind": "bin_occupancy", "lo": 0.0, "hi": 1e7,
+             "op": ">=" if cross else ">", "threshold": 0.5 if cross
+             else 2.0},
+            {"id": f"q{i}", "metric": f"smoke.t{i}", "kind": "quantile",
+             "q": 0.5, "op": ">", "threshold": 0.0 if cross else high},
+        ]
+    for rule in rules:
+        rule["for"] = 0
+    return rules
+
+
+def _g_host_sets(seed: int) -> list:
+    return [f"smoke.h{k}:u{seed}-{k}-{j}|s"
+            for k in range(PHASE_G_HOST_SETS) for j in range(4)]
+
+
+def _http(address, path: str):
+    import urllib.error
+    import urllib.request
+    host, port = address
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _g_query_paths(rng) -> list:
+    """One reader's mix over the kinds, on keys of the corpus."""
+    kinds = [
+        ("quantile_tdigest", "metric=smoke.t{k}&kind=quantile&q=0.99",
+         PHASE_A_KEYS["timer"]),
+        ("quantile_llhist", "metric=smoke.l{k}&kind=quantile&q=0.5",
+         PHASE_F_LL_KEYS),
+        ("count", "metric=smoke.c{k}&kind=count", PHASE_A_KEYS["counter"]),
+        ("rate", "metric=smoke.c{k}&kind=rate", PHASE_A_KEYS["counter"]),
+        ("value", "metric=smoke.g{k}&kind=value", PHASE_A_KEYS["gauge"]),
+        ("cardinality", "metric=smoke.s{k}&kind=cardinality",
+         PHASE_A_KEYS["set"]),
+        ("bin_occupancy",
+         "metric=smoke.l{k}&kind=bin_occupancy&lo=0&hi=1000",
+         PHASE_F_LL_KEYS)]
+    out = []
+    for _ in range(4096):
+        kind, query, keys = kinds[int(rng.integers(len(kinds)))]
+        out.append((kind, "/query?" + query.format(
+            k=int(rng.integers(keys)))))
+    return out
+
+
+class _Readers:
+    """PHASE_G_READERS threads, each GETting /query about
+    PHASE_G_READER_HZ times a second until stopped. Keeps each query's
+    kind, client-side start and seconds, and the captures'
+    stale_pending_samples. Whatever ends a reader before it is stopped
+    (a status other than 200, a body without the field, a socket error
+    or timeout, running out of queries) is booked in `errors`; `finish`
+    stops the readers and raises unless every one of them ran until it
+    was stopped and every query it sent was answered."""
+
+    def __init__(self, address):
+        import threading
+        self.address = address
+        self.stop = threading.Event()
+        self.samples = []  # (kind, start perf_counter, seconds)
+        self.stale = []
+        self.errors = []
+        self.sent = 0
+        self.stopped = set()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, args=(i,),
+                                          name=f"g-reader-{i}", daemon=True)
+                         for i in range(PHASE_G_READERS)]
+
+    def _run(self, i: int) -> None:
+        try:
+            paths = _g_query_paths(np.random.default_rng(70 + i))
+            period = 1.0 / PHASE_G_READER_HZ
+            for kind, path in paths:
+                if self.stop.is_set():
+                    break
+                with self._lock:
+                    self.sent += 1
+                t0 = time.perf_counter()
+                status, body = _http(self.address, path)
+                elapsed = time.perf_counter() - t0
+                if status != 200:
+                    raise AssertionError(f"{path} -> {status} {body[:200]}")
+                stale = json.loads(body)["stale_pending_samples"]
+                with self._lock:
+                    self.samples.append((kind, t0, elapsed))
+                    self.stale.append(stale)
+                self.stop.wait(max(0.0, period - elapsed))
+            else:
+                raise AssertionError("ran out of queries")
+        except BaseException as e:
+            with self._lock:
+                self.errors.append((i, repr(e)[:300]))
+            return
+        with self._lock:
+            self.stopped.add(i)
+
+    def start(self) -> "_Readers":
+        for t in self._threads:
+            t.start()
+        return self
+
+    def finish(self) -> None:
+        self.stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                raise AssertionError(f"phase G: {t.name} did not stop")
+        if self.errors or len(self.stopped) != PHASE_G_READERS \
+                or len(self.samples) != self.sent:
+            raise AssertionError(
+                f"phase G: readers failed: {self.errors[:3]}; "
+                f"{len(self.stopped)} of {PHASE_G_READERS} ran until "
+                f"stopped, {len(self.samples)} of {self.sent} queries "
+                f"answered")
+
+    def latency(self, t_from: float = float("-inf"),
+                t_to: float = float("inf")) -> dict:
+        """Seconds by kind of the queries in flight at some time in
+        [t_from, t_to]."""
+        out = {}
+        for kind, t0, elapsed in self.samples:
+            if t0 <= t_to and t0 + elapsed >= t_from:
+                out.setdefault(kind, []).append(elapsed)
+        return out
+
+
+def _g_pin_specs():
+    """The consistency pin's rows: (flushed series name, spec kwargs)."""
+    pin = PHASE_G_PIN
+    specs = []
+    for k in range(pin["timer"]):
+        k = k * (PHASE_A_KEYS["timer"] // pin["timer"])
+        for q, label in ((0.5, "50"), (0.99, "99")):
+            specs.append((f"smoke.t{k}.{label}percentile",
+                          dict(metric=f"smoke.t{k}", kind="quantile", q=q)))
+    for k in range(pin["llhist"]):
+        k = k * (PHASE_F_LL_KEYS // pin["llhist"])
+        for q, label in ((0.5, "50"), (0.99, "99")):
+            specs.append((f"smoke.l{k}.{label}percentile",
+                          dict(metric=f"smoke.l{k}", kind="quantile", q=q)))
+    for family, prefix, kind, keys in (
+            ("counter", "smoke.c", "count", PHASE_A_KEYS["counter"]),
+            ("gauge", "smoke.g", "value", PHASE_A_KEYS["gauge"]),
+            ("set", "smoke.s", "cardinality", PHASE_A_KEYS["set"]),
+            ("host_set", "smoke.h", "cardinality", PHASE_G_HOST_SETS)):
+        for k in range(pin[family]):
+            k = k * (keys // pin[family])
+            specs.append((f"{prefix}{k}",
+                          dict(metric=f"{prefix}{k}", kind=kind)))
+    return specs
+
+
+def _g_prom_rows(text: str) -> dict:
+    """Prometheus text -> {name: [(labels, value)]}; raises on a line
+    that is not `# TYPE`/`# HELP` or `name{labels} value`."""
+    import re
+    sample = re.compile(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)")
+    rows = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE ") or line.startswith("# HELP "):
+            continue
+        m = sample.fullmatch(line)
+        if m is None:
+            raise AssertionError(f"phase G: /metrics line {line!r}")
+        labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                 m.group(3) or ""))
+        rows.setdefault(m.group(1), []).append((labels, float(m.group(4))))
+    return rows
+
+
+class _RoleCount:
+    """Stands in for a kernel module's `launches` int: the wrapper's own
+    `launches += 1`, where it launches its kernel, calls __iadd__, which
+    books the launch to the calling thread's role."""
+
+    def __init__(self, roles: "_LaunchRoles", kernel: str):
+        self._roles = roles
+        self._kernel = kernel
+
+    def __iadd__(self, n: int) -> "_RoleCount":
+        self._roles.book(self._kernel, n)
+        return self
+
+    def __int__(self) -> int:
+        return sum(r.get(self._kernel, 0)
+                   for r in self._roles.counts.values())
+
+
+class _LaunchRoles:
+    """Attributes each kernel launch of the server to the role of the
+    thread that made it: `flush` (the smoke's thread inside
+    Server.flush()), `alerts` (the alert loop), `ingest` (the pump's
+    dispatcher) or `queries` (everything else: the HTTP readers' handler
+    threads, and the smoke's own thread outside a flush, the pin). Each
+    kernel module's count (`launches`, zeroed) is replaced by a
+    _RoleCount, and each thread books its launches into a tally of its
+    own: no lock is taken where a kernel launches, and the counts stay
+    exactly the wrappers'."""
+
+    def __init__(self):
+        import threading
+        from veneur_tpu_torch.ops import (hll_estimate, llhist_apply,
+                                          tdigest_flush)
+        self.in_flush = False
+        self._local = threading.local()
+        self._tallies = []  # every thread's {role: {kernel: launches}}
+        self._tallies_lock = threading.Lock()  # once per thread
+        self._mods = (tdigest_flush, hll_estimate, llhist_apply)
+        for mod in self._mods:
+            mod.launches = _RoleCount(self, mod.__name__.rsplit(".", 1)[1])
+
+    def _role(self) -> str:
+        import threading
+        thread = threading.current_thread()
+        if thread is threading.main_thread():
+            return "flush" if self.in_flush else "queries"
+        if thread.name == "alert-loop":
+            return "alerts"
+        if thread.name.startswith("statsd-"):
+            return "ingest"
+        return "queries"
+
+    def book(self, kernel: str, n: int) -> None:
+        tally = getattr(self._local, "tally", None)
+        if tally is None:
+            tally = self._local.tally = {}
+            with self._tallies_lock:
+                self._tallies.append(tally)
+        role = tally.setdefault(self._role(), {})
+        role[kernel] = role.get(kernel, 0) + n
+
+    @property
+    def counts(self) -> dict:
+        """{role: {kernel: launches}} over every thread's tally."""
+        out = {}
+        for tally in list(self._tallies):
+            for role, kernels in list(tally.items()):
+                into = out.setdefault(role, {})
+                for kernel, n in list(kernels.items()):
+                    into[kernel] = into.get(kernel, 0) + n
+        return out
+
+    def restore(self) -> None:
+        """Put the plain counts back, at the totals booked."""
+        for mod in self._mods:
+            mod.launches = int(mod.launches)
+
+
+def _g_table_bytes(store) -> int:
+    """Bytes of the tables' live device tensors."""
+    total = 0
+    for _family, table in store.tables():
+        state = getattr(table, "state", None)
+        tensors = (state.values() if isinstance(state, dict)
+                   else [state] if state is not None else [])
+        total += sum(t.numel() * t.element_size() for t in tensors)
+    return total
+
+
+def _g_quantiles(xs) -> dict:
+    xs = np.asarray(xs, np.float64)
+    return {"n": int(xs.size), "p50_ms": float(np.quantile(xs, 0.5)) * 1e3,
+            "p99_ms": float(np.quantile(xs, 0.99)) * 1e3}
+
+
+def _phase_g() -> dict:
+    """The operator surface at full width: phase F's corpus (plus
+    PHASE_G_HOST_SETS four-member sets on the host tier) into one server
+    on cuda:0 with the HTTP API, `stats_address` at its own UDP
+    listener, the diagnostics loop, the flush watchdog and 64 alert
+    rules at 1 s; readiness tripped and restored after flush 1; 8 HTTP
+    readers query from interval 2's ingest through its flush; one
+    diagnostics round; then the consistency pin, the flush, and the
+    surface's checks."""
+    from veneur_tpu_torch.core import diagnostics
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    corpora = []
+    for seed in (31, 32):
+        lines, expect, timers, llhists = _corpus(seed, PHASE_A_KEYS,
+                                                 PHASE_F_LL_KEYS)
+        corpora.append((lines + _g_host_sets(seed), expect, timers, llhists,
+                        _set_reference(seed, PHASE_A_KEYS["set"],
+                                       PHASE_A_KEYS["set_members"])))
+    server = _server({
+        "statsd_listen_addresses": [f"udp://127.0.0.1:{port}"],
+        "stats_address": f"127.0.0.1:{port}",
+        "http_address": "127.0.0.1:0",
+        "features": {"diagnostics_metrics_enabled": True},
+        "flush_watchdog_missed_flushes": 3,
+        "alerts": {"interval": "1s", "rules": _g_rules()}},
+        {"counter_capacity": 65536, "gauge_capacity": 32768,
+         "histo_capacity": 32768, "set_capacity": 16384,
+         "llhist_capacity": 8192}, ChannelMetricSink())
+    check = _check_a_or_c(PHASE_A_KEYS)
+    plane, alerts = server.query_plane, server.alerts
+    report = {"intervals": []}
+    _zero_launches()
+    roles = _LaunchRoles()
+    server.start()
+    readers = None
+    try:
+        api = server.http_api.address
+        if _http(api, "/healthcheck") != (200, b"ok\n"):
+            raise AssertionError("phase G: /healthcheck")
+        window = _pump_window(server)
+        base = self_packets = pin_queries = 0
+        for i, corpus in enumerate(corpora):
+            lines = corpus[0]
+            evals0 = alerts.evals_total
+            if i == 1:
+                readers = _Readers(api).start()
+            ingest_s = _send(server, server.listen_addresses[0], lines,
+                             base, window)
+            base += len(lines)
+            stats = server.stats_snapshot()
+            if (stats["lines_received"] != base or stats["lost_lines"]
+                    or stats["ingest_dispatch_errors"]):
+                raise AssertionError(f"phase G: {base} lines expected: "
+                                     f"{stats}")
+            rec = {"lines": len(lines), "ingest_s": ingest_s,
+                   "lines_per_s": len(lines) / ingest_s}
+            if i == 1:
+                # one diagnostics round (the loop's period is the 1 h
+                # interval): its gauges come out of this flush
+                diagnostics.collect(server.statsd,
+                                    server.diagnostics.start_time)
+                base += server.statsd.packets_sent - self_packets
+                self_packets = server.statsd.packets_sent
+                _g_wait_received(server, base)
+                rec["alert_ticks"] = alerts.evals_total - evals0
+                rec["pin"] = _g_pin(server, plane, alerts)
+                pin_queries = rec["pin"]["http_queries"]
+            t0 = time.perf_counter()
+            roles.in_flush = True
+            server.flush()
+            roles.in_flush = False
+            t1 = time.perf_counter()
+            rec["flush_wall_s"] = t1 - t0
+            rec["flush"] = dict(server.last_flush_timings)
+            if i == 1:
+                readers.finish()
+                rec["query_latency"] = {k: _g_quantiles(v) for k, v in
+                                        readers.latency().items()}
+                in_flush = [x for v in readers.latency(t0, t1).values()
+                            for x in v]
+                if not in_flush:
+                    raise AssertionError("phase G: no query in flight "
+                                         "during the flush")
+                rec["query_latency_in_flush"] = _g_quantiles(in_flush)
+                rec["reader_queries"] = len(readers.samples)
+                rec["reader_stale_pending"] = {
+                    "max": int(max(readers.stale)),
+                    "mean": float(np.mean(readers.stale))}
+                _g_wait_route_count(server, "GET /query",
+                                    len(readers.samples) + pin_queries)
+            got, buckets = _collect(server.metric_sinks[0])
+            rec.update(check(corpus, got, buckets))
+            if i == 1:
+                rec["pin"]["equal"] = _g_check_pin(rec["pin"].pop("values"),
+                                                   got)
+                selfm = [name for name in (
+                    "flush.total_duration_ns", "flush.metrics_total",
+                    "worker.metrics_processed_total",
+                    "flush.total_duration.count", "mem.rss_bytes",
+                    "device.bytes_in_use") if name in got]
+                for name in ("flush.total_duration_ns", "mem.rss_bytes",
+                             "device.bytes_in_use"):
+                    if name not in selfm:
+                        raise AssertionError(f"phase G: {name} missing "
+                                             f"from the flush: {selfm}")
+                rec["self_metric_series"] = selfm
+            # the flush's self-metrics reach the listener before the next
+            # interval's lines are counted
+            rec["self_packets"] = server.statsd.packets_sent - self_packets
+            self_packets = server.statsd.packets_sent
+            base += rec["self_packets"]
+            _g_wait_received(server, base)
+            if i == 0:
+                rec["ready"] = _g_readiness(server, api)
+            report["intervals"].append(rec)
+        report["surface"] = _g_surface(server, api)
+    finally:
+        if readers is not None:
+            readers.stop.set()
+        roles.restore()
+        server.shutdown()
+    report["launches"] = launches = _read_launches()
+    report["launches_by_role"] = roles.counts
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"phase G: {kernel} was not launched")
+        if sum(roles.counts.get(role, {}).get(kernel, 0)
+               for role in ("queries", "alerts")) <= 0:
+            raise AssertionError(f"phase G: the query path launched no "
+                                 f"{kernel}: {roles.counts}")
+    return report
+
+
+def _g_wait_received(server, lines: int) -> None:
+    deadline = time.monotonic() + 30.0
+    while server.stats["lines_received"] < lines:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase G: self-metrics lost: "
+                                 f"{server.stats['lines_received']} of "
+                                 f"{lines} lines received")
+        time.sleep(0.005)
+
+
+def _g_wait_route_count(server, key: str, want: int) -> None:
+    """The route's count (booked just after each answer is written) must
+    reach exactly the queries the smoke sent."""
+    hist = server.http_api._route_hists[key]
+    deadline = time.monotonic() + 10.0
+    while hist.snapshot()["count"] < want \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if hist.snapshot()["count"] != want:
+        raise AssertionError(f"phase G: {key} counted "
+                             f"{hist.snapshot()['count']}, {want} sent")
+
+
+def _g_readiness(server, api) -> dict:
+    """/healthcheck/ready is 200 after a flush, 503 once the last flush
+    is set back past the watchdog's budget, and 200 again when it is
+    restored (the watchdog itself next wakes an interval, 1 h, later)."""
+    if _http(api, "/healthcheck/ready") != (200, b"ready\n"):
+        raise AssertionError("phase G: not ready after a flush")
+    last = server.last_flush_unix
+    budget = server.config.flush_watchdog_missed_flushes * server.interval
+    server.last_flush_unix = last - budget - 60.0
+    try:
+        status, body = _http(api, "/healthcheck/ready")
+    finally:
+        server.last_flush_unix = last
+    if status != 503 or b"watchdog" not in body:
+        raise AssertionError(f"phase G: readiness with the watchdog's "
+                             f"budget blown: {status} {body[:200]}")
+    if _http(api, "/healthcheck/ready") != (200, b"ready\n"):
+        raise AssertionError("phase G: not ready once restored")
+    return {"tripped": status, "body": body.decode().strip()}
+
+
+def _g_pin(server, plane, alerts) -> dict:
+    """The consistency pin's queries, with ingest stopped: one capture of
+    every family and each pin spec evaluated over it, and a few of them
+    again through GET /query. Also reads /alerts after one more tick."""
+    from veneur_tpu_torch.core.query import QuerySpec
+    specs = [(name, QuerySpec.build(**kw)) for name, kw in _g_pin_specs()]
+    ps = plane.ps_for([s for _n, s in specs])
+    if ps != PS:
+        raise AssertionError(f"phase G: pin percentiles {ps}")
+    before = _read_launches()
+    t0 = time.perf_counter()
+    bundle = plane.capture(("counter", "gauge", "histogram", "llhist", "set"),
+                           ps=ps)
+    capture_s = time.perf_counter() - t0
+    values = {}
+    for name, spec in specs:
+        res = plane.evaluate(bundle, spec, ps)
+        if res["matched_rows"] != 1 or res["value"] is None:
+            raise AssertionError(f"phase G: pin query {spec} -> {res}")
+        values[name] = res["value"]
+    api = server.http_api.address
+    http_specs = specs[:: len(specs) // 16]
+    for name, spec in http_specs:
+        path = f"/query?metric={spec.metric}&kind={spec.kind}"
+        if spec.q is not None:
+            path += f"&q={spec.q}"
+        status, body = _http(api, path)
+        if status != 200 or json.loads(body)["value"] != values[name]:
+            raise AssertionError(f"phase G: {path} -> {status} {body[:200]}")
+    after = _read_launches()
+    # the alert states, after one tick that saw the whole interval
+    evals = alerts.evals_total
+    deadline = time.monotonic() + 30.0
+    while alerts.evals_total < evals + 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase G: the alert loop stopped")
+        time.sleep(0.05)
+    status, body = _http(api, "/alerts")
+    rules = json.loads(body)["rules"]
+    firing = sorted(r["id"] for r in rules if r["state"] == "firing")
+    idle = [r["id"] for r in rules if r["state"] == "idle"]
+    if status != 200 or firing != sorted(f"{k}0" for k in "bcglqrst") \
+            or len(idle) != 56:
+        raise AssertionError(f"phase G: alerts firing {firing}, "
+                             f"{len(idle)} idle")
+    return {"rows": len(specs), "capture_s": capture_s,
+            "stale_pending": {f: bundle[f]["stale_pending"]
+                              for f in bundle if f != "as_of_unix"},
+            "launches": {k: after[k] - before[k] for k in after},
+            "firing": firing, "idle": len(idle), "values": values,
+            "http_queries": len(http_specs)}
+
+
+def _g_check_pin(values: dict, got: dict) -> int:
+    """Every pin query == the flushed value of its series, bit for bit."""
+    wrong = [(name, v, got.get(name)) for name, v in values.items()
+             if got.get(name) != v]
+    if wrong:
+        raise AssertionError(f"phase G: {len(wrong)} queries differ from "
+                             f"the flush, e.g. {wrong[:3]}")
+    return len(values)
+
+
+def _g_surface(server, api) -> dict:
+    """/metrics (parsed; the route, device-memory, query and alert rows),
+    /debug/flush and /debug/events, and the route and alert figures."""
+    status, body = _http(api, "/debug/flush")
+    rounds = json.loads(body)["rounds"]
+    if status != 200 or [r["flush"] for r in rounds] != [1, 2]:
+        raise AssertionError(f"phase G: /debug/flush rounds "
+                             f"{[r.get('flush') for r in rounds]}")
+    status, body = _http(api, "/debug/events")
+    kinds = [e["kind"] for e in json.loads(body)["events"]]
+    for kind in ("startup", "flush", "alert_transition"):
+        if kind not in kinds:
+            raise AssertionError(f"phase G: no {kind} event in {kinds[:8]}")
+    _http(api, "/metrics")  # the scrape below then holds its own row
+    status, body = _http(api, "/metrics")
+    if status != 200:
+        raise AssertionError(f"phase G: /metrics {status}")
+    rows = _g_prom_rows(body.decode())
+    paths = {labels.get("path") for labels, _v in
+             rows.get("veneur_http_route_count_total", ())}
+    if not set(_G_ROUTES) <= paths:
+        raise AssertionError(f"phase G: route rows {sorted(paths)}")
+    in_use = [v for labels, v in rows.get("veneur_device_bytes_in_use", ())
+              if labels.get("platform") == "gpu"]
+    table_bytes = _g_table_bytes(server.store)
+    if not in_use or in_use[0] < table_bytes \
+            or "veneur_device_bytes_limit" not in rows:
+        raise AssertionError(f"phase G: device rows {in_use} against "
+                             f"{table_bytes} table bytes")
+    for name in ("veneur_query_requests_total", "veneur_query_eval_p99",
+                 "veneur_alert_rules", "veneur_alert_firing",
+                 "veneur_alert_eval_p99", "veneur_flush_rounds_total",
+                 "veneur_ingest_ring_depth"):
+        if name not in rows:
+            raise AssertionError(f"phase G: /metrics lacks {name}")
+    if rows["veneur_alert_rules"][0][1] != 64:
+        raise AssertionError("phase G: alert.rules != 64")
+    routes = {}
+    for key, hist in server.http_api._route_hists.items():
+        snap = hist.snapshot()
+        routes[key] = {"count": snap["count"], "p50_ms": snap["p50"] * 1e3,
+                       "p99_ms": snap["p99"] * 1e3}
+    tick = server.alerts._eval_hist.snapshot()
+    return {"metric_rows": sum(len(v) for v in rows.values()),
+            "device_bytes_in_use": in_use[0], "table_bytes": table_bytes,
+            "routes": routes,
+            "alert_tick_s": {k: tick[k] for k in ("count", "p50", "p99",
+                                                  "max")},
+            "events": len(kinds)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1996,6 +2620,52 @@ def main() -> int:
           f"{rep['flushes'][-1]['counts']}, datadog series per interval "
           f"{rep['datadog_series_per_interval']}; launches "
           f"{rep['launches']}", flush=True)
+    t0 = time.perf_counter()
+    phases["G"] = rep = _phase_g()
+    rep["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for i, rec in enumerate(rep["intervals"]):
+        f_rec = phases["F"]["intervals"][i]
+        g_flush, f_flush = rec["flush"], f_rec["flush"]
+        print(f"phase G interval {i}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s (phase F "
+              f"{f_rec['lines_per_s']:.0f}), flush wall "
+              f"{rec['flush_wall_s']:.3f} s, total_s "
+              f"{g_flush['total_s']:.3f} (phase F, four sinks, "
+              f"{f_flush['total_s']:.3f}), before the sinks "
+              f"{g_flush['total_s'] - g_flush['sinks_s']:.3f} s (phase F "
+              f"{f_flush['total_s'] - f_flush['sinks_s']:.3f}), readout "
+              f"lock wait {g_flush.get('readout_lock_wait_s', 0.0):.4f} s; "
+              f"{rec['series_checked']} series checked; "
+              f"{rec['self_packets']} self-metric packets", flush=True)
+    q = rep["intervals"][1]
+    pin = q["pin"]
+    in_flush = q["query_latency_in_flush"]
+    print(f"phase G readers: {q['reader_queries']} queries from interval "
+          f"2's ingest through its flush, all answered, client latency by "
+          f"kind " + ", ".join(
+              f"{k} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f} ms "
+              f"(n {v['n']})" for k, v in sorted(q["query_latency"].items()))
+          + f"; in flight during the flush n {in_flush['n']} p50 "
+          f"{in_flush['p50_ms']:.2f} p99 {in_flush['p99_ms']:.2f} ms; "
+          f"stale_pending {q['reader_stale_pending']}; alert ticks "
+          f"{q['alert_ticks']}; readiness with the watchdog tripped "
+          f"{rep['intervals'][0]['ready']}", flush=True)
+    surface = rep["surface"]
+    print(f"phase G pin: {pin['rows']} rows == the flush "
+          f"({pin['equal']} equal), one capture {pin['capture_s']:.3f} s, "
+          f"stale_pending {pin['stale_pending']}, launches "
+          f"{pin['launches']}; alerts firing {pin['firing']}, idle "
+          f"{pin['idle']}; alert tick s {surface['alert_tick_s']}; "
+          f"self-metric series {q['self_metric_series']}", flush=True)
+    print(f"phase G routes (server-side ms): " + ", ".join(
+        f"{k} n {v['count']} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f}"
+        for k, v in sorted(surface["routes"].items()))
+        + f"; /metrics {surface['metric_rows']} rows, device bytes in use "
+        f"{surface['device_bytes_in_use']:.0f} >= tables "
+        f"{surface['table_bytes']}", flush=True)
+    print(f"phase G launches: {rep['launches']}, by role "
+          f"{rep['launches_by_role']}; {rep['seconds']:.1f} s", flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())

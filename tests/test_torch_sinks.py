@@ -396,8 +396,7 @@ def test_sink_config_keys_parse_like_jax():
 
 
 @pytest.mark.parametrize("raw,key", [
-    ({"features": {"diagnostics_metrics_enabled": True}},
-     "diagnostics_metrics_enabled"),
+    ({"features": {"proxy_enabled": True}}, "proxy_enabled"),
     ({"span_sinks": []}, "span_sinks"),
     ({"metric_sinks": [{"kind": "datadog", "flush_timeout": 1}]},
      "flush_timeout"),

@@ -1,5 +1,7 @@
 """The port's server CLI: load a YAML config, start the server on the
-card (or on the CPU with `-device cpu`), and run until SIGINT/SIGTERM.
+card (or on the CPU with `-device cpu`), and run until SIGINT/SIGTERM
+(or POST /quitquitquit with `http_quit`). SIGHUP reloads the `alerts:`
+block from the config file.
 
 Run: python -m veneur_tpu_torch.cmd.veneur -f config.yaml [-device cpu]
 """
@@ -58,10 +60,19 @@ def main(argv=None) -> int:
         log.info("received signal %d, shutting down", signum)
         stop.set()
 
+    def handle_hup(signum, frame):
+        # hot-reload the alert rules; a bad table keeps the old one
+        try:
+            server.reload_alerts(args.config)
+        except Exception:
+            log.exception("alerts reload failed; keeping the old rules")
+
     signal.signal(signal.SIGINT, handle_signal)
     signal.signal(signal.SIGTERM, handle_signal)
+    signal.signal(signal.SIGHUP, handle_hup)
     while not stop.wait(0.5):
-        pass
+        if server.shutdown_complete.is_set():
+            return 0  # /quitquitquit shut the server down
     server.shutdown()
     return 0
 

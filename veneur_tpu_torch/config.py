@@ -65,9 +65,23 @@ class SinkRoutingConfig:
 
 @dataclass
 class Features:
-    """The `features:` block; the port takes only the routing switch."""
+    """The `features:` block: the routing switch and the runtime
+    diagnostics self-metrics (core/diagnostics.py)."""
 
+    diagnostics_metrics_enabled: bool = False
     enable_metric_sink_routing: bool = False
+
+
+@dataclass
+class AlertsConfig:
+    """The `alerts:` block, the alert engine's rule table
+    (core/alerts.py). Each rule is a mapping — {id, metric, kind, op,
+    threshold, q, for, tags, lo, hi} — validated when the engine loads
+    it, so a SIGHUP reload of a bad table reports the offending rule."""
+
+    enabled: bool = True
+    interval: float = 1.0  # duration between evaluation rounds
+    rules: List[Dict[str, Any]] = field(default_factory=list)
 
 
 @dataclass
@@ -119,7 +133,15 @@ class Config:
     # how long it stays open before its one half-open probe (duration)
     circuit_breaker_failure_threshold: int = 3
     circuit_breaker_recovery: float = 30.0
+    # tags added to every metric the DogStatsD slow path parses (the
+    # columnar path leaves them out, as the JAX package's does)
+    extend_tags: List[str] = field(default_factory=list)
     features: Features = field(default_factory=Features)
+    # run a last flush in shutdown()
+    flush_on_shutdown: bool = False
+    # not ready (/healthcheck/ready 503), and the process aborts, after
+    # this many intervals without a flush (0 disables the watchdog)
+    flush_watchdog_missed_flushes: int = 0
     # host:port of the global server's import endpoint; set, this server
     # is local and forwards its mergeable state there every interval
     forward_address: str = ""
@@ -139,6 +161,10 @@ class Config:
     # exact merges); `|l` samples always use the circllhist family
     histogram_encoding: str = "tdigest"
     hostname: str = ""
+    # host:port of the operator HTTP API (core/httpapi.py); empty = none
+    http_address: str = ""
+    # serve POST /quitquitquit (shuts the server down)
+    http_quit: bool = False
     # pump chunk size in samples (bounds the hand-off batch and the
     # per-chunk native memory)
     ingest_batch_max_samples: int = 65536
@@ -156,6 +182,8 @@ class Config:
     metric_sinks: List[SinkConfig] = field(default_factory=list)
     # SO_REUSEPORT sockets (and native reader threads) per UDP address
     num_readers: int = 1
+    # keep the configured hostname empty instead of defaulting it
+    omit_empty_hostname: bool = False
     # concurrent POSTs of one Datadog flush (the sink's
     # datadog_num_workers overrides it)
     num_workers: int = 1
@@ -163,8 +191,19 @@ class Config:
         default_factory=lambda: [0.5, 0.75, 0.99])
     # SO_RCVBUF of each UDP listener socket
     read_buffer_size_bytes: int = 2 * 1024 * 1024
+    # host:port the statsd self-metrics go to over UDP ("internal":
+    # straight back into this server's parser); empty = none sent
+    stats_address: str = ""
     statsd_listen_addresses: List[str] = field(default_factory=list)
+    # align flush ticks to multiples of the interval on the wall clock
+    synchronize_with_interval: bool = False
+    # tag prefixes the import server strips from imported metrics
+    tags_exclude: List[str] = field(default_factory=list)
     tpu: TpuConfig = field(default_factory=TpuConfig)
+    # the statsd self-metrics' extra tags, and their scope per kind
+    # ("counter"/"gauge"/"histogram" -> "local"/"global"/"")
+    veneur_metrics_additional_tags: List[str] = field(default_factory=list)
+    veneur_metrics_scopes: Dict[str, str] = field(default_factory=dict)
     # WAL segments (and, at the global, stamped imports) older than this
     # many intervals are backfill: drained behind fresh segments under the
     # replay limiter, bucketed by their original interval at the global
@@ -173,6 +212,7 @@ class Config:
     # burst in seconds of that rate
     wal_replay_rate_limit: float = 0.0
     wal_replay_burst: float = 2.0
+    alerts: AlertsConfig = field(default_factory=AlertsConfig)
 
     @property
     def is_local(self) -> bool:
@@ -182,7 +222,7 @@ class Config:
     def apply_defaults(self) -> "Config":
         if not self.aggregates:
             self.aggregates = ["min", "max", "count"]
-        if not self.hostname:
+        if not self.hostname and not self.omit_empty_hostname:
             self.hostname = socket.gethostname()
         if self.interval <= 0:
             self.interval = 10.0
@@ -251,6 +291,11 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
             value = dict(value or {})
             _check_keys(value, Features, "features.")
             value = Features(**value)
+        elif key == "alerts":
+            value = dict(value or {})
+            _check_keys(value, AlertsConfig, "alerts.")
+            value = AlertsConfig(**value)
+            value.interval = parse_duration(value.interval) or 1.0
         elif key == "metric_sink_routing":
             value = [_routing_config(item) for item in value or []]
         elif key == "percentiles":

@@ -27,12 +27,22 @@ ingest never re-interns. Where the JAX package donated buffers to its
 jitted kernels, the port updates tensors in place; a drained generation
 is reset in place on the device's stream after its readout was copied to
 the host.
+
+The live query plane (core/query.py) reads the live generation without
+swapping it (`capture_readonly` / `query_readout`): the pending columns
+fold into the live state through the ingest dispatch path, then, under
+both table locks, the readout runs over the live state and places only
+fresh tensors in its snap (clones of the counter and gauge columns, the
+kernels' outputs for the others), queued on the device's stream ahead of
+any later apply. Where the JAX package could hold a reference to an
+immutable array, the port's in-place state must never escape a capture.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -121,6 +131,9 @@ class _BaseTable:
         self.batch_cap = batch_cap
         self.rows: Dict[int, int] = {}  # (digest64 << 2 | scope) -> row
         self.meta: List[RowMeta] = []
+        # metric name -> its rows in ascending order, appended at intern
+        # (rows are never removed): the query plane's lookup
+        self.name_rows: Dict[str, List[int]] = {}
         self.touched = np.zeros(capacity, bool)
         self.lock = threading.Lock()
         self.apply_lock = threading.Lock()
@@ -213,7 +226,8 @@ class _BaseTable:
     def _idle_swap_locked(self, snap: dict) -> bool:
         """Family-specific idle fast path (caller holds ``lock``):
         return True to skip the generation swap entirely (the llhist
-        table skips its readout when untouched)."""
+        table skips its readout when untouched). It advances nothing, so
+        capture_readonly takes the same skip."""
         return False
 
     def _swap_extras_locked(self, snap: dict) -> None:
@@ -287,6 +301,78 @@ class _BaseTable:
         self.recycle(snap)
         return out
 
+    # -- live-query capture: a read-only snapshot between flushes --------
+    #
+    #   capture_readonly()  under ``lock``: fold the pending columns into
+    #                 the live state (the ingest dispatch, a bounded
+    #                 number of rounds), then under ``apply_lock`` copy
+    #                 touched/meta/extras and queue the readout over the
+    #                 live state. No swap, no reset, no recycle.
+    #   query_readout()  lock-free: wait for the queued readout.
+    #   snapshot_finish()  the family's ordinary host copies + assembly.
+    #
+    # Absent further ingest, the captured state is exactly what the next
+    # swap_out hands the flush, so a query equals the next flush bit for
+    # bit. Residual pending samples after the fold are the query's
+    # reported staleness (`stale_pending`); they fold on the next
+    # dispatch and are never lost.
+
+    _CAPTURE_FOLD_ROUNDS = 8
+
+    def capture_readonly(self, **kw) -> dict:
+        """Read-only counterpart of swap_out + readout. Extra kwargs ride
+        into the snap as for swap_out (ps, need_export, need_bins). The
+        readout is queued under ``apply_lock``: an apply that follows
+        runs after it on the device's stream, and the snap holds only
+        tensors no apply writes."""
+        snap = dict(kw)
+        with self.lock:
+            # by reference: rows interned after this capture lie past its
+            # meta, and a reader of the snap skips them
+            snap["name_rows"] = self.name_rows
+            if self._idle_swap_locked(snap):
+                return snap
+            for _ in range(self._CAPTURE_FOLD_ROUNDS):
+                if self._n == 0:
+                    break
+                self._dispatch_pending_locked()  # may release/reacquire
+            snap["stale_pending"] = self._n
+            with self.apply_lock:
+                snap["touched"] = self.touched.copy()
+                snap["meta"] = list(self.meta)
+                self._capture_extras_locked(snap)
+                self._query_readout_device(self.state, snap)
+                if self.device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
+                    snap["_ready"] = ready
+        return snap
+
+    def _capture_extras_locked(self, snap: dict) -> None:
+        """Read-only counterpart of _swap_extras_locked: COPY the
+        family's host-side interval state into the snap without resetting
+        it (caller holds ``lock`` + ``apply_lock``)."""
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        """The flush readout over the LIVE state, for a query: safe as is
+        for a family whose readout writes nothing into the state and
+        stores only fresh kernel outputs; the live generation is never
+        recycled."""
+        self._readout_device(state, snap)
+        snap.pop("_recycle", None)
+
+    def query_readout(self, snap: dict, deadline: float) -> dict:
+        """The device-sync half of a query: wait, off the table locks, for
+        the readout capture_readonly queued; past `deadline` (a
+        time.monotonic() value), raise TimeoutError."""
+        ready = snap.pop("_ready", None)
+        while ready is not None and not ready.query():
+            if time.monotonic() > deadline:
+                raise TimeoutError("query readout still running on the "
+                                   "device at its deadline")
+            time.sleep(0.0002)
+        return snap
+
     def row_for(self, metric: UDPMetric) -> int:
         # scope is part of row identity: the reference keeps separate maps
         # per scope variant (worker.go:59-102)
@@ -302,6 +388,7 @@ class _BaseTable:
                 scope=metric.scope, wire_type=metric.key.type))
             self.scope_code[row] = int(metric.scope)
             self.rows[dict_key] = row
+            self.name_rows.setdefault(metric.key.name, []).append(row)
         return row
 
     def flush_names(self, key, rows: np.ndarray, meta_list,
@@ -447,6 +534,10 @@ class CounterTable(_BaseTable):
         snap["import_acc"] = self._import_acc
         self._import_acc = np.zeros(self.capacity, np.float64)
 
+    def _capture_extras_locked(self, snap: dict) -> None:
+        # a copy: merge_batch adds into the accumulator in place
+        snap["import_acc"] = self._import_acc.copy()
+
     def _fresh_state_at(self, capacity: int):
         return scalars.init_counters(capacity, self.device)
 
@@ -455,6 +546,12 @@ class CounterTable(_BaseTable):
         generation is recycled after the copy."""
         snap["dev"] = (state["sum"], state["comp"])
         snap["_recycle"] = state
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        # the flush's readout holds the pair by reference, which is safe
+        # only for a swapped-out generation: a query clones the live pair
+        # so that no later apply leaks into it or tears it
+        snap["dev"] = (state["sum"].clone(), state["comp"].clone())
 
     @staticmethod
     def snapshot_finish(snap: dict
@@ -508,6 +605,10 @@ class GaugeTable(_BaseTable):
     def _readout_device(self, state, snap: dict) -> None:
         snap["dev"] = state["value"]
         snap["_recycle"] = state
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        # see CounterTable: a query clones the live last-write-wins column
+        snap["dev"] = state["value"].clone()
 
     @staticmethod
     def snapshot_finish(snap: dict):
@@ -599,6 +700,11 @@ class HistoTable(_BaseTable):
     def _swap_extras_locked(self, snap: dict) -> None:
         snap["staged"] = self._staged_counts
         self._staged_counts = np.zeros(self.capacity, np.int32)
+
+    # a capture folds the pending columns through _apply_cols, which reads
+    # and advances the live _staged_counts exactly as an ingest dispatch
+    # does, and the query readout (flush_quantiles_packed with staging
+    # folded) only reads the grids: nothing takes or resets the counts
 
     def _readout_apply(self, state, cols, snap: dict) -> None:
         self._apply_cols_state(state, cols, snap.pop("staged"))
@@ -884,20 +990,28 @@ class SetTable(_BaseTable):
         self._nslots = 0
         self._counts[:] = 0
 
-    def _readout_device(self, state, snap: dict) -> None:
-        """Estimates + register view over the captured generation. The
-        view keeps a live device reference (lazy copy), so the captured
-        generation escapes into the snapshot and is NOT recycled."""
-        sparse = snap.pop("sparse")
+    def _capture_extras_locked(self, snap: dict) -> None:
+        """Read-only host-tier capture: the COO backlog and the slot map
+        that _swap_extras_locked resets are copied, not taken (the COO
+        chunks are append-once, so a list copy suffices); the per-row
+        counts are neither read nor reset."""
+        snap["sparse"] = {
+            "coo": list(self._coo),
+            "coo_scalar": tuple(list(c) for c in self._coo_scalar),
+            "slot_of": self._slot_of.copy(),
+            "slot_row": list(self._slot_row), "nslots": self._nslots}
+
+    def _estimate_device(self, state, sparse: dict, snap: dict):
+        """Fold the promoted rows' pre-promotion backlog into `state` (a
+        register max, idempotent, so the live bank may take it), launch
+        K2 over the promoted slots (its output stays on the device until
+        snapshot_finish) and estimate the host-tier rows. Returns the
+        host tier's COO sorted by row."""
         coo = sparse["coo"] + [tuple(np.asarray(c, np.int32)
                                      for c in sparse["coo_scalar"])]
         rows_all, idx_all, rho_all = (np.concatenate([c[i] for c in coo])
                                       for i in range(3))
         slot_of = sparse["slot_of"]
-        slot_row = sparse["slot_row"]
-        nslots = sparse["nslots"]
-        # fold promoted rows' pre-promotion backlog into the device bank,
-        # then split the remaining COO per sparse row
         pslots = slot_of[rows_all]
         hot = pslots >= 0
         hot_slots, hot_idx, hot_rho = pslots[hot], idx_all[hot], rho_all[hot]
@@ -906,12 +1020,11 @@ class SetTable(_BaseTable):
             self._apply_cols_state(
                 state, (hot_slots[sl], hot_idx[sl], hot_rho[sl]))
         estimates = np.zeros(self.capacity, np.float32)
-        dev_regs = None
-        if nslots:
+        snap["dev_est"] = None
+        if sparse["nslots"]:
             # kernel K2 on the card
-            dev_est = _host(batch_hll.estimate(state[:nslots]))
-            dev_regs = state
-            estimates[np.asarray(slot_row, np.int64)] = dev_est
+            snap["dev_est"] = batch_hll.estimate(state[:sparse["nslots"]])
+            snap["dev_rows"] = np.asarray(sparse["slot_row"], np.int64)
         s_rows, s_idx, s_rho = rows_all[~hot], idx_all[~hot], rho_all[~hot]
         if s_rows.size:
             urows, est = self._host_estimates(s_rows, s_idx, s_rho)
@@ -920,12 +1033,28 @@ class SetTable(_BaseTable):
             s_rows, s_idx, s_rho = (s_rows[order], s_idx[order],
                                     s_rho[order])
         snap["estimates"] = estimates
-        snap["registers"] = _SetRegisters(dev_regs, slot_of, s_rows,
-                                          s_idx, s_rho)
+        return s_rows, s_idx, s_rho
+
+    def _readout_device(self, state, snap: dict) -> None:
+        """Estimates + register view over the captured generation. The
+        view keeps a live device reference (lazy copy), so the captured
+        generation escapes into the snapshot and is NOT recycled."""
+        sparse = snap.pop("sparse")
+        s_cols = self._estimate_device(state, sparse, snap)
+        snap["registers"] = _SetRegisters(
+            state if sparse["nslots"] else None, sparse["slot_of"], *s_cols)
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        # estimates only: no register view of the live bank escapes
+        self._estimate_device(state, snap.pop("sparse"), snap)
+        snap["registers"] = None
 
     @staticmethod
     def snapshot_finish(snap: dict):
-        return (snap["estimates"], snap["registers"], snap["touched"],
+        estimates = snap["estimates"]
+        if snap["dev_est"] is not None:
+            estimates[snap["dev_rows"]] = _host(snap["dev_est"])
+        return (estimates, snap["registers"], snap["touched"],
                 snap["meta"])
 
 
@@ -1099,6 +1228,13 @@ class LLHistTable(_BaseTable):
             return True
         return False
 
+    def _query_readout_device(self, state, snap: dict) -> None:
+        # the gathered rows and the readout are fresh tensors; a query
+        # that reads no bins copies none to the host
+        super()._query_readout_device(state, snap)
+        if not snap.get("need_bins"):
+            snap["bins_dev"] = None
+
     def _readout_device(self, state, snap: dict) -> None:
         """Launch the readout over the TOUCHED rows only: gather them
         (18 KB each), then flush_packed on the gathered block. Every
@@ -1122,7 +1258,11 @@ class LLHistTable(_BaseTable):
             return ({}, np.zeros((0, llhist_ref.BINS), np.int64),
                     snap["touched"], snap["meta"])
         out = {k: _host(v) for k, v in snap["packed"].items()}
-        bins = _host(snap["bins_dev"][:, :llhist_ref.BINS]).astype(np.int64)
+        if snap["bins_dev"] is None:  # a query that reads no bins
+            bins = np.zeros((0, llhist_ref.BINS), np.int64)
+        else:
+            bins = _host(snap["bins_dev"][:, :llhist_ref.BINS]
+                         ).astype(np.int64)
         return out, bins, snap["touched"], snap["meta"]
 
 
@@ -1243,6 +1383,33 @@ class ColumnStore:
     def apply_all_pending(self):
         for _family, table in self.tables():
             table.apply_pending()
+
+    def telemetry_rows(self) -> List[tuple]:
+        """(name, kind, value, tags) scrape-time rows under the JAX
+        package's names, for what the port's tables track: per-family
+        row capacity and live rows, the batch buffers, the set table's
+        promoted slots and the llhist family's sample accounting. Reads
+        are lock-free point reads (a torn gauge is one scrape stale)."""
+        rows: List[tuple] = []
+        for family, t in self.tables():
+            tags = [f"family:{family}"]
+            rows.append(("columnstore.row_capacity", "gauge",
+                         float(t.capacity), tags))
+            rows.append(("columnstore.live_rows", "gauge",
+                         float(len(t.rows)), tags))
+            pending = getattr(t, "_n", None)
+            if pending is not None:  # statuses have no batch buffers
+                rows.append(("columnstore.batch_cap", "gauge",
+                             float(t.batch_cap), tags))
+                rows.append(("columnstore.pending_samples", "gauge",
+                             float(pending), tags))
+        rows.append(("columnstore.set_dev_slots", "gauge",
+                     float(self.sets._nslots), ["family:set"]))
+        rows.append(("llhist.samples_total", "counter",
+                     float(self.llhists.samples_total), ()))
+        rows.append(("llhist.clamped_total", "counter",
+                     float(self.llhists.clamped_total), ()))
+        return rows
 
     def synchronize(self) -> None:
         """Wait for every queued device op of this store's device."""

@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -208,13 +209,17 @@ def swap_columnstore(store: ColumnStore, is_local: bool,
 def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
                         aggregates: HistogramAggregates,
                         collect_forward: bool = True,
-                        timings: Optional[dict] = None
+                        timings: Optional[dict] = None,
+                        device_lock=None
                         ) -> Tuple[FlushBatch, ForwardableState]:
     """Readout half of the flush: launch every swapped generation's
     readout kernels, synchronise once, copy to the host, and assemble the
     FlushBatch and the ForwardableState (empty unless `is_local` and
     `collect_forward`). Touches no live table state beyond the recycle of
     the drained generations, so it may run concurrently with ingest.
+    `device_lock`, when given, is held over the device half (launch,
+    sync, host copies, recycle) and released before the assembly; the
+    wait for it adds to `readout_lock_wait_s`.
     `timings`, when given, receives per-phase wall seconds (dispatch /
     device_sync / assembly, and inside device_sync the llhist family's
     device-to-host copy of its touched rows' bins, llhist_bins_s)."""
@@ -229,36 +234,38 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
     local_code = int(MetricScope.LOCAL_ONLY)
     global_code = int(MetricScope.GLOBAL_ONLY)
 
-    # ---- phase 1: launch every device readout, wait for nothing --------
-    h_snap = store.histos.readout(swap["histogram"])
-    ll_snap = store.llhists.readout(swap["llhist"])
-    c_snap = store.counters.readout(swap["counter"])
-    g_snap = store.gauges.readout(swap["gauge"])
-    # sets are host-dominant: the estimate of the promoted rows is copied
-    # to the host inside readout
-    set_snap = store.sets.readout(swap["set"])
-    estimates, registers, s_touched, s_meta = \
-        store.sets.snapshot_finish(set_snap)
-    st_vals, st_touched, st_meta = swap["status"]
-    t_dispatch = time.perf_counter()
+    with device_lock if device_lock is not None else nullcontext():
+        t_locked = time.perf_counter()
+        # ---- phase 1: launch every device readout, wait for nothing ----
+        h_snap = store.histos.readout(swap["histogram"])
+        ll_snap = store.llhists.readout(swap["llhist"])
+        c_snap = store.counters.readout(swap["counter"])
+        g_snap = store.gauges.readout(swap["gauge"])
+        # sets are host-dominant: the estimate of the promoted rows is
+        # copied to the host right away
+        set_snap = store.sets.readout(swap["set"])
+        estimates, registers, s_touched, s_meta = \
+            store.sets.snapshot_finish(set_snap)
+        st_vals, st_touched, st_meta = swap["status"]
+        t_dispatch = time.perf_counter()
 
-    # ---- phase 2: drain the device queue once, then copy ---------------
-    store.synchronize()
-    c_vals, c_touched, c_meta = store.counters.snapshot_finish(c_snap)
-    g_vals, g_touched, g_meta = store.gauges.snapshot_finish(g_snap)
-    out, export, h_touched, h_meta = store.histos.snapshot_finish(h_snap)
-    t_bins = time.perf_counter()
-    ll_out, ll_bins, ll_touched, ll_meta = \
-        store.llhists.snapshot_finish(ll_snap)
-    t_sync = time.perf_counter()
-    # copies done: reset the drained generations in place as the next
-    # interval's spares (no-op for the set snap, whose bank escaped into
-    # the register view)
-    store.counters.recycle(c_snap)
-    store.gauges.recycle(g_snap)
-    store.histos.recycle(h_snap)
-    store.llhists.recycle(ll_snap)
-    store.sets.recycle(set_snap)
+        # ---- phase 2: drain the device queue once, then copy -----------
+        store.synchronize()
+        c_vals, c_touched, c_meta = store.counters.snapshot_finish(c_snap)
+        g_vals, g_touched, g_meta = store.gauges.snapshot_finish(g_snap)
+        out, export, h_touched, h_meta = store.histos.snapshot_finish(h_snap)
+        t_bins = time.perf_counter()
+        ll_out, ll_bins, ll_touched, ll_meta = \
+            store.llhists.snapshot_finish(ll_snap)
+        t_sync = time.perf_counter()
+        # copies done: reset the drained generations in place as the
+        # next interval's spares (no-op for the set snap, whose bank
+        # escaped into the register view)
+        store.counters.recycle(c_snap)
+        store.gauges.recycle(g_snap)
+        store.histos.recycle(h_snap)
+        store.llhists.recycle(ll_snap)
+        store.sets.recycle(set_snap)
 
     # ---- counters & gauges ---------------------------------------------
     def scalar_family(table, vals, touched, meta_list, mtype, fwd_list):
@@ -431,7 +438,10 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
             message=entry.message, hostname=entry.hostname))
 
     if timings is not None:
-        timings["dispatch_s"] = t_dispatch - t0
+        if device_lock is not None:
+            timings["readout_lock_wait_s"] = (
+                timings.get("readout_lock_wait_s", 0.0) + t_locked - t0)
+        timings["dispatch_s"] = t_dispatch - t_locked
         timings["device_sync_s"] = t_sync - t_dispatch
         timings["llhist_bins_s"] = t_sync - t_bins
         timings["assembly_s"] = time.perf_counter() - t_sync
@@ -442,11 +452,19 @@ def flush_columnstore_batch(store: ColumnStore, is_local: bool,
                             percentiles: Sequence[float],
                             aggregates: HistogramAggregates,
                             collect_forward: bool = True,
-                            timings: Optional[dict] = None
+                            timings: Optional[dict] = None,
+                            device_lock=None
                             ) -> Tuple[FlushBatch, ForwardableState]:
-    """Synchronous flush: swap + readout in one call."""
-    swap = swap_columnstore(store, is_local, percentiles,
-                            collect_forward=collect_forward, timings=timings)
+    """Synchronous flush: swap + readout in one call. `device_lock`, when
+    given, is held over the swap and, separately, over the readout's
+    device half (readout_columnstore)."""
+    t0 = time.perf_counter()
+    with device_lock if device_lock is not None else nullcontext():
+        if timings is not None and device_lock is not None:
+            timings["readout_lock_wait_s"] = time.perf_counter() - t0
+        swap = swap_columnstore(store, is_local, percentiles,
+                                collect_forward=collect_forward,
+                                timings=timings)
     return readout_columnstore(store, swap, is_local, aggregates,
                                collect_forward=collect_forward,
-                               timings=timings)
+                               timings=timings, device_lock=device_lock)

@@ -1,11 +1,27 @@
-"""Token bucket of veneur_tpu/core/overload.py: the forward client's WAL
-replay limiter (a stale backlog drains under it, behind live traffic).
-The rest of the JAX module, admission control, is not ported yet."""
+"""Token bucket and RSS reader of veneur_tpu/core/overload.py: the
+forward client's WAL replay limiter (a stale backlog drains under it,
+behind live traffic), and `current_rss_bytes`, which the diagnostics
+self-metrics read. The rest of the JAX module, admission control and
+the RSS watermark ladder, is not ported yet."""
 
 from __future__ import annotations
 
+import os
 import threading
 import time
+from typing import Optional
+
+_PAGE_SIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
+
+
+def current_rss_bytes() -> Optional[int]:
+    """Current resident set from /proc/self/statm (field 2, pages);
+    None off Linux."""
+    try:
+        with open("/proc/self/statm", "rb") as f:
+            return int(f.read().split()[1]) * _PAGE_SIZE
+    except (OSError, IndexError, ValueError):
+        return None
 
 
 class TokenBucket:

@@ -22,6 +22,14 @@ forward thread together, outside its lock, until one interval after it
 began. Sinks without per-sink filters or routing take the columnar
 `flush_batch`; the others get the materialised InterMetric list.
 
+The operator surface: a `Telemetry` registry (core/telemetry.py) fed by
+the statsd self-metrics client (util/scopedstatsd.py, to
+`stats_address`) and by scrape-time collectors, the flight recorder of
+events and flush rounds, the live query plane (core/query.py) and the
+alert engine (core/alerts.py) over it, the runtime diagnostics
+(core/diagnostics.py) and, with `http_address`, the HTTP API
+(core/httpapi.py) that serves them all.
+
 UDP datagrams reach the store through the batch ingest plane
 (core/ingest.py): by default the native C++ pump parses them into
 columns; `tpu.disable_native_parser: true` selects the numpy columnar
@@ -39,18 +47,25 @@ kernel's plain PyTorch version; nothing moves to the CPU on its own.
 
 from __future__ import annotations
 
+import faulthandler
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from veneur_tpu_torch import sinks as sinks_mod
-from veneur_tpu_torch.config import Config, SinkConfig
+from veneur_tpu_torch.config import Config, SinkConfig, read_config
+from veneur_tpu_torch.core import telemetry as telemetry_mod
+from veneur_tpu_torch.core.alerts import AlertEngine
 from veneur_tpu_torch.core.columnstore import ColumnStore
+from veneur_tpu_torch.core.diagnostics import DiagnosticsLoop
 from veneur_tpu_torch.core.flusher import FlushBatch, flush_columnstore_batch
+from veneur_tpu_torch.core.httpapi import HTTPApi
 from veneur_tpu_torch.core.ingest import BatchIngester, PyBatchIngester
 from veneur_tpu_torch.core.networking import Listener, start_statsd
 from veneur_tpu_torch.core.overload import TokenBucket
+from veneur_tpu_torch.core.query import LiveQueryPlane
 from veneur_tpu_torch.device import pick_device
 from veneur_tpu_torch.forward.backfill import BackfillPlane
 from veneur_tpu_torch.forward.client import ForwardClient
@@ -61,6 +76,7 @@ from veneur_tpu_torch.samplers.parser import ParseError, Parser
 from veneur_tpu_torch.util.resilience import (Carryover, CircuitBreaker,
                                               RetryPolicy)
 from veneur_tpu_torch.util.matcher import SinkRoutingMatcher, TagMatcher
+from veneur_tpu_torch.util.scopedstatsd import NullClient, ScopedClient
 from veneur_tpu_torch.util.spool import CarryoverSpool
 
 logger = logging.getLogger("veneur_tpu_torch.server")
@@ -72,7 +88,7 @@ class Server:
         self.config = config
         self.device = pick_device(device)
         self.interval = config.interval
-        self.parser = Parser()
+        self.parser = Parser(extend_tags=config.extend_tags)
         tpu = config.tpu
         self.store = ColumnStore(
             counter_capacity=tpu.counter_capacity,
@@ -178,6 +194,161 @@ class Server:
         # thread that outlives the flush lands its record later, marked
         # `late`.
         self.last_flush_timings: Dict[str, Any] = {}
+        self._build_operator_surface()
+
+    def _build_operator_surface(self) -> None:
+        """The telemetry registry and its collectors, the statsd
+        self-metrics client, the diagnostics loop, the live query plane
+        and the alert engine (all built here, so that tests can query
+        and evaluate without start(); start() runs their threads and the
+        HTTP API)."""
+        config = self.config
+        self.telemetry = telemetry_mod.Telemetry()
+        registry = self.telemetry.registry
+        registry.add_collector(self._live_telemetry_rows)
+        registry.add_collector(self._ring_telemetry_rows)
+        registry.add_collector(self.store.telemetry_rows)
+        if self.device.type == "cuda":
+            registry.add_collector(telemetry_mod.device_memory_rows)
+        if self.backfill is not None:
+            registry.add_collector(self.backfill.telemetry_rows)
+        # self-metrics: UDP to stats_address, or straight back into this
+        # server's parser ("internal"); every emission tees into the
+        # registry (reference scopedstatsd + server.go:518-524)
+        scoped = dict(scopes=config.veneur_metrics_scopes,
+                      additional_tags=config.veneur_metrics_additional_tags,
+                      registry=registry)
+        if config.stats_address == "internal":
+            self.statsd = ScopedClient(packet_cb=self._self_packet, **scoped)
+        elif config.stats_address:
+            self.statsd = ScopedClient(address=config.stats_address,
+                                       **scoped)
+        else:
+            self.statsd = NullClient(registry=registry)
+        self.diagnostics: Optional[DiagnosticsLoop] = None
+        if config.features.diagnostics_metrics_enabled:
+            self.diagnostics = DiagnosticsLoop(
+                self.statsd, self.interval,
+                include_device=self.device.type == "cuda")
+        # live query plane and alert engine: read-only captures of the
+        # live generation. _readout_lock orders a query's captures against
+        # the flush's swap, so one bundle never mixes two intervals, and
+        # the launches of a query's readout against the flush's device
+        # readout (the flush's host assembly runs outside it)
+        self._readout_lock = threading.Lock()
+        self.query_plane = LiveQueryPlane(self)
+        registry.add_collector(self.query_plane.telemetry_rows)
+        self.alerts = AlertEngine(self, self.query_plane,
+                                  interval_s=config.alerts.interval)
+        try:
+            self.alerts.configure(config.alerts.rules)
+        except Exception:
+            # a bad rule table must not keep the server down: start with
+            # an empty table, loudly; SIGHUP reloads it once fixed
+            logger.exception("invalid alerts.rules; starting with an "
+                             "empty rule table")
+        registry.add_collector(self.alerts.telemetry_rows)
+        self.http_api: Optional[HTTPApi] = None
+        self._watchdog_thread: Optional[threading.Thread] = None
+        self.flush_count = 0
+        self.last_flush_unix = time.time()
+        # set once shutdown() completes (a CLI exits on it when
+        # /quitquitquit shut the server down)
+        self.shutdown_complete = threading.Event()
+
+    def _self_packet(self, packet: bytes) -> None:
+        """Loop a self-metric packet straight back into the parse path."""
+        try:
+            self.parser.parse_metric_fast(packet, self.store.process)
+        except ParseError:
+            pass
+
+    def _live_telemetry_rows(self) -> List[tuple]:
+        """Scrape-time /metrics rows for live counters the registry does
+        not own: the line counters, the flush rounds, and per sink the
+        breaker state (0 closed / 1 open / 2 half-open) and opens, the
+        pileup depth and the pending spill."""
+        with self._stats_lock:
+            stats = dict(self.stats)
+        rows = [(key if key.startswith("ingest") else f"ingest.{key}",
+                 "counter", float(value), ())
+                for key, value in stats.items()]
+        rows.append(("flush.rounds", "counter", float(self.flush_count), ()))
+        rows.append(("flush.last_unix_seconds", "gauge",
+                     self.last_flush_unix, ()))
+        for key, breaker in list(self._sink_breakers.items()):
+            tags = [f"target:{key}"]
+            rows.append(("resilience.breaker_state", "gauge",
+                         float(breaker.state_code), tags))
+            rows.append(("resilience.breaker_opens", "counter",
+                         float(breaker.open_total), tags))
+        for key, depth in list(self._sink_skip_depth.items()):
+            rows.append(("flush.sink_pileup_depth", "gauge", float(depth),
+                         [f"sink:{key}"]))
+        with self._sink_lock:
+            for key, spill in self._sink_spill.items():
+                rows.append(("flush.spill_pending", "gauge",
+                             float(len(spill)), [f"sink:{key}"]))
+        return rows
+
+    def _ring_telemetry_rows(self) -> List[tuple]:
+        """Scrape-time rows for the native pump's SPSC rings: per reader
+        the ready-ring depth and capacity, sealed chunks and stalls."""
+        rows = []
+        for listener in list(self._listeners):
+            pump = listener.pump
+            if pump is None:
+                continue
+            depths, caps, sealed, stalls = pump.ring_stats()
+            label = ":".join(str(part) for part in listener.address)
+            for i in range(len(depths)):
+                tags = [f"ring:{label}:{i}"]
+                rows.append(("ingest.ring.depth", "gauge",
+                             float(depths[i]), tags))
+                rows.append(("ingest.ring.capacity", "gauge",
+                             float(caps[i]), tags))
+                rows.append(("ingest.ring.sealed_total", "counter",
+                             float(sealed[i]), tags))
+                rows.append(("ingest.ring.stalls_total", "counter",
+                             float(stalls[i]), tags))
+        return rows
+
+    def _breaker_transition(self, name: str, old: str, new: str) -> None:
+        """Flight-recorder hook for every breaker edge (forward + sinks)."""
+        self.telemetry.record_event(
+            "breaker_transition", target=name, old=old, new=new)
+
+    def ready_state(self):
+        """(ready, reason) for /healthcheck/ready: not ready while the
+        flush watchdog's budget is blown (a wedged flush loop means this
+        instance is about to abort)."""
+        if self.config.flush_watchdog_missed_flushes > 0:
+            allowed = self.config.flush_watchdog_missed_flushes * self.interval
+            since = time.time() - self.last_flush_unix
+            if since > allowed:
+                return False, (f"flush watchdog tripped: no flush for "
+                               f"{since:.1f}s (allowed {allowed:.1f}s)")
+        return True, ""
+
+    def reload_alerts(self, config_path: Optional[str] = None) -> int:
+        """SIGHUP hot reload of the `alerts:` block: re-read the config
+        file (when given), swap the rule table in place (in-flight state
+        survives for rule ids in both tables) and record the reload.
+        Returns the new rule count; raises, keeping the old table, on a
+        bad rule."""
+        rules = self.config.alerts.rules
+        interval_s = self.config.alerts.interval
+        if config_path:
+            fresh = read_config(config_path)
+            rules = fresh.alerts.rules
+            interval_s = fresh.alerts.interval
+            self.config.alerts = fresh.alerts
+        n = self.alerts.configure(rules, interval_s=interval_s)
+        self.telemetry.record_event("alerts_reload", rules=n,
+                                    interval_s=round(interval_s, 3))
+        logger.info("alerts reloaded: %d rule(s), interval %.3fs",
+                    n, interval_s)
+        return n
 
     # -- ingest ----------------------------------------------------------
 
@@ -276,20 +447,46 @@ class Server:
     # -- lifecycle -------------------------------------------------------
 
     def start(self) -> None:
+        cfg = self.config
         for sink in self.metric_sinks:
             sink.start(self)
-        if self.config.forward_address:
+        if cfg.forward_address:
             self.forward_client = self._build_forward_client()
-        if self.config.grpc_address:
-            self.import_server = ImportServer(self, self.config.grpc_address)
+            self.telemetry.registry.add_collector(
+                self.forward_client.telemetry_rows)
+        if cfg.grpc_address:
+            self.import_server = ImportServer(
+                self, cfg.grpc_address,
+                ignored_tags=[TagMatcher(kind="prefix", value=t)
+                              for t in cfg.tags_exclude])
             self.import_server.start()
-        for address in self.config.statsd_listen_addresses:
+            self.telemetry.registry.add_collector(
+                self.import_server.telemetry_rows)
+        for address in cfg.statsd_listen_addresses:
             self._listeners.append(start_statsd(
-                address, self, self.config.num_readers,
-                self.config.read_buffer_size_bytes))
+                address, self, cfg.num_readers,
+                cfg.read_buffer_size_bytes))
+        if cfg.http_address:
+            self.http_api = HTTPApi(cfg, server=self,
+                                    address=cfg.http_address,
+                                    http_quit=cfg.http_quit,
+                                    on_quit=self.shutdown)
+            self.http_api.start()
+        if self.diagnostics is not None:
+            self.diagnostics.start()
         self._flush_thread = threading.Thread(
             target=self._flush_loop, name="flush-loop", daemon=True)
         self._flush_thread.start()
+        if cfg.alerts.enabled:
+            self.alerts.start()
+        if cfg.flush_watchdog_missed_flushes > 0:
+            self._watchdog_thread = threading.Thread(
+                target=self._flush_watchdog, name="flush-watchdog",
+                daemon=True)
+            self._watchdog_thread.start()
+        self.telemetry.record_event(
+            "startup", pid=os.getpid(),
+            mode="local" if cfg.is_local else "global")
 
     def _build_forward_client(self) -> ForwardClient:
         """The forward client with its retry policy, breaker, carryover,
@@ -318,7 +515,7 @@ class Server:
             breaker=CircuitBreaker(
                 failure_threshold=cfg.circuit_breaker_failure_threshold,
                 recovery_time=cfg.circuit_breaker_recovery,
-                name="forward"),
+                name="forward", on_transition=self._breaker_transition),
             carryover=Carryover(cfg.carryover_max_intervals),
             spool=spool, wal=cfg.forward_wal,
             replay_limiter=replay_limiter,
@@ -328,12 +525,35 @@ class Server:
     def listen_addresses(self) -> List[tuple]:
         return [listener.address for listener in self._listeners]
 
+    def _tick_delay(self) -> float:
+        """Clock-aligned tick (reference server.go:1458
+        CalculateTickDelay)."""
+        return self.interval - (time.time() % self.interval)
+
     def _flush_loop(self) -> None:
-        while not self._shutdown.wait(self.interval):
+        while not self._shutdown.wait(
+                self._tick_delay() if self.config.synchronize_with_interval
+                else self.interval):
             try:
                 self.flush()
             except Exception:
                 logger.exception("flush failed")
+
+    def _flush_watchdog(self) -> None:
+        """Die loudly if flushes stall (reference server.go:877-919)."""
+        allowed = self.config.flush_watchdog_missed_flushes * self.interval
+        while not self._shutdown.wait(self.interval):
+            since = time.time() - self.last_flush_unix
+            self.telemetry.record_event(
+                "watchdog_tick", since_last_flush_s=round(since, 3),
+                allowed_s=allowed)
+            if since > allowed:
+                logger.critical(
+                    "flush watchdog: no flush for %ds; aborting", allowed)
+                self.telemetry.record_event(
+                    "watchdog_abort", since_last_flush_s=round(since, 3))
+                faulthandler.dump_traceback(all_threads=True)
+                os._exit(2)
 
     def flush(self) -> None:
         """One flush pass (reference flusher.go:26-122): swap every table
@@ -348,15 +568,20 @@ class Server:
         with self._flush_lock:
             fc = self.forward_client
             interval_start = self._interval_start_unix
-            self._interval_start_unix = time.time()
+            self.last_flush_unix = self._interval_start_unix = time.time()
+            self.flush_count += 1
             batch, fwd = flush_columnstore_batch(
                 self.store, self.config.is_local, self.percentiles,
                 self.aggregates, collect_forward=fc is not None,
-                timings=timings)
+                timings=timings, device_lock=self._readout_lock)
             if self.backfill is not None:
                 t_bf = time.perf_counter()
-                batch.extras.extend(self.backfill.drain())
+                backfilled = self.backfill.drain()
+                batch.extras.extend(backfilled)
                 timings["backfill_drain_s"] = time.perf_counter() - t_bf
+                if backfilled:
+                    self.statsd.count("flush.backfilled_series_total",
+                                      len(backfilled))
             # a pending carryover merges into fwd on the forward thread
             # and invalidates frames encoded here
             if (fc is not None and len(fwd)
@@ -378,28 +603,78 @@ class Server:
         for _key, thread, _record in dispatched:
             thread.join(max(0.0, deadline - time.perf_counter()))
         timings["sinks_s"] = time.perf_counter() - t_sinks
-        self._sweep_timed_out(dispatched)
+        stuck = self._sweep_timed_out(dispatched)
         if forward is not None:
             thread, record = forward
             thread.join(max(0.0, deadline - time.perf_counter()))
             if thread.is_alive():
+                stuck += 1
                 self._count("flush.timeout_total", "forward")
+                self.telemetry.record_event("sink_timeout", sink="forward",
+                                            flush=self.flush_count)
                 logger.error("forward still running %.1f s into the "
                              "flush", time.perf_counter() - t0)
             else:
                 for key, value in record.items():
                     timings[key] = timings.get(key, 0.0) + value
+        if stuck:
+            self.statsd.count("flush.timeout_total", stuck)
         timings["total_s"] = time.perf_counter() - t0
         self.last_flush_timings = timings
+        self._record_flush(timings, len(batch))
         self._raise_dispatch_error()
         self._raise_forward_error()
+
+    def _record_flush(self, timings: Dict[str, Any], metrics: int) -> None:
+        """The flush's self-metrics (the JAX flush's names), its round in
+        the flight recorder and its event. The critical path is the wall
+        time less the inline device readout (dispatch, sync, assembly),
+        as the JAX package computes it for a flush that reads out
+        inline."""
+        duration = timings["total_s"]
+        phases = {k: v for k, v in timings.items()
+                  if isinstance(v, (int, float))}
+        phases["critical_path_s"] = max(0.0, duration - sum(
+            timings.get(k, 0.0)
+            for k in ("dispatch_s", "device_sync_s", "assembly_s")))
+        self.statsd.timing("flush.critical_path_s", phases["critical_path_s"])
+        self.statsd.gauge("flush.total_duration_ns", int(duration * 1e9))
+        self.statsd.timing("flush.total_duration", duration)
+        for phase, secs in phases.items():
+            self.statsd.timing("flush.phase_duration", secs,
+                               tags=[f"phase:{phase}"])
+        self.statsd.count("flush.metrics_total", metrics)
+        # sink records stay shared: a straggler's late status lands
+        sinks = {f"metric:{key[len('sink:'):]}": rec
+                 for key, rec in timings.items() if key.startswith("sink:")}
+        round_info = {
+            "flush": self.flush_count, "start_unix": self.last_flush_unix,
+            "mode": "local" if self.config.is_local else "global",
+            "sinks": sinks, "duration_s": round(duration, 6),
+            "metrics_flushed": metrics,
+            "phases": {k: round(v, 6) for k, v in phases.items()}}
+        self.telemetry.flushes.record(round_info)
+        self.telemetry.record_event(
+            "flush", flush=self.flush_count,
+            duration_s=round_info["duration_s"], metrics=metrics,
+            phases=round_info["phases"],
+            sinks={k: v.get("status", "running") for k, v in sinks.items()})
+        # cumulative process counters emit as gauges (they never reset)
+        with self._stats_lock:
+            processed = self.stats["lines_received"]
+        self.statsd.gauge("worker.metrics_processed_total", processed)
 
     # -- the sink plane --------------------------------------------------
 
     def _count(self, name: str, key: str, n: int = 1) -> None:
+        """Count a sink-plane event for one sink: in stats_snapshot() and,
+        except the timeouts (counted per flush by flush()), through the
+        statsd client tagged with the sink, as the JAX package counts."""
         with self._sink_lock:
             per = self._sink_counts[name]
             per[key] = per.get(key, 0) + n
+        if name != "flush.timeout_total":
+            self.statsd.count(name, n, tags=[f"sink:{key}"])
 
     def _sink_breaker(self, key: str) -> CircuitBreaker:
         """Get-or-create the per-sink breaker (same knobs as forward)."""
@@ -408,12 +683,14 @@ class Server:
             cfg = self.config
             breaker = self._sink_breakers[key] = CircuitBreaker(
                 failure_threshold=cfg.circuit_breaker_failure_threshold,
-                recovery_time=cfg.circuit_breaker_recovery, name=key)
+                recovery_time=cfg.circuit_breaker_recovery, name=key,
+                on_transition=self._breaker_transition)
         return breaker
 
     def _sink_plane_stats(self) -> Dict[str, int]:
         """The sink plane's counts under the JAX package's self-metric
-        names (the port has no statsd client yet): each counter's total,
+        names (they also go out through the statsd client): each
+        counter's total,
         and per sink `<name>#sink:metric:<sink>` — the skips, the
         intervals refused by an open breaker, the spilled metrics retried
         and shed, the threads still running at the flush deadline
@@ -474,6 +751,9 @@ class Server:
                 self._count("flush.sink_skipped_total", key)
                 record.update(status="skipped", pileup_depth=depth)
                 self._sink_breaker(key).record_failure()
+                self.telemetry.record_event(
+                    "sink_skipped", sink=key, flush=self.flush_count,
+                    pileup_depth=depth)
                 continue
             self._sink_skip_depth.pop(key, None)
             if not self._sink_breaker(key).allow():
@@ -481,6 +761,8 @@ class Server:
                 # (counted) until the half-open probe closes it again
                 self._count("flush.sink_breaker_open_total", key)
                 record["status"] = "breaker_open"
+                self.telemetry.record_event(
+                    "sink_breaker_open", sink=key, flush=self.flush_count)
                 continue
             thread = threading.Thread(
                 target=self._timed_sink_flush,
@@ -491,24 +773,28 @@ class Server:
             dispatched.append((key, thread, record))
         return dispatched
 
-    def _sweep_timed_out(self, dispatched: List[tuple]) -> None:
+    def _sweep_timed_out(self, dispatched: List[tuple]) -> int:
         """Mark every sink thread that has not finished by the deadline
         `timed_out`, count it and feed its breaker (the hang is a failure
         it will not report itself; when it later fails, that does not
-        count again)."""
-        stuck = 0
+        count again). Returns how many were still running."""
+        stuck = []
         with self._sink_lock:
             for key, _thread, record in dispatched:
                 if "status" in record:
                     continue
                 record["status"] = "timed_out"
-                stuck += 1
+                stuck.append(key)
                 per = self._sink_counts["flush.timeout_total"]
                 per[key] = per.get(key, 0) + 1
                 self._sink_breakers[key].record_failure()
+        for key in stuck:
+            self.telemetry.record_event("sink_timeout", sink=key,
+                                        flush=self.flush_count)
         if stuck:
             logger.error("flush exceeded the %.1f s interval; %d sink(s) "
-                         "still running", self.interval, stuck)
+                         "still running", self.interval, len(stuck))
+        return len(stuck)
 
     def _timed_sink_flush(self, key: str, sink, record: Dict[str, Any],
                           batch: FlushBatch, events: List) -> None:
@@ -624,6 +910,7 @@ class Server:
                 self.stats["forward_undispatched"] += 1
             if len(fwd):
                 fc.carryover.stash(fwd)
+                self.statsd.count("flush.forward_undispatched_total", 1)
             logger.warning("previous forward still running: %d metrics "
                            "carried over", len(fwd))
             return None
@@ -655,15 +942,27 @@ class Server:
             raise RuntimeError("a forward thread raised") from exc
 
     def shutdown(self) -> None:
-        """Stop the listeners and the flush loop, then the forward tier,
-        wait up to one interval for the sink threads, and stop the
-        sinks. Raises afterwards if an ingest chunk failed to
-        apply."""
+        """Stop the alert loop, the listeners and the flush loop, run the
+        last flush when `flush_on_shutdown` asks for it, then stop the
+        forward tier and the HTTP API, wait up to one interval for the
+        sink threads, and stop the sinks. Raises afterwards if an ingest
+        chunk failed to apply, a forward thread raised or the last flush
+        failed."""
+        self.telemetry.record_event("shutdown", pid=os.getpid())
         self._shutdown.set()
+        self.alerts.stop()
         for listener in self._listeners:
             listener.close()
         if self._flush_thread is not None:
             self._flush_thread.join(timeout=self.interval + 60.0)
+        if self._watchdog_thread is not None:
+            self._watchdog_thread.join(timeout=5.0)
+        final_error: Optional[BaseException] = None
+        if self.config.flush_on_shutdown:
+            try:
+                self.flush()
+            except Exception as e:  # re-raised once everything stopped
+                final_error = e
         if self._forward_thread is not None:
             # the send is bounded by its deadline, the interval
             self._forward_thread.join(timeout=self.interval)
@@ -671,14 +970,23 @@ class Server:
             self.import_server.stop()
         if self.forward_client is not None:
             self.forward_client.close()
+        if self.http_api is not None:
+            self.http_api.stop()
+            self.http_api = None
+        if self.diagnostics is not None:
+            self.diagnostics.stop()
         # a sink's last delivery ends before the sink stops
         deadline = time.perf_counter() + self.interval
         for thread in list(self._sink_flush_threads.values()):
             thread.join(max(0.0, deadline - time.perf_counter()))
         for sink in self.metric_sinks:
             sink.stop()
+        self.statsd.close()
+        self.shutdown_complete.set()
         self._raise_dispatch_error()
         self._raise_forward_error()
+        if final_error is not None:
+            raise final_error
 
 
 # the sink plane's counters (JAX self-metric names)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 from google.protobuf.internal import api_implementation
@@ -336,15 +336,17 @@ def forwardable_to_wire(fwd: ForwardableState) -> List[bytes]:
     return out
 
 
-def metric_key_of_proto(pbm: metric_pb2.Metric
+def metric_key_of_proto(pbm: metric_pb2.Metric, ignored_tags: Iterable = ()
                         ) -> Tuple[MetricKey, int, int, list]:
     """The (key, digest32, digest64, tags) identity of an imported metric
     (reference NewMetricKeyFromMetric, parser.go:106-131, and
-    IngestMetricProto's hashing, server.go:340-355). Raises KeyError for
+    IngestMetricProto's hashing, server.go:340-355), without the tags
+    that match one of `ignored_tags` (TagMatchers). Raises KeyError for
     an unknown type enum."""
     type_name = _TYPE_PB_TO_NAME[pbm.type]
-    final, joined, h32, h64 = update_tags(pbm.name, type_name,
-                                          list(pbm.tags), None)
+    tags = [t for t in pbm.tags
+            if not any(im.match(t) for im in ignored_tags)]
+    final, joined, h32, h64 = update_tags(pbm.name, type_name, tags, None)
     return MetricKey(pbm.name, type_name, joined), h32, h64, final
 
 

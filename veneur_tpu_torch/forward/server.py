@@ -22,8 +22,10 @@ An import stamped (`x-veneur-interval`) with an interval older than the
 owning server's `backfill_after_s` (a WAL or spool replay of a
 historical interval) merges into the server's backfill plane
 (forward/backfill.py), bucketed by its original interval, instead of the
-live tables. Trace spans, the peer-shard gauge, TLS, RPC stats and
-ignored tags are not ported yet.
+live tables. Tags matching `ignored_tags` (the server's `tags_exclude`
+prefixes) are stripped from every imported metric before its identity is
+hashed. Trace spans, the peer-shard gauge, TLS and RPC stats are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -72,8 +74,11 @@ class ImportServer:
 
     STUB_CACHE_MAX = 1_000_000
 
-    def __init__(self, server, address: str = "127.0.0.1:0"):
+    def __init__(self, server, address: str = "127.0.0.1:0",
+                 ignored_tags: Optional[List] = None):
         self._server = server
+        # TagMatchers (util/matcher.py) of tags stripped on import
+        self._ignored = list(ignored_tags or [])
         self._grpc = grpc.server(
             futures.ThreadPoolExecutor(max_workers=4),
             options=[("grpc.max_receive_message_length",
@@ -114,6 +119,12 @@ class ImportServer:
     @property
     def duplicates_dropped_total(self) -> int:
         return self._deduper.duplicates_dropped_total
+
+    def telemetry_rows(self) -> List[tuple]:
+        """Scrape-time rows for the owning server's /metrics registry
+        (the JAX package's, less the peer-shard gauge)."""
+        return [("forward.hedge.duplicates_dropped", "counter",
+                 float(self.duplicates_dropped_total), ())]
 
     def start(self) -> None:
         self._grpc.start()
@@ -342,8 +353,7 @@ class ImportServer:
             self.merge_s["stubs"] += time.perf_counter() - t0
         return stubs, ok
 
-    @staticmethod
-    def _build_stub(key: bytes) -> Optional[UDPMetric]:
+    def _build_stub(self, key: bytes) -> Optional[UDPMetric]:
         try:
             mtype, scope_pb, name, tags = native.decode_import_key(key)
         except (IndexError, ValueError):
@@ -360,6 +370,8 @@ class ImportServer:
         if scope == MetricScope.LOCAL_ONLY:
             logger.warning("gRPC import does not accept local metrics")
             return None
+        tags = [t for t in tags
+                if not any(im.match(t) for im in self._ignored)]
         final, joined, h32, h64 = update_tags(name, type_name, tags, None)
         return UDPMetric(key=MetricKey(name, type_name, joined),
                          digest=h32, digest64=h64, tags=list(final),
@@ -407,7 +419,8 @@ class _MergeBuffer:
             logger.warning("gRPC import does not accept local metrics")
             return
         try:
-            key, h32, h64, tags = metric_key_of_proto(pbm)
+            key, h32, h64, tags = metric_key_of_proto(pbm,
+                                                      self._srv._ignored)
         except KeyError:
             # open proto3 enums: a newer peer may send unknown types
             logger.warning("unknown metric type %s for %r; skipped",

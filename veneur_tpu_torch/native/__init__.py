@@ -152,6 +152,9 @@ def _declare(lib) -> None:
     lib.vnt_pump_live.argtypes = [ctypes.c_void_p]
     lib.vnt_pump_lost_lines.restype = i64
     lib.vnt_pump_lost_lines.argtypes = [ctypes.c_void_p]
+    lib.vnt_pump_ring_stats.restype = None
+    lib.vnt_pump_ring_stats.argtypes = [
+        ctypes.c_void_p, i64p, i64p, i64p, i64p]
     lib.vnt_pump_stop.restype = None
     lib.vnt_pump_stop.argtypes = [ctypes.c_void_p]
     lib.vnt_pump_free.restype = None
@@ -433,6 +436,17 @@ class Pump:
 
     def lost_lines(self) -> int:
         return self._lib.vnt_pump_lost_lines(self._p)
+
+    def ring_stats(self):
+        """Per-reader ring telemetry: (depths, capacities, sealed_totals,
+        stall_totals) int64 arrays of length nreaders, fresh per call
+        (the /metrics ingest.ring.* rows read these)."""
+        out = np.empty((4, self.nreaders), np.int64)
+        i64 = ctypes.c_int64
+        self._lib.vnt_pump_ring_stats(
+            self._p, _ptr(out[0], i64), _ptr(out[1], i64),
+            _ptr(out[2], i64), _ptr(out[3], i64))
+        return out[0], out[1], out[2], out[3]
 
     def signal_stop(self) -> None:
         """Sets the stop flag without joining, so the dispatcher can keep

@@ -95,7 +95,27 @@ the package is not beside it). Phases, each fatal on failure:
      self-metrics and the diagnostics gauges (`mem.rss_bytes`, the
      torch.cuda `device.bytes_in_use`) come out of the second; each
      kernel launch is booked to the flush, the queries, the alert loop
-     or ingest.
+     or ingest;
+ 12. phase H, the proxy tier: the port's veneur-proxy started through
+     its CLI (`python -m veneur_tpu_torch.cmd.veneur_proxy`) as a
+     process of its own, with static destinations, probes every 100 ms
+     and `ledger_strict`, in front of two globals on fixed 127.0.0.1
+     ports, fed by two locals; every server on cuda:0 with
+     `ledger_strict`. H1: phase D's width and corpus, two intervals; the
+     proxy received and routed 2 x 75 000 metrics per interval and sent
+     them all (its /metrics), each local's FlowCounts from the proxy
+     are whole, every forwarded key flushed on exactly the global the
+     port's ConsistentRing names for its ring key, and the two globals'
+     union passes phase D's global checks. H2: a tenth of the keys, six
+     intervals; global B's import server stops at interval 2 (the
+     locals flush at once) and returns on its port at interval 4 (the
+     locals flush once the proxy readmitted it); the proxy's events
+     hold the ejection and the readmission, sent == merged at the
+     globals + the destinations' counted drops + no-destination, every
+     interval without drops passes the global checks, interval 3 puts
+     every key on A, and from interval 4 B holds exactly the keys it
+     held in interval 1; the locals' carryover ends empty. Every closed
+     ledger interval of the four servers and the proxy balances.
 
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
@@ -964,15 +984,16 @@ PHASE_D_FORWARDED = (PHASE_A_KEYS["counter"] // 2 + PHASE_A_KEYS["gauge"] // 2
                      + PHASE_D_LL_KEYS)
 
 
-def _phase_d_corpus(seed: int, local: int):
-    """One local's interval of phase D: phase A's key set, half of the
-    counter keys and half of the gauge keys global-only (the global-only
-    gauge names carry the local's index, so each is sent by one local),
-    set members j in [16 local, 16 local + 32) (the two locals overlap by
-    half), and PHASE_D_LL_KEYS `|l` keys x 32. Returns the lines, the
-    series the local flushes (mixed counters and gauges), the global-only
-    counters and gauges, the sorted timer samples and the llhist values."""
-    keys = PHASE_A_KEYS
+def _phase_d_corpus(seed: int, local: int, keys: dict = PHASE_A_KEYS,
+                    ll_keys: int = PHASE_D_LL_KEYS):
+    """One local's interval of phase D: phase A's key set (or `keys`),
+    half of the counter keys and half of the gauge keys global-only (the
+    global-only gauge names carry the local's index, so each is sent by
+    one local), set members j in [16 local, 16 local + 32) (the two
+    locals overlap by half), and `ll_keys` `|l` keys x 32. Returns the
+    lines, the series the local flushes (mixed counters and gauges), the
+    global-only counters and gauges, the sorted timer samples and the
+    llhist values."""
     rng = np.random.default_rng(100 * seed + local)
     lines, local_expect, global_expect = [], {}, {}
     half = keys["counter"] // 2
@@ -1001,7 +1022,7 @@ def _phase_d_corpus(seed: int, local: int):
     for k in range(keys["set"]):
         lines.extend(f"smoke.s{k}:u{seed}-{k}-{j}|s" for j in members)
     _prefix, ll_vals, ll_weights = _llhist_lines(
-        rng, lines, "smoke.l", PHASE_D_LL_KEYS, 32)
+        rng, lines, "smoke.l", ll_keys, 32)
     order = rng.permutation(len(lines))
     lines = [lines[i] for i in order]
     for line in lines:  # gauges: each key's later line in send order wins
@@ -1014,11 +1035,13 @@ def _phase_d_corpus(seed: int, local: int):
     return lines, local_expect, global_expect, timers, ll_vals, ll_weights
 
 
-def _phase_d_interval(seed: int):
+def _phase_d_interval(seed: int, keys: dict = PHASE_A_KEYS,
+                      ll_keys: int = PHASE_D_LL_KEYS):
     """Both locals' corpora of one interval and the global's references:
     counters summed, gauges united, the timers' and llhists' samples
     joined, the set reference over the union's 48 members."""
-    parts = [_phase_d_corpus(seed, local) for local in (0, 1)]
+    parts = [_phase_d_corpus(seed, local, keys, ll_keys)
+             for local in (0, 1)]
     global_expect = {}
     for part in parts:
         for name, value in part[2].items():
@@ -1026,8 +1049,7 @@ def _phase_d_interval(seed: int):
                 if name.startswith("smoke.fc") else value
     timers = np.sort(np.concatenate([p[3] for p in parts], axis=1), axis=1)
     ll_vals = np.concatenate([p[4] for p in parts], axis=1)
-    set_ref = _set_reference(seed, PHASE_A_KEYS["set"],
-                             16 + PHASE_A_KEYS["set_members"])
+    set_ref = _set_reference(seed, keys["set"], 16 + keys["set_members"])
     return parts, (global_expect, timers, ll_vals, parts[0][5], set_ref)
 
 
@@ -1194,14 +1216,14 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _restart_import(gserver, address: str) -> None:
+def _restart_import(gserver, address: str, phase: str = "phase E") -> None:
     """A fresh import server for `gserver` at the address the stopped one
     held (a gRPC server does not start twice)."""
     from veneur_tpu_torch.forward.server import ImportServer
     gserver.import_server = ImportServer(gserver, address)
     gserver.import_server.start()
     if gserver.import_server.address != address:
-        raise AssertionError(f"phase E: import server rebound to "
+        raise AssertionError(f"{phase}: import server rebound to "
                              f"{gserver.import_server.address}, not {address}")
 
 
@@ -2446,6 +2468,477 @@ def _g_surface(server, api) -> dict:
             "events": len(kinds)}
 
 
+PHASE_H2_KEYS = {k: (v // 10 if k not in ("timer_samples", "set_members")
+                     else v) for k, v in PHASE_A_KEYS.items()}
+PHASE_H2_LL_KEYS = PHASE_D_LL_KEYS // 10
+PHASE_H2_FORWARDED = (PHASE_H2_KEYS["counter"] // 2
+                      + PHASE_H2_KEYS["gauge"] // 2 + PHASE_H2_KEYS["timer"]
+                      + PHASE_H2_KEYS["set"] + PHASE_H2_LL_KEYS)
+# the forwarded keys' metric types, by name prefix (the ring key is
+# name + type + joined tags, and these carry no tags)
+_H_TYPES = (("smoke.fc", "counter"), ("smoke.fg", "gauge"),
+            ("smoke.t", "timer"), ("smoke.s", "set"), ("smoke.l", "llhist"))
+_H_TIMEOUT_S = 120.0
+
+
+class _Proxy:
+    """The port's veneur-proxy started through its CLI in a process of
+    its own (`python -m veneur_tpu_torch.cmd.veneur_proxy -f <yaml>`),
+    in front of `destinations`, read through its HTTP API."""
+
+    def __init__(self, destinations, workdir: str):
+        self.grpc_address = f"127.0.0.1:{_free_port()}"
+        self.http = ("127.0.0.1", _free_port())
+        cfg = {"forward_addresses": list(destinations),
+               "grpc_address": self.grpc_address,
+               "http_address": "%s:%d" % self.http,
+               "discovery_interval": "1s",
+               # one interval of a destination's keys fits its queue, so
+               # a slow merge never turns into a drop at the door
+               "send_buffer_size": 131072,
+               "health_check_interval": "100ms",
+               "health_check_timeout": "1s",
+               "health_unhealthy_after": 3, "health_healthy_after": 2,
+               "ledger_strict": True, "ledger_history": 4096}
+        path = os.path.join(workdir, "proxy.yaml")
+        with open(path, "w") as f:
+            json.dump(cfg, f)  # JSON is YAML
+        self.log_path = os.path.join(workdir, "proxy.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cmd.veneur_proxy",
+             "-f", path], cwd=ROOT, stdout=self._log,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=ROOT))
+        deadline = time.monotonic() + 60.0
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"phase H: the proxy exited "
+                                     f"{self.proc.returncode}: {self.tail()}")
+            try:
+                if _http(self.http, "/healthcheck/ready")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase H: the proxy never became "
+                                     f"ready: {self.tail()}")
+            time.sleep(0.1)
+
+    def tail(self) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+    def get(self, path: str) -> bytes:
+        status, body = _http(self.http, path)
+        if status != 200:
+            raise AssertionError(f"phase H: proxy {path} answered {status}")
+        return body
+
+    def metrics(self) -> dict:
+        """{(name, destination or ""): value} of the proxy's /metrics."""
+        out = {}
+        for name, rows in _g_prom_rows(self.get("/metrics").decode()).items():
+            for labels, value in rows:
+                key = labels.get("destination") or labels.get("method", "")
+                out[(name, key)] = value
+        return out
+
+    def events(self, kind: str) -> list:
+        return json.loads(self.get(f"/debug/events?kind={kind}"))["events"]
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._log.close()
+        return self.proc.returncode
+
+
+def _h_sum(metrics: dict, name: str) -> float:
+    return sum(v for (n, _k), v in metrics.items() if n == name)
+
+
+def _h_routing(metrics: dict) -> dict:
+    """The proxy's routing and destination totals (the per-destination
+    rows summed with their retired folds)."""
+    out = {k: metrics.get((f"veneur_proxy_{k}_total", ""), 0.0)
+           for k in ("received", "routed", "dropped", "no_destination")}
+    for k in ("enqueued", "sent", "dropped", "dropped_enqueued"):
+        out[f"dest_{k}"] = (_h_sum(metrics, f"veneur_proxy_dest_{k}_total")
+                            + metrics.get(
+                                (f"veneur_proxy_dest_retired_{k}_total", ""),
+                                0.0))
+    out["queued"] = _h_sum(metrics, "veneur_proxy_dest_queue_depth")
+    return out
+
+
+def _h_drain(proxy: _Proxy) -> dict:
+    """Wait until the proxy's destinations have sent or dropped every
+    metric they took; returns the routing totals then."""
+    deadline = time.monotonic() + _H_TIMEOUT_S
+    while True:
+        r = _h_routing(proxy.metrics())
+        if (r["dest_enqueued"] == r["dest_sent"] + r["dest_dropped_enqueued"]
+                and r["queued"] == 0):
+            return r
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase H: the proxy's queues never "
+                                 f"drained: {r}; {proxy.tail()}")
+        time.sleep(0.05)
+
+
+def _h_base(name: str) -> tuple:
+    """A forwarded series' base key and metric type: the key's ring key
+    is their concatenation (name + type + joined tags, and no tags)."""
+    base = name
+    if not (name.startswith(("smoke.fc", "smoke.fg"))
+            or (name.startswith("smoke.s") and "." not in name[7:])):
+        base = name.rsplit(".", 1)[0]
+    return base, next(t for prefix, t in _H_TYPES if base.startswith(prefix))
+
+
+def _h_union(gservers, addresses, ring) -> tuple:
+    """Both globals' flushed series united (a series on both is an
+    error), with each base key's placement: {address: set of base keys};
+    and the base keys on a global other than the ring's choice."""
+    got, buckets, placed, misplaced = {}, {}, {}, []
+    for gserver, address in zip(gservers, addresses):
+        # drained, not awaited: a global that received nothing this
+        # interval delivers nothing (flush() joined its sink threads)
+        g_got, g_buckets = {}, {}
+        for m in gserver.metric_sinks[0].drain():
+            if m.name.endswith(".bucket"):
+                le = next(t for t in m.tags if t.startswith("le:"))
+                g_buckets.setdefault(m.name, {})[le] = m.value
+            else:
+                g_got[m.name] = m.value
+        both = set(g_got) & set(got)
+        if both:
+            raise AssertionError(f"phase H: series on both globals, e.g. "
+                                 f"{sorted(both)[:3]}")
+        got.update(g_got)
+        buckets.update(g_buckets)
+        keys = placed.setdefault(address, set())
+        for name in list(g_got) + list(g_buckets):
+            base, mtype = _h_base(name)
+            keys.add(base)
+            if ring is not None and ring.get(base + mtype) != address:
+                misplaced.append((base, address, ring.get(base + mtype)))
+    return got, buckets, placed, misplaced
+
+
+def _h_ledgers(servers, proxy: _Proxy, phase: str) -> dict:
+    """Every closed ledger interval of the four servers and the proxy
+    balanced (the servers run ledger_strict, so a flush would have
+    raised; the proxy's strict close only logs)."""
+    out = {}
+    for name, server in servers.items():
+        bad = [imb for imb in server.ledger.history_imbalances()
+               if any(imb.values())]
+        if bad:
+            raise AssertionError(f"{phase}: {name} ledger imbalance {bad[:3]}")
+        out[name] = server.ledger.intervals_closed
+    report = json.loads(proxy.get("/debug/ledger"))
+    unexplained = {k: v["unexplained_total"]
+                   for k, v in report["identities"].items()}
+    if any(unexplained.values()):
+        raise AssertionError(f"{phase}: proxy ledger unexplained "
+                             f"{unexplained}")
+    out["proxy"] = report["intervals_closed"]
+    if not out["proxy"]:
+        raise AssertionError(f"{phase}: the proxy closed no ledger interval")
+    return out
+
+
+def _h_servers(imp_ports):
+    """Two globals on fixed 127.0.0.1 ports; both on cuda:0."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    return [_server({"grpc_address": f"127.0.0.1:{port}",
+                     "statsd_listen_addresses": [], "ledger_strict": True},
+                    {"counter_capacity": 32768, "gauge_capacity": 32768,
+                     "histo_capacity": 32768, "set_capacity": 16384,
+                     "llhist_capacity": 8192}, ChannelMetricSink())
+            for port in imp_ports]
+
+
+def _h_locals(address: str):
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    return [_server({"forward_address": address, "ledger_strict": True},
+                    {"counter_capacity": 65536, "gauge_capacity": 32768,
+                     "histo_capacity": 32768, "set_capacity": 16384,
+                     "llhist_capacity": 8192}, ChannelMetricSink())
+            for _ in range(2)]
+
+
+def _h_interval(locals_, gservers, proxy, parts, bases, windows,
+                forwarded: int, phase: str, before_flush=None) -> dict:
+    """One interval through the tier: ingest on both locals, run
+    `before_flush`, flush the locals (their forward goes through the
+    proxy), wait for the proxy's queues, flush both globals. Returns the
+    timings and the proxy's deltas."""
+    rec = {"ingest_s": [], "local_flush": [], "lines": []}
+    for i, (server, part) in enumerate(zip(locals_, parts)):
+        rec["ingest_s"].append(_send(server, server.listen_addresses[0],
+                                     part[0], bases[i], windows[i]))
+        bases[i] += len(part[0])
+        rec["lines"].append(len(part[0]))
+        stats = server.stats_snapshot()
+        if (stats["lines_received"] != bases[i] or stats["lost_lines"]
+                or stats["ingest_dispatch_errors"]):
+            raise AssertionError(f"{phase} local {i}: {stats}")
+    before = proxy.metrics()
+    merge_before = [dict(g.import_server.merge_s) for g in gservers]
+    imported_before = [g.stats_snapshot()["imported_total"]
+                       for g in gservers]
+    if before_flush is not None:
+        before_flush()
+    for i, server in enumerate(locals_):
+        server.flush()
+        rec["local_flush"].append(dict(server.last_flush_timings))
+        stats = server.stats_snapshot()
+        flow = server.forward_client.last_flow
+        if stats["forward_errors"] or flow != {
+                "received": forwarded, "merged": forwarded,
+                "duplicate": False}:
+            raise AssertionError(f"{phase} local {i}: FlowCounts {flow}, "
+                                 f"{stats}")
+    t0 = time.perf_counter()
+    _h_drain(proxy)
+    rec["proxy_drain_s"] = time.perf_counter() - t0
+    after = proxy.metrics()
+    b, a = _h_routing(before), _h_routing(after)
+    rec["proxy"] = {k: a[k] - b[k] for k in a if k != "queued"}
+    rec["proxy_rpc_s"] = {
+        k[1]: v - before.get(k, 0.0) for k, v in after.items()
+        if k[0] == "veneur_rpc_seconds_total"}
+    rec["dest_send_s"] = {
+        k[1]: v - before.get(k, 0.0) for k, v in after.items()
+        if k[0] == "veneur_proxy_dest_send_seconds_total"}
+    rec["global_flush"], rec["merge_s"], rec["imported"] = [], [], []
+    for g, mb, ib in zip(gservers, merge_before, imported_before):
+        imp = g.import_server
+        rec["merge_s"].append({k: imp.merge_s.get(k, 0.0) - mb.get(k, 0.0)
+                               for k in imp.merge_s})
+        rec["imported"].append(g.stats_snapshot()["imported_total"] - ib)
+        g.flush()
+        rec["global_flush"].append(dict(g.last_flush_timings))
+    return rec
+
+
+def _phase_h1(workdir: str) -> dict:
+    """Two locals -> the proxy (a process of its own, started through its
+    CLI) -> two globals, at phase D's width, two intervals."""
+    from veneur_tpu_torch.proxy.ring import ConsistentRing
+    ports = [_free_port(), _free_port()]
+    addresses = [f"127.0.0.1:{p}" for p in ports]
+    ring = ConsistentRing()
+    ring.set_members(addresses)
+    intervals = [_phase_d_interval(seed) for seed in (11, 12)]
+    gservers = _h_servers(ports)
+    locals_, proxy = [], None
+    report = {"intervals": []}
+    _zero_launches()
+    try:
+        for g in gservers:
+            g.start()
+        proxy = _Proxy(addresses, workdir)
+        locals_ = _h_locals(proxy.grpc_address)
+        for server in locals_:
+            server.start()
+        windows = [_pump_window(server) for server in locals_]
+        bases = [0, 0]
+        for parts, (g_expect, timers, ll_vals, ll_w, set_ref) in intervals:
+            rec = _h_interval(locals_, gservers, proxy, parts, bases,
+                              windows, PHASE_D_FORWARDED, "phase H1")
+            p = rec["proxy"]
+            want = 2 * PHASE_D_FORWARDED
+            if not (p["received"] == p["routed"] == want == p["dest_sent"]
+                    and p["dropped"] == p["no_destination"] == 0
+                    and p["dest_dropped"] == 0):
+                raise AssertionError(f"phase H1: proxy routing {p}")
+            if sum(rec["imported"]) != want:
+                raise AssertionError(f"phase H1: the globals imported "
+                                     f"{rec['imported']}")
+            checked = sum(_check_local(server, part, f"phase H1 local {i}")
+                          for i, (server, part)
+                          in enumerate(zip(locals_, parts)))
+            got, buckets, placed, misplaced = _h_union(gservers, addresses,
+                                                       ring)
+            if misplaced:
+                raise AssertionError(f"phase H1: {len(misplaced)} keys off "
+                                     f"their ring owner, e.g. "
+                                     f"{misplaced[:3]}")
+            rec.update(_check_global(got, buckets, g_expect, timers, ll_vals,
+                                     ll_w, set_ref,
+                                     16 + PHASE_A_KEYS["set_members"],
+                                     "phase H1"))
+            rec["series_checked"] += checked
+            rec["keys_per_global"] = [len(placed.get(a, ())) for a in
+                                      addresses]
+            report["intervals"].append(rec)
+        report["ledger_intervals"] = _h_ledgers(
+            {"local 0": locals_[0], "local 1": locals_[1],
+             "global A": gservers[0], "global B": gservers[1]}, proxy,
+            "phase H1")
+    finally:
+        for server in locals_:
+            server.shutdown()
+        if proxy is not None:
+            report["proxy_exit"] = proxy.stop()
+        for g in gservers:
+            g.shutdown()
+    report["launches"] = _read_launches()
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase H1: {kernel} was not launched")
+    return report
+
+
+def _h_wait_event(proxy: _Proxy, kind: str, address: str) -> float:
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 60.0
+    while not any(e.get("destination") == address
+                  for e in proxy.events(kind)):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase H2: no {kind} of {address}: "
+                                 f"{proxy.tail()}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _phase_h2(workdir: str) -> dict:
+    """Kill and restore global B behind the proxy at a tenth of phase D's
+    keys, six intervals: B's import server stops at interval 2, after
+    the ingest and just before the locals flush (so the proxy routes to
+    B until it ejects it, and what it took for B in that window is
+    dropped and must be counted), and returns on the same port at
+    interval 4 (the locals flush once the proxy has readmitted it)."""
+    from veneur_tpu_torch.proxy.ring import ConsistentRing
+    ports = [_free_port(), _free_port()]
+    addresses = [f"127.0.0.1:{p}" for p in ports]
+    ring = ConsistentRing()
+    ring.set_members(addresses)
+    keys = PHASE_H2_KEYS
+    intervals = [_phase_d_interval(seed, keys, PHASE_H2_LL_KEYS)
+                 for seed in range(21, 27)]
+    gservers = _h_servers(ports)
+    locals_, proxy = [], None
+    report = {"intervals": []}
+    b_keys = None
+    sent = merged = dropped = no_dest = 0
+    try:
+        for g in gservers:
+            g.start()
+        proxy = _Proxy(addresses, workdir)
+        locals_ = _h_locals(proxy.grpc_address)
+        for server in locals_:
+            server.start()
+        windows = [_pump_window(server) for server in locals_]
+        bases = [0, 0]
+        for n, (parts, (g_expect, timers, ll_vals, ll_w, set_ref)) in \
+                enumerate(intervals, 1):
+            event_s = None
+            if n == 4:
+                _restart_import(gservers[1], addresses[1], "phase H2")
+                event_s = _h_wait_event(proxy, "ring_readmission",
+                                        addresses[1])
+            rec = _h_interval(
+                locals_, gservers, proxy, parts, bases, windows,
+                PHASE_H2_FORWARDED, "phase H2",
+                before_flush=((lambda: gservers[1].import_server.stop(0))
+                              if n == 2 else None))
+            rec["interval"] = n
+            if n == 2:
+                event_s = _h_wait_event(proxy, "ring_ejection", addresses[1])
+            rec["event_wait_s"] = event_s
+            p = rec["proxy"]
+            sent += p["received"]
+            merged += sum(rec["imported"])
+            dropped += p["dest_dropped"]
+            no_dest += p["no_destination"]
+            for i, (server, part) in enumerate(zip(locals_, parts)):
+                _check_local(server, part, f"phase H2 local {i}")
+            # interval 3 runs with B ejected: every key on A
+            members = addresses if n != 3 else addresses[:1]
+            iv_ring = ConsistentRing()
+            iv_ring.set_members(members)
+            got, buckets, placed, misplaced = _h_union(
+                gservers, addresses, None if n == 2 else iv_ring)
+            rec["keys_per_global"] = [len(placed.get(a, ())) for a in
+                                      addresses]
+            if n == 2 and (p["dest_dropped"] or p["no_destination"]):
+                # the detection window dropped what the proxy took for B
+                # before its breaker and the ejection: counted, so the
+                # accounting below holds it; the values cannot be whole
+                report["intervals"].append(rec)
+                continue
+            if misplaced or p["dest_dropped"] or p["no_destination"]:
+                raise AssertionError(
+                    f"phase H2 interval {n}: {len(misplaced)} keys off "
+                    f"their ring owner ({misplaced[:3]}), routing {p}")
+            rec.update(_check_global(got, buckets, g_expect, timers,
+                                     ll_vals, ll_w, set_ref,
+                                     16 + keys["set_members"],
+                                     f"phase H2 interval {n}"))
+            if n == 1:
+                b_keys = placed[addresses[1]]
+            elif n >= 4 and placed.get(addresses[1]) != b_keys:
+                raise AssertionError(
+                    f"phase H2 interval {n}: B holds "
+                    f"{len(placed.get(addresses[1], ()))} keys, "
+                    f"{len(b_keys)} in interval 1")
+            report["intervals"].append(rec)
+        report["ledger_intervals"] = _h_ledgers(
+            {"local 0": locals_[0], "local 1": locals_[1],
+             "global A": gservers[0], "global B": gservers[1]}, proxy,
+            "phase H2")
+        for i, server in enumerate(locals_):
+            depth = server.stats_snapshot()["carryover_depth"]
+            if depth:
+                raise AssertionError(f"phase H2 local {i}: carryover "
+                                     f"depth {depth}")
+        report["events"] = {k: len(proxy.events(k)) for k in
+                            ("ring_ejection", "ring_readmission")}
+    finally:
+        for server in locals_:
+            server.shutdown()
+        if proxy is not None:
+            report["proxy_exit"] = proxy.stop()
+        for g in gservers:
+            g.shutdown()
+    report["accounting"] = {
+        "sent": sent, "merged": merged, "dest_dropped": dropped,
+        "no_destination": no_dest,
+        "loss_unaccounted": sent - merged - dropped - no_dest}
+    if report["accounting"]["loss_unaccounted"] or \
+            sent != 6 * 2 * PHASE_H2_FORWARDED:
+        raise AssertionError(f"phase H2: accounting "
+                             f"{report['accounting']}")
+    report["launches"] = _read_launches()
+    return report
+
+
+def _phase_h() -> dict:
+    """Phase H: the proxy tier (H1 at full width, then H2's kill and
+    restore). The launch counts are zeroed before H1 and read after H2."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="smoke-h-")
+    try:
+        h1 = _phase_h1(workdir)
+        torch.cuda.empty_cache()
+        h2 = _phase_h2(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"H1": h1, "H2": h2, "launches": h2["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2666,6 +3159,42 @@ def main() -> int:
         f"{surface['table_bytes']}", flush=True)
     print(f"phase G launches: {rep['launches']}, by role "
           f"{rep['launches_by_role']}; {rep['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phases["H"] = rep = _phase_h()
+    rep["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for part in ("H1", "H2"):
+        for i, rec in enumerate(rep[part]["intervals"]):
+            label = f"phase {part} interval {rec.get('interval', i + 1)}"
+            for j, flush in enumerate(rec["local_flush"]):
+                print(f"{label} local {j}: {rec['lines'][j]} lines in "
+                      f"{rec['ingest_s'][j]:.2f} s, flush "
+                      f"{flush['total_s']:.3f} s (forward encode "
+                      f"{flush.get('forward_encode_s', 0.0):.3f}, forward "
+                      f"{flush.get('forward_s', 0.0):.3f})", flush=True)
+            p = rec["proxy"]
+            print(f"{label} proxy: received {p['received']:.0f}, routed "
+                  f"{p['routed']:.0f}, dropped {p['dest_dropped']:.0f}, "
+                  f"no destination {p['no_destination']:.0f}; RPC s "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              sorted(rec["proxy_rpc_s"].items()))
+                  + "; send s " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in
+                      sorted(rec["dest_send_s"].items()))
+                  + f"; drain wait {rec['proxy_drain_s']:.3f} s",
+                  flush=True)
+            for j, (g, merge) in enumerate(zip(rec["global_flush"],
+                                               rec["merge_s"])):
+                print(f"{label} global {'AB'[j]}: {rec['imported'][j]} "
+                      f"metrics imported, {rec['keys_per_global'][j]} keys "
+                      f"flushed; merge s " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in merge.items())
+                      + f"; flush {g['total_s']:.3f} s", flush=True)
+        print(f"phase {part}: ledger intervals closed "
+              f"{rep[part]['ledger_intervals']}", flush=True)
+    print(f"phase H2: accounting {rep['H2']['accounting']}, events "
+          f"{rep['H2']['events']}; phase H launches {rep['launches']}; "
+          f"{rep['seconds']:.1f} s", flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())

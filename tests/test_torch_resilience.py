@@ -397,9 +397,9 @@ def test_config_accepts_the_resilience_keys():
         assert getattr(tcfg, key) == getattr(jcfg, key), key
 
 
-@pytest.mark.parametrize("key", ["forward_only", "reshard_spool_dir",
+@pytest.mark.parametrize("key", ["tls_key", "reshard_spool_dir",
                                  "chaos_forward_fail_rate",
-                                 "forward_tls_key"])
+                                 "chaos_ingest_drop_rate"])
 def test_config_still_rejects_what_the_port_lacks(key):
     with pytest.raises(ValueError, match=key):
         config_from_dict({key: 1})

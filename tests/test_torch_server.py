@@ -190,9 +190,9 @@ def test_device_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("forward_tls_certificate", "cert.pem"),
+    ("tls_certificate", "cert.pem"),
     ("ssf_listen_addresses", ["udp://127.0.0.1:0"]),
-    ("grpc_tls_certificate", "cert.pem"),
+    ("grpc_listen_addresses", ["127.0.0.1:0"]),
     ("tpu", {"shards": 4}),
 ])
 def test_config_rejects_features_the_port_lacks(key, value):
@@ -204,7 +204,7 @@ def test_cli_validates_config(tmp_path):
     cfg = tmp_path / "c.yaml"
     cfg.write_text("interval: 5s\npercentiles: [0.5]\n")
     bad = tmp_path / "bad.yaml"
-    bad.write_text("forward_only: true\n")
+    bad.write_text("sentry_dsn: https://example.invalid/1\n")
     from veneur_tpu_torch.cmd import veneur
     assert veneur.main(["-f", str(cfg), "-validate-config"]) == 0
     assert veneur.main(["-f", str(bad), "-validate-config"]) == 1
@@ -222,6 +222,11 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "veneur_tpu" or n.startswith("veneur_tpu."))
 assert not bad, bad
+walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
+          "proxy.discovery", "cmd.veneur_proxy", "core.ledger", "util.chaos",
+          "util.grpctls", "util.grpcstats"}
+missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
+assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,12 +1,13 @@
 """Configuration of the port's server: the YAML keys of veneur_tpu's
 config that this port implements, with the same names and defaults.
 
-A key the port does not implement (for example `forward_only`,
-`forward_tls_certificate`, `ssf_listen_addresses`, `grpc_tls_certificate`,
-`reshard_spool_dir`, `chaos_forward_fail_rate` or `tpu.shards`) raises
-with the key's name: a configuration is never half-applied in silence.
-Durations accept Go-style strings ("10s", "500ms") or numbers of
-seconds.
+A key the port does not implement (for example `ssf_listen_addresses`,
+`grpc_listen_addresses`, `tls_certificate`, `sentry_dsn`,
+`reshard_spool_dir`, `chaos_ingest_drop_rate`, `chaos_reshard_*` or
+`tpu.shards`) raises with the key's name: a configuration is never
+half-applied in silence. Durations accept Go-style strings ("10s",
+"500ms") or numbers of seconds; the private keys (`grpc_tls_key`,
+`forward_tls_key`) become StringSecrets, redacted in /config/json.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional
 
 import yaml
+
+from veneur_tpu_torch.util.secret import StringSecret
 
 _DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
 _DURATION_UNITS = {"ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3,
@@ -129,6 +132,17 @@ class Config:
     # failed forward intervals merge into the next snapshot for at most
     # this many consecutive intervals (0 disables the carryover)
     carryover_max_intervals: int = 3
+    # fault injection at the egress seams (util/chaos.py): seeded
+    # probabilistic errors and delays at forward_send, sink_flush,
+    # http_post and health_probe (`chaos_seams`, empty = all), and a
+    # deterministic delay of every forward_send
+    chaos_enabled: bool = False
+    chaos_error_rate: float = 0.0
+    chaos_delay_rate: float = 0.0
+    chaos_delay: float = 0.0  # duration per injected delay
+    chaos_seams: List[str] = field(default_factory=list)
+    chaos_seed: int = 0
+    chaos_forward_latency_ms: float = 0.0
     # the forward's circuit breaker: consecutive failures to open, and
     # how long it stays open before its one half-open probe (duration)
     circuit_breaker_failure_threshold: int = 3
@@ -145,6 +159,9 @@ class Config:
     # host:port of the global server's import endpoint; set, this server
     # is local and forwards its mergeable state there every interval
     forward_address: str = ""
+    # metrics that declare no scope become global-only: a local then
+    # aggregates nothing itself and forwards everything
+    forward_only: bool = False
     # forward retry: jittered exponential backoff inside the interval's
     # budget (base and max are durations)
     forward_retry_max_attempts: int = 3
@@ -154,8 +171,18 @@ class Config:
     # the spool (fsync'd, stamped with its interval start) before it is
     # sent; the spool's drain is the only send path
     forward_wal: bool = False
+    # mTLS of the forward client (inline PEM or file paths); the
+    # authority verifies the global, a certificate and key present it
+    forward_tls_certificate: str = ""
+    forward_tls_key: StringSecret = field(default_factory=StringSecret)
+    forward_tls_authority_certificate: str = ""
     # host:port the import server (gRPC /forwardrpc.Forward) listens on
     grpc_address: str = ""
+    # TLS of the import server at grpc_address (inline PEM or file
+    # paths); with an authority, clients must present certificates
+    grpc_tls_certificate: str = ""
+    grpc_tls_key: StringSecret = field(default_factory=StringSecret)
+    grpc_tls_authority_certificate: str = ""
     # the family DogStatsD histogram/timer samples aggregate in:
     # "tdigest" (reference parity) or "circllhist" (log-linear bins,
     # exact merges); `|l` samples always use the circllhist family
@@ -172,6 +199,13 @@ class Config:
     # full ring blocks the reader, counted as a stall
     ingest_ring_slots: int = 4
     interval: float = 10.0
+    # the flow ledger (core/ledger.py): per-interval conservation checks
+    # closed at every flush; strict raises LedgerImbalance out of the
+    # flush (for tests and soaks); closed intervals kept for
+    # /debug/ledger
+    ledger_enabled: bool = True
+    ledger_strict: bool = False
+    ledger_history: int = 32
     # longest datagram taken; longer ones are dropped and counted as
     # rejected lines
     metric_max_length: int = 4096
@@ -232,7 +266,8 @@ class Config:
 
 
 _DURATION_FIELDS = {"interval", "forward_retry_base", "forward_retry_max",
-                    "circuit_breaker_recovery"}
+                    "circuit_breaker_recovery", "chaos_delay"}
+_SECRET_FIELDS = {"grpc_tls_key", "forward_tls_key"}
 
 
 def _known(cls) -> set:
@@ -276,6 +311,8 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
     for key, value in raw.items():
         if key in _DURATION_FIELDS:
             value = parse_duration(value)
+        elif key in _SECRET_FIELDS:
+            value = StringSecret(str(value) if value is not None else "")
         elif key == "tpu":
             value = dict(value or {})
             _check_keys(value, TpuConfig, "tpu.")

@@ -123,6 +123,10 @@ class _BaseTable:
     """
 
     family = "unknown"
+    # the flow ledger (core/ledger.py), set by ColumnStore.attach_ledger:
+    # every sample a table accepts stamps agg.applied, the out-side of
+    # the server's ingest identity
+    ledger = None
 
     def __init__(self, device: torch.device, capacity: int = 1024,
                  batch_cap: int = 8192):
@@ -472,6 +476,13 @@ class _BaseTable:
         the family's pending buffers."""
         with self.lock:
             self._append_batch(columns)
+        self._note_applied(len(columns[0]))
+
+    def _note_applied(self, n: int) -> None:
+        """Stamp n samples accepted into this family (flow ledger)."""
+        led = self.ledger
+        if led is not None and n:
+            led.note("agg.applied", n, key=self.family)
 
     def _intern_stubs_locked(self, stubs) -> np.ndarray:
         """Intern the import path's metric stubs and mark them touched
@@ -524,6 +535,7 @@ class CounterTable(_BaseTable):
         hold, so a flush never sees a touched row without its value."""
         with self.lock:
             rows = self._intern_stubs_locked(stubs)
+            self._note_applied(len(stubs))
             if self._import_acc.shape[0] < self.capacity:
                 grown = np.zeros(self.capacity, np.float64)
                 grown[: self._import_acc.shape[0]] = self._import_acc
@@ -591,6 +603,7 @@ class GaugeTable(_BaseTable):
         released, so it orders after any batch already swapped out."""
         with self.lock:
             rows = self._intern_stubs_locked(stubs)
+            self._note_applied(len(stubs))
             self.apply_lock.acquire()
         try:
             scalars.merge_gauges(
@@ -675,6 +688,7 @@ class HistoTable(_BaseTable):
         released."""
         with self.lock:
             rows = self._intern_stubs_locked(stubs)
+            self._note_applied(len(stubs))
             self.apply_lock.acquire()
         try:
             batch_tdigest.merge_centroid_rows(
@@ -905,6 +919,7 @@ class SetTable(_BaseTable):
                     # the whole chunk being buffered and touched
                     self._append_batch((slots[~cold], ix[~cold], rh[~cold]),
                                        touch_rows=r[~cold])
+        self._note_applied(int(rows.shape[0]))
 
     def _apply_cols_state(self, state, cols):
         rows, idxs, rhos = (_to_device(c, self.device) for c in cols)
@@ -917,6 +932,7 @@ class SetTable(_BaseTable):
         rho) pairs)."""
         with self.lock:
             rows = self._intern_stubs_locked(stubs)
+            self._note_applied(len(stubs))
             regs = np.asarray(in_regs, np.int8)
             for r in rows.tolist():
                 if self._slot_of[r] < 0:
@@ -1117,6 +1133,7 @@ class LLHistTable(_BaseTable):
             self.clamped_total += int(
                 wts[llhist_ref.clamped_mask(vals)].sum())
             self._append_batch((np.asarray(rows, np.int32), bins, wts))
+        self._note_applied(len(rows))
 
     def add_batch_binned(self, rows, bins, wts, clamped: int = 0) -> None:
         """ALREADY-binned samples: the native (C++) parser bins the `l`
@@ -1130,6 +1147,7 @@ class LLHistTable(_BaseTable):
             self._append_batch((np.asarray(rows, np.int32),
                                 np.asarray(bins, np.int32),
                                 np.asarray(wts, np.int32)))
+        self._note_applied(len(rows))
 
     def _append_batch(self, columns, touch_rows=None) -> None:
         """Whole-chunk apply (see the class note). Caller holds `lock`;
@@ -1207,6 +1225,7 @@ class LLHistTable(_BaseTable):
         released."""
         with self.lock:
             rows = self._intern_stubs_locked(stubs)
+            self._note_applied(len(stubs))
             padded = batch_llhist.pad_rows_to_device(in_bins)
             self.samples_total += int(padded.sum(dtype=np.int64))
             self.apply_lock.acquire()
@@ -1343,6 +1362,7 @@ class ColumnStore:
         self.processed = 0
         self.unknown_rejected = 0
         self._processed_lock = threading.Lock()
+        self.ledger = None
 
     def tables(self):
         """(family, table) pairs, every device family plus statuses."""
@@ -1355,29 +1375,39 @@ class ColumnStore:
         with self._processed_lock:
             self.processed += n
 
+    def attach_ledger(self, ledger) -> None:
+        """Wire the flow ledger into every table (None detaches)."""
+        self.ledger = ledger
+        for _family, table in self.tables():
+            table.ledger = ledger
+
     def process(self, metric: UDPMetric) -> None:
         """Route one parsed metric to its family table (the equivalent of
         reference worker.go:350-404 ProcessMetric)."""
         t = metric.key.type
         if t == m.COUNTER:
-            self.counters.add(metric)
+            table = self.counters
         elif t == m.GAUGE:
-            self.gauges.add(metric)
+            table = self.gauges
         elif t in (m.HISTOGRAM, m.TIMER):
-            if self.histogram_encoding == "circllhist":
-                self.llhists.add(metric)
-            else:
-                self.histos.add(metric)
+            table = (self.llhists if self.histogram_encoding == "circllhist"
+                     else self.histos)
         elif t == m.LLHIST:
-            self.llhists.add(metric)
+            table = self.llhists
         elif t == m.SET:
-            self.sets.add(metric)
+            table = self.sets
         elif t == m.STATUS:
-            self.statuses.add(metric)
+            table = self.statuses
         else:
             with self._processed_lock:
                 self.unknown_rejected += 1
+            # the sample was admitted by the caller: its drop is
+            # explained, or the ledger's ingest identity flags it
+            if self.ledger is not None:
+                self.ledger.note("agg.rejected", 1, key="unknown")
             return
+        table.add(metric)
+        table._note_applied(1)
         self.count_processed(1)
 
     def apply_all_pending(self):

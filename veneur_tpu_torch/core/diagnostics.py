@@ -15,9 +15,7 @@ import logging
 import sys
 import threading
 import time
-from typing import Optional
-
-import torch
+from typing import Callable, Optional
 
 from veneur_tpu_torch.core.overload import current_rss_bytes
 from veneur_tpu_torch.util.scopedstatsd import ScopedClient
@@ -64,6 +62,10 @@ def collect(stats: ScopedClient, start_time: float,
     stats.gauge("threads.count", threading.active_count())
     since = now - (last_tick if last_tick is not None else start_time)
     stats.count("uptime_ms", int(max(since, 0.0) * 1000))
+    if include_device:
+        # imported here: the proxy's loop (include_device=False) runs in
+        # a process that imports no torch
+        import torch
     if include_device and torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
             in_use = torch.cuda.memory_stats(i).get(
@@ -84,10 +86,12 @@ class DiagnosticsLoop:
     ERROR_LOG_INTERVAL_S = 60.0
 
     def __init__(self, stats: ScopedClient, interval: float,
-                 include_device: bool = True):
+                 include_device: bool = True,
+                 extra: Optional[Callable[[], None]] = None):
         self.stats = stats
         self.interval = interval
         self.include_device = include_device
+        self.extra = extra  # e.g. the proxy's per-interval RPC aggregates
         self.start_time = time.time()
         self.errors = 0
         self._last_error_log = 0.0
@@ -106,6 +110,8 @@ class DiagnosticsLoop:
                 last_tick = collect(self.stats, self.start_time,
                                     self.include_device,
                                     last_tick=last_tick)
+                if self.extra is not None:
+                    self.extra()
             except Exception:
                 # rate-limited: a collector that fails every interval
                 # stays visible without flooding the log

@@ -15,10 +15,16 @@ the alert engine are served at:
   GET /query         ?metric=&kind=&q=&tags=a:b,c:d&lo=&hi=
   GET /alerts        the alert rule table and its state machines
 
+  GET /debug/ledger  the flow ledger's conservation report
+                     (?intervals=N)
+
+A standalone API (the proxy's, cmd/veneur_proxy.py) passes its own
+telemetry, readiness, ledger, query and cardinality sources.
+
 Every route of the JAX package answers. Those whose source the port
 lacks answer what the JAX package answers for a server without one:
-/debug/latency, /debug/reshard, /debug/ledger, /debug/traces,
-/debug/cardinality and /debug/device 404 with the same body. The
+/debug/latency, /debug/reshard, /debug/traces, /debug/device, and
+/debug/cardinality on a server, 404 with the same body. The
 profiling routes (/debug/pprof/profile, heap, allocs, goroutine, block,
 mutex, threadcreate, /debug/profile/cpu and /debug/profile/device) need
 core/profiling.py, which is not ported yet: they answer 501 naming it.
@@ -38,7 +44,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
-import torch
 import yaml
 
 import veneur_tpu_torch
@@ -73,9 +78,7 @@ _TIMED_ROUTES = frozenset({
 _NO_SOURCE = {
     "/debug/latency": b"no latency source\n",
     "/debug/reshard": b"no reshard controller\n",
-    "/debug/ledger": b"no ledger source\n",
     "/debug/traces": b"no trace source\n",
-    "/debug/cardinality": b"no cardinality source\n",
     "/debug/device": b"no device source\n",
 }
 
@@ -168,16 +171,22 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, b"ok\n")
         elif path == "/healthcheck/ready":
             # not ready while the flush watchdog's budget is blown (the
-            # server's ready_state); a standalone API is always ready
+            # server's ready_state); a standalone API (the proxy) passes
+            # its own source, whose reason may be a whole body (the
+            # proxy's ring member table)
             ready, reason = True, ""
-            if api.server is not None:
+            if api.ready_source is not None:
+                ready, reason = api.ready_source()
+            elif api.server is not None:
                 ready, reason = api.server.ready_state()
             if ready:
                 self._send(200, b"ready\n")
             else:
-                self._send(503, json.dumps(
-                    {"ready": False, "reason": reason}).encode() + b"\n",
-                    "application/json")
+                body = (dict(reason, ready=False)
+                        if isinstance(reason, dict)
+                        else {"ready": False, "reason": reason})
+                self._send(503, json.dumps(body).encode() + b"\n",
+                           "application/json")
         elif path == "/version":
             self._send(200, veneur_tpu_torch.__version__.encode())
         elif path == "/builddate":
@@ -219,6 +228,31 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._send(200, api.telemetry.flushes_json(limit),
                        "application/json")
+        elif path == "/debug/ledger":
+            source = api.ledger_source
+            if source is None:
+                ledger = getattr(api.server, "ledger", None)
+                source = getattr(ledger, "report", None)
+            if source is None:
+                self._send(404, b"no ledger source\n")
+                return
+            n = int(_query_float(self.path, "intervals", 0.0,
+                                 max_value=1e4))
+            self._send(200, json.dumps(source(intervals=n), indent=2,
+                                       default=str).encode(),
+                       "application/json")
+        elif path == "/debug/cardinality":
+            # served by the proxy (per-destination forwarded-key
+            # estimates); the server's observatory is not ported yet
+            source = api.cardinality_source
+            if source is None:
+                self._send(404, b"no cardinality source\n")
+                return
+            top = int(_query_float(self.path, "top", 20.0,
+                                   max_value=10000.0))
+            self._send(200, json.dumps(source(
+                top=top, name=_query_str(self.path, "name")), indent=2,
+                default=str).encode(), "application/json")
         elif path in _NO_SOURCE:
             self._send(404, _NO_SOURCE[path])
         elif path == "/query":
@@ -261,9 +295,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _query(self) -> None:
         """The live query plane (core/query.py) against a consistent
-        read-only capture of the live generation."""
-        plane = getattr(self.server_ref.server, "query_plane", None)
-        if plane is None:
+        read-only capture of the live generation, or a standalone API's
+        own source (the proxy's aggregate view)."""
+        source = self.server_ref.query_source
+        if source is None:
+            plane = getattr(self.server_ref.server, "query_plane", None)
+            source = getattr(plane, "query", None)
+        if source is None:
             self._send(404, b"no query source\n")
             return
         try:
@@ -278,7 +316,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error_json(400, str(e))
             return
         try:
-            result = plane.query(spec)
+            result = source(spec)
         except ReshardRetry as e:
             self._send_error_json(503, str(e), retry=True)
             return
@@ -330,6 +368,7 @@ def _device_memory_report() -> bytes:
     """Per-device memory stats (the JAX package lists
     jax.Device.memory_stats()): torch.cuda.memory_stats() for each
     visible CUDA device, none without CUDA."""
+    import torch  # here: the proxy's API runs in a process without it
     stats = []
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
@@ -343,18 +382,29 @@ class HTTPApi:
     a private registry)."""
 
     def __init__(self, config, server=None, address: str = "127.0.0.1:0",
-                 http_quit: bool = False, on_quit=None):
+                 http_quit: bool = False, on_quit=None, telemetry=None,
+                 ready=None, ledger=None, query=None, cardinality=None):
         self.config = config
         self.server = server
         self.http_quit = http_quit
         self.on_quit = on_quit
+        # a standalone API's sources (the proxy's), each None by default
+        # and then read from `server`: ready() -> (ready, reason or body
+        # dict); ledger(intervals=N) -> dict; query(QuerySpec) -> dict;
+        # cardinality(top=, name=) -> dict
+        self.ready_source = ready
+        self.ledger_source = ledger
+        self.query_source = query
+        self.cardinality_source = cardinality
         # per-route latency: every request lands in a per-(method, path)
         # llhist, exported as http.route.* rows
         self._route_hists: Dict[str, LatencyHist] = {}
         self._route_lock = threading.Lock()
         # /metrics & the flight recorder serve the owning server's
-        # telemetry; a standalone API gets a private registry
-        telemetry = getattr(server, "telemetry", None)
+        # telemetry (or the one passed); a standalone API without one
+        # gets a private registry
+        if telemetry is None:
+            telemetry = getattr(server, "telemetry", None)
         if telemetry is None:
             telemetry = telemetry_mod.Telemetry()
             telemetry.registry.add_collector(

@@ -14,6 +14,12 @@ through the port's Python parser, which keeps exact parse/error
 semantics; metric lines that intern a new key are then registered with
 the intern table, so each unique timeseries pays the Python path once.
 
+Flow ledger: the columns a buffer yields and every slow-path sample
+stamp `ingest.admitted` on the server's ledger (the columns under the
+ingester's key, the slow path under "python"); the tables stamp what
+they accept as `agg.applied` (core/columnstore.py). No sample is shed
+before the store, as there is no admission ladder yet.
+
 Where the JAX package logs and drops a chunk whose apply raised, the port
 counts the failure in the server's `ingest_dispatch_errors`, keeps the
 first exception, and `Server.flush()` / `Server.shutdown()` re-raise it:
@@ -54,6 +60,9 @@ class _ColumnarIngesterBase:
     server = None
     store = None
     parser = None  # the scalar (Python) parser, for the slow path
+    # flow-ledger key of the admitted columns (which parse plane took
+    # the sample, as in the JAX package)
+    LEDGER_KEY = "native"
 
     def _table_for_family(self, family: int):
         return {
@@ -76,6 +85,12 @@ class _ColumnarIngesterBase:
         # columnar lines were parsed; deferred metric lines are counted as
         # the replay below parses or rejects them
         received = parsed = res.lines - len(unknown)
+        ledger = getattr(server, "ledger", None)
+        if ledger is not None:
+            ledger.note("ingest.admitted",
+                        len(res.c_rows) + len(res.g_rows) + len(res.h_rows)
+                        + len(res.l_rows) + len(res.s_rows),
+                        key=self.LEDGER_KEY)
 
         # Counters/histograms/sets merge commutatively, so replay order
         # vs. column order is irrelevant for them. Gauges are
@@ -90,6 +105,8 @@ class _ColumnarIngesterBase:
             line_no = 0
 
             def capture(metric):
+                if ledger is not None:
+                    ledger.note("ingest.admitted", 1, key="python")
                 if metric.key.type == m.GAUGE:
                     gauge_rows.append(store.gauges.intern(metric))
                     gauge_vals.append(metric.value)
@@ -178,6 +195,8 @@ class PyBatchIngester(_ColumnarIngesterBase):
     true`): the same batch pipeline as the native ingester — intern-table
     columnar parse, one add_batch per family, slow-path deferral — with
     the parse step in Python (core/batchdecode.py)."""
+
+    LEDGER_KEY = "columnar"
 
     def __init__(self, server):
         self.server = server

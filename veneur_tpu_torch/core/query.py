@@ -28,8 +28,8 @@ Mechanics (core/columnstore.py owns the capture protocol):
 Consistency contract (tests/test_torch_query.py): a query taken between
 flushes returns values bit-identical to the next flush's readout of the
 same rows, absent further ingest on them, and leaves that flush
-byte-identical to one without queries. The proxy's aggregate view
-(`ProxyQueryView`) waits for the proxy tier.
+byte-identical to one without queries. `ProxyQueryView` is the proxy
+tier's aggregate view (cmd/veneur_proxy.py).
 """
 
 from __future__ import annotations
@@ -371,3 +371,65 @@ class LiveQueryPlane:
         rows.append(("query.eval.count", "counter",
                      float(snap["count"]), ()))
         return rows
+
+
+class ProxyQueryView:
+    """The proxy-side aggregate query surface. A proxy holds no column
+    store — its queryable state is the per-destination routing plane:
+    forwarded-key HLL cardinalities, queue depths, and forward volume.
+    `GET /query` on a proxy therefore serves aggregate views
+    (kind=cardinality over forwarded key digests, kind=count over
+    forwarded metrics) rather than per-metric values."""
+
+    def __init__(self, proxy):
+        self._proxy = proxy
+        self._started_unix = time.time()
+        self.queries_total = 0
+        self.errors_total = 0
+
+    def query(self, spec: QuerySpec) -> dict:
+        self.queries_total += 1
+        if spec.kind not in ("cardinality", "count", "rate"):
+            self.errors_total += 1
+            raise QueryError(
+                "a proxy serves aggregate views only: kind must be "
+                "cardinality, count, or rate")
+        try:
+            report = self._proxy.cardinality_report(top=4096)
+        except Exception:
+            self.errors_total += 1
+            raise
+        rows = []
+        total = 0.0
+        for entry in report.get("destinations", ()):
+            if spec.kind == "cardinality":
+                v = float(entry.get("forwarded_keys_estimate", 0))
+            else:
+                v = float(entry.get("sent_total", 0))
+            rows.append({"tags": [f"destination:{entry.get('address')}"],
+                         "value": v})
+            total += v
+        if spec.kind == "rate":
+            # cumulative counters over the proxy's lifetime -> mean rate
+            # since this view came up alongside the proxy
+            elapsed = max(time.time() - self._started_unix, 1e-9)
+            for e in rows:
+                e["value"] = e["value"] / elapsed
+            total = sum(e["value"] for e in rows)
+        return {
+            "metric": spec.metric or "forward.keys",
+            "kind": spec.kind,
+            "family": "proxy",
+            "matched_rows": len(rows),
+            "rows": rows,
+            "value": total,
+            "as_of_unix": round(time.time(), 3),
+        }
+
+    def telemetry_rows(self) -> List[tuple]:
+        return [
+            ("query.requests_total", "counter",
+             float(self.queries_total), ()),
+            ("query.errors_total", "counter",
+             float(self.errors_total), ()),
+        ]

@@ -30,6 +30,18 @@ alert engine (core/alerts.py) over it, the runtime diagnostics
 (core/diagnostics.py) and, with `http_address`, the HTTP API
 (core/httpapi.py) that serves them all.
 
+The flow ledger (core/ledger.py) checks four conservation identities at
+the end of every flush, as the JAX server declares them: `ingest`
+(samples admitted = applied + rejected), `forward` (snapshotted = acked
++ merged away + shed, with the carryover, the in-flight send, the spool
+and its quarantine as stocks), `backfill` (merged = closed, the open
+buckets as stock) and `forward_tier` (acked = what the receiver reports
+merged, rejected or deduplicated). `ledger_strict` makes an imbalance
+raise out of `flush()`. `forward_only` makes every unscoped metric
+global-only. With `chaos_enabled` the egress seams inject faults
+(util/chaos.py); `forward_tls_*` and `grpc_tls_*` put the forward tier
+under (m)TLS (util/grpctls.py).
+
 UDP datagrams reach the store through the batch ingest plane
 (core/ingest.py): by default the native C++ pump parses them into
 columns; `tpu.disable_native_parser: true` selects the numpy columnar
@@ -63,6 +75,7 @@ from veneur_tpu_torch.core.diagnostics import DiagnosticsLoop
 from veneur_tpu_torch.core.flusher import FlushBatch, flush_columnstore_batch
 from veneur_tpu_torch.core.httpapi import HTTPApi
 from veneur_tpu_torch.core.ingest import BatchIngester, PyBatchIngester
+from veneur_tpu_torch.core.ledger import FlowLedger
 from veneur_tpu_torch.core.networking import Listener, start_statsd
 from veneur_tpu_torch.core.overload import TokenBucket
 from veneur_tpu_torch.core.query import LiveQueryPlane
@@ -71,8 +84,12 @@ from veneur_tpu_torch.forward.backfill import BackfillPlane
 from veneur_tpu_torch.forward.client import ForwardClient
 from veneur_tpu_torch.forward.convert import forwardable_to_wire
 from veneur_tpu_torch.forward.server import ImportServer
-from veneur_tpu_torch.samplers.metrics import HistogramAggregates, InterMetric
+from veneur_tpu_torch.samplers.metrics import (HistogramAggregates,
+                                               InterMetric, MetricScope,
+                                               UDPMetric)
 from veneur_tpu_torch.samplers.parser import ParseError, Parser
+from veneur_tpu_torch.util import chaos as chaos_mod
+from veneur_tpu_torch.util.grpctls import GrpcTLS
 from veneur_tpu_torch.util.resilience import (Carryover, CircuitBreaker,
                                               RetryPolicy)
 from veneur_tpu_torch.util.matcher import SinkRoutingMatcher, TagMatcher
@@ -88,7 +105,13 @@ class Server:
         self.config = config
         self.device = pick_device(device)
         self.interval = config.interval
-        self.parser = Parser(extend_tags=config.extend_tags)
+        # forward_only: metrics that declare no scope become global-only,
+        # so a local aggregates nothing itself and forwards everything
+        # (reference server.go:547-552)
+        self.parser = Parser(
+            extend_tags=config.extend_tags,
+            default_scope=(MetricScope.GLOBAL_ONLY if config.forward_only
+                           else MetricScope.MIXED))
         tpu = config.tpu
         self.store = ColumnStore(
             counter_capacity=tpu.counter_capacity,
@@ -101,6 +124,7 @@ class Server:
             llhist_capacity=tpu.llhist_capacity,
             histogram_encoding=config.histogram_encoding,
             device=self.device)
+        self._build_ledger()
         self.aggregates = HistogramAggregates.from_names(config.aggregates)
         self.percentiles = tuple(config.percentiles)
         sinks_mod.register_builtin_sinks()
@@ -176,11 +200,15 @@ class Server:
         self.backfill: Optional[BackfillPlane] = None
         self.backfill_after_s = 0.0
         if config.backfill_max_open_intervals > 0:
-            self.backfill = BackfillPlane(
+            self.backfill = bf = BackfillPlane(
                 percentiles=self.percentiles,
-                max_open=config.backfill_max_open_intervals)
+                max_open=config.backfill_max_open_intervals,
+                ledger=self.ledger if self.ledger.enabled else None)
             self.backfill_after_s = (config.wal_stale_after_intervals
                                      * self.interval)
+            self.ledger.stock("backfill_open", lambda: bf.open_metrics)
+        # egress fault injection (util/chaos.py), installed at start()
+        self.chaos = chaos_mod.Chaos.from_config(config)
         # per-phase wall seconds of the last flush (swap / dispatch /
         # device_sync, with its llhist_bins copy / assembly / sinks, from
         # the sink threads' dispatch to their join, on a global server
@@ -195,6 +223,46 @@ class Server:
         # `late`.
         self.last_flush_timings: Dict[str, Any] = {}
         self._build_operator_surface()
+        self.ledger.on_event = self.telemetry.record_event
+        self.telemetry.registry.add_collector(self.ledger.telemetry_rows)
+        # rejected DogStatsD lines, an informational stage
+        self.ledger.probe("ingress.parse_errors",
+                          lambda: self.stats["lines_rejected"])
+        if self.backfill is not None:
+            self.backfill.on_event = self.telemetry.record_event
+
+    def _build_ledger(self) -> None:
+        """The flow ledger and its identities, declared as the JAX server
+        declares them (veneur_tpu/core/server.py:310-370): every
+        crossing below stamps it, and it closes at the end of each
+        flush."""
+        config = self.config
+        self.ledger = ledger = FlowLedger(
+            enabled=config.ledger_enabled, strict=config.ledger_strict,
+            history=config.ledger_history)
+        # ingested = aggregated + rejected
+        ledger.declare("ingest", inputs=("ingest.admitted",),
+                       outputs=("agg.applied", "agg.rejected"))
+        # snapshotted = acked + merged-away + shed, with the carryover,
+        # the durable spool and the in-flight send as inventory stocks
+        ledger.declare(
+            "forward", inputs=("forward.snapshot",),
+            outputs=("forward.acked", "forward.merged_away",
+                     "forward.shed"),
+            stocks=("forward_carryover", "forward_spool",
+                    "forward_inflight", "spool_quarantine"))
+        # the backfill plane: every metric merged into a historical
+        # bucket is retired when its bucket closes
+        ledger.declare("backfill", inputs=("backfill.merged",),
+                       outputs=("backfill.closed",),
+                       stocks=("backfill_open",))
+        # cross-tier reconciliation: what this local acked against what
+        # the receiver reports (FlowCounts responses)
+        ledger.declare(
+            "forward_tier", inputs=("forward.acked_reported",),
+            outputs=("forward.remote_merged", "forward.remote_rejected",
+                     "forward.remote_deduped"))
+        self.store.attach_ledger(ledger if ledger.enabled else None)
 
     def _build_operator_surface(self) -> None:
         """The telemetry registry and its collectors, the statsd
@@ -259,9 +327,16 @@ class Server:
     def _self_packet(self, packet: bytes) -> None:
         """Loop a self-metric packet straight back into the parse path."""
         try:
-            self.parser.parse_metric_fast(packet, self.store.process)
+            self.parser.parse_metric_fast(packet, self.ingest_metric)
         except ParseError:
             pass
+
+    def ingest_metric(self, metric: UDPMetric) -> None:
+        """The slow path's one way into the column store: the sample is
+        admitted (the flow ledger's ingest.admitted, which the table's
+        agg.applied or agg.rejected must balance) and processed."""
+        self.ledger.note("ingest.admitted", 1, key="python")
+        self.store.process(metric)
 
     def _live_telemetry_rows(self) -> List[tuple]:
         """Scrape-time /metrics rows for live counters the registry does
@@ -392,13 +467,13 @@ class Server:
         parsed = 0
         try:
             if packet.startswith(b"_sc"):
-                self.store.process(self.parser.parse_service_check(packet))
+                self.ingest_metric(self.parser.parse_service_check(packet))
             elif packet.startswith(b"_e{"):
                 event = self.parser.parse_event(packet)
                 with self._events_lock:
                     self._events.append(event)
             else:
-                self.parser.parse_metric_fast(packet, self.store.process)
+                self.parser.parse_metric_fast(packet, self.ingest_metric)
             parsed = 1
         except ParseError as e:
             logger.debug("could not parse %r: %s", packet[:100], e)
@@ -450,18 +525,45 @@ class Server:
         cfg = self.config
         for sink in self.metric_sinks:
             sink.start(self)
+        if self.chaos is not None:
+            # the plan backs the object-less seams too (util/http.py)
+            chaos_mod.install(self.chaos)
+            self.telemetry.registry.add_collector(self.chaos.telemetry_rows)
+            self.telemetry.record_event(
+                "chaos_enabled", error_rate=self.chaos.error_rate,
+                delay_rate=self.chaos.delay_rate,
+                seams=sorted(self.chaos.seams))
         if cfg.forward_address:
-            self.forward_client = self._build_forward_client()
-            self.telemetry.registry.add_collector(
-                self.forward_client.telemetry_rows)
+            self.forward_client = fc = self._build_forward_client()
+            self.telemetry.registry.add_collector(fc.telemetry_rows)
+            # inventory stocks of the forward identity: metrics held in
+            # the carryover, in flight inside a send, on disk in the
+            # spool (segments replayed from a dead process are opening
+            # stock) and set aside in its quarantine
+            self.ledger.stock("forward_carryover",
+                              lambda: fc.carryover.pending_metrics)
+            self.ledger.stock("forward_inflight",
+                              lambda: fc.inflight_metrics)
+            if fc.spool is not None:
+                spool = fc.spool
+                self.ledger.stock("forward_spool",
+                                  lambda: spool.pending_metrics)
+                self.ledger.stock("spool_quarantine",
+                                  lambda: spool.quarantined_metrics)
         if cfg.grpc_address:
-            self.import_server = ImportServer(
+            self.import_server = imp = ImportServer(
                 self, cfg.grpc_address,
                 ignored_tags=[TagMatcher(kind="prefix", value=t)
-                              for t in cfg.tags_exclude])
+                              for t in cfg.tags_exclude],
+                tls=GrpcTLS(certificate=cfg.grpc_tls_certificate,
+                            key=cfg.grpc_tls_key.reveal(),
+                            authority=cfg.grpc_tls_authority_certificate)
+                or None)
             self.import_server.start()
-            self.telemetry.registry.add_collector(
-                self.import_server.telemetry_rows)
+            self.telemetry.registry.add_collector(imp.telemetry_rows)
+            self.ledger.probe("import.deduped",
+                              lambda: imp.duplicates_dropped_total,
+                              key="forward")
         for address in cfg.statsd_listen_addresses:
             self._listeners.append(start_statsd(
                 address, self, cfg.num_readers,
@@ -493,6 +595,7 @@ class Server:
         and (with `carryover_spool_dir`) the durable spool, whose
         constructor re-scans segments a previous process left behind."""
         cfg = self.config
+        ledger = self.ledger if self.ledger.enabled else None
         spool = None
         if cfg.carryover_spool_dir:
             spool = CarryoverSpool(
@@ -501,7 +604,8 @@ class Server:
                 max_segments=cfg.carryover_spool_max_segments,
                 quarantine_max_bytes=cfg.carryover_spool_quarantine_max_bytes,
                 quarantine_max_segments=(
-                    cfg.carryover_spool_quarantine_max_segments))
+                    cfg.carryover_spool_quarantine_max_segments),
+                ledger=ledger)
         replay_limiter = None
         if cfg.forward_wal and cfg.wal_replay_rate_limit > 0:
             replay_limiter = TokenBucket(
@@ -509,6 +613,11 @@ class Server:
                 cfg.wal_replay_rate_limit * cfg.wal_replay_burst)
         return ForwardClient(
             cfg.forward_address, deadline=self.interval,
+            tls=GrpcTLS(certificate=cfg.forward_tls_certificate,
+                        key=cfg.forward_tls_key.reveal(),
+                        authority=cfg.forward_tls_authority_certificate)
+            or None,
+            chaos=self.chaos, ledger=ledger,
             retry=RetryPolicy(max_attempts=cfg.forward_retry_max_attempts,
                               base_delay=cfg.forward_retry_base,
                               max_delay=cfg.forward_retry_max),
@@ -516,7 +625,7 @@ class Server:
                 failure_threshold=cfg.circuit_breaker_failure_threshold,
                 recovery_time=cfg.circuit_breaker_recovery,
                 name="forward", on_transition=self._breaker_transition),
-            carryover=Carryover(cfg.carryover_max_intervals),
+            carryover=Carryover(cfg.carryover_max_intervals, ledger=ledger),
             spool=spool, wal=cfg.forward_wal,
             replay_limiter=replay_limiter,
             replay_stale_after=cfg.wal_stale_after_intervals * self.interval)
@@ -574,6 +683,9 @@ class Server:
                 self.store, self.config.is_local, self.percentiles,
                 self.aggregates, collect_forward=fc is not None,
                 timings=timings, device_lock=self._readout_lock)
+            # informational stages: what the interval's snapshot produced
+            self.ledger.note("flush.emitted", len(batch))
+            self.ledger.note("flush.forward_rows", len(fwd))
             if self.backfill is not None:
                 t_bf = time.perf_counter()
                 backfilled = self.backfill.drain()
@@ -619,9 +731,15 @@ class Server:
                     timings[key] = timings.get(key, 0.0) + value
         if stuck:
             self.statsd.count("flush.timeout_total", stuck)
+        imp = self.import_server
+        if imp is not None:
+            imp.rpc_stats.emit(self.statsd, prefix="import.rpc")
         timings["total_s"] = time.perf_counter() - t0
         self.last_flush_timings = timings
         self._record_flush(timings, len(batch))
+        # the flow ledger's interval close: fold the probe deltas, read
+        # the stocks, check every identity (strict: raise on imbalance)
+        self.ledger.close_interval()
         self._raise_dispatch_error()
         self._raise_forward_error()
 
@@ -852,6 +970,8 @@ class Server:
         sc = self._sink_filters.get(name)
         current: Optional[List[InterMetric]] = None
         try:
+            if self.chaos is not None:
+                self.chaos.inject("sink_flush")
             if sc is None and self._routing is None and not spill:
                 # columnar path: no filter, no routing, no spill (a
                 # duck-typed sink with only flush() gets the list)
@@ -909,11 +1029,15 @@ class Server:
             with self._stats_lock:
                 self.stats["forward_undispatched"] += 1
             if len(fwd):
+                self.ledger.note("forward.snapshot", len(fwd))
                 fc.carryover.stash(fwd)
                 self.statsd.count("flush.forward_undispatched_total", 1)
             logger.warning("previous forward still running: %d metrics "
                            "carried over", len(fwd))
             return None
+        # everything snapshotted for the forward plane is owed an outcome
+        # (ack, merge-away, shed or inventory)
+        self.ledger.note("forward.snapshot", len(fwd))
         record: Dict[str, float] = {}
         thread = threading.Thread(
             target=self._forward_safe, args=(fc, fwd, interval_start, record),
@@ -982,6 +1106,8 @@ class Server:
         for sink in self.metric_sinks:
             sink.stop()
         self.statsd.close()
+        if self.chaos is not None and chaos_mod.active() is self.chaos:
+            chaos_mod.install(None)
         self.shutdown_complete.set()
         self._raise_dispatch_error()
         self._raise_forward_error()

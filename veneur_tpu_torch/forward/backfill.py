@@ -28,8 +28,9 @@ order — is what makes replay correctness a plumbing problem):
 Buckets are bounded: at most `max_open` historical intervals stay open,
 oldest-first close when a new interval would exceed the bound; an open
 bucket closes at the first flush that saw no new merges for it. The
-optional `ledger` hook books `backfill.merged` and `backfill.closed`
-notes (the JAX package's flow ledger; None in the port so far).
+`ledger` (the server's core/ledger.py FlowLedger) books
+`backfill.merged` and `backfill.closed` notes, the two sides of the
+server's `backfill` identity, with the open buckets as its stock.
 
 Everything here is host-side numpy: a replay never touches the device
 store.

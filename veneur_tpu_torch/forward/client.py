@@ -22,10 +22,17 @@ flusher.go:516-591), hardened with the resilience layer
   stamped with its interval start) BEFORE it is sent, and the spool's
   drain is the only send path: a crash between the append and the ack
   replays the interval at restart, exactly once through the segment's
-  token (derived from its file name).
+  token (derived from its file name);
+* the channel is plaintext or (m)TLS (`tls`, util/grpctls.py), with the
+  reconnect backoff capped as the proxy's destinations cap it;
+* the `forward_send` chaos seam (util/chaos.py) runs before every
+  attempt, and an injected fault is retried like a transient one;
+* the flow ledger (core/ledger.py) books what each interval became:
+  `forward.acked`, `forward.shed` (rows the wire conversion dropped),
+  the in-flight send as a stock, and the receiver's FlowCounts as the
+  `forward_tier` reconciliation.
 
-Chaos injection, the flow ledger, trace sidecars, shard metadata and TLS
-are not ported yet.
+Trace sidecars and shard metadata are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +52,11 @@ from veneur_tpu_torch.forward.wire import (_serialize_metric,
                                            interval_metadata, send_batch,
                                            stamp_interval_wire,
                                            token_metadata)
+from veneur_tpu_torch.util import chaos as chaos_mod
+from veneur_tpu_torch.util.chaos import ChaosError
+from veneur_tpu_torch.util.grpctls import (RECONNECT_BACKOFF_OPTIONS,
+                                           GrpcTLS,
+                                           secure_or_insecure_channel)
 from veneur_tpu_torch.util.resilience import (Carryover, CircuitBreaker,
                                               RetryPolicy)
 from veneur_tpu_torch.util.spool import CarryoverSpool
@@ -67,6 +79,16 @@ def _raw(b):
     return b
 
 
+def _code_of(e):
+    """The gRPC status code of a failed attempt (None for an injected
+    fault)."""
+    return e.code() if hasattr(e, "code") else None
+
+
+def _details_of(e) -> str:
+    return e.details() if hasattr(e, "details") else str(e)
+
+
 class ForwardClient:
     """gRPC client for /forwardrpc.Forward on the generic channel API (no
     generated stubs). `stats` holds forwarded_total, the errors_* counts,
@@ -87,7 +109,9 @@ class ForwardClient:
                  carryover: Optional[Carryover] = None,
                  spool: Optional[CarryoverSpool] = None,
                  wal: bool = False, replay_limiter=None,
-                 replay_stale_after: float = 0.0):
+                 replay_stale_after: float = 0.0,
+                 tls: Optional[GrpcTLS] = None,
+                 chaos: Optional[chaos_mod.Chaos] = None, ledger=None):
         self.address = address
         self.deadline = deadline
         self.retry = retry or RetryPolicy()
@@ -110,20 +134,27 @@ class ForwardClient:
         self.wal_appended_metrics = 0
         self.wal_acked_metrics = 0
         self.wal_replay_throttled = 0
+        # the forward_send seam's plan (else the process-global one)
+        self.chaos = chaos
+        # flow ledger: acked/shed stamps, the in-flight send as a stock
+        # (metrics of the forward() call under way), and the receiver's
+        # FlowCounts as the forward_tier reconciliation
+        self.ledger = ledger
+        if ledger is not None and self.carryover.ledger is None:
+            self.carryover.ledger = ledger
+        self.inflight_metrics = 0
         # token = client identity + interval sequence
         self._token_id = uuid.uuid4().hex[:12]
         self._token_seq = 0
         # per-segment drain attempts that indict the segment (the peer
         # answered with a non-transient error)
         self._segment_attempts: Dict[str, int] = {}
-        self._channel = grpc.insecure_channel(
-            address, options=[
+        self._channel = secure_or_insecure_channel(
+            address, tls, options=[
                 ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
                 ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
                 # a restarted global stays dialable within an interval
-                ("grpc.initial_reconnect_backoff_ms", 250),
-                ("grpc.min_reconnect_backoff_ms", 250),
-                ("grpc.max_reconnect_backoff_ms", 2000)])
+                *RECONNECT_BACKOFF_OPTIONS])
         self._send_v2 = self._channel.stream_unary(
             "/forwardrpc.Forward/SendMetricsV2",
             request_serializer=_serialize_metric,
@@ -149,12 +180,42 @@ class ForwardClient:
                 + self.stats["errors_unavailable"]
                 + self.stats["errors_send"])
 
-    def _note_flow(self, resp) -> None:
+    def _inject_chaos(self) -> None:
+        c = self.chaos or chaos_mod.active()
+        if c is not None:
+            c.inject("forward_send")
+
+    def _note(self, stage: str, n: int, key: str = "") -> None:
+        led = self.ledger
+        if led is not None and n:
+            led.note(stage, n, key=key)
+
+    def _note_flow(self, resp, sent: int) -> None:
+        """Count the receiver's FlowCounts for `sent` acked metrics and
+        reconcile them in the ledger's forward_tier identity (an
+        un-upgraded peer answers Empty: nothing to reconcile)."""
         flow = self.last_flow = decode_flow_counts(resp)
-        if flow is not None:
-            self.stats["remote_received"] += flow["received"]
-            self.stats["remote_merged"] += flow["merged"]
-            self.stats["remote_duplicates"] += int(flow["duplicate"])
+        if flow is None:
+            return
+        self.stats["remote_received"] += flow["received"]
+        self.stats["remote_merged"] += flow["merged"]
+        self.stats["remote_duplicates"] += int(flow["duplicate"])
+        led = self.ledger
+        if led is None or not sent:
+            return
+        # one lock hold: a close never books the sent side alone
+        if flow["duplicate"]:
+            # the receiver's token dedupe dropped the whole payload: an
+            # earlier attempt merged it
+            led.note_all((("forward.acked_reported", sent),
+                          ("forward.remote_deduped", sent)))
+            return
+        # received > merged: the receiver's explained drops (unknown
+        # families, undecodable payloads); sent != received is wire loss
+        led.note_all((("forward.acked_reported", sent),
+                      ("forward.remote_merged", flow["merged"]),
+                      ("forward.remote_rejected",
+                       max(0, flow["received"] - flow["merged"]))))
 
     def _encode(self, fwd: ForwardableState):
         """`fwd.wire` when the caller encoded it already (a carryover
@@ -177,9 +238,20 @@ class ForwardClient:
 
         Any pending carryover from failed intervals is first merged into
         `fwd`, so a success delivers everything owed."""
+        self.inflight_metrics = len(fwd)
+        try:
+            return self._forward(fwd, interval_start)
+        finally:
+            # an exception past this point loses the state with no
+            # outcome stamped: clearing the stock shows that loss as a
+            # ledger imbalance instead of a stuck inventory level
+            self.inflight_metrics = 0
+
+    def _forward(self, fwd: ForwardableState, interval_start: float) -> int:
         self.last_timings = {}
         t0 = time.perf_counter()
         fwd = self.carryover.drain_into(fwd)
+        self.inflight_metrics = len(fwd)
         self.last_timings["carryover_merge_s"] = time.perf_counter() - t0
         if self.wal:
             return self._forward_wal(fwd, interval_start)
@@ -196,6 +268,8 @@ class ForwardClient:
             return 0
         protos = self._encode(fwd) if len(fwd) else []
         if not protos and not spool_pending:
+            # state that serialized to nothing leaves the pipeline here
+            self._note("forward.shed", len(fwd), key="convert")
             return 0
         deadline_ts = time.monotonic() + self.deadline
         resp = None
@@ -207,6 +281,7 @@ class ForwardClient:
             delays = self.retry.delays(self.deadline)
             while True:
                 try:
+                    self._inject_chaos()
                     # per-attempt timeout is the REMAINING budget
                     timeout = max(0.05, deadline_ts - time.monotonic())
                     self._v1_ok, resp = send_batch(
@@ -214,21 +289,23 @@ class ForwardClient:
                         self._v1_ok, pin_codes=_PIN_CODES,
                         metadata=token_metadata(token))
                     break
-                except grpc.RpcError as e:
-                    code = e.code()
-                    delay = (next(delays, None) if code in _RETRYABLE_CODES
-                             else None)
+                except (grpc.RpcError, ChaosError) as e:
+                    code = _code_of(e)
+                    retryable = (isinstance(e, ChaosError)
+                                 or code in _RETRYABLE_CODES)
+                    delay = next(delays, None) if retryable else None
                     if delay is None:
                         self._record_failure(code, fwd, len(protos),
-                                             e.details())
+                                             _details_of(e))
                         return 0
                     self.stats["retries_total"] += 1
                     logger.info(
                         "forward to %s failed (%s); retrying in %.2fs",
-                        self.address, code, delay)
+                        self.address, code or e, delay)
                     if delay > 0:
                         time.sleep(delay)
-            self._note_flow(resp)
+            self._note("forward.acked", len(protos))
+            self._note_flow(resp, len(protos))
         # nothing fresh to send but the spool holds spilled state: the
         # drain itself probes the destination
         drained, drain_err, attempted = self._drain_spool(
@@ -236,18 +313,25 @@ class ForwardClient:
         if not protos and drained == 0:
             if drain_err is not None:
                 # the spool-only probe failed: destination still down
-                self._record_failure(drain_err.code(), fwd, 0,
-                                     drain_err.details())
+                self._record_failure(_code_of(drain_err), fwd, 0,
+                                     _details_of(drain_err))
                 return 0
             if not attempted:
                 # nothing sendable was found (every segment quarantined on
                 # read): no evidence the peer is up, so release a
                 # half-open probe pessimistically
                 self.breaker.record_failure()
+                # fwd is nonempty here only when it serialized to nothing
+                self._note("forward.shed", len(fwd), key="convert")
                 return 0
         self.breaker.record_success()
         self.carryover.clear_age()
         self.stats["forwarded_total"] += len(protos)
+        if len(fwd) > len(protos):
+            # rows the wire conversion dropped, accounted on success (a
+            # failed send stashes the whole state back)
+            self._note("forward.shed", len(fwd) - len(protos),
+                       key="convert")
         logger.debug("forwarded %d metrics to %s", len(protos), self.address)
         return len(protos) + drained
 
@@ -275,6 +359,11 @@ class ForwardClient:
         first. Returns the metrics delivered."""
         if len(fwd):
             protos = self._encode(fwd)
+            if len(fwd) > len(protos):
+                # the WAL holds only sendable bytes: rows the conversion
+                # dropped leave at the append
+                self._note("forward.shed", len(fwd) - len(protos),
+                           key="convert")
             if protos:
                 t0 = time.perf_counter()
                 stamp = interval_start or time.time()
@@ -284,6 +373,8 @@ class ForwardClient:
                 self.last_timings["wal_append_s"] = (time.perf_counter()
                                                      - t0)
                 self.wal_appended_metrics += len(protos)
+        # durable now: the spool's stock carries the state
+        self.inflight_metrics = 0
         if self.spool.depth == 0:
             return 0
         if not self.breaker.allow():
@@ -298,8 +389,8 @@ class ForwardClient:
             self.stats["forwarded_total"] += drained
             self.wal_acked_metrics += drained
         elif err is not None:
-            self._record_failure(err.code(), ForwardableState(), 0,
-                                 err.details())
+            self._record_failure(_code_of(err), ForwardableState(), 0,
+                                 _details_of(err))
         else:
             # no RPC evidence the peer is up (every segment quarantined on
             # read): release a half-open probe pessimistically
@@ -369,22 +460,25 @@ class ForwardClient:
             token = "spool:" + seg.path.rsplit("/", 1)[-1]
             try:
                 attempted = True
+                self._inject_chaos()
                 self._v1_ok, resp = send_batch(
                     self._send_v1, self._send_v2, metrics, remaining,
                     self._v1_ok, pin_codes=_PIN_CODES,
                     metadata=combine_metadata(
                         token_metadata(token),
                         interval_metadata(seg.interval_unix)))
-            except grpc.RpcError as e:
+            except (grpc.RpcError, ChaosError) as e:
                 err = e
-                code = e.code()
+                code = _code_of(e)
                 attempts = self._segment_attempts.get(seg.path, 0)
                 # only a non-transient answer from a peer known to be up
                 # indicts the segment; quarantining a deliverable interval
-                # on an outage would BE the loss the spool prevents
-                if (destination_up or sent_any) and code not in (
-                        grpc.StatusCode.DEADLINE_EXCEEDED,
-                        grpc.StatusCode.UNAVAILABLE):
+                # on an outage (or an injected fault) would BE the loss
+                # the spool prevents
+                if (destination_up or sent_any) \
+                        and not isinstance(e, ChaosError) and code not in (
+                            grpc.StatusCode.DEADLINE_EXCEEDED,
+                            grpc.StatusCode.UNAVAILABLE):
                     attempts += 1
                     self._segment_attempts[seg.path] = attempts
                 if attempts >= self.SEGMENT_ATTEMPTS_MAX:
@@ -401,7 +495,10 @@ class ForwardClient:
             self.spool.pop(seg)
             sent_any = True
             self._segment_attempts.pop(seg.path, None)
-            self._note_flow(resp)
+            # the popped segment's stock delta is seg.count: ack the same
+            # figure, so a header/body count drift shows as imbalance
+            self._note("forward.acked", seg.count, key="spool")
+            self._note_flow(resp, len(metrics))
             drained += len(metrics)
         if drained:
             logger.info("drained %d spilled metrics to %s (%d segments "

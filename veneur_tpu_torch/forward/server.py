@@ -24,8 +24,12 @@ historical interval) merges into the server's backfill plane
 (forward/backfill.py), bucketed by its original interval, instead of the
 live tables. Tags matching `ignored_tags` (the server's `tags_exclude`
 prefixes) are stripped from every imported metric before its identity is
-hashed. Trace spans, the peer-shard gauge, TLS and RPC stats are not
-ported yet.
+hashed. The listener is plaintext or (m)TLS (`tls`, util/grpctls.py);
+each handler is timed by `rpc_stats` (util/grpcstats.py). A live import
+stamps the owning server's flow ledger: `import.received`, and
+`ingest.admitted` for the metrics offered to the store, whose tables
+stamp `agg.applied`. Trace spans and the peer-shard gauge are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ from veneur_tpu_torch.forward.wire import (TokenDeduper, encode_flow_counts,
 from veneur_tpu_torch.ops import batch_tdigest, hll_ref
 from veneur_tpu_torch.samplers.metrics import (MetricKey, MetricScope,
                                                UDPMetric, update_tags)
+from veneur_tpu_torch.util.grpcstats import RpcStats
+from veneur_tpu_torch.util.grpctls import GrpcTLS
 
 logger = logging.getLogger("veneur_tpu_torch.forward.server")
 
@@ -75,27 +81,33 @@ class ImportServer:
     STUB_CACHE_MAX = 1_000_000
 
     def __init__(self, server, address: str = "127.0.0.1:0",
-                 ignored_tags: Optional[List] = None):
+                 ignored_tags: Optional[List] = None,
+                 tls: Optional[GrpcTLS] = None):
         self._server = server
         # TagMatchers (util/matcher.py) of tags stripped on import
         self._ignored = list(ignored_tags or [])
+        self.rpc_stats = RpcStats()
         self._grpc = grpc.server(
             futures.ThreadPoolExecutor(max_workers=4),
             options=[("grpc.max_receive_message_length",
                       MAX_MESSAGE_BYTES)])
         handler = grpc.method_handlers_generic_handler("forwardrpc.Forward", {
             "SendMetricsV2": grpc.stream_unary_rpc_method_handler(
-                self._send_metrics_v2,
+                self.rpc_stats.timed("SendMetricsV2", self._send_metrics_v2),
                 request_deserializer=metric_pb2.Metric.FromString,
                 response_serializer=_raw),
             "SendMetrics": grpc.unary_unary_rpc_method_handler(
-                self._send_metrics_v1,
+                self.rpc_stats.timed("SendMetrics", self._send_metrics_v1),
                 # raw bytes: the native MetricList decoder wants the body
                 request_deserializer=_raw,
                 response_serializer=_raw),
         })
         self._grpc.add_generic_rpc_handlers((handler,))
-        self.port = self._grpc.add_insecure_port(address)
+        if tls:
+            self.port = self._grpc.add_secure_port(
+                address, tls.server_credentials())
+        else:
+            self.port = self._grpc.add_insecure_port(address)
         if self.port == 0:
             raise RuntimeError(f"could not bind import server to {address}")
         self._host = address.rsplit(":", 1)[0]
@@ -122,9 +134,11 @@ class ImportServer:
 
     def telemetry_rows(self) -> List[tuple]:
         """Scrape-time rows for the owning server's /metrics registry
-        (the JAX package's, less the peer-shard gauge)."""
+        (the JAX package's, less the peer-shard gauge, plus the RPC
+        handlers' lifetime totals)."""
         return [("forward.hedge.duplicates_dropped", "counter",
-                 float(self.duplicates_dropped_total), ())]
+                 float(self.duplicates_dropped_total), ()),
+                *self.rpc_stats.telemetry_rows(prefix="import.rpc")]
 
     def start(self) -> None:
         self._grpc.start()
@@ -135,10 +149,11 @@ class ImportServer:
 
     # -- handlers --------------------------------------------------------
 
-    def _import(self, ctx, merge) -> bytes:
+    def _import(self, ctx, merge, live: bool) -> bytes:
         """The RPC frame both handlers share: token dedupe, the merge
-        (returning (received, merged)), the accounting, and an INTERNAL
-        status for a merge that raised."""
+        (returning (received, merged)), the accounting (a `live` merge,
+        into the tables rather than the backfill plane, stamps the
+        ledger), and an INTERNAL status for a merge that raised."""
         token, disposition = self._deduper.begin(ctx)
         if disposition == "done":
             logger.info("dropping duplicate import (token %s)", token)
@@ -161,6 +176,10 @@ class ImportServer:
             self._deduper.end(token, ok)
         with self._lock:
             self.imported_total += received
+        ledger = getattr(self._server, "ledger", None)
+        if live and ledger is not None:
+            ledger.note("import.received", received, key="forward")
+            ledger.note("ingest.admitted", merged, key="forward")
         return encode_flow_counts(received, merged)
 
     def _send_metrics_v1(self, body, ctx):
@@ -179,7 +198,7 @@ class ImportServer:
         else:
             def merge():
                 return self._merge_v1(body)
-        resp = self._import(ctx, merge)
+        resp = self._import(ctx, merge, live=not stale_iv)
         return (encode_flow_counts(0, 0, duplicate=True) if resp is None
                 else resp)
 
@@ -196,7 +215,7 @@ class ImportServer:
                 count += 1
             buf.flush_all()
             return count, buf.admitted
-        resp = self._import(ctx, merge)
+        resp = self._import(ctx, merge, live=not stale_iv)
         if resp is None:
             # drain without merging so the sender's stream completes
             for _ in request_iterator:

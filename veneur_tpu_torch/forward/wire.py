@@ -239,15 +239,18 @@ class TokenDeduper:
 
 
 def send_batch(send_v1, send_v2, batch, timeout, v1_ok: bool,
-               pin_codes, metadata=None):
+               pin_codes, retry_codes=(), metadata=None):
     """One batch over the V1 bulk body when the peer takes it, else the
-    V2 stream.
+    V2 stream: the one transport policy of the forward client and the
+    proxy's destinations.
 
     `pin_codes` are structural refusals: the batch is retried over V2 and
-    the returned flag turns False so the caller stays on V2. Any other
-    error propagates for the caller's failure accounting. Returns (the
-    updated V1-preference flag, the raw response bytes: the receiver's
-    FlowCounts when it is this framework's importer, empty otherwise).
+    the returned flag turns False so the caller stays on V2.
+    `retry_codes` are transient V1 failures: the batch is retried over V2
+    and the caller keeps preferring V1. Any other error propagates for
+    the caller's failure accounting. Returns (the updated V1-preference
+    flag, the raw response bytes: the receiver's FlowCounts when it is
+    this framework's importer or proxy, empty otherwise).
 
     `metadata` (the token) rides on every attempt, INCLUDING the V2 retry
     of a failed V1 body: a V1 attempt the receiver applied before erroring
@@ -257,8 +260,12 @@ def send_batch(send_v1, send_v2, batch, timeout, v1_ok: bool,
             body = b"".join(_frame_v1(m) for m in batch)
             return True, send_v1(body, timeout=timeout, metadata=metadata)
         except grpc.RpcError as e:
-            if e.code() not in pin_codes:
-                raise
-            return False, send_v2(iter(batch), timeout=timeout,
-                                  metadata=metadata)
+            code = e.code()
+            if code in pin_codes:
+                return False, send_v2(iter(batch), timeout=timeout,
+                                      metadata=metadata)
+            if code in retry_codes:
+                return True, send_v2(iter(batch), timeout=timeout,
+                                     metadata=metadata)
+            raise
     return False, send_v2(iter(batch), timeout=timeout, metadata=metadata)

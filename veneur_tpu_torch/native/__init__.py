@@ -16,9 +16,10 @@ What the port uses: the intern table (`Engine`), the batch parser
 (`NativeParser`) and the pump (`Pump`) on the ingest side; the MetricList
 import parser (`parse_metric_list`, `decode_import_key`) and the digest
 encoder and metric wrapper (`vnt_digest_encode`, `vnt_metric_wrap`,
-called by forward/convert.py) on the forward tier. The SSF, route,
-row-unregister (idle-row reclamation), per-socket reader and
-load-generator entry points of the library wait for their slices.
+called by forward/convert.py) on the forward tier, and the proxy's
+route walk (`route_parse`). The SSF, row-unregister (idle-row
+reclamation), per-socket reader and load-generator entry points of the
+library wait for their slices.
 """
 
 from __future__ import annotations
@@ -172,6 +173,10 @@ def _declare(lib) -> None:
         i64p, i64p, f32p, f32p, f64p, f64p, f64p, i64, i64p,  # histos
         i64p, i64p, i64p, i64p, i64, i64p,      # sets
     ]
+    lib.vnt_route_parse.restype = i64
+    lib.vnt_route_parse.argtypes = [
+        ctypes.c_void_p, i64, u8p, i64, i64p, i64p, i64p, i64p, i64,
+        i64p]
     lib.vnt_digest_encode.restype = i64
     lib.vnt_digest_encode.argtypes = [
         f32p, f32p, i64, i64, f64p, f64p, f64p, ctypes.c_double,
@@ -545,6 +550,42 @@ def parse_metric_list(body: bytes, grid_slots: int, compression: float):
     out.s_payloads = [body[o:o + ln] for o, ln in zip(
         s_payoff[:ns[3].value].tolist(), s_paylen[:ns[3].value].tolist())]
     return out
+
+
+def route_parse(body: bytes):
+    """The proxy's MetricList walk: returns (keys, raw_slices) where
+    keys[i] is the metric's identity-key bytes (b"" for a metric the
+    native path cannot key: an open enum past one byte) and
+    raw_slices[i] the metric's own serialized bytes; None when the body
+    is empty or does not parse (the caller parses it with upb)."""
+    lib = load()
+    if not body:
+        return None
+    n = lib.vnt_import_count(body, len(body))
+    if n < 0:
+        return None
+    cap = max(1, int(n))
+    key_cap = len(body) + 16 * cap + 64
+    key_buf = np.empty(key_cap, np.uint8)
+    koff = np.empty(cap, np.int64)
+    klen = np.empty(cap, np.int64)
+    moff = np.empty(cap, np.int64)
+    mlen = np.empty(cap, np.int64)
+    n_out = ctypes.c_int64()
+    rc = lib.vnt_route_parse(
+        body, len(body), _ptr(key_buf, ctypes.c_uint8), key_cap,
+        _ptr(koff, ctypes.c_int64), _ptr(klen, ctypes.c_int64),
+        _ptr(moff, ctypes.c_int64), _ptr(mlen, ctypes.c_int64), cap,
+        ctypes.byref(n_out))
+    if rc < 0:
+        return None
+    count = n_out.value
+    mv = memoryview(key_buf)  # slice per key: no full-buffer copy
+    keys = [bytes(mv[o:o + ln]) for o, ln in zip(koff[:count].tolist(),
+                                                 klen[:count].tolist())]
+    raws = [body[o:o + ln] for o, ln in zip(moff[:count].tolist(),
+                                            mlen[:count].tolist())]
+    return keys, raws
 
 
 def decode_import_key(key: bytes):

@@ -6,9 +6,9 @@ pure-Python snappy *block-format* encoder for Prometheus remote-write
 (reference sinks/cortex/cortex.go uses github.com/golang/snappy).
 
 Everything here is stdlib-only: urllib for transport so sinks work in the
-hermetic test environment without `requests`. (Copied from
-veneur_tpu/util/http.py without its fault-injection seam in `post` and
-`post_with_retry`, which returns with the port's chaos module.)
+hermetic test environment without `requests`. (A copy of
+veneur_tpu/util/http.py, with its `http_post` fault-injection seam in
+`post`, util/chaos.py.)
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ import urllib.error
 import urllib.request
 import zlib
 from typing import Any, Dict, Optional, Tuple
+
+from veneur_tpu_torch.util import chaos as chaos_mod
+from veneur_tpu_torch.util.chaos import ChaosError
 
 # vendor responses worth another attempt: throttling (429) and transient
 # unavailability (503); everything else (auth, bad payload, 5xx bugs) is
@@ -175,6 +178,8 @@ def post(url: str, body: bytes, *,
     if proxy_url:
         opener = urllib.request.build_opener(urllib.request.ProxyHandler(
             {"http": proxy_url, "https": proxy_url})).open
+    # fault-injection seam: no-op unless a chaos plan is installed
+    chaos_mod.inject("http_post")
     try:
         with opener(req, timeout=timeout) as resp:
             return resp.status, resp.read()
@@ -188,8 +193,8 @@ def post_with_retry(url: str, body: bytes, *,
                     retry=None, budget: float = 10.0,
                     **kwargs) -> Tuple[int, bytes]:
     """`post` with the shared backoff policy (util/resilience.py):
-    retries 429/503 (honoring Retry-After) and connection errors, never
-    spending more than `budget` seconds total —
+    retries 429/503 (honoring Retry-After), connection errors, and
+    injected chaos, never spending more than `budget` seconds total —
     sinks call this from their per-sink flush thread, whose own bound is
     one flush interval."""
     from veneur_tpu_torch.util.resilience import RetryPolicy
@@ -199,8 +204,8 @@ def post_with_retry(url: str, body: bytes, *,
     while True:
         try:
             return post(url, body, **kwargs)
-        except (HTTPError, urllib.error.URLError) as e:
-            retryable = (isinstance(e, urllib.error.URLError)
+        except (HTTPError, urllib.error.URLError, ChaosError) as e:
+            retryable = (isinstance(e, (urllib.error.URLError, ChaosError))
                          or getattr(e, "retryable", False))
             delay = next(delays, None) if retryable else None
             if delay is None:

@@ -33,8 +33,6 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from veneur_tpu_torch.ops.batch_tdigest import C, COMPRESSION
-
 logger = logging.getLogger("veneur_tpu_torch.util.resilience")
 
 
@@ -281,6 +279,8 @@ def merge_forwardable(newer, older):
     - sets: HLL registers take the elementwise max.
 
     Returns `newer`."""
+    from veneur_tpu_torch.ops.batch_tdigest import C, COMPRESSION
+
     def index(rows) -> Dict[tuple, int]:
         return {_meta_key(meta_val[0]): i
                 for i, meta_val in enumerate(rows)}
@@ -349,8 +349,8 @@ class Carryover:
 
     def __init__(self, max_intervals: int = 3, spill=None, ledger=None):
         self.max_intervals = max(0, int(max_intervals))
-        # flow ledger (veneur_tpu's core/ledger.py, not ported yet; None
-        # here): the carryover is an inventory
+        # flow ledger (core/ledger.py; the server passes its own, the
+        # forward client hands it on): the carryover is an inventory
         # stock of the forward conservation identity; the EXPLAINED
         # shrinkage when two intervals' rows merge associatively (same
         # key -> one row) is stamped as forward.merged_away, sheds as

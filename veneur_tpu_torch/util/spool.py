@@ -157,8 +157,8 @@ class CarryoverSpool:
         self.max_segments = max(1, int(max_segments))
         self.quarantine_max_bytes = max(0, int(quarantine_max_bytes))
         self.quarantine_max_segments = max(1, int(quarantine_max_segments))
-        # flow ledger (veneur_tpu's core/ledger.py, not ported yet; None
-        # here): the spool is an inventory stock
+        # flow ledger (core/ledger.py; the server passes its own): the
+        # spool is an inventory stock
         # of the forward conservation identity; bound sheds and
         # quarantine purges stamp forward.shed so a dropped segment is
         # explained loss, never unexplained imbalance. A quarantined

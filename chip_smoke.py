@@ -116,6 +116,26 @@ the package is not beside it). Phases, each fatal on failure:
      every key on A, and from interval 4 B holds exactly the keys it
      held in interval 1; the locals' carryover ends empty. Every closed
      ledger interval of the four servers and the proxy balances.
+ 13. phase I, the SSF plane (BASELINE config 5): I1 carries phase A's
+     key set as SSF samples, four per span and one span per UDP
+     datagram (220 000 spans an interval from 8 sender sockets, every
+     fourth an indicator span over 50 services x 20 names, 16
+     undecodable datagrams), through the native reader and the C++ SSF
+     decoder; every counter, gauge, timer and set series is checked as
+     in phase A, the indicator and objective timers' count, min and max
+     against the span durations, and each `ssf.names_unique` estimate
+     (uniqueness rate 1) against the reference HLL. I2 sends 52 000
+     spans an interval (40 000 over UDP, 10 000 framed over `unix://`
+     from four trace-client connections, 2 000 over `tcp://`) to four
+     span workers and the datadog (a 127.0.0.1 fake), kafka and channel
+     span sinks: no span dropped, every span at every sink exactly once,
+     the fake's spans equal to the sink's own rendering, the kafka
+     records decoding to the spans, their metrics exact. I3 feeds TCP
+     (counter and `|l` lines over 4 connections), UNIX datagrams (5 000
+     `|l` keys x 32, K3), gRPC `SendPacket` and `SendSpan`, and three
+     veneur-emit runs (a UDP counter, an SSF timer, a gRPC metric);
+     counters, every llhist `.count` and `.bucket` line and the emitted
+     series exact.
 
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
@@ -1536,6 +1556,8 @@ class _Fake:
                 self.end_headers()
                 self.wfile.write(b"{}")
 
+            do_PUT = do_POST  # noqa: N815 (the datadog trace intake)
+
         self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         name="fake-http", daemon=True)
@@ -2939,6 +2961,679 @@ def _phase_h() -> dict:
     return {"H1": h1, "H2": h2, "launches": h2["launches"]}
 
 
+
+# -- phase I: the SSF plane and the other ingest listeners -------------------
+
+PHASE_I_KEYS = PHASE_A_KEYS
+PHASE_I_SERVICES = 50
+PHASE_I_NAMES = 20
+PHASE_I_BAD = 16                 # undecodable datagrams per interval
+PHASE_I_SENDERS = 8
+PHASE_I2_SPANS = {"udp": 40_000, "unix": 10_000, "tcp": 2_000}
+PHASE_I2_STREAMS = 4             # unix:// connections of trace.StreamBackend
+PHASE_I2_KEYS = {"counter": PHASE_I_KEYS["counter"] // 10,
+                 "timer": PHASE_I_KEYS["timer"] // 10}
+PHASE_I3 = {"tcp_counter_keys": 2_000, "tcp_counter_lines": 10_000,
+            "tcp_ll_keys": 500, "tcp_ll_samples": 20, "tcp_conns": 4,
+            "unix_ll_keys": 5_000, "unix_ll_samples": 32,
+            "grpc_packets": 1_000, "grpc_lines": 50, "grpc_keys": 5_000,
+            "grpc_spans": 1_000, "grpc_span_keys": 100}
+_I_T0 = 1_700_000_000_000_000_000  # span start timestamps (ns)
+_I_DGRAM_OVERHEAD = 800  # kernel bytes per queued datagram beyond its data
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _pb_bytes(field: int, data: bytes) -> bytes:
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(data)) + data
+
+
+def _ssf_sample(head: bytes, value: float = 0.0, rate: float = 1.0,
+                member: bytes = b"") -> bytes:
+    """An SSFSample's wire bytes: `head` holds its metric enum and name,
+    then the float32 value (field 3), a set member (field 5) and a sample
+    rate (field 7) other than 1."""
+    import struct
+    out = head + b"\x1d" + struct.pack("<f", value)
+    if member:
+        out += _pb_bytes(5, member)
+    if rate != 1.0:
+        out += b"\x3d" + struct.pack("<f", rate)
+    return out
+
+
+def _ssf_head(metric: int, name: str) -> bytes:
+    return (b"\x08" + _pb_varint(metric) if metric else b"") + _pb_bytes(
+        2, name.encode())
+
+
+def _ssf_span(span_id: int, start: int, duration: int, service: bytes,
+              name: bytes, samples, indicator: bool = False) -> bytes:
+    """An SSFSpan's wire bytes (a root span: trace id = id)."""
+    out = [b"\x10", _pb_varint(span_id), b"\x18", _pb_varint(span_id),
+           b"\x28", _pb_varint(start), b"\x30",
+           _pb_varint(start + duration), _pb_bytes(8, service)]
+    out.extend(_pb_bytes(10, s) for s in samples)
+    if indicator:
+        out.append(b"\x60\x01")
+    out.append(_pb_bytes(13, name))
+    return b"".join(out)
+
+
+def _i1_corpus(seed: int) -> dict:
+    """One interval of phase I1: phase A's key set carried as SSF samples,
+    four per span and one span per datagram (a gauge key's two samples
+    ride one span, the later one wins), every fourth span an indicator
+    span over 50 services x 20 names, the span order shuffled, and 16
+    undecodable datagrams."""
+    keys = PHASE_I_KEYS
+    rng = np.random.default_rng(seed)
+    c_head = [_ssf_head(0, f"smoke.c{k}") for k in range(keys["counter"])]
+    cvals = rng.integers(1, 1000, keys["counter"]).astype(np.float32)
+    crates = np.where(np.arange(keys["counter"]) % 4 == 0, 0.5, 1.0)
+    expect = {f"smoke.c{k}": float(math.trunc(float(cvals[k]) / crates[k]))
+              for k in range(keys["counter"])}
+    units = [_ssf_sample(c_head[k], float(cvals[k]), float(crates[k]))
+             for k in range(keys["counter"])]
+    gvals = rng.normal(0, 100, (keys["gauge"], 2)).astype(np.float32)
+    for k in range(keys["gauge"]):
+        expect[f"smoke.g{k}"] = float(gvals[k, 1])
+    tvals = rng.gamma(2.0, 25.0, (keys["timer"], keys["timer_samples"])
+                      ).astype(np.float32)
+    for k in range(keys["timer"]):
+        head = _ssf_head(2, f"smoke.t{k}")
+        units.extend(_ssf_sample(head, float(v)) for v in tvals[k])
+    for k in range(keys["set"]):
+        head = _ssf_head(3, f"smoke.s{k}")
+        units.extend(_ssf_sample(head, member=f"u{seed}-{k}-{j}".encode())
+                     for j in range(keys["set_members"]))
+    order = rng.permutation(len(units))
+    groups = [[units[i] for i in order[j:j + 4]]
+              for j in range(0, len(order), 4)]
+    for k in range(0, keys["gauge"], 2):
+        groups.append([_ssf_sample(_ssf_head(1, f"smoke.g{kk}"),
+                                   float(gvals[kk, j]))
+                       for kk in (k, k + 1) for j in (0, 1)])
+    groups = [groups[i] for i in rng.permutation(len(groups))]
+    durations = rng.integers(1_000, 1 << 24, len(groups))
+    dgrams = []
+    ind_durs: dict = {}
+    names_seen: dict = {}
+    for i, samples in enumerate(groups):
+        service = i // 4 % PHASE_I_SERVICES
+        name = i // (4 * PHASE_I_SERVICES) % PHASE_I_NAMES
+        indicator = i % 4 == 0
+        dgrams.append(_ssf_span(seed * 10_000_000 + i + 1, _I_T0 + i * 1000,
+                                int(durations[i]), b"svc%d" % service,
+                                b"n%d" % name, samples, indicator))
+        names_seen.setdefault((service, indicator), set()).add(name)
+        if indicator:
+            ind_durs.setdefault((service, name), []).append(durations[i])
+    for j in range(PHASE_I_BAD):
+        dgrams.insert(int(rng.integers(len(dgrams))), b"\x07bad\xff%d" % j)
+    timers = np.sort(tvals, axis=1)
+    return {"dgrams": dgrams, "expect": expect, "timers": timers,
+            "set_ref": _set_reference(seed, keys["set"],
+                                      keys["set_members"]),
+            "ind_durs": ind_durs, "names_seen": names_seen,
+            "samples": sum(len(g) for g in groups)}
+
+
+def _i_server(cfg_extra: dict, tpu: dict, span_sinks=()):
+    from veneur_tpu_torch.config import config_from_dict
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    cfg = config_from_dict({
+        "interval": "1h", "percentiles": list(PS),
+        "aggregates": ["min", "max", "count"], "hostname": "smoke",
+        "read_buffer_size_bytes": 32 << 20,
+        **cfg_extra, "tpu": {"batch_cap": 8192, **tpu}})
+    import random
+    return Server(cfg, extra_metric_sinks=[ChannelMetricSink()],
+                  extra_span_sinks=list(span_sinks),
+                  rng=random.Random(0))  # cuda:0
+
+
+def _collect_tagged(sink) -> tuple:
+    """The flushed series by (name, tags), and by name for the untagged
+    ones with the `.bucket` lines by name and `le:` tag."""
+    tagged, got, buckets = {}, {}, {}
+    for m in sink.wait_flush(timeout=600):
+        if m.name.endswith(".bucket"):
+            le = next(t for t in m.tags if t.startswith("le:"))
+            buckets.setdefault(m.name, {})[le] = m.value
+        elif m.tags:
+            tagged[(m.name, tuple(m.tags))] = m.value
+        else:
+            got[m.name] = m.value
+    return tagged, got, buckets
+
+
+def _send_ssf(server, addr, dgrams, base: int, window: int,
+              senders: int) -> float:
+    """Send SSF datagrams round-robin over `senders` sockets, paced by
+    the server's received-packet count; returns when every one has been
+    received (or raises)."""
+    def received():
+        return server.stats["ssf_packets_received"]
+    sent = base
+    t0 = time.perf_counter()
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(senders)]
+    try:
+        for i, dgram in enumerate(dgrams):
+            if sent - base >= window and i % 64 == 0:
+                deadline = time.monotonic() + 30.0
+                while sent - received() > window:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("server stopped receiving SSF")
+                    time.sleep(0.0005)
+            socks[i % senders].sendto(dgram, addr)
+            sent += 1
+    finally:
+        for s in socks:
+            s.close()
+    deadline = time.monotonic() + 120.0
+    while received() < sent:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"SSF datagrams lost on loopback: sent "
+                                 f"{sent}, received {received()}")
+        time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def _i_window(listener, dgrams) -> tuple:
+    rcvbuf = sum(s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+                 for s in listener._socks)
+    per = sum(len(d) for d in dgrams[:1000]) / 1000 + _I_DGRAM_OVERHEAD
+    return rcvbuf, max(256, int(rcvbuf // (2 * per)))
+
+
+def _check_i1(corpus, tagged, got) -> int:
+    """Every series of I1: the counters, gauges, timers and sets of phase
+    A's checks, the indicator (per service) and objective (per service
+    and name) timers' count, min and max, and each ssf.names_unique
+    estimate against the reference HLL over the names sent."""
+    from veneur_tpu_torch.ops import hll_ref
+    _check_exact(got, corpus["expect"])
+    checked = len(corpus["expect"]) + _check_timers(got, corpus["timers"])
+    _check_sets(got, corpus["set_ref"], PHASE_I_KEYS["set_members"])
+    checked += PHASE_I_KEYS["set"]
+    per_service: dict = {}
+    for (service, name), durs in corpus["ind_durs"].items():
+        per_service.setdefault(service, []).extend(durs)
+    series = [("sli.t", (f"error:false", f"service:svc{s}"), d)
+              for s, d in per_service.items()]
+    series += [("slo.t", ("error:false", f"objective:n{n}",
+                          f"service:svc{s}"), d)
+               for (s, n), d in corpus["ind_durs"].items()]
+    bad = []
+    for name, tags, durs in series:
+        want = (float(len(durs)), float(min(durs)), float(max(durs)))
+        have = tuple(tagged.get((f"{name}.{agg}", tags))
+                     for agg in ("count", "min", "max"))
+        if have != want:
+            bad.append((name, tags, have, want))
+    if len(per_service) != PHASE_I_SERVICES or len(series) != \
+            PHASE_I_SERVICES + PHASE_I_SERVICES * PHASE_I_NAMES:
+        raise AssertionError(f"phase I1: {len(series)} indicator/objective "
+                             f"series expected in the corpus")
+    for (service, indicator), names in corpus["names_seen"].items():
+        h = hll_ref.HLL()
+        for n in names:
+            h.insert(b"n%d" % n)
+        key = ("ssf.names_unique", (f"indicator:{str(indicator).lower()}",
+                                    "root_span:true", f"service:svc{service}"))
+        if tagged.get(key) != float(hll_ref.estimate_from_registers(h.regs)):
+            bad.append((key, tagged.get(key), sorted(names)))
+    if bad:
+        raise AssertionError(f"phase I1: {len(bad)} derived series wrong, "
+                             f"e.g. {bad[:3]}")
+    return checked + 3 * len(series) + len(corpus["names_seen"])
+
+
+def _phase_i1() -> dict:
+    corpora = [_i1_corpus(seed) for seed in (11, 12)]
+    server = _i_server({"ssf_listen_addresses": ["udp://127.0.0.1:0"],
+                        "statsd_listen_addresses": [],
+                        "indicator_span_timer_name": "sli.t",
+                        "objective_span_timer_name": "slo.t"},
+                       {"counter_capacity": 65536, "gauge_capacity": 32768,
+                        "histo_capacity": 32768, "set_capacity": 16384})
+    # every span derives its ssf.names_unique sample, so the estimate is
+    # deterministic (tests/test_native_ingest.py:340)
+    server.metric_extraction.uniqueness_rate = 1.0
+    _zero_launches()
+    server.start()
+    try:
+        addr = server.ssf_addresses[0]
+        rcvbuf, window = _i_window(server._ssf_listeners[0],
+                                   corpora[0]["dgrams"])
+        report = {"intervals": [], "rcvbuf_bytes": rcvbuf,
+                  "window_datagrams": window}
+        base = 0
+        seen = _read_launches()
+        for corpus in corpora:
+            n = len(corpus["dgrams"])
+            ingest_s = _send_ssf(server, addr, corpus["dgrams"], base,
+                                 window, PHASE_I_SENDERS)
+            base += n
+            stats = server.stats_snapshot()
+            if stats["ingest_dispatch_errors"] or stats["spans_dropped"]:
+                raise AssertionError(f"phase I1: {stats}")
+            server.flush()
+            now = _read_launches()
+            tagged, got, _ = _collect_tagged(server.metric_sinks[0])
+            report["intervals"].append({
+                "datagrams": n, "samples": corpus["samples"],
+                "ingest_s": ingest_s, "spans_per_s": n / ingest_s,
+                "samples_per_s": corpus["samples"] / ingest_s,
+                "flush": dict(server.last_flush_timings),
+                "launches": {k: now[k] - seen[k] for k in now},
+                "series_checked": _check_i1(corpus, tagged, got)})
+            seen = now
+    finally:
+        server.shutdown()
+    stats = server.stats_snapshot()
+    report["stats"] = stats
+    report["launches"] = _read_launches()
+    if stats["ssf_packets_received"] != base \
+            or stats["ssf_parse_errors"] != PHASE_I_BAD * len(corpora):
+        raise AssertionError(f"phase I1: SSF packets {stats}")
+    for kernel in ("tdigest_flush", "hll_estimate"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase I1: {kernel} was not launched")
+    return report
+
+
+def _i2_traffic(interval: int):
+    """Phase I2's spans: each carries one counter and one timer sample
+    over a tenth of I1's keys; returns the wire bytes per transport and
+    the expected counter sums and timer samples."""
+    rng = np.random.default_rng(100 + interval)
+    total = sum(PHASE_I2_SPANS.values())
+    ckeys = rng.integers(0, PHASE_I2_KEYS["counter"], total)
+    cvals = rng.integers(1, 100, total)
+    tkeys = rng.integers(0, PHASE_I2_KEYS["timer"], total)
+    tvals = rng.gamma(2.0, 25.0, total).astype(np.float32)
+    c_heads = [_ssf_head(0, f"fan.c{k}")
+               for k in range(PHASE_I2_KEYS["counter"])]
+    t_heads = [_ssf_head(2, f"fan.t{k}")
+               for k in range(PHASE_I2_KEYS["timer"])]
+    spans = [_ssf_span(interval * 1_000_000 + i + 1, _I_T0 + i, 1000 + i,
+                       b"fan-svc", b"fan-op",
+                       (_ssf_sample(c_heads[ckeys[i]], float(cvals[i])),
+                        _ssf_sample(t_heads[tkeys[i]], float(tvals[i]))))
+             for i in range(total)]
+    counters = np.bincount(ckeys, weights=cvals,
+                           minlength=PHASE_I2_KEYS["counter"])
+    timers: dict = {}
+    for k, v in zip(tkeys.tolist(), tvals.tolist()):
+        timers.setdefault(k, []).append(v)
+    cut = np.cumsum([PHASE_I2_SPANS[t] for t in ("udp", "unix", "tcp")])
+    return ({"udp": spans[:cut[0]], "unix": spans[cut[0]:cut[1]],
+             "tcp": spans[cut[1]:]}, counters, timers)
+
+
+def _i2_stream(address, unix: bool, spans) -> None:
+    from veneur_tpu_torch import ssf, trace
+    backend = trace.StreamBackend(address, unix=unix)
+    try:
+        for data in spans:
+            backend.send(ssf.SSFSpan.FromString(data))
+    finally:
+        backend.close()
+
+
+def _check_i2(server, sinks, fake, producer, interval, counters,
+              timers) -> dict:
+    """Every span reached every sink exactly once (by id), the datadog
+    fake holds the sink's own rendering of the channel sink's spans, the
+    kafka records decode to those spans, and the metrics are exact."""
+    from veneur_tpu_torch import ssf
+    dd, _kafka, chan = sinks
+    spans = chan.queue.get(timeout=600)
+    want_ids = list(range(interval * 1_000_000 + 1,
+                          interval * 1_000_000 + 1
+                          + sum(PHASE_I2_SPANS.values())))
+    ids = sorted(s.id for s in spans)
+    if ids != want_ids:
+        raise AssertionError(f"phase I2: the channel sink took {len(ids)} "
+                             f"spans, {len(set(ids))} distinct")
+    bodies = fake.take()
+    dd_spans = [s for _path, _enc, body in bodies
+                for trace in json.loads(body) for s in trace]
+    rendered = sorted(json.dumps(dd._to_dd_span(s), sort_keys=True)
+                      for s in spans)
+    if sorted(json.dumps(s, sort_keys=True) for s in dd_spans) != rendered:
+        raise AssertionError(f"phase I2: datadog received {len(dd_spans)} "
+                             f"spans unlike the sink's rendering")
+    by_id = {s.id: s for s in spans}
+    records = producer.messages[:]
+    del producer.messages[:]
+    kafka_ids = sorted(ssf.SSFSpan.FromString(v).id for _t, _k, v in records)
+    if kafka_ids != want_ids or any(
+            ssf.SSFSpan.FromString(v) != by_id[ssf.SSFSpan.FromString(v).id]
+            for _t, _k, v in records):
+        raise AssertionError("phase I2: kafka records differ from the spans")
+    tagged, got, _ = _collect_tagged(server.metric_sinks[0])
+    bad = [k for k in range(len(counters))
+           if got.get(f"fan.c{k}", 0.0) != float(counters[k])]
+    for k, vals in timers.items():
+        have = tuple(got.get(f"fan.t{k}.{a}") for a in ("count", "min",
+                                                        "max"))
+        if have != (float(len(vals)), min(vals), max(vals)):
+            bad.append((k, have))
+    if bad:
+        raise AssertionError(f"phase I2: {len(bad)} span metrics wrong, "
+                             f"e.g. {bad[:3]}")
+    return {"spans_per_sink": len(spans), "datadog_bodies": len(bodies),
+            "datadog_body_bytes": sum(len(b) for *_x, b in bodies),
+            "kafka_records": len(records),
+            "series_checked": len(counters) + 3 * len(timers)}
+
+
+def _phase_i2() -> dict:
+    import shutil
+    import tempfile
+    import threading
+    from veneur_tpu_torch.sinks.channel import ChannelSpanSink
+    from veneur_tpu_torch.sinks.kafka import InMemoryProducer, KafkaSpanSink
+    fake = _Fake()
+    tmp = tempfile.mkdtemp(prefix="smoke-i2-")
+    producer = InMemoryProducer()
+    kafka = KafkaSpanSink("kafka", producer, span_topic="spans",
+                          max_buffered=1 << 18)
+    chan = ChannelSpanSink("channel")
+    server = _i_server({
+        "ssf_listen_addresses": ["udp://127.0.0.1:0",
+                                 f"unix://{tmp}/ssf.sock",
+                                 "tcp://127.0.0.1:0"],
+        "statsd_listen_addresses": [],
+        "span_sinks": [{"kind": "datadog", "name": "datadog", "config": {
+            "datadog_trace_api_address": fake.url,
+            "datadog_span_buffer_size": 1 << 17}}],
+        "num_span_workers": 4, "span_channel_capacity": 65536,
+        "span_sink_queue_capacity": 262144},
+        {"counter_capacity": 8192, "histo_capacity": 8192},
+        span_sinks=[kafka, chan])
+    dd = next(s for s in server.span_sinks if s.kind() == "datadog")
+    _zero_launches()
+    server.start()
+    try:
+        udp, unix, tcp = server.ssf_addresses
+        report = {"intervals": []}
+        base = 0
+        for interval in (1, 2):
+            spans, counters, timers = _i2_traffic(interval)
+            busy0 = server.span_worker_seconds
+            t0 = time.perf_counter()
+            _, window = _i_window(server._ssf_listeners[0], spans["udp"])
+            udp_s = _send_ssf(server, udp, spans["udp"], base, window, 4)
+            streams = [threading.Thread(
+                target=_i2_stream, args=(unix, True, spans["unix"][j::4]))
+                for j in range(PHASE_I2_STREAMS)]
+            streams.append(threading.Thread(
+                target=_i2_stream, args=(tcp, False, spans["tcp"])))
+            for t in streams:
+                t.start()
+            for t in streams:
+                t.join(timeout=300)
+            base += sum(len(v) for v in spans.values())
+            deadline = time.monotonic() + 120
+            while server.stats["ssf_packets_received"] < base:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase I2: framed spans lost")
+                time.sleep(0.001)
+            server.drain_spans(timeout=300)
+            delivered_s = time.perf_counter() - t0
+            stats = server.stats_snapshot()
+            drops = {k: v for k, v in stats.items()
+                     if k == "spans_dropped" or k.startswith(
+                         "span_sink_dropped")}
+            if any(drops.values()) or stats["ingest_dispatch_errors"]:
+                raise AssertionError(f"phase I2: drops {drops}, {stats}")
+            server.flush()
+            rec = _check_i2(server, (dd, kafka, chan), fake, producer,
+                            interval, counters, timers)
+            flush = server.last_flush_timings
+            report["intervals"].append({
+                "spans": sum(PHASE_I2_SPANS.values()),
+                "udp_send_s": udp_s, "delivered_s": delivered_s,
+                "spans_per_s": sum(PHASE_I2_SPANS.values()) / delivered_s,
+                "span_worker_s": server.span_worker_seconds - busy0,
+                "flush": dict(flush), **rec})
+    finally:
+        server.shutdown()
+        fake.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["stats"] = server.stats_snapshot()
+    report["launches"] = _read_launches()
+    if report["launches"]["tdigest_flush"] <= 0:
+        raise AssertionError("phase I2: tdigest_flush was not launched")
+    return report
+
+
+def _i3_traffic(seed: int) -> dict:
+    cfg = PHASE_I3
+    rng = np.random.default_rng(seed)
+    tcp_lines = []
+    ckeys = rng.integers(0, cfg["tcp_counter_keys"],
+                         cfg["tcp_counter_lines"])
+    cvals = rng.integers(1, 50, cfg["tcp_counter_lines"])
+    tcp_lines += [f"tcp.c{k}:{v}|c" for k, v in zip(ckeys, cvals)]
+    expect = {f"tcp.c{k}": float(v) for k, v in enumerate(np.bincount(
+        ckeys, weights=cvals)) if v}
+    tcp_ll = _llhist_lines(rng, tcp_lines, "tcp.l", cfg["tcp_ll_keys"],
+                           cfg["tcp_ll_samples"])
+    tcp_lines = [tcp_lines[i] for i in rng.permutation(len(tcp_lines))]
+    unix_lines: list = []
+    unix_ll = _llhist_lines(rng, unix_lines, "ux.l", cfg["unix_ll_keys"],
+                            cfg["unix_ll_samples"])
+    unix_lines = [unix_lines[i] for i in rng.permutation(len(unix_lines))]
+    n = cfg["grpc_packets"] * cfg["grpc_lines"]
+    gkeys = rng.integers(0, cfg["grpc_keys"], n)
+    packets = [("\n".join(f"grpc.c{k}:1|c" for k in gkeys[
+        i:i + cfg["grpc_lines"]])).encode()
+        for i in range(0, n, cfg["grpc_lines"])]
+    expect.update({f"grpc.c{k}": float(v) for k, v in enumerate(
+        np.bincount(gkeys)) if v})
+    heads = [_ssf_head(0, f"gspan.c{k}") for k in range(cfg["grpc_span_keys"])]
+    spans = [_ssf_span(seed * 100_000 + i + 1, _I_T0 + i, 10, b"grpc-svc",
+                       b"g", (_ssf_sample(heads[i % len(heads)], 1.0),))
+             for i in range(cfg["grpc_spans"])]
+    expect.update({f"gspan.c{k}": float(cfg["grpc_spans"] // len(heads))
+                   for k in range(len(heads))})
+    return {"tcp": tcp_lines, "unix": unix_lines, "packets": packets,
+            "spans": spans, "expect": expect, "llhists": [tcp_ll, unix_ll]}
+
+
+def _i3_tcp(address, lines) -> None:
+    with socket.create_connection(address, timeout=60) as conn:
+        conn.sendall(("\n".join(lines) + "\n").encode())
+
+
+def _i3_emit(statsd_port: int, ssf_port: int, import_address: str) -> dict:
+    """Three veneur-emit runs as an operator makes them: a DogStatsD
+    counter, an SSF timer and a metric over the gRPC forward plane."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    runs = (["-hostport", f"udp://127.0.0.1:{statsd_port}", "-name",
+             "emit.c", "-count", "5"],
+            ["-ssf", "-hostport", f"udp://127.0.0.1:{ssf_port}", "-name",
+             "emit.t", "-timing", "40ms"],
+            ["-grpc", "-hostport", import_address, "-name", "emit.fwd",
+             "-count", "7"])
+    seconds = []
+    for argv in runs:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m",
+                        "veneur_tpu_torch.cmd.veneur_emit", *argv],
+                       check=True, cwd=ROOT, env=env, timeout=300)
+        seconds.append(time.perf_counter() - t0)
+    return {"emit.c": 5.0, "emit.t.max": 40.0, "emit.t.count": 1.0,
+            "emit.fwd": 7.0, "seconds": seconds}
+
+
+def _phase_i3() -> dict:
+    import shutil
+    import tempfile
+    import threading
+    import grpc
+    from veneur_tpu_torch.core.protos import dogstatsd_pb2
+    tmp = tempfile.mkdtemp(prefix="smoke-i3-")
+    cfg = PHASE_I3
+    server = _i_server({
+        "statsd_listen_addresses": ["udp://127.0.0.1:0", "tcp://127.0.0.1:0",
+                                    f"unixgram://{tmp}/statsd.sock"],
+        "ssf_listen_addresses": ["udp://127.0.0.1:0"],
+        "grpc_listen_addresses": ["127.0.0.1:0"],
+        "grpc_address": "127.0.0.1:0"},
+        {"counter_capacity": 16384, "histo_capacity": 1024,
+         "llhist_capacity": 8192})
+    _zero_launches()
+    server.start()
+    try:
+        udp, tcp, unix = server.listen_addresses
+        ssf_udp = server.ssf_addresses[0]
+        ingest = server.grpc_ingest_servers[0].address
+        report = {"intervals": []}
+        lines = spans_in = 0
+        seen = _read_launches()
+        for interval in (1, 2):
+            traffic = _i3_traffic(300 + interval)
+            t0 = time.perf_counter()
+            conns = [threading.Thread(target=_i3_tcp, args=(
+                tcp, traffic["tcp"][j::cfg["tcp_conns"]]))
+                for j in range(cfg["tcp_conns"])]
+            for t in conns:
+                t.start()
+            # the UNIX datagrams from a connected socket, paced so the
+            # socket's queue never fills: the card's host (a gVisor
+            # sandbox) delivers no unconnected sendto to a UNIX datagram
+            # path and can miss the wakeup of a sender blocked on a full
+            # queue, so a send that times out is sent again (a datagram
+            # is queued whole or not at all)
+            with socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM) as tx:
+                tx.settimeout(0.2)
+                tx.connect(unix)
+                dgrams, counts = _datagrams(traffic["unix"])
+                sent = lines + len(traffic["tcp"])
+                for dgram, n in zip(dgrams, counts):
+                    deadline = time.monotonic() + 60.0
+                    while sent - server.stats["lines_received"] > 4_000:
+                        if time.monotonic() > deadline:
+                            raise AssertionError("phase I3: UNIX stalled")
+                        time.sleep(0.0005)
+                    while True:
+                        try:
+                            tx.send(dgram)
+                            break
+                        except TimeoutError:
+                            if time.monotonic() > deadline:
+                                raise
+                    sent += n
+            unix_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            with grpc.insecure_channel(ingest) as chan:
+                send_packet = chan.unary_unary(
+                    "/dogstatsd.DogstatsdGRPC/SendPacket",
+                    request_serializer=lambda b: dogstatsd_pb2.
+                    DogstatsdPacket(packetBytes=b).SerializeToString(),
+                    response_deserializer=lambda b: b)
+                send_span = chan.unary_unary(
+                    "/ssf.SSFGRPC/SendSpan", request_serializer=lambda b: b,
+                    response_deserializer=lambda b: b)
+                for p in traffic["packets"]:
+                    send_packet(p, timeout=60)
+                for sp in traffic["spans"]:
+                    send_span(sp, timeout=60)
+            grpc_s = time.perf_counter() - t1
+            for t in conns:
+                t.join(timeout=300)
+            lines = sent + cfg["grpc_packets"] * cfg["grpc_lines"]
+            spans_in += cfg["grpc_spans"]
+            expect = dict(traffic["expect"])
+            emitted = {}
+            if interval == 1:
+                emitted = _i3_emit(udp[1], ssf_udp[1],
+                                   server.import_server.address)
+                lines += 1
+                spans_in += 1
+            deadline = time.monotonic() + 120
+            while True:
+                stats = server.stats_snapshot()
+                if (stats["lines_received"] >= lines
+                        and stats["ssf_packets_received"] >= spans_in
+                        and stats["imported_total"] >= 1):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase I3: traffic lost: {stats}")
+                time.sleep(0.001)
+            server.drain_spans(timeout=120)
+            ingest_s = time.perf_counter() - t0
+            if stats["lines_received"] != lines or stats["lines_rejected"] \
+                    or stats["ingest_dispatch_errors"]:
+                raise AssertionError(f"phase I3: {stats} against {lines}")
+            server.flush()
+            now = _read_launches()
+            tagged, got, buckets = _collect_tagged(server.metric_sinks[0])
+            _check_exact(got, expect)
+            checked = len(expect)
+            for prefix, vals, weights in traffic["llhists"]:
+                checked += _check_llhists(got, buckets, prefix, vals,
+                                          weights)
+            for name in ("emit.c", "emit.t.max", "emit.t.count",
+                         "emit.fwd"):
+                if name in emitted and got.get(name) != emitted[name]:
+                    raise AssertionError(f"phase I3: {name} = "
+                                         f"{got.get(name)}, sent "
+                                         f"{emitted[name]}")
+            report["intervals"].append({
+                "tcp_lines": len(traffic["tcp"]),
+                "unix_lines": len(traffic["unix"]),
+                "grpc_lines": cfg["grpc_packets"] * cfg["grpc_lines"],
+                "grpc_spans": cfg["grpc_spans"], "unix_send_s": unix_s,
+                "grpc_s": grpc_s, "ingest_s": ingest_s,
+                "emit_s": emitted.get("seconds"),
+                "flush": dict(server.last_flush_timings),
+                "launches": {k: now[k] - seen[k] for k in now},
+                "series_checked": checked + (4 if emitted else 0)})
+            seen = now
+    finally:
+        server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["stats"] = server.stats_snapshot()
+    report["launches"] = _read_launches()
+    for kernel in ("tdigest_flush", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase I3: {kernel} was not launched")
+    return report
+
+
+def _phase_i() -> dict:
+    """Phase I: the SSF plane at full width (I1), the span fan-out (I2)
+    and the other listeners (I3). Each part zeroes the launch counts
+    just before it and reads them just after; the phase's launches are
+    their sum."""
+    t0 = time.perf_counter()
+    parts = {}
+    for name, run in (("I1", _phase_i1), ("I2", _phase_i2),
+                      ("I3", _phase_i3)):
+        parts[name] = run()
+        torch.cuda.empty_cache()
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in parts["I1"]["launches"]}
+    return {**parts, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3195,6 +3890,41 @@ def main() -> int:
     print(f"phase H2: accounting {rep['H2']['accounting']}, events "
           f"{rep['H2']['events']}; phase H launches {rep['launches']}; "
           f"{rep['seconds']:.1f} s", flush=True)
+    phases["I"] = rep = _phase_i()
+    for i, rec in enumerate(rep["I1"]["intervals"]):
+        flush = rec["flush"]
+        print(f"phase I1 interval {i + 1}: {rec['datagrams']} SSF datagrams "
+              f"({rec['samples']} samples) in {rec['ingest_s']:.2f} s, "
+              f"{rec['spans_per_s']:.0f} spans/s, {rec['samples_per_s']:.0f} "
+              f"samples/s; flush {flush['total_s']:.3f} s (dispatch "
+              f"{flush['dispatch_s']:.4f}, device sync "
+              f"{flush['device_sync_s']:.4f}, assembly "
+              f"{flush['assembly_s']:.3f}, sinks {flush['sinks_s']:.3f}); "
+              f"{rec['series_checked']} series checked; launches "
+              f"{rec['launches']}", flush=True)
+    for i, rec in enumerate(rep["I2"]["intervals"]):
+        flush = rec["flush"]
+        print(f"phase I2 interval {i + 1}: {rec['spans']} spans delivered to "
+              f"3 sinks in {rec['delivered_s']:.2f} s ({rec['spans_per_s']:.0f}"
+              f" spans/s; UDP send {rec['udp_send_s']:.2f} s), span workers "
+              f"{rec['span_worker_s']:.2f} s; flush {flush['total_s']:.3f} s "
+              f"(sinks {flush['sinks_s']:.3f}; datadog "
+              f"{flush['span_sink:datadog']['duration_s']:.3f}, kafka "
+              f"{flush['span_sink:kafka']['duration_s']:.3f}); datadog "
+              f"{rec['datadog_body_bytes']} bytes in {rec['datadog_bodies']} "
+              f"PUTs, kafka {rec['kafka_records']} records; "
+              f"{rec['series_checked']} series checked", flush=True)
+    for i, rec in enumerate(rep["I3"]["intervals"]):
+        print(f"phase I3 interval {i + 1}: TCP {rec['tcp_lines']} lines, UNIX "
+              f"{rec['unix_lines']} lines (sent in {rec['unix_send_s']:.2f} "
+              f"s), gRPC {rec['grpc_lines']} lines + {rec['grpc_spans']} "
+              f"spans in {rec['grpc_s']:.2f} s; all in {rec['ingest_s']:.2f} "
+              f"s; emit runs s {rec['emit_s']}; flush "
+              f"{rec['flush']['total_s']:.3f} s; {rec['series_checked']} "
+              f"series checked; launches {rec['launches']}", flush=True)
+    print(f"phase I launches: {rep['launches']} (I1 "
+          f"{rep['I1']['launches']}, I2 {rep['I2']['launches']}, I3 "
+          f"{rep['I3']['launches']}); {rep['seconds']:.1f} s", flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())

@@ -390,7 +390,7 @@ def test_operator_keys_are_accepted(raw):
             assert getattr(cfg, key) == value
 
 
-@pytest.mark.parametrize("key", ["grpc_listen_addresses", "enable_profiling",
+@pytest.mark.parametrize("key", ["ingest_rate_limit_spans", "enable_profiling",
                                  "latency_observatory", "sentry_dsn",
                                  "trace_self_sample_rate", "flush_async"])
 def test_unported_keys_still_raise(key):

@@ -869,9 +869,10 @@ def test_server_config_accepts_the_slice_keys(key):
         assert value == _SLICE_KEYS[key]
 
 
-@pytest.mark.parametrize("key", ["tls_certificate", "tls_key",
-                                 "tls_authority_certificate",
-                                 "grpc_listen_addresses", "sentry_dsn",
+@pytest.mark.parametrize("key", ["ingest_rate_limit_statsd",
+                                 "overload_watermark_soft_bytes",
+                                 "supervisor_deadline",
+                                 "trace_store_spans", "sentry_dsn",
                                  "chaos_ingest_truncate_rate",
                                  "chaos_reshard_append_fault_nth",
                                  "chaos_ledger_leak"])

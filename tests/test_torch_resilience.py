@@ -397,7 +397,7 @@ def test_config_accepts_the_resilience_keys():
         assert getattr(tcfg, key) == getattr(jcfg, key), key
 
 
-@pytest.mark.parametrize("key", ["tls_key", "reshard_spool_dir",
+@pytest.mark.parametrize("key", ["trace_store_traces", "reshard_spool_dir",
                                  "chaos_forward_fail_rate",
                                  "chaos_ingest_drop_rate"])
 def test_config_still_rejects_what_the_port_lacks(key):

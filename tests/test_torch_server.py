@@ -190,9 +190,9 @@ def test_device_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("tls_certificate", "cert.pem"),
-    ("ssf_listen_addresses", ["udp://127.0.0.1:0"]),
-    ("grpc_listen_addresses", ["127.0.0.1:0"]),
+    ("trace_self_sample_rate", 0.5),
+    ("ingest_rate_limit_spans", 100.0),
+    ("overload_device_soft_bytes", 1),
     ("tpu", {"shards": 4}),
 ])
 def test_config_rejects_features_the_port_lacks(key, value):
@@ -224,7 +224,10 @@ bad = sorted(n for n in sys.modules
 assert not bad, bad
 walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
           "proxy.discovery", "cmd.veneur_proxy", "core.ledger", "util.chaos",
-          "util.grpctls", "util.grpcstats"}
+          "util.grpctls", "util.grpcstats", "ssf", "ssf.protos.ssf_pb2",
+          "protocol.wire", "sinks.ssfmetrics", "sinks.splunk", "sinks.xray",
+          "sinks.falconer", "sinks.lightstep", "core.grpc_ingest",
+          "core.protos.dogstatsd_pb2", "trace", "cmd.veneur_emit"}
 missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
 assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))

@@ -397,7 +397,8 @@ def test_sink_config_keys_parse_like_jax():
 
 @pytest.mark.parametrize("raw,key", [
     ({"features": {"proxy_enabled": True}}, "proxy_enabled"),
-    ({"span_sinks": []}, "span_sinks"),
+    ({"span_sinks": [{"kind": "datadog", "flush_timeout": 1}]},
+     "flush_timeout"),
     ({"metric_sinks": [{"kind": "datadog", "flush_timeout": 1}]},
      "flush_timeout"),
     ({"metric_sink_routing": [{"name": "r", "drop": True}]}, "drop"),

@@ -1,13 +1,14 @@
 """Configuration of the port's server: the YAML keys of veneur_tpu's
 config that this port implements, with the same names and defaults.
 
-A key the port does not implement (for example `ssf_listen_addresses`,
-`grpc_listen_addresses`, `tls_certificate`, `sentry_dsn`,
-`reshard_spool_dir`, `chaos_ingest_drop_rate`, `chaos_reshard_*` or
+A key the port does not implement (for example `sentry_dsn`,
+`reshard_spool_dir`, `ingest_rate_limit_*`, `overload_*`,
+`chaos_ingest_drop_rate`, `chaos_reshard_*`, `trace_self_sample_rate` or
 `tpu.shards`) raises with the key's name: a configuration is never
 half-applied in silence. Durations accept Go-style strings ("10s",
 "500ms") or numbers of seconds; the private keys (`grpc_tls_key`,
-`forward_tls_key`) become StringSecrets, redacted in /config/json.
+`forward_tls_key`, `tls_key`) become StringSecrets, redacted in
+/config/json.
 """
 
 from __future__ import annotations
@@ -178,6 +179,9 @@ class Config:
     forward_tls_authority_certificate: str = ""
     # host:port the import server (gRPC /forwardrpc.Forward) listens on
     grpc_address: str = ""
+    # DogStatsD packets and SSF spans over gRPC (core/grpc_ingest.py):
+    # host:port per server
+    grpc_listen_addresses: List[str] = field(default_factory=list)
     # TLS of the import server at grpc_address (inline PEM or file
     # paths); with an authority, clients must present certificates
     grpc_tls_certificate: str = ""
@@ -192,6 +196,10 @@ class Config:
     http_address: str = ""
     # serve POST /quitquitquit (shuts the server down)
     http_quit: bool = False
+    # SLI timers derived from indicator spans: one per service and error
+    # flag, and one global-only per span name ("objective"); empty = off
+    indicator_span_timer_name: str = ""
+    objective_span_timer_name: str = ""
     # pump chunk size in samples (bounds the hand-off batch and the
     # per-chunk native memory)
     ingest_batch_max_samples: int = 65536
@@ -216,6 +224,8 @@ class Config:
     metric_sinks: List[SinkConfig] = field(default_factory=list)
     # SO_REUSEPORT sockets (and native reader threads) per UDP address
     num_readers: int = 1
+    # threads that extract span metrics and fan spans out to span sinks
+    num_span_workers: int = 1
     # keep the configured hostname empty instead of defaulting it
     omit_empty_hostname: bool = False
     # concurrent POSTs of one Datadog flush (the sink's
@@ -225,6 +235,15 @@ class Config:
         default_factory=lambda: [0.5, 0.75, 0.99])
     # SO_RCVBUF of each UDP listener socket
     read_buffer_size_bytes: int = 2 * 1024 * 1024
+    # spans the channel to the span workers holds; a full channel drops
+    span_channel_capacity: int = 100
+    # spans each span sink's isolation buffer holds; 0 = max(4096, 8 x
+    # span_channel_capacity)
+    span_sink_queue_capacity: int = 0
+    span_sinks: List[SinkConfig] = field(default_factory=list)
+    # SSF listeners: udp:// (a span per datagram), unix:// and tcp://
+    # (framed spans)
+    ssf_listen_addresses: List[str] = field(default_factory=list)
     # host:port the statsd self-metrics go to over UDP ("internal":
     # straight back into this server's parser); empty = none sent
     stats_address: str = ""
@@ -233,7 +252,14 @@ class Config:
     synchronize_with_interval: bool = False
     # tag prefixes the import server strips from imported metrics
     tags_exclude: List[str] = field(default_factory=list)
+    # TLS of the TCP statsd listeners (inline PEM or file paths); with
+    # an authority, clients must present certificates
+    tls_authority_certificate: str = ""
+    tls_certificate: str = ""
+    tls_key: StringSecret = field(default_factory=StringSecret)
     tpu: TpuConfig = field(default_factory=TpuConfig)
+    # longest SSF frame (and UDP span datagram) taken
+    trace_max_length_bytes: int = 16 * 1024 * 1024
     # the statsd self-metrics' extra tags, and their scope per kind
     # ("counter"/"gauge"/"histogram" -> "local"/"global"/"")
     veneur_metrics_additional_tags: List[str] = field(default_factory=list)
@@ -262,12 +288,19 @@ class Config:
             self.interval = 10.0
         if self.metric_max_length <= 0:
             self.metric_max_length = 4096
+        if self.span_channel_capacity <= 0:
+            self.span_channel_capacity = 100
+        if self.span_sink_queue_capacity <= 0:
+            self.span_sink_queue_capacity = max(
+                4096, 8 * self.span_channel_capacity)
+        if self.trace_max_length_bytes <= 0:
+            self.trace_max_length_bytes = 16 * 1024 * 1024
         return self
 
 
 _DURATION_FIELDS = {"interval", "forward_retry_base", "forward_retry_max",
                     "circuit_breaker_recovery", "chaos_delay"}
-_SECRET_FIELDS = {"grpc_tls_key", "forward_tls_key"}
+_SECRET_FIELDS = {"grpc_tls_key", "forward_tls_key", "tls_key"}
 
 
 def _known(cls) -> set:
@@ -317,11 +350,11 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
             value = dict(value or {})
             _check_keys(value, TpuConfig, "tpu.")
             value = TpuConfig(**value)
-        elif key == "metric_sinks":
+        elif key in ("metric_sinks", "span_sinks"):
             sinks = []
             for item in value or []:
                 item = dict(item or {})
-                _check_keys(item, SinkConfig, "metric_sinks.")
+                _check_keys(item, SinkConfig, f"{key}.")
                 sinks.append(SinkConfig(**item))
             value = sinks
         elif key == "features":

@@ -1,5 +1,5 @@
-"""Batched ingest: parsed DogStatsD columns into the device column store
-(torch port of veneur_tpu/core/ingest.py, without SSF).
+"""Batched ingest: parsed DogStatsD columns and SSF samples into the
+device column store (torch port of veneur_tpu/core/ingest.py).
 
 Packet buffers are parsed into per-family COO columns — by the native
 C++ batch parser (a pump chunk or a `NativeParser.parse` result) or by
@@ -20,6 +20,14 @@ ingester's key, the slow path under "python"); the tables stamp what
 they accept as `agg.applied` (core/columnstore.py). No sample is shed
 before the store, as there is no admission ladder yet.
 
+SSF datagrams take the same route through the native library
+(`BatchIngester.ingest_ssf_buffer`): spans decode and their samples
+extract in C++ against the same intern table, under a canonical key
+(`ssf_meta_key`, byte-identical to dogstatsd.cc's `ssf_key`); samples it
+defers replay through the Python SSF converter, which registers their
+keys, and the uniqueness and indicator metrics the flags say are owed
+derive in Python.
+
 Where the JAX package logs and drops a chunk whose apply raised, the port
 counts the failure in the server's `ingest_dispatch_errors`, keeps the
 first exception, and `Server.flush()` / `Server.shutdown()` re-raise it:
@@ -29,11 +37,14 @@ a kernel launch error never loses a chunk's samples without a trace.
 from __future__ import annotations
 
 import logging
+import random
 import threading
+from typing import Optional
 
 import numpy as np
+from google.protobuf.message import DecodeError
 
-from veneur_tpu_torch import native
+from veneur_tpu_torch import native, protocol, ssf
 from veneur_tpu_torch.core import batchdecode
 from veneur_tpu_torch.samplers import metrics as m
 from veneur_tpu_torch.samplers.parser import ParseError
@@ -48,6 +59,30 @@ _FAMILY_BY_TYPE = {
     m.SET: native.FAM_SET,
     m.LLHIST: native.FAM_LLHIST,
 }
+
+# SSF metric enum -> DogStatsD family char (dogstatsd.cc kFamilyChar)
+_SSF_TC = {0: b"c", 1: b"g", 2: b"h", 3: b"s"}
+
+
+def ssf_meta_key(sample) -> Optional[bytes]:
+    """Canonical intern key for an SSF sample, byte-identical to
+    dogstatsd.cc ssf_key: DogStatsD line-key form with sorted tag keys,
+    a "|@rate" chunk when the rate is not 1, and a "|$N" suffix for an
+    enum-forced scope. Identical identities unify with rows interned by
+    the DogStatsD plane."""
+    tc = _SSF_TC.get(sample.metric)
+    if tc is None:
+        return None
+    parts = [sample.name.encode(), b"|", tc]
+    rate = sample.sample_rate or 1.0
+    if rate != 1.0:
+        parts.append(b"|@%g" % rate)
+    if sample.tags:
+        kv = ",".join(f"{k}:{sample.tags[k]}" for k in sorted(sample.tags))
+        parts.append(b"|#" + kv.encode())
+    if sample.scope in (1, 2):
+        parts.append(b"|$%d" % sample.scope)
+    return b"".join(parts)
 
 
 class _ColumnarIngesterBase:
@@ -219,22 +254,155 @@ class BatchIngester(_ColumnarIngesterBase):
     for `ingest_buffer` and one pump per UDP listener. Building it builds
     the native library, and a failure raises."""
 
-    def __init__(self, server):
+    def __init__(self, server, rng: Optional[random.Random] = None):
         self.server = server
         self.store = server.store
         self.parser = server.parser
         self._engine = native.Engine()  # shared intern table
         self._tls = threading.local()   # per-thread parse buffers
+        # seeds the C++ uniqueness rolls of each SSF batch
+        self._rng = rng if rng is not None else random.Random()
+        self._rng_lock = threading.Lock()
+
+    def _parser(self) -> native.NativeParser:
+        parser = getattr(self._tls, "parser", None)
+        if parser is None:
+            parser = self._tls.parser = native.NativeParser(
+                engine=self._engine)
+        return parser
 
     def ingest_buffer(self, buf: bytes) -> int:
         """Parse and aggregate one newline-joined packet buffer; returns
         the number of column samples taken (slow-path lines not
         counted)."""
-        parser = getattr(self._tls, "parser", None)
-        if parser is None:
-            parser = self._tls.parser = native.NativeParser(
-                engine=self._engine)
-        return self._ingest(parser.parse(buf))
+        return self._ingest(self._parser().parse(buf))
+
+    def ingest_ptr(self, ptr, length: int) -> int:
+        """ingest_buffer over a NativeReader's joined buffer, in place."""
+        return self._ingest(self._parser().parse_ptr(ptr, length))
+
+    # ---- SSF -------------------------------------------------------------
+
+    def ingest_ssf_buffer(self, buf: bytes, offs, lens) -> np.ndarray:
+        """Native SSF span decode and metric extraction (reference
+        protocol/wire.go:108-186 and sinks/ssfmetrics/metrics.go:89-146)
+        of the datagrams at (offs, lens) in `buf`. Samples the C++ path
+        defers replay through the Python SSF converter, which registers
+        their canonical keys; the uniqueness and indicator metrics owed
+        by the flags derive in Python. Returns the per-packet decoded
+        mask (the caller counts the packets and hands the spans on)."""
+        server = self.server
+        store = self.store
+        cfg = server.config
+        ledger = server.ledger
+        ext = server.metric_extraction
+        indicator_enabled = bool(cfg.indicator_span_timer_name
+                                 or cfg.objective_span_timer_name)
+        uniq_rate = ext.uniqueness_rate
+        with self._rng_lock:
+            seed = self._rng.getrandbits(63) | 1
+        res = self._parser().parse_ssf(buf, offs, lens, indicator_enabled,
+                                       uniq_rate, seed)
+        flags = res.flags
+        spans_cache: dict = {}
+
+        def get_span(idx: int):
+            span = spans_cache.get(idx)
+            if span is None:
+                start = int(offs[idx])
+                span = spans_cache[idx] = protocol.parse_ssf(
+                    buf[start:start + int(lens[idx])])
+            return span
+
+        replayed = 0
+        gauge_rows: list = []
+        gauge_vals: list = []
+        gauge_lines: list = []
+        for _pkt, raw, line_no in res.deferred:
+            sample = ssf.SSFSample()
+            try:
+                sample.ParseFromString(raw)
+                metric = self.parser.parse_metric_ssf(sample)
+            except (DecodeError, ParseError) as e:
+                logger.debug("invalid SSF sample (%d bytes): %s", len(raw), e)
+                continue
+            if not metric.name or metric.value is None:
+                continue  # invalid sample (reference parser.go:154-171)
+            if metric.key.type == m.GAUGE:
+                # captured, not applied: merged with the native gauge
+                # columns by line index so last-write-wins holds
+                ledger.note("ingest.admitted", 1, key="python")
+                gauge_rows.append(store.gauges.intern(metric))
+                gauge_vals.append(metric.value)
+                gauge_lines.append(line_no)
+            else:
+                server.ingest_metric(metric)
+            replayed += 1
+            self._register_ssf_sample(sample, metric)
+
+        ledger.note("ingest.admitted",
+                    len(res.c_rows) + len(res.g_rows) + len(res.h_rows)
+                    + len(res.s_rows), key=self.LEDGER_KEY)
+        if len(res.c_rows):
+            store.counters.add_batch(res.c_rows, res.c_vals, res.c_rates)
+        if gauge_rows:
+            all_rows = np.concatenate(
+                [res.g_rows, np.asarray(gauge_rows, np.int32)])
+            all_vals = np.concatenate(
+                [res.g_vals, np.asarray(gauge_vals, np.float32)])
+            all_lines = np.concatenate(
+                [res.g_lines, np.asarray(gauge_lines, np.int32)])
+            order = np.argsort(all_lines, kind="stable")
+            store.gauges.add_batch(all_rows[order], all_vals[order])
+        elif len(res.g_rows):
+            store.gauges.add_batch(res.g_rows, res.g_vals)
+        if len(res.h_rows):
+            store.histos.add_batch(res.h_rows, res.h_vals, res.h_wts)
+        if len(res.s_rows):
+            store.sets.add_batch(res.s_rows, res.s_idx, res.s_rho)
+        store.count_processed(res.samples + len(gauge_rows))
+
+        # the derived metrics the C++ path left to Python
+        for idx in np.nonzero((flags & native.SSF_NEEDS_UNIQ) != 0)[0]:
+            span = get_span(int(idx))
+            sample = ssf.set_sample("ssf.names_unique", span.name, {
+                "indicator": "true" if span.indicator else "false",
+                "service": span.service,
+                "root_span": ("true" if span.id == span.trace_id
+                              else "false")})
+            # the keep/drop roll already happened in C++; only the
+            # rate-scaling half of ssf.randomly_sample applies here
+            if 0 < uniq_rate <= 1:
+                sample.sample_rate = uniq_rate
+            metric = self.parser.parse_metric_ssf(sample)
+            server.ingest_metric(metric)
+            replayed += 1
+            self._register_ssf_sample(sample, metric)
+        if indicator_enabled:
+            for idx in np.nonzero(
+                    (flags & native.SSF_NEEDS_INDICATOR) != 0)[0]:
+                for metric in self.parser.convert_indicator_metrics(
+                        get_span(int(idx)), cfg.indicator_span_timer_name,
+                        cfg.objective_span_timer_name):
+                    server.ingest_metric(metric)
+                    replayed += 1
+
+        decoded = (flags & native.SSF_DECODED) != 0
+        ext.count(int(decoded.sum()), res.samples + replayed)
+        return decoded
+
+    def _register_ssf_sample(self, sample, metric) -> None:
+        """Bind an SSF sample's canonical key to the row the Python path
+        just interned, so its next occurrence stays in C++."""
+        key = ssf_meta_key(sample)
+        family = _FAMILY_BY_TYPE.get(metric.key.type)
+        if key is None or family is None:
+            return
+        table = self._table_for_family(family)
+        row = table.rows.get((metric.digest64 << 2) | int(metric.scope))
+        if row is None:
+            return
+        self._engine.register(key, family, row, metric.sample_rate or 1.0)
 
     def _register_entry(self, meta_key: bytes, family: int, row: int,
                         rate: float) -> None:

@@ -42,11 +42,27 @@ global-only. With `chaos_enabled` the egress seams inject faults
 (util/chaos.py); `forward_tls_*` and `grpc_tls_*` put the forward tier
 under (m)TLS (util/grpctls.py).
 
-UDP datagrams reach the store through the batch ingest plane
-(core/ingest.py): by default the native C++ pump parses them into
-columns; `tpu.disable_native_parser: true` selects the numpy columnar
-decoder instead. The native library builds with g++ at first use, and a
-build failure raises here.
+DogStatsD reaches the store through the batch ingest plane
+(core/ingest.py): UDP datagrams by default through the native C++ pump,
+UNIX datagrams through the native reader, TCP lines (optionally under
+mutual TLS) and gRPC `SendPacket` bodies through the parse path;
+`tpu.disable_native_parser: true` selects the numpy columnar decoder
+instead. The native library builds with g++ at first use, and a build
+failure raises here.
+
+The span plane (reference server.go:654-736, worker.go:547-686): SSF
+arrives over UDP (one span per datagram; with the native library the
+reader decodes the spans and extracts their metrics in C++), over UNIX
+and TCP streams of framed spans, and through gRPC `SendSpan`. Spans go
+on a bounded channel (a full channel drops and counts) to the span
+workers, which extract the metrics of the spans not yet extracted
+(MetricExtractionSink: samples, indicator and objective timers,
+`ssf.names_unique`) and hand every span in chunks to one isolation
+buffer and thread per span sink (`_SpanSinkWorker`). Span sinks flush on
+the sink plane's threads, keyed `span:<name>`. `drain_spans` waits until
+every span handed to the channel is extracted and ingested by every
+sink. The uniqueness rolls draw from generators derived from the
+server's `rng`.
 
     server = Server(read_config("config.yaml"))   # tables on cuda:0
     server.start()
@@ -62,10 +78,15 @@ from __future__ import annotations
 import faulthandler
 import logging
 import os
+import queue
+import random
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
+
+from veneur_tpu_torch import protocol
 from veneur_tpu_torch import sinks as sinks_mod
 from veneur_tpu_torch.config import Config, SinkConfig, read_config
 from veneur_tpu_torch.core import telemetry as telemetry_mod
@@ -73,10 +94,11 @@ from veneur_tpu_torch.core.alerts import AlertEngine
 from veneur_tpu_torch.core.columnstore import ColumnStore
 from veneur_tpu_torch.core.diagnostics import DiagnosticsLoop
 from veneur_tpu_torch.core.flusher import FlushBatch, flush_columnstore_batch
+from veneur_tpu_torch.core.grpc_ingest import GrpcIngestServer
 from veneur_tpu_torch.core.httpapi import HTTPApi
 from veneur_tpu_torch.core.ingest import BatchIngester, PyBatchIngester
 from veneur_tpu_torch.core.ledger import FlowLedger
-from veneur_tpu_torch.core.networking import Listener, start_statsd
+from veneur_tpu_torch.core.networking import Listener, start_ssf, start_statsd
 from veneur_tpu_torch.core.overload import TokenBucket
 from veneur_tpu_torch.core.query import LiveQueryPlane
 from veneur_tpu_torch.device import pick_device
@@ -88,6 +110,7 @@ from veneur_tpu_torch.samplers.metrics import (HistogramAggregates,
                                                InterMetric, MetricScope,
                                                UDPMetric)
 from veneur_tpu_torch.samplers.parser import ParseError, Parser
+from veneur_tpu_torch.sinks.ssfmetrics import MetricExtractionSink
 from veneur_tpu_torch.util import chaos as chaos_mod
 from veneur_tpu_torch.util.grpctls import GrpcTLS
 from veneur_tpu_torch.util.resilience import (Carryover, CircuitBreaker,
@@ -99,11 +122,102 @@ from veneur_tpu_torch.util.spool import CarryoverSpool
 logger = logging.getLogger("veneur_tpu_torch.server")
 
 
+class RawSpan:
+    """A span still in wire form: the native SSF path already extracted
+    its metrics, so it is decoded (for the span sinks) in a span worker
+    instead of on the ingest path."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+
+class _SpanSinkWorker:
+    """Per-sink span ingest isolation (reference worker.go:588-656): each
+    span sink gets a bounded buffer and one thread, so a slow or hung
+    sink drops its own spans instead of stalling the span workers. Spans
+    move in chunks: the span workers submit whole batches and this thread
+    swaps the pending list out in one lock window. Capacity counts spans;
+    a chunk that would overflow is dropped whole (counted), except that
+    an empty buffer always takes one chunk. `accepted` and `completed`
+    (chunks ingested, or failed and logged) let the server's drain wait
+    for the buffer to empty; `progress` is called after each round."""
+
+    def __init__(self, sink, capacity: int, progress: Callable[[], None]):
+        self.sink = sink
+        self.capacity = max(16, capacity)
+        self._progress = progress
+        self._pending: list = []
+        self._pending_spans = 0
+        self._lock = threading.Lock()
+        self._ready = threading.Condition(self._lock)
+        self.dropped = 0
+        self.ingested = 0
+        self.accepted = 0
+        self.completed = 0
+        self._stop = threading.Event()
+        self.thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self.thread = threading.Thread(
+            target=self._loop, name=f"span-sink-{self.sink.name()}",
+            daemon=True)
+        self.thread.start()
+
+    def submit_many(self, spans) -> None:
+        n = len(spans)
+        if n == 0:
+            return
+        with self._lock:
+            if self._pending and self._pending_spans + n > self.capacity:
+                self.dropped += n
+                return
+            self._pending.append(spans)
+            self._pending_spans += n
+            self.accepted += n
+            self._ready.notify()
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._pending:
+                    if self._stop.is_set():
+                        return
+                    self._ready.wait(timeout=0.5)
+                chunks, self._pending = self._pending, []
+                self._pending_spans = 0
+            for chunk in chunks:
+                try:
+                    self.sink.ingest_many(chunk)
+                    self.ingested += len(chunk)
+                except Exception:
+                    logger.exception("span sink %s ingest failed",
+                                     self.sink.name())
+                with self._lock:
+                    self.completed += len(chunk)
+            self._progress()
+
+    def stop(self, timeout: float = 2.0) -> None:
+        """Signal, then join: the loop drains what was submitted before
+        it sees the stop flag on its next empty wait."""
+        self._stop.set()
+        with self._lock:
+            self._ready.notify()
+        if self.thread is not None:
+            self.thread.join(timeout)
+
+
 class Server:
     def __init__(self, config: Config, device=None,
-                 extra_metric_sinks: Optional[List] = None):
+                 extra_metric_sinks: Optional[List] = None,
+                 extra_span_sinks: Optional[List] = None,
+                 rng: Optional[random.Random] = None):
         self.config = config
         self.device = pick_device(device)
+        # the uniqueness rolls of the span plane draw from generators
+        # derived from this one
+        self.rng = rng if rng is not None else random.Random()
         self.interval = config.interval
         # forward_only: metrics that declare no scope become global-only,
         # so a local aggregates nothing itself and forwards everything
@@ -137,6 +251,12 @@ class Server:
         # per-sink filters, only for sinks with an active one (an entry
         # here sends that sink the materialised list), and the routing
         # rules
+        self.span_sinks: List = list(extra_span_sinks or [])
+        for sc in config.span_sinks:
+            factory = sinks_mod.SpanSinkTypes.get(sc.kind)
+            if factory is None:
+                raise ValueError(f"unknown span sink kind: {sc.kind}")
+            self.span_sinks.append(factory(sc, config))
         self._sink_filters: Dict[str, SinkConfig] = {
             sc.name or sc.kind: sc for sc in config.metric_sinks
             if (sc.strip_tags or sc.add_tags or sc.max_name_length
@@ -165,6 +285,16 @@ class Server:
                                       "lines_parsed": 0,
                                       "lines_rejected": 0,
                                       "ingest_dispatch_errors": 0,
+                                      # SSF packets (datagrams, frames,
+                                      # gRPC spans) and those that did
+                                      # not decode or were oversized
+                                      "ssf_packets_received": 0,
+                                      "ssf_parse_errors": 0,
+                                      # spans dropped at a full channel
+                                      "spans_dropped": 0,
+                                      # TCP lines over metric_max_length
+                                      # (the connection is closed)
+                                      "tcp_overlong_dropped": 0,
                                       # intervals stashed into the
                                       # carryover because the previous
                                       # forward was still running
@@ -175,7 +305,30 @@ class Server:
         # native build failure raises
         self._ingester = (PyBatchIngester(self)
                           if tpu.disable_native_parser
-                          else BatchIngester(self))
+                          else BatchIngester(
+                              self, random.Random(self.rng.getrandbits(64))))
+        # the span pipeline: the metric extraction sink (always attached,
+        # reference server.go:654-664, called inline by the span workers),
+        # the bounded channel, the workers, and one isolation buffer per
+        # span sink. _span_cv guards the channel's in/out counts the
+        # drain waits on.
+        self.metric_extraction = MetricExtractionSink(
+            self.ingest_metric, self.parser,
+            random.Random(self.rng.getrandbits(64)),
+            indicator_timer_name=config.indicator_span_timer_name,
+            objective_timer_name=config.objective_span_timer_name)
+        self.span_chan: "queue.Queue" = queue.Queue(
+            maxsize=config.span_channel_capacity)
+        self._span_workers: List[threading.Thread] = []
+        self._span_sink_workers: List[_SpanSinkWorker] = []
+        self._span_cv = threading.Condition()
+        self._spans_in = 0
+        self._spans_out = 0
+        # seconds the span workers spent on their batches, summed over
+        # the workers (they share the interpreter lock with ingest)
+        self.span_worker_seconds = 0.0
+        self._ssf_listeners: List[Listener] = []
+        self.grpc_ingest_servers: List[GrpcIngestServer] = []
         self._events: List = []
         self._events_lock = threading.Lock()
         self._listeners: List[Listener] = []
@@ -218,7 +371,8 @@ class Server:
         # and per metric sink a `sink:<name>` record: status, duration_s,
         # cpu_s (the sink thread's own CPU seconds: the sink threads share
         # the interpreter lock, so a wall time includes the others' turns)
-        # and the sink's note_egress (encode_s, send_s, encoder). A sink
+        # and the sink's note_egress (encode_s, send_s, encoder), and per
+        # span sink a `span_sink:<name>` record of the same shape. A sink
         # thread that outlives the flush lands its record later, marked
         # `late`.
         self.last_flush_timings: Dict[str, Any] = {}
@@ -348,6 +502,12 @@ class Server:
         rows = [(key if key.startswith("ingest") else f"ingest.{key}",
                  "counter", float(value), ())
                 for key, value in stats.items()]
+        for worker in self._span_sink_workers:
+            tags = [f"sink:{worker.sink.name()}"]
+            rows.append(("ingest.span_sink_dropped", "counter",
+                         float(worker.dropped), tags))
+            rows.append(("ingest.span_sink_ingested", "counter",
+                         float(worker.ingested), tags))
         rows.append(("flush.rounds", "counter", float(self.flush_count), ()))
         rows.append(("flush.last_unix_seconds", "gauge",
                      self.last_flush_unix, ()))
@@ -479,8 +639,158 @@ class Server:
             logger.debug("could not parse %r: %s", packet[:100], e)
         self.count_lines(1, parsed)
 
+    # -- spans -----------------------------------------------------------
+
+    def count_ssf(self, packets: int, errors: int) -> None:
+        """Count SSF packets received and those that did not decode."""
+        with self._stats_lock:
+            self.stats["ssf_packets_received"] += packets
+            self.stats["ssf_parse_errors"] += errors
+
+    def handle_ssf_packet(self, packet: bytes) -> None:
+        """One unframed SSF datagram through the Python decode (reference
+        server.go:1053-1100): the span goes on the channel, and the span
+        workers extract its metrics."""
+        try:
+            span = protocol.parse_ssf(packet)
+        except protocol.SSFDecodeError:
+            logger.debug("could not parse SSF packet (%d bytes)", len(packet))
+            self.count_ssf(1, 1)
+            return
+        self.ingest_span(span)
+        self.count_ssf(1, 0)
+
+    def handle_ssf_batch(self, packets) -> None:
+        """A batch of unframed SSF datagrams, as handle_ssf_buffer over
+        their concatenation."""
+        n = len(packets)
+        if not n:
+            return
+        lens = np.fromiter((len(p) for p in packets), np.int64, n)
+        offs = np.zeros(n, np.int64)
+        if n > 1:
+            np.cumsum(lens[:-1], out=offs[1:])
+        self.handle_ssf_buffer(b"".join(packets), offs, lens)
+
+    def handle_ssf_buffer(self, buf: bytes, offs, lens) -> None:
+        """A batch of unframed SSF datagrams as one buffer with
+        per-datagram (offset, length), the shape the native reader
+        produces. With the native ingester the spans decode and their
+        metrics extract in C++, and only when span sinks exist does each
+        decoded span go on the channel, in wire form (RawSpan), for the
+        span workers to decode; with the numpy decoder each datagram
+        takes handle_ssf_packet. The packets are counted after their
+        spans are on the channel."""
+        ing = self._ingester
+        if not isinstance(ing, BatchIngester):
+            for off, ln in zip(offs, lens):
+                self.handle_ssf_packet(buf[int(off):int(off) + int(ln)])
+            return
+        decoded = ing.ingest_ssf_buffer(buf, offs, lens)
+        idxs = np.flatnonzero(decoded)
+        if self._span_sink_workers:
+            for i in idxs:
+                start = int(offs[i])
+                self.ingest_span(RawSpan(buf[start:start + int(lens[i])]))
+        self.count_ssf(len(offs), len(offs) - len(idxs))
+
+    def handle_ssf_span(self, span) -> None:
+        """One decoded span from a framed stream or gRPC `SendSpan`: on
+        the channel, then counted."""
+        self.ingest_span(span)
+        self.count_ssf(1, 0)
+
+    def ingest_span(self, span) -> None:
+        """Put a span on the channel for the span workers; a full channel
+        drops it and counts it instead of blocking ingest (with its
+        metrics, when they were not extracted yet, as in the JAX
+        package). Every span is admitted: the port has no overload
+        plane yet."""
+        with self._span_cv:
+            try:
+                self.span_chan.put_nowait(span)
+            except queue.Full:
+                with self._stats_lock:
+                    self.stats["spans_dropped"] += 1
+                return
+            self._spans_in += 1
+
+    def _span_worker_loop(self) -> None:
+        """Fan spans out to the span sinks (reference worker.go:587-662)
+        in batches of up to 256: a span still in wire form (its metrics
+        extracted natively) is decoded; any other has its metrics
+        extracted here; then each sink's isolation buffer takes the
+        batch. A failure is counted as a dispatch error, which flush()
+        re-raises. Exits on its None sentinel."""
+        while True:
+            first = self.span_chan.get()
+            if first is None:
+                return
+            t0 = time.perf_counter()
+            batch = [first]
+            done = False
+            while len(batch) < 256:
+                try:
+                    nxt = self.span_chan.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:  # one sentinel each: siblings get theirs
+                    done = True
+                    break
+                batch.append(nxt)
+            try:
+                out = []
+                for span in batch:
+                    if isinstance(span, RawSpan):
+                        out.append(protocol.parse_ssf(span.data))
+                    else:
+                        self.metric_extraction.ingest(span)
+                        out.append(span)
+                for worker in self._span_sink_workers:
+                    worker.submit_many(out)
+            except Exception as e:
+                logger.exception("span batch failed")
+                self.note_dispatch_error(e)
+            with self._span_cv:
+                self._spans_out += len(batch)
+                self.span_worker_seconds += time.perf_counter() - t0
+                self._span_cv.notify_all()
+            if done:
+                return
+
+    def _span_progress(self) -> None:
+        with self._span_cv:
+            self._span_cv.notify_all()
+
+    def _spans_settled(self) -> bool:
+        if self._spans_in != self._spans_out:
+            return False
+        for worker in self._span_sink_workers:
+            with worker._lock:
+                if worker.completed != worker.accepted:
+                    return False
+        return True
+
+    def drain_spans(self, timeout: float = 30.0) -> None:
+        """Wait until every span put on the channel so far has been
+        extracted and taken by every span sink's buffer, and every chunk
+        those buffers accepted has been ingested by its sink (spans a
+        full buffer dropped are counted, not waited for). Counts, not a
+        quiet period: it returns as soon as the counts meet, and raises
+        TimeoutError with them after `timeout` seconds."""
+        with self._span_cv:
+            if not self._span_cv.wait_for(self._spans_settled, timeout):
+                raise TimeoutError(
+                    f"span plane not drained after {timeout} s: "
+                    f"{self._spans_in} spans in, {self._spans_out} out; "
+                    + ", ".join(f"{w.sink.name()} {w.completed}/"
+                                f"{w.accepted}"
+                                for w in self._span_sink_workers))
+
     def stats_snapshot(self) -> Dict[str, int]:
-        """Line counters, dispatch errors, the llhist family's sample and
+        """Line counters, SSF packet counters, spans dropped at the
+        channel and per span sink, the extraction's totals, dispatch
+        errors, the llhist family's sample and
         clamp totals, samples of unknown wire type, the pumps' reader
         stalls and lines lost at shutdown, the forward tier's counts:
         metrics forwarded and failed sends (a local server), metrics
@@ -494,6 +804,14 @@ class Server:
         out["llhist_clamped"] = llhists.clamped_total
         out["unknown_rejected"] = self.store.unknown_rejected
         pumps = [lst.pump for lst in self._listeners if lst.pump is not None]
+        for worker in self._span_sink_workers:
+            out[f"span_sink_dropped#sink:{worker.sink.name()}"] = \
+                worker.dropped
+            out[f"span_sink_ingested#sink:{worker.sink.name()}"] = \
+                worker.ingested
+        ext = self.metric_extraction
+        out["spans_extracted"] = ext.spans_processed
+        out["span_metrics_generated"] = ext.metrics_generated
         out["stalls"] = sum(p.stalls() for p in pumps)
         out["lost_lines"] = sum(p.lost_lines() for p in pumps)
         fc, imp = self.forward_client, self.import_server
@@ -525,6 +843,7 @@ class Server:
         cfg = self.config
         for sink in self.metric_sinks:
             sink.start(self)
+        self._start_span_plane()
         if self.chaos is not None:
             # the plan backs the object-less seams too (util/http.py)
             chaos_mod.install(self.chaos)
@@ -568,6 +887,13 @@ class Server:
             self._listeners.append(start_statsd(
                 address, self, cfg.num_readers,
                 cfg.read_buffer_size_bytes))
+        for address in cfg.ssf_listen_addresses:
+            self._ssf_listeners.append(start_ssf(
+                address, self, cfg.read_buffer_size_bytes))
+        for address in cfg.grpc_listen_addresses:
+            ingest = GrpcIngestServer(self, address)
+            ingest.start()
+            self.grpc_ingest_servers.append(ingest)
         if cfg.http_address:
             self.http_api = HTTPApi(cfg, server=self,
                                     address=cfg.http_address,
@@ -589,6 +915,33 @@ class Server:
         self.telemetry.record_event(
             "startup", pid=os.getpid(),
             mode="local" if cfg.is_local else "global")
+
+    def _start_span_plane(self) -> None:
+        """Start the span sinks, one isolation buffer and thread each, and
+        the span workers."""
+        self.metric_extraction.start(self)
+        for sink in self.span_sinks:
+            sink.start(self)
+            worker = _SpanSinkWorker(sink,
+                                     self.config.span_sink_queue_capacity,
+                                     self._span_progress)
+            worker.start()
+            self._span_sink_workers.append(worker)
+        for i in range(max(1, self.config.num_span_workers)):
+            thread = threading.Thread(target=self._span_worker_loop,
+                                      name=f"span-worker-{i}", daemon=True)
+            thread.start()
+            self._span_workers.append(thread)
+
+    def _stop_span_plane(self) -> None:
+        """Let the span workers drain the channel (their sentinels queue
+        behind every span), then the sink buffers."""
+        for _ in self._span_workers:
+            self.span_chan.put(None)
+        for thread in self._span_workers:
+            thread.join(timeout=30.0)
+        for worker in self._span_sink_workers:
+            worker.stop()
 
     def _build_forward_client(self) -> ForwardClient:
         """The forward client with its retry policy, breaker, carryover,
@@ -632,7 +985,13 @@ class Server:
 
     @property
     def listen_addresses(self) -> List[tuple]:
+        """The statsd listeners' bound addresses, in config order."""
         return [listener.address for listener in self._listeners]
+
+    @property
+    def ssf_addresses(self) -> List:
+        """The SSF listeners' bound addresses, in config order."""
+        return [listener.address for listener in self._ssf_listeners]
 
     def _tick_delay(self) -> float:
         """Clock-aligned tick (reference server.go:1458
@@ -765,6 +1124,9 @@ class Server:
         # sink records stay shared: a straggler's late status lands
         sinks = {f"metric:{key[len('sink:'):]}": rec
                  for key, rec in timings.items() if key.startswith("sink:")}
+        sinks.update({f"span:{key[len('span_sink:'):]}": rec
+                      for key, rec in timings.items()
+                      if key.startswith("span_sink:")})
         round_info = {
             "flush": self.flush_count, "start_unix": self.last_flush_unix,
             "mode": "local" if self.config.is_local else "global",
@@ -780,7 +1142,18 @@ class Server:
         # cumulative process counters emit as gauges (they never reset)
         with self._stats_lock:
             processed = self.stats["lines_received"]
+            spans_dropped = self.stats["spans_dropped"]
         self.statsd.gauge("worker.metrics_processed_total", processed)
+        for worker in self._span_sink_workers:
+            spans_dropped += worker.dropped
+            if worker.dropped or worker.ingested:
+                tags = [f"sink:{worker.sink.name()}"]
+                self.statsd.gauge("worker.ssf.sink.dropped_total",
+                                  worker.dropped, tags=tags)
+                self.statsd.gauge("worker.ssf.sink.ingested_total",
+                                  worker.ingested, tags=tags)
+        if spans_dropped:
+            self.statsd.gauge("worker.ssf.spans_dropped_total", spans_dropped)
 
     # -- the sink plane --------------------------------------------------
 
@@ -833,10 +1206,11 @@ class Server:
 
     def _dispatch_sinks(self, batch: FlushBatch, events: List,
                         timings: Dict[str, Any]) -> List[tuple]:
-        """Start each metric sink's flush thread for this interval (the
-        caller holds _flush_lock); returns [(key, thread, record)]. A
+        """Start each sink's flush thread for this interval (the caller
+        holds _flush_lock); returns [(key, thread, record)]. A metric
         sink is dispatched only when there is something for it: metrics,
-        events, or its spill."""
+        events, or its spill; a span sink every interval, as in the JAX
+        package (its buffer is its own)."""
         if self._routing is not None and len(batch):
             # routing annotates each metric with its sinks, so it needs
             # objects; materialised once, shared by every sink thread
@@ -848,48 +1222,60 @@ class Server:
         dispatched: List[tuple] = []
         for sink in self.metric_sinks:
             key = f"metric:{sink.name()}"
-            record: Dict[str, Any] = {"duration_s": 0.0, "cpu_s": 0.0,
-                                      "encode_s": None, "send_s": None,
-                                      "encoder": None}
-            timings[f"sink:{sink.name()}"] = record
+            record = timings[f"sink:{sink.name()}"] = _sink_record()
             with self._sink_lock:
                 spilled = key in self._sink_spill
             if not (len(batch) or events or spilled):
                 record["status"] = "idle"
                 continue
-            prev = self._sink_flush_threads.get(key)
-            if prev is not None and prev.is_alive():
-                # one flush thread per sink: a hung sink's interval is
-                # skipped, and every skip is a failure its hung thread
-                # will never report, so it feeds the breaker
-                depth = self._sink_skip_depth.get(key, 0) + 1
-                self._sink_skip_depth[key] = depth
-                logger.warning("sink %s: previous flush still running; "
-                               "skipping (pileup depth %d)", key, depth)
-                self._count("flush.sink_skipped_total", key)
-                record.update(status="skipped", pileup_depth=depth)
-                self._sink_breaker(key).record_failure()
-                self.telemetry.record_event(
-                    "sink_skipped", sink=key, flush=self.flush_count,
-                    pileup_depth=depth)
-                continue
-            self._sink_skip_depth.pop(key, None)
-            if not self._sink_breaker(key).allow():
-                # open breaker: no thread; the interval is dropped
-                # (counted) until the half-open probe closes it again
-                self._count("flush.sink_breaker_open_total", key)
-                record["status"] = "breaker_open"
-                self.telemetry.record_event(
-                    "sink_breaker_open", sink=key, flush=self.flush_count)
-                continue
-            thread = threading.Thread(
-                target=self._timed_sink_flush,
-                args=(key, sink, record, batch, events),
-                name=f"flush-{key}", daemon=True)
-            self._sink_flush_threads[key] = thread
-            thread.start()
-            dispatched.append((key, thread, record))
+            self._start_sink_thread(
+                key, sink, record, dispatched,
+                lambda k=key, s=sink: self._flush_sink_safe(k, s, batch,
+                                                            events))
+        for sink in self.span_sinks:
+            key = f"span:{sink.name()}"
+            record = timings[f"span_sink:{sink.name()}"] = _sink_record()
+            self._start_sink_thread(
+                key, sink, record, dispatched,
+                lambda s=sink: self._flush_span_sink_safe(s))
         return dispatched
+
+    def _start_sink_thread(self, key: str, sink, record: Dict[str, Any],
+                           dispatched: List[tuple],
+                           deliver: Callable[[], Optional[bool]]) -> None:
+        """Start one sink's flush thread, unless its previous flush still
+        runs (skipped) or its breaker is open."""
+        prev = self._sink_flush_threads.get(key)
+        if prev is not None and prev.is_alive():
+            # one flush thread per sink: a hung sink's interval is
+            # skipped, and every skip is a failure its hung thread will
+            # never report, so it feeds the breaker
+            depth = self._sink_skip_depth.get(key, 0) + 1
+            self._sink_skip_depth[key] = depth
+            logger.warning("sink %s: previous flush still running; "
+                           "skipping (pileup depth %d)", key, depth)
+            self._count("flush.sink_skipped_total", key)
+            record.update(status="skipped", pileup_depth=depth)
+            self._sink_breaker(key).record_failure()
+            self.telemetry.record_event(
+                "sink_skipped", sink=key, flush=self.flush_count,
+                pileup_depth=depth)
+            return
+        self._sink_skip_depth.pop(key, None)
+        if not self._sink_breaker(key).allow():
+            # open breaker: no thread; the interval is dropped (counted)
+            # until the half-open probe closes it again
+            self._count("flush.sink_breaker_open_total", key)
+            record["status"] = "breaker_open"
+            self.telemetry.record_event(
+                "sink_breaker_open", sink=key, flush=self.flush_count)
+            return
+        thread = threading.Thread(
+            target=self._timed_sink_flush, args=(key, sink, record, deliver),
+            name=f"flush-{key}", daemon=True)
+        self._sink_flush_threads[key] = thread
+        thread.start()
+        dispatched.append((key, thread, record))
 
     def _sweep_timed_out(self, dispatched: List[tuple]) -> int:
         """Mark every sink thread that has not finished by the deadline
@@ -915,13 +1301,13 @@ class Server:
         return len(stuck)
 
     def _timed_sink_flush(self, key: str, sink, record: Dict[str, Any],
-                          batch: FlushBatch, events: List) -> None:
+                          deliver: Callable[[], Optional[bool]]) -> None:
         """Body of one sink flush thread: the delivery, its duration and
         egress report, and the breaker fed by what the delivery showed."""
         before = getattr(sink, "last_egress", None)
         start, cpu0 = time.perf_counter(), time.thread_time()
         try:
-            ok = self._flush_sink_safe(key, sink, batch, events)
+            ok = deliver()
         except Exception:
             logger.exception("sink %s: flush thread failed", key)
             ok = False
@@ -945,6 +1331,14 @@ class Server:
             if egress is not None and egress is not before:
                 record["encode_s"], record["send_s"], record["encoder"] = \
                     egress
+
+    def _flush_span_sink_safe(self, sink) -> bool:
+        try:
+            sink.flush()
+            return True
+        except Exception:
+            logger.exception("span sink %s flush failed", sink.name())
+            return False
 
     def _flush_sink_safe(self, key: str, sink, batch: FlushBatch,
                          events=()) -> Optional[bool]:
@@ -1066,7 +1460,8 @@ class Server:
             raise RuntimeError("a forward thread raised") from exc
 
     def shutdown(self) -> None:
-        """Stop the alert loop, the listeners and the flush loop, run the
+        """Stop the alert loop, the listeners, the gRPC ingest, the span
+        plane (after it drained what it holds) and the flush loop, run the
         last flush when `flush_on_shutdown` asks for it, then stop the
         forward tier and the HTTP API, wait up to one interval for the
         sink threads, and stop the sinks. Raises afterwards if an ingest
@@ -1075,8 +1470,12 @@ class Server:
         self.telemetry.record_event("shutdown", pid=os.getpid())
         self._shutdown.set()
         self.alerts.stop()
-        for listener in self._listeners:
+        for listener in self._listeners + self._ssf_listeners:
             listener.close()
+        for ingest in self.grpc_ingest_servers:
+            ingest.stop()
+        if self._span_workers:
+            self._stop_span_plane()
         if self._flush_thread is not None:
             self._flush_thread.join(timeout=self.interval + 60.0)
         if self._watchdog_thread is not None:
@@ -1103,7 +1502,7 @@ class Server:
         deadline = time.perf_counter() + self.interval
         for thread in list(self._sink_flush_threads.values()):
             thread.join(max(0.0, deadline - time.perf_counter()))
-        for sink in self.metric_sinks:
+        for sink in self.metric_sinks + self.span_sinks:
             sink.stop()
         self.statsd.close()
         if self.chaos is not None and chaos_mod.active() is self.chaos:
@@ -1113,6 +1512,12 @@ class Server:
         self._raise_forward_error()
         if final_error is not None:
             raise final_error
+
+
+def _sink_record() -> Dict[str, Any]:
+    """One sink's record in a flush's timings, before its thread runs."""
+    return {"duration_s": 0.0, "cpu_s": 0.0, "encode_s": None,
+            "send_s": None, "encoder": None}
 
 
 # the sink plane's counters (JAX self-metric names)

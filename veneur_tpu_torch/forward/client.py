@@ -111,7 +111,8 @@ class ForwardClient:
                  wal: bool = False, replay_limiter=None,
                  replay_stale_after: float = 0.0,
                  tls: Optional[GrpcTLS] = None,
-                 chaos: Optional[chaos_mod.Chaos] = None, ledger=None):
+                 chaos: Optional[chaos_mod.Chaos] = None, ledger=None,
+                 authority: str = ""):
         self.address = address
         self.deadline = deadline
         self.retry = retry or RetryPolicy()
@@ -154,7 +155,10 @@ class ForwardClient:
                 ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
                 ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
                 # a restarted global stays dialable within an interval
-                *RECONNECT_BACKOFF_OPTIONS])
+                *RECONNECT_BACKOFF_OPTIONS,
+                # the HTTP/2 :authority, for sending through an L7 proxy
+                *([("grpc.default_authority", authority)]
+                  if authority else [])])
         self._send_v2 = self._channel.stream_unary(
             "/forwardrpc.Forward/SendMetricsV2",
             request_serializer=_serialize_metric,
@@ -544,6 +548,14 @@ class ForwardClient:
             rows.append(("wal.pending", "gauge",
                          float(self.spool.pending_metrics), ()))
         return rows
+
+    def send_protos(self, protos) -> int:
+        """Stream pre-built metricpb Metrics over SendMetricsV2 (the emit
+        CLI's gRPC mode); returns how many were sent."""
+        protos = list(protos)
+        if protos:
+            self._send_v2(iter(protos), timeout=self.deadline)
+        return len(protos)
 
     def close(self) -> None:
         self._channel.close()

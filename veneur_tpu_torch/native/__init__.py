@@ -13,13 +13,15 @@ fall back. The numpy columnar decoder (core/batchdecode.py) is chosen
 explicitly, by `tpu.disable_native_parser: true`.
 
 What the port uses: the intern table (`Engine`), the batch parser
-(`NativeParser`) and the pump (`Pump`) on the ingest side; the MetricList
-import parser (`parse_metric_list`, `decode_import_key`) and the digest
-encoder and metric wrapper (`vnt_digest_encode`, `vnt_metric_wrap`,
-called by forward/convert.py) on the forward tier, and the proxy's
-route walk (`route_parse`). The SSF, row-unregister (idle-row
-reclamation), per-socket reader and load-generator entry points of the
-library wait for their slices.
+(`NativeParser.parse`/`parse_ptr`), the SSF span decoder and extractor
+(`NativeParser.parse_ssf`), the per-socket recvmmsg reader of the UNIX
+datagram and SSF UDP listeners (`NativeReader`) and the pump (`Pump`)
+on the ingest side; the MetricList import parser (`parse_metric_list`,
+`decode_import_key`) and the digest encoder and metric wrapper
+(`vnt_digest_encode`, `vnt_metric_wrap`, called by forward/convert.py)
+on the forward tier, and the proxy's route walk (`route_parse`). The
+row-unregister (idle-row reclamation) and load-generator entry points
+of the library wait for their slices.
 """
 
 from __future__ import annotations
@@ -48,6 +50,12 @@ FAM_GAUGE = 1
 FAM_HISTO = 2
 FAM_SET = 3
 FAM_LLHIST = 4
+
+# per-packet flags of NativeParser.parse_ssf, mirroring dogstatsd.cc
+SSF_DECODED = 1
+SSF_BAD = 2
+SSF_NEEDS_UNIQ = 4
+SSF_NEEDS_INDICATOR = 8
 
 
 class ChunkDesc(ctypes.Structure):
@@ -133,6 +141,32 @@ def _declare(lib) -> None:
         i32p, i32p, i32p, i64, i64p, i64p,    # llhists (+clamped weight)
         i64p, i64p, i32p, i64, i64p,          # unknown lines (+line index)
         i64p,                                 # samples parsed
+    ]
+    lib.vnt_reader_new.restype = ctypes.c_void_p
+    lib.vnt_reader_new.argtypes = [ctypes.c_int32, i64]
+    lib.vnt_reader_free.restype = None
+    lib.vnt_reader_free.argtypes = [ctypes.c_void_p]
+    lib.vnt_reader_buf.restype = ctypes.c_void_p
+    lib.vnt_reader_buf.argtypes = [ctypes.c_void_p]
+    lib.vnt_reader_read.restype = i64
+    lib.vnt_reader_read.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, i64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.vnt_reader_read2.restype = i64
+    lib.vnt_reader_read2.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, i64, ctypes.c_int32, i64p, i64p,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.vnt_ssf_parse.restype = i64
+    lib.vnt_ssf_parse.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, i64p, i64p, i64,
+        i32p, f32p, f32p, i64, i64p,          # counters
+        i32p, f32p, i32p, i64p,               # gauges (+line index)
+        i32p, f32p, f32p, i64p,               # histos
+        i32p, i32p, i32p, i64p,               # sets
+        i32p, i64p, i64p, i32p, i64, i64p,    # deferred samples
+        i32p,                                 # per-packet flags
+        ctypes.c_int32, ctypes.c_double, ctypes.c_uint64,
+        i64p,                                 # samples extracted
     ]
     lib.vnt_pump_new.restype = ctypes.c_void_p
     lib.vnt_pump_new.argtypes = [
@@ -220,6 +254,47 @@ def _ptr(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+class NativeReader:
+    """Batched datagram reader (recvmmsg) over one socket, into a joined
+    buffer it owns: `read` joins DogStatsD datagrams with newlines for
+    NativeParser.parse_ptr, `read2` keeps each datagram's boundaries for
+    a binary protocol (SSF). One per reader thread."""
+
+    def __init__(self, max_msgs: int = 512, max_dgram: int = 65536):
+        self._lib = load()
+        self._r = self._lib.vnt_reader_new(max_msgs, max_dgram)
+        self.buf_ptr = self._lib.vnt_reader_buf(self._r)
+        self._n1 = ctypes.c_int32()
+        self._n2 = ctypes.c_int32()
+        self._off = np.empty(max_msgs, np.int64)
+        self._len = np.empty(max_msgs, np.int64)
+
+    def __del__(self):
+        if getattr(self, "_r", None):
+            self._lib.vnt_reader_free(self._r)
+            self._r = None
+
+    def read(self, fd: int, max_len: int, timeout_ms: int = 500):
+        """Wait up to `timeout_ms`, drain what is queued; returns
+        (joined_length, n_datagrams, n_dropped_oversize). A negative
+        length means the socket is dead."""
+        length = self._lib.vnt_reader_read(
+            self._r, fd, max_len, timeout_ms,
+            ctypes.byref(self._n1), ctypes.byref(self._n2))
+        return length, self._n1.value, self._n2.value
+
+    def read2(self, fd: int, max_len: int, timeout_ms: int = 500):
+        """`read` keeping each datagram's boundaries: returns
+        (joined_length, offsets_view, lengths_view, n_dropped_oversize),
+        the views valid until the next read."""
+        length = self._lib.vnt_reader_read2(
+            self._r, fd, max_len, timeout_ms,
+            _ptr(self._off, ctypes.c_int64), _ptr(self._len, ctypes.c_int64),
+            ctypes.byref(self._n1), ctypes.byref(self._n2))
+        n = self._n1.value
+        return length, self._off[:n], self._len[:n], self._n2.value
+
+
 class Engine:
     """Owns one C++ intern table, shareable by many NativeParsers and a
     Pump (the C table takes a shared lock for parse, exclusive for
@@ -280,20 +355,27 @@ class NativeParser:
         self._unk_off = np.empty(cap, np.int64)
         self._unk_len = np.empty(cap, np.int64)
         self._unk_lines = np.empty(cap, np.int32)
+        self._def_pkt = np.empty(cap, np.int32)
         self._cap = cap
 
     def parse(self, buf: bytes) -> ParseResult:
         """Parse a newline-joined packet buffer; returns trimmed COO views
         plus the list of (unknown) raw lines for the Python slow path."""
         ptr = ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p)
+        return self.parse_ptr(ptr, len(buf), keepalive=buf)
+
+    def parse_ptr(self, ptr, length: int, keepalive=None) -> ParseResult:
+        """Zero-copy parse of `length` bytes at `ptr` (a c_void_p or an
+        address), e.g. a NativeReader's joined buffer. `keepalive` pins a
+        Python owner of the memory for the duration of the call."""
         # worst-case bound: every other byte a sample value or a 1-byte
         # line, for both the per-family arrays and the unknown list
-        self._ensure_capacity(len(buf) // 2 + 2)
+        self._ensure_capacity(length // 2 + 2)
         i32, f32, i64 = ctypes.c_int32, ctypes.c_float, ctypes.c_int64
         ns = self._outs
         cap = i64(self._cap)
         lines = self._lib.vnt_parse(
-            self._eng, ptr, len(buf),
+            self._eng, ptr, length,
             _ptr(self._c_rows, i32), _ptr(self._c_vals, f32),
             _ptr(self._c_rates, f32), cap, ctypes.byref(ns[0]),
             _ptr(self._g_rows, i32), _ptr(self._g_vals, f32),
@@ -329,13 +411,86 @@ class NativeParser:
         res.l_rows = self._l_rows[:ln]
         res.l_bins = self._l_bins[:ln]
         res.l_wts = self._l_wts[:ln]
+        base = ptr if isinstance(ptr, int) else ptr.value
         res.unknown = [
-            buf[int(self._unk_off[i]):int(self._unk_off[i])
-                + int(self._unk_len[i])]
+            ctypes.string_at(base + int(self._unk_off[i]),
+                             int(self._unk_len[i]))
             for i in range(un)]
         res.unknown_lines = self._unk_lines[:un]
+        del keepalive
         return res
 
+    def parse_ssf(self, buf: bytes, offs, lens, indicator_enabled: bool,
+                  uniq_rate: float, rng_seed: int) -> "SsfResult":
+        """Decode the SSFSpan packets at (offs, lens) within `buf` and
+        extract their samples through the shared intern table into COO
+        columns. A sample the C++ path cannot take (an unknown key,
+        STATUS, a non-ASCII set member, a malformed sample) comes back
+        in `deferred` as (packet, sample bytes, line); per-packet flags
+        say which packets decoded and which owe a uniqueness or
+        indicator replay (dogstatsd.cc vnt_ssf_parse). The uniqueness
+        rolls draw from a xorshift generator seeded with `rng_seed`."""
+        n_pkts = len(offs)
+        total = int(np.sum(lens)) if n_pkts else 0
+        self._ensure_capacity(total // 2 + 2)
+        offs = np.ascontiguousarray(offs, np.int64)
+        lens = np.ascontiguousarray(lens, np.int64)
+        flags = np.zeros(n_pkts, np.int32)
+        i32, f32, i64 = ctypes.c_int32, ctypes.c_float, ctypes.c_int64
+        ns = self._outs
+        cap = i64(self._cap)
+        ptr = ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p)
+        decoded = self._lib.vnt_ssf_parse(
+            self._eng, ptr, _ptr(offs, i64), _ptr(lens, i64), n_pkts,
+            _ptr(self._c_rows, i32), _ptr(self._c_vals, f32),
+            _ptr(self._c_rates, f32), cap, ctypes.byref(ns[0]),
+            _ptr(self._g_rows, i32), _ptr(self._g_vals, f32),
+            _ptr(self._g_lines, i32), ctypes.byref(ns[1]),
+            _ptr(self._h_rows, i32), _ptr(self._h_vals, f32),
+            _ptr(self._h_wts, f32), ctypes.byref(ns[2]),
+            _ptr(self._s_rows, i32), _ptr(self._s_idx, i32),
+            _ptr(self._s_rho, i32), ctypes.byref(ns[3]),
+            _ptr(self._def_pkt, i32), _ptr(self._unk_off, i64),
+            _ptr(self._unk_len, i64), _ptr(self._unk_lines, i32),
+            cap, ctypes.byref(ns[4]),
+            _ptr(flags, i32),
+            1 if indicator_enabled else 0, float(uniq_rate),
+            rng_seed & 0xFFFFFFFFFFFFFFFF, ctypes.byref(ns[5]))
+        res = SsfResult()
+        res.decoded = decoded
+        res.flags = flags
+        cn, gn, hn, sn, dn = (ns[i].value for i in range(5))
+        res.samples = ns[5].value
+        res.c_rows = self._c_rows[:cn]
+        res.c_vals = self._c_vals[:cn]
+        res.c_rates = self._c_rates[:cn]
+        res.g_rows = self._g_rows[:gn]
+        res.g_vals = self._g_vals[:gn]
+        res.g_lines = self._g_lines[:gn]
+        res.h_rows = self._h_rows[:hn]
+        res.h_vals = self._h_vals[:hn]
+        res.h_wts = self._h_wts[:hn]
+        res.s_rows = self._s_rows[:sn]
+        res.s_idx = self._s_idx[:sn]
+        res.s_rho = self._s_rho[:sn]
+        res.deferred = [
+            (int(self._def_pkt[i]),
+             buf[int(self._unk_off[i]):
+                 int(self._unk_off[i]) + int(self._unk_len[i])],
+             int(self._unk_lines[i]))
+            for i in range(dn)]
+        return res
+
+
+class SsfResult:
+    """Output of one NativeParser.parse_ssf call: trimmed COO views (SSF
+    has no llhist member, so no llhist columns), the deferred (packet,
+    sample bytes, line) tuples and the per-packet flags."""
+
+    __slots__ = ("decoded", "samples", "flags",
+                 "c_rows", "c_vals", "c_rates",
+                 "g_rows", "g_vals", "g_lines", "h_rows", "h_vals", "h_wts",
+                 "s_rows", "s_idx", "s_rho", "deferred")
 
 def _view(addr: int, n: int, dtype):
     """Zero-copy numpy view over `n` elements of chunk memory at `addr`;

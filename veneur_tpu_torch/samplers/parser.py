@@ -6,15 +6,17 @@ and service checks (`_sc|name|status|...`), including multi-value packets,
 magic scope tags (`veneurlocalonly`/`veneurglobalonly`), duplicate-section
 rejection, and NaN/Inf rejection.
 
-A copy of the JAX package's parser (the port imports nothing from it).
-The UDP read path of this slice calls `parse_metric_fast` per line; the
-batched columnar decoder and the SSF conversions arrive with later slices.
+A copy of the JAX package's parser (the port imports nothing from it):
+the slow path of the columnar ingesters calls `parse_metric_fast` per
+line, and the SSF conversions turn span samples into UDPMetrics. The
+uniqueness conversion takes its generator from the caller.
 """
 
 from __future__ import annotations
 
 import math
 import time
+import random
 from typing import Callable, Dict, List, Optional, Sequence
 
 from veneur_tpu_torch.samplers import metrics as m
@@ -412,3 +414,114 @@ class Parser:
             message=message, hostname=hostname)
         metric.digest64 = h64
         return metric
+
+    # -- SSF conversion --------------------------------------------------
+
+    def parse_metric_ssf(self, sample) -> UDPMetric:
+        """Convert one SSFSample to a UDPMetric (reference
+        parser.go:290-345 ParseMetricSSF): map the metric enum to a wire
+        type, take the value from value/message/status by type, resolve
+        scope from the enum plus magic tags."""
+        from veneur_tpu_torch import ssf
+
+        kind = {
+            ssf.COUNTER: m.COUNTER,
+            ssf.GAUGE: m.GAUGE,
+            ssf.HISTOGRAM: m.HISTOGRAM,
+            ssf.SET: m.SET,
+            ssf.STATUS: m.STATUS,
+        }.get(sample.metric)
+        if kind is None:
+            raise ParseError(f"invalid SSF metric type {sample.metric}")
+
+        if kind == m.SET:
+            value: object = sample.message
+        elif kind == m.STATUS:
+            value = int(sample.status)
+        else:
+            value = float(sample.value)
+
+        scope = self.default_scope
+        if sample.scope == 1:
+            scope = MetricScope.LOCAL_ONLY
+        elif sample.scope == 2:
+            scope = MetricScope.GLOBAL_ONLY
+
+        temp_tags = []
+        for tk in sorted(sample.tags):
+            if tk == "veneurlocalonly":
+                scope = MetricScope.LOCAL_ONLY
+            elif tk == "veneurglobalonly":
+                scope = MetricScope.GLOBAL_ONLY
+            else:
+                temp_tags.append(f"{tk}:{sample.tags[tk]}")
+
+        tags, joined, h32, h64 = update_tags(
+            sample.name, kind, temp_tags, self.extend_tags)
+        return UDPMetric(
+            key=MetricKey(sample.name, kind, joined), digest=h32,
+            digest64=h64, value=value,
+            sample_rate=sample.sample_rate or 1.0, tags=tags, scope=scope)
+
+    def convert_metrics(self, span) -> tuple:
+        """Extract every valid sample in a span; returns
+        (metrics, invalid_samples) (reference parser.go:154-171)."""
+        metrics: List[UDPMetric] = []
+        invalid = []
+        for sample in span.metrics:
+            try:
+                metric = self.parse_metric_ssf(sample)
+            except ParseError:
+                invalid.append(sample)
+                continue
+            if not metric.name or metric.value is None:
+                invalid.append(sample)
+                continue
+            metrics.append(metric)
+        return metrics, invalid
+
+    def convert_indicator_metrics(self, span, indicator_timer_name: str,
+                                  objective_timer_name: str) -> List[UDPMetric]:
+        """Derive SLI timers from an indicator span (reference
+        parser.go:180-232): one timer tagged service+error, one
+        global-only "objective" timer additionally tagged with the span
+        name (overridable via the ssf_objective span tag)."""
+        from veneur_tpu_torch import protocol, ssf
+
+        if not span.indicator or not protocol.valid_trace(span):
+            return []
+        duration_ns = span.end_timestamp - span.start_timestamp
+        error_tag = "true" if span.error else "false"
+        out: List[UDPMetric] = []
+
+        if indicator_timer_name:
+            timer = ssf.timing(indicator_timer_name, duration_ns * 1e-9,
+                               1e-9, {"service": span.service,
+                                      "error": error_tag})
+            out.append(self.parse_metric_ssf(timer))
+        if objective_timer_name:
+            objective = span.tags.get("ssf_objective") or span.name
+            timer = ssf.timing(objective_timer_name, duration_ns * 1e-9,
+                               1e-9, {"service": span.service,
+                                      "objective": objective,
+                                      "error": error_tag,
+                                      "veneurglobalonly": "true"})
+            out.append(self.parse_metric_ssf(timer))
+        return out
+
+    def convert_span_uniqueness_metrics(self, span, rng: random.Random,
+                                        rate: float = 0.01) -> List[UDPMetric]:
+        """Sampled Set counting unique span names per service/indicator
+        (reference parser.go:238-259), kept with probability `rate` by
+        one roll of `rng`."""
+        from veneur_tpu_torch import ssf
+
+        if not span.service:
+            return []
+        samples = ssf.randomly_sample(rng, rate, ssf.set_sample(
+            "ssf.names_unique", span.name, {
+                "indicator": "true" if span.indicator else "false",
+                "service": span.service,
+                "root_span": "true" if span.id == span.trace_id else "false",
+            }))
+        return [self.parse_metric_ssf(s) for s in samples]

@@ -1,10 +1,10 @@
-"""Metric sink plugin boundary.
+"""Sink plugin boundary.
 
 Interface parity with reference sinks/sinks.go:42-103: metric sinks receive
 plain host-side InterMetrics per flush (the device column store is invisible
-to them). Factories register by kind in MetricSinkTypes (reference
-server.go:62-91). This slice carries metric sinks only; span sinks arrive
-with the SSF plane.
+to them), span sinks ingest SSF spans (in chunks, from the server's span
+sink workers) and flush per interval. Factories register by kind in
+MetricSinkTypes and SpanSinkTypes (reference server.go:62-91).
 
 A sink that encodes straight from the FlushBatch columns reports its
 encode-vs-send split through `note_egress`; the server copies the last
@@ -16,9 +16,13 @@ span, which arrive with their planes.)
 from __future__ import annotations
 
 import abc
+import logging
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from veneur_tpu_torch.samplers.metrics import InterMetric
+
+_logger = logging.getLogger("veneur_tpu_torch.sinks")
 
 
 class MetricSink(abc.ABC):
@@ -62,8 +66,61 @@ class MetricSink(abc.ABC):
         pass
 
 
+class SpanSink(abc.ABC):
+    @abc.abstractmethod
+    def name(self) -> str: ...
+
+    def kind(self) -> str:
+        return self.name()
+
+    def start(self, server) -> None:  # noqa: B027
+        # bind the server's self-metrics client so flush() can emit the
+        # standard span-sink keys (reference sinks.go:58-67)
+        self._statsd = getattr(server, "statsd", None)
+
+    def emit_flush_self_metrics(self, flushed: int, flush_start: float,
+                                dropped: int = 0) -> None:
+        """Standard per-sink flush self-metrics (reference sinks.go:58-67:
+        sink.spans_flushed_total / sink.span_flush_total_duration_ns,
+        plus drop accounting), tagged with the sink name."""
+        statsd = getattr(self, "_statsd", None)
+        if statsd is None or (not flushed and not dropped):
+            return
+        tags = [f"sink:{self.name()}"]
+        if flushed:
+            statsd.count("sink.spans_flushed_total", flushed, tags=tags)
+        if dropped:
+            statsd.count("sink.spans_dropped_total", dropped, tags=tags)
+        statsd.gauge(
+            "sink.span_flush_total_duration_ns",
+            int((time.perf_counter() - flush_start) * 1e9), tags=tags)
+
+    @abc.abstractmethod
+    def ingest(self, span) -> None: ...
+
+    def ingest_many(self, spans) -> None:
+        """Batch ingest: the span sink workers hand over whole decoded
+        chunks, so a sink that can take spans wholesale overrides this
+        and pays one Python call per chunk. The default delegates per
+        span and isolates failures, so one poison span costs exactly one
+        span."""
+        for span in spans:
+            try:
+                self.ingest(span)
+            except Exception:
+                _logger.exception("span sink %s ingest failed",
+                                  self.name())
+
+    def flush(self) -> None:  # noqa: B027
+        pass
+
+    def stop(self) -> None:  # noqa: B027
+        pass
+
+
 # kind -> factory(config: SinkConfig, server_config: Config) -> sink
 MetricSinkTypes: Dict[str, Callable] = {}
+SpanSinkTypes: Dict[str, Callable] = {}
 
 
 def register_metric_sink(kind: str):
@@ -73,9 +130,17 @@ def register_metric_sink(kind: str):
     return deco
 
 
+def register_span_sink(kind: str):
+    def deco(factory):
+        SpanSinkTypes[kind] = factory
+        return factory
+    return deco
+
+
 def register_builtin_sinks() -> None:
     """Import every built-in sink module for its registration side effect."""
     from veneur_tpu_torch.sinks import (  # noqa: F401
-        blackhole, channel, cloudwatch, cortex, datadog, debug, kafka,
-        localfile, newrelic, prometheus, s3, signalfx,
+        blackhole, channel, cloudwatch, cortex, datadog, debug, falconer,
+        kafka, lightstep, localfile, newrelic, prometheus, s3, signalfx,
+        splunk, xray,
     )

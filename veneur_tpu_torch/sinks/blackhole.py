@@ -3,7 +3,8 @@ sinks/blackhole/blackhole.go). The test/benchmark baseline."""
 
 from __future__ import annotations
 
-from veneur_tpu_torch.sinks import MetricSink, register_metric_sink
+from veneur_tpu_torch.sinks import (MetricSink, SpanSink, register_metric_sink,
+                                    register_span_sink)
 
 
 class BlackholeMetricSink(MetricSink):
@@ -24,6 +25,25 @@ class BlackholeMetricSink(MetricSink):
         pass
 
 
+class BlackholeSpanSink(SpanSink):
+    def __init__(self, name: str = "blackhole"):
+        self._name = name
+
+    def name(self) -> str:
+        return self._name
+
+    def ingest(self, span) -> None:
+        pass
+
+    def ingest_many(self, spans) -> None:
+        pass
+
+
 @register_metric_sink("blackhole")
 def _metric_factory(sink_config, server_config):
     return BlackholeMetricSink(sink_config.name or "blackhole")
+
+
+@register_span_sink("blackhole")
+def _span_factory(sink_config, server_config):
+    return BlackholeSpanSink(sink_config.name or "blackhole")

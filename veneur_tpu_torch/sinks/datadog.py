@@ -1,4 +1,4 @@
-"""Datadog sink: metrics, events and service checks.
+"""Datadog sink: metrics, events, service checks, and APM spans.
 
 Behavioral parity with reference sinks/datadog/datadog.go (660 LoC),
 copied from veneur_tpu/sinks/datadog.py:
@@ -11,20 +11,26 @@ copied from veneur_tpu/sinks/datadog.py:
 - Events (from flush_other_samples) post to the events intake.
 - `flush_batch` encodes straight from the FlushBatch columns
   (core/egress.py) and falls back to `materialize()` if that raises.
-The APM span half (DatadogSpanSink) arrives with the SSF plane.
+- Spans buffer in a bounded ring (2^14, reference datadog.go spanBuffer)
+  and flush to the APM traces endpoint.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import threading
+import time
 from typing import Any, Dict, List, Sequence
 
 from veneur_tpu_torch.samplers.metrics import InterMetric, MetricType
-from veneur_tpu_torch.sinks import MetricSink, register_metric_sink
+from veneur_tpu_torch.sinks import (MetricSink, SpanSink, register_metric_sink,
+                                    register_span_sink)
 from veneur_tpu_torch.util import http as vhttp
 
 logger = logging.getLogger("veneur_tpu_torch.sinks.datadog")
+
+DATADOG_SPAN_BUFFER_CAP = 1 << 14  # reference datadog.go datadogSpanBufferSize
 
 
 class DatadogMetricSink(MetricSink):
@@ -232,6 +238,130 @@ class DatadogMetricSink(MetricSink):
             self._post_safe("/intake", {"events": {self._name: events}})
 
 
+# timestamp plausibility window, adapted to this pipeline's nanosecond
+# span timestamps (the reference's constants at datadog.go:536-538 target
+# second-scale values): spans outside 2001..2100 count as scale errors
+_SPAN_TS_TOO_EARLY = 978_307_200 * 10**9
+_SPAN_TS_TOO_LATE = 4_102_444_800 * 10**9
+
+_DD_SPAN_TYPE = "web"  # reference datadog.go:31 datadogSpanType
+_DD_RESOURCE_KEY = "resource"  # datadog.go:27
+
+
+class DatadogSpanSink(SpanSink):
+    """Bounded span ring -> Datadog APM traces (reference datadog.go
+    span path, :453-660): the ring overwrites its oldest entry when full
+    (overflow is counted, not blocked on), flush converts each span to
+    the DD trace-span shape — resource tag promoted out of meta with an
+    "unknown" default, root spans get parent_id 0, errors map to code 2,
+    span type "web" — groups spans by trace id, and PUTs the
+    two-dimensional trace array uncompressed (the traces endpoint does
+    not accept compressed bodies). Flush self-metrics match the
+    reference sink keys: sink.spans_flushed_total (tagged per service)
+    and sink.span_flush_total_duration_ns."""
+
+    def __init__(self, name: str, trace_api_url: str, hostname: str,
+                 buffer_size: int = DATADOG_SPAN_BUFFER_CAP,
+                 timeout: float = 10.0):
+        self._name = name
+        self.trace_api_url = trace_api_url.rstrip("/")
+        self.hostname = hostname
+        self.buffer: "collections.deque" = collections.deque(maxlen=buffer_size)
+        self.timeout = timeout
+        self._lock = threading.Lock()
+        self.overwritten_total = 0  # ring overflow accounting
+        self.timestamp_errors = 0
+
+    def name(self) -> str:
+        return self._name
+
+    def kind(self) -> str:
+        return "datadog"
+
+    def ingest(self, span) -> None:
+        if not span.trace_id:
+            return
+        with self._lock:
+            if len(self.buffer) == self.buffer.maxlen:
+                # ring semantics: the append below evicts the oldest
+                self.overwritten_total += 1
+            self.buffer.append(span)
+
+    def ingest_many(self, spans) -> None:
+        good = [s for s in spans if s.trace_id]
+        if not good:
+            return
+        with self._lock:
+            room = self.buffer.maxlen - len(self.buffer)
+            if len(good) > room:
+                self.overwritten_total += len(good) - room
+            self.buffer.extend(good)
+
+    def _to_dd_span(self, s) -> dict:
+        meta = dict(s.tags)
+        resource = meta.pop(_DD_RESOURCE_KEY, "") or "unknown"
+        if (s.start_timestamp < _SPAN_TS_TOO_EARLY
+                or s.start_timestamp > _SPAN_TS_TOO_LATE):
+            self.timestamp_errors += 1
+        return {
+            "trace_id": s.trace_id,
+            "span_id": s.id,
+            "parent_id": max(s.parent_id, 0),  # root spans -> 0
+            "service": s.service,
+            "name": s.name or "unknown",
+            "resource": resource,
+            "start": s.start_timestamp,
+            "duration": max(s.end_timestamp - s.start_timestamp, 0),
+            "type": _DD_SPAN_TYPE,
+            "error": 2 if s.error else 0,
+            "meta": meta,
+            # numeric span tags; always present in the DD wire shape
+            # (reference DatadogTraceSpan.Metrics, datadog.go:434)
+            "metrics": {},
+        }
+
+    def flush(self) -> None:
+        flush_start = time.perf_counter()
+        with self._lock:
+            spans, self.buffer = list(self.buffer), collections.deque(
+                maxlen=self.buffer.maxlen)
+        if not spans:
+            return
+        traces: Dict[int, List[dict]] = {}
+        service_counts: Dict[str, int] = {}
+        for s in spans:
+            traces.setdefault(s.trace_id, []).append(self._to_dd_span(s))
+            service_counts[s.service] = service_counts.get(s.service, 0) + 1
+        try:
+            vhttp.put_json(f"{self.trace_api_url}/v0.3/traces",
+                           list(traces.values()), timeout=self.timeout)
+        except Exception as e:
+            logger.error("datadog trace PUT failed: %s", e)
+            return
+        statsd = getattr(self, "_statsd", None)
+        if statsd is not None:
+            # per-service flushed counts are datadog-specific (reference
+            # datadog.go:654); duration + ring-overwrite drops go through
+            # the shared helper
+            for service, count in service_counts.items():
+                statsd.count(
+                    "sink.spans_flushed_total", count,
+                    tags=[f"sink:{self._name}", f"service:{service}"])
+            ts_errors, self.timestamp_errors = self.timestamp_errors, 0
+            if ts_errors:
+                statsd.count(
+                    "worker.trace.sink.timestamp_error", ts_errors,
+                    tags=[f"sink:{self._name}"])
+            dropped, self.overwritten_total = self.overwritten_total, 0
+            if dropped:
+                statsd.count("sink.spans_dropped_total", dropped,
+                             tags=[f"sink:{self._name}"])
+            statsd.gauge(
+                "sink.span_flush_total_duration_ns",
+                int((time.perf_counter() - flush_start) * 1e9),
+                tags=[f"sink:{self._name}"])
+
+
 @register_metric_sink("datadog")
 def _metric_factory(sink_config, server_config):
     c = sink_config.config
@@ -254,3 +384,15 @@ def _metric_factory(sink_config, server_config):
             str(e.get("metric_prefix", "")): list(e.get("tags", []) or [])
             for e in (c.get(
                 "datadog_exclude_tags_prefix_by_prefix_metric", []) or [])})
+
+
+@register_span_sink("datadog")
+def _span_factory(sink_config, server_config):
+    c = sink_config.config
+    return DatadogSpanSink(
+        sink_config.name or "datadog",
+        trace_api_url=c.get("datadog_trace_api_address",
+                            "http://127.0.0.1:8126"),
+        hostname=server_config.hostname,
+        buffer_size=int(c.get("datadog_span_buffer_size",
+                              DATADOG_SPAN_BUFFER_CAP)))

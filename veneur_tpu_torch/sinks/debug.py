@@ -1,10 +1,11 @@
-"""Debug sink: logs every metric (reference sinks/debug/debug.go)."""
+"""Debug sink: logs every metric/span (reference sinks/debug/debug.go)."""
 
 from __future__ import annotations
 
 import logging
 
-from veneur_tpu_torch.sinks import MetricSink, register_metric_sink
+from veneur_tpu_torch.sinks import (MetricSink, SpanSink, register_metric_sink,
+                                    register_span_sink)
 
 logger = logging.getLogger("veneur_tpu_torch.sinks.debug")
 
@@ -33,6 +34,24 @@ class DebugMetricSink(MetricSink):
             logger.info("flushed other sample %r", s)
 
 
+class DebugSpanSink(SpanSink):
+    def __init__(self, name: str = "debug"):
+        self._name = name
+        self.ingested_total = 0
+
+    def name(self) -> str:
+        return self._name
+
+    def ingest(self, span) -> None:
+        self.ingested_total += 1
+        logger.info("ingested span %r", span)
+
+
 @register_metric_sink("debug")
 def _metric_factory(sink_config, server_config):
     return DebugMetricSink(sink_config.name or "debug")
+
+
+@register_span_sink("debug")
+def _span_factory(sink_config, server_config):
+    return DebugSpanSink(sink_config.name or "debug")

@@ -1,4 +1,4 @@
-"""Kafka sink: metrics to Kafka topics.
+"""Kafka sink: metrics and spans to Kafka topics.
 
 Behavioral parity with reference sinks/kafka/kafka.go (449 LoC): an async
 producer publishes each flushed InterMetric (and/or each ingested span)
@@ -10,8 +10,7 @@ transport (`Producer`) so the sink logic — encoding, topics, sampling —
 is identical whether backed by a real client (`kafka-python` if
 installed), a spool file, or the in-memory producer tests use.
 
-Copied from veneur_tpu/sinks/kafka.py without its span sink
-(KafkaSpanSink and the span encoders), which arrives with the SSF plane.
+A copy of veneur_tpu/sinks/kafka.py.
 """
 
 from __future__ import annotations
@@ -20,10 +19,13 @@ import json
 import logging
 import random
 import threading
+import time
 from typing import Any, List, Optional
 
 from veneur_tpu_torch.samplers.metrics import InterMetric, MetricType
-from veneur_tpu_torch.sinks import MetricSink, register_metric_sink
+from veneur_tpu_torch.sinks import (MetricSink, SpanSink, register_metric_sink,
+                                    register_span_sink)
+from veneur_tpu_torch.util import fnv
 
 logger = logging.getLogger("veneur_tpu_torch.sinks.kafka")
 
@@ -162,6 +164,20 @@ def encode_metric_json(m: InterMetric) -> bytes:
     }, separators=(",", ":")).encode()
 
 
+def encode_span_protobuf(span) -> bytes:
+    return span.SerializeToString()
+
+
+def encode_span_json(span) -> bytes:
+    return json.dumps({
+        "trace_id": span.trace_id, "id": span.id,
+        "parent_id": span.parent_id, "service": span.service,
+        "name": span.name, "start_timestamp": span.start_timestamp,
+        "end_timestamp": span.end_timestamp, "error": span.error,
+        "tags": dict(span.tags), "indicator": span.indicator,
+    }, separators=(",", ":")).encode()
+
+
 class KafkaMetricSink(MetricSink):
     def __init__(self, name: str, producer: Optional[Producer],
                  check_topic: str = "", event_topic: str = "",
@@ -215,6 +231,72 @@ class KafkaMetricSink(MetricSink):
             self.producer.close()
 
 
+class KafkaSpanSink(SpanSink):
+    def __init__(self, name: str, producer: Optional[Producer],
+                 span_topic: str, encoding: str = "protobuf",
+                 sample_rate_percent: float = 100.0,
+                 sample_tag: str = "", max_buffered: int = 16384):
+        self._name = name
+        self.producer = producer
+        self.span_topic = span_topic
+        self.encode = (encode_span_json if encoding == "json"
+                       else encode_span_protobuf)
+        # sampling hashes the trace id (or sample_tag value) so whole
+        # traces are kept/dropped together (reference kafka.go)
+        self.sample_threshold = int(sample_rate_percent * 100)
+        self.sample_tag = sample_tag
+        self._buffered = 0
+        # backpressure bound: the reference's sarama async producer has a
+        # bounded input channel; spans beyond the per-interval bound drop
+        # (and are counted) instead of growing the producer buffer
+        self.max_buffered = max_buffered
+        self.dropped_total = 0
+
+    def name(self) -> str:
+        return self._name
+
+    def kind(self) -> str:
+        return "kafka"
+
+    def _sampled_in(self, span) -> bool:
+        if self.sample_threshold >= 100 * 100:
+            return True
+        if self.sample_tag:
+            basis = dict(span.tags).get(self.sample_tag, "")
+            if not basis:
+                return False
+        else:
+            basis = str(span.trace_id)
+        # fnv hash spreads sequential trace ids uniformly (python's int
+        # hash is the identity, which would bias small-id workloads)
+        return (fnv.fnv1a_32(basis.encode()) % 10_000) < self.sample_threshold
+
+    def ingest(self, span) -> None:
+        if self.producer is None or not self._sampled_in(span):
+            return
+        if self._buffered >= self.max_buffered:
+            self.dropped_total += 1
+            return
+        self.producer.send(self.span_topic,
+                           str(span.trace_id).encode(), self.encode(span))
+        self._buffered += 1
+
+    def flush(self) -> None:
+        flush_start = time.perf_counter()
+        flushed = 0
+        if self.producer is not None and self._buffered:
+            self.producer.flush()
+            flushed, self._buffered = self._buffered, 0
+        dropped = 0
+        if getattr(self, "_statsd", None) is not None and self.dropped_total:
+            dropped, self.dropped_total = self.dropped_total, 0
+        self.emit_flush_self_metrics(flushed, flush_start, dropped)
+
+    def stop(self) -> None:
+        if self.producer is not None:
+            self.producer.close()
+
+
 @register_metric_sink("kafka")
 def _metric_factory(sink_config, server_config):
     c = sink_config.config
@@ -229,3 +311,20 @@ def _metric_factory(sink_config, server_config):
         check_topic=c.get("check_topic", ""),
         event_topic=c.get("event_topic", ""),
         partition_by_name=bool(c.get("partition_by_name", True)))
+
+
+@register_span_sink("kafka")
+def _span_factory(sink_config, server_config):
+    c = sink_config.config
+    producer: Any = c.get("producer")
+    if producer is None:
+        producer = make_producer(c.get("broker", "localhost:9092"),
+                                 ProducerConfig.from_config(c, "span"))
+    return KafkaSpanSink(
+        sink_config.name or "kafka",
+        producer=producer,
+        span_topic=c.get("span_topic", "veneur_spans"),
+        encoding=c.get("span_serialization_format", "protobuf"),
+        sample_rate_percent=float(c.get("span_sample_rate_percent", 100.0)),
+        sample_tag=c.get("span_sample_tag", ""),
+        max_buffered=int(c.get("span_buffer_max", 16384)))

@@ -1,4 +1,4 @@
-"""New Relic sink: metrics via the telemetry ingest APIs.
+"""New Relic sink: metrics and spans via the telemetry ingest APIs.
 
 Behavioral parity with reference sinks/newrelic/*.go (484 LoC), which
 wraps the NR telemetry SDK. The telemetry SDK's wire format is plain
@@ -10,17 +10,19 @@ JSON over HTTPS, implemented here directly:
 Both carry the Api-Key header; counters submit as NR "count" with the
 flush interval, gauges as "gauge".
 
-Copied from veneur_tpu/sinks/newrelic.py without its span sink
-(NewRelicSpanSink), which arrives with the SSF plane.
+A copy of veneur_tpu/sinks/newrelic.py.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
+import time
 from typing import List, Sequence
 
 from veneur_tpu_torch.samplers.metrics import InterMetric, MetricType
-from veneur_tpu_torch.sinks import MetricSink, register_metric_sink
+from veneur_tpu_torch.sinks import (MetricSink, SpanSink, register_metric_sink,
+                                    register_span_sink)
 from veneur_tpu_torch.util import http as vhttp
 
 logger = logging.getLogger("veneur_tpu_torch.sinks.newrelic")
@@ -146,6 +148,85 @@ class NewRelicMetricSink(MetricSink):
         self._post_events(events, "events")
 
 
+class NewRelicSpanSink(SpanSink):
+    def __init__(self, name: str, insert_key: str, trace_url: str,
+                 common_tags: Sequence[str] = (), timeout: float = 10.0,
+                 max_buffered: int = 16384):
+        self._name = name
+        self.insert_key = insert_key
+        self.trace_url = trace_url
+        self.common_tags = _attributes(common_tags)
+        self.timeout = timeout
+        self._spans: List[dict] = []
+        self._lock = threading.Lock()
+        # bounded between flushes; overflow drops (and counts) rather
+        # than growing without limit under sustained span load
+        self.max_buffered = max_buffered
+        self.dropped_total = 0
+
+    def name(self) -> str:
+        return self._name
+
+    def kind(self) -> str:
+        return "newrelic"
+
+    def ingest(self, span) -> None:
+        with self._lock:
+            if len(self._spans) >= self.max_buffered:
+                self.dropped_total += 1
+                return
+        duration_ms = max(span.end_timestamp - span.start_timestamp, 0) / 1e6
+        entry = {
+            "id": format(span.id & ((1 << 64) - 1), "x"),
+            "trace.id": format(span.trace_id & ((1 << 64) - 1), "x"),
+            "timestamp": span.start_timestamp // 10**6,
+            "attributes": {
+                "name": span.name,
+                "service.name": span.service,
+                "duration.ms": duration_ms,
+                "error": bool(span.error),
+                **dict(span.tags),
+            },
+        }
+        if span.parent_id:
+            entry["attributes"]["parent.id"] = format(
+                span.parent_id & ((1 << 64) - 1), "x")
+        with self._lock:
+            if len(self._spans) >= self.max_buffered:
+                self.dropped_total += 1
+                return
+            self._spans.append(entry)
+        # (bound re-checked above after building the entry: another
+        # thread may have filled the buffer in between)
+
+    def flush(self) -> None:
+        flush_start = time.perf_counter()
+        dropped = 0
+        with self._lock:
+            spans, self._spans = self._spans, []
+            # reset only once the count can actually be reported, so an
+            # operator inspecting dropped_total without a statsd client
+            # still sees the cumulative number
+            if (getattr(self, "_statsd", None) is not None
+                    and self.dropped_total):
+                dropped, self.dropped_total = self.dropped_total, 0
+        if not spans:
+            self.emit_flush_self_metrics(0, flush_start, dropped)
+            return
+        payload = [{"common": {"attributes": self.common_tags},
+                    "spans": spans}]
+        try:
+            vhttp.post_json(self.trace_url, payload,
+                            headers={"Api-Key": self.insert_key},
+                            compress="gzip", timeout=self.timeout)
+        except Exception as e:
+            logger.error("newrelic trace POST failed: %s", e)
+            self.emit_flush_self_metrics(0, flush_start,
+                                         dropped + len(spans))
+            return
+        self.emit_flush_self_metrics(len(spans), flush_start, dropped)
+
+
 @register_metric_sink("newrelic")
 def _metric_factory(sink_config, server_config):
     c = sink_config.config
@@ -162,3 +243,19 @@ def _metric_factory(sink_config, server_config):
         service_check_event_type=c.get(
             "service_check_event_type", DEFAULT_SERVICE_CHECK_EVENT_TYPE),
         event_url=c.get("event_url", ""))
+
+
+@register_span_sink("newrelic")
+def _span_factory(sink_config, server_config):
+    c = sink_config.config
+    # trace_observer_url (Infinite Tracing) overrides the standard trace
+    # API endpoint when set (reference span.go:22,62)
+    trace_url = (c.get("trace_observer_url", "")
+                 or c.get("trace_url",
+                          "https://trace-api.newrelic.com/trace/v1"))
+    return NewRelicSpanSink(
+        sink_config.name or "newrelic",
+        insert_key=str(c.get("insert_key", "")),
+        trace_url=trace_url,
+        common_tags=c.get("common_tags", []) or [],
+        max_buffered=int(c.get("span_buffer_max", 16384)))

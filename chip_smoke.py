@@ -3,7 +3,12 @@
 native parser, holds each kernel against its plain PyTorch version on the
 card, then runs the port's server end to end on the card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases S,J]
+
+`--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
+to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S); with neither,
+every phase runs. The kernel checks always run, and the last line is
+the same either way.
 
 Needs one CUDA card and g++ (it exits non-zero without either, and when
 the package is not beside it). Phases, each fatal on failure:
@@ -39,8 +44,8 @@ the package is not beside it). Phases, each fatal on failure:
      bins' midpoint sum, and every percentile against llhist_ref and
      within one bin of the sample quantile of what was sent;
   6. phase C: the numpy columnar decoder (`tpu.disable_native_parser`)
-     on a tenth of phase A's corpus plus 500 `|l` keys, with the checks
-     of phases A and B;
+     on a tenth of phase A's corpus plus 500 `|l` keys, one interval,
+     with the checks of phases A and B;
   7. phase D, the forward tier: two local Servers on the native pump
      forward to one global Server over gRPC (127.0.0.1), all on cuda:0.
      Each local takes phase A's key set and 5 000 `|l` keys x 32 in each
@@ -106,7 +111,7 @@ the package is not beside it). Phases, each fatal on failure:
      them all (its /metrics), each local's FlowCounts from the proxy
      are whole, every forwarded key flushed on exactly the global the
      port's ConsistentRing names for its ring key, and the two globals'
-     union passes phase D's global checks. H2: a tenth of the keys, six
+     union passes phase D's global checks. H2: a tenth of the keys, four
      intervals; global B's import server stops at interval 2 (the
      locals flush at once) and returns on its port at interval 4 (the
      locals flush once the proxy readmitted it); the proxy's events
@@ -160,6 +165,35 @@ the package is not beside it). Phases, each fatal on failure:
      global's bucket lines once per family. J5 phase A's corpus flushed
      at sample rates 1, 0, 1, 0: each flush's total_s.
 
+ 15. phase S, the pull sources and the table lifecycle, each part on
+     cuda:0: S1 OTLP/HTTP at phase A's key widths (40 000 cumulative
+     monotonic Sums, 20 000 Gauges, 5 000 cumulative exponential
+     histograms at scale 3 with 32 positive buckets, 3 negative ones and
+     a zero bucket) in three pushes of 1 000 points a request (every
+     tenth JSON, every other gzip), each flushed: push 1 primes the
+     counters, every counter is the cumulative delta (a tenth reset in
+     push 3), every gauge the value sent, every llhist `.count` and
+     `.bucket` line exact against llhist_ref over the smoke's own
+     (midpoint, count) pairs, half the histograms downscaled to scale 2
+     in push 3 (K3 through the slow path's pending fold). S2 an
+     OpenMetrics source scraping a ~46 000-line exposition every second,
+     flushed every two scrapes, shut down after eight: each counter's sum
+     over the flushes is the last value served minus the first, each
+     gauge the last served, the allow/deny-filtered families absent, no
+     failed scrape; then veneur-prometheus as a subprocess into a server's
+     UDP listener, every packet it reports sent received, its deltas
+     exact. S3 key churn on the pump with `idle_key_intervals: 2`,
+     `count_unique_timeseries` and a strict ledger: eight intervals of
+     phase A's key counts (40 000 counters, 20 000 gauges, 30 000 timers,
+     10 000 sets, 5 000 `|l` keys; four samples a timer, set and `|l`
+     key), half the keys new each interval: every series exact (recycled
+     rows included: K1, K2, K3 on recycled rows), the unique count equal
+     to the series sent, new keys on recycled rows from interval 5, every
+     table's capacity and rows flat over the last three intervals, the
+     native intern table within the live rows. S4 `max_rows_per_family:
+     2000` under 3 000 counter and 3 000 `|l` keys: 2 000 of each flush
+     exactly, the others' samples counted dropped and `agg.rejected`.
+
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
 also that no forward send or import merge failed, phase E that only the
@@ -178,6 +212,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -675,20 +710,61 @@ def _phase_b_corpus(seed: int):
     return [lines[i] for i in order], expect, [timers, ll]
 
 
-def _set_reference(seed: int, num_keys: int, members: int,
-                   more_seeds=()) -> np.ndarray:
-    """The reference HLL's estimate per key over members u<seed>-<k>-<j>,
-    j < members, of `seed` and each of `more_seeds`."""
-    from veneur_tpu_torch.ops import hll_ref
-    est = np.empty(num_keys)
-    for k in range(num_keys):
-        h = hll_ref.HLL()
-        for s in (seed, *more_seeds):
-            for j in range(members):
-                h.insert(f"u{s}-{k}-{j}".encode())
-        est[k] = hll_ref.estimate_from_registers(h.regs)
-    return est
+def _member_hashes(members) -> np.ndarray:
+    """hll_ref.hash_member over many members at once (uint64): fnv1a-64
+    column by column over the members of each length, then the murmur3
+    finalizer, all in wrapping uint64 arithmetic."""
+    from veneur_tpu_torch.util import fnv
+    out = np.empty(len(members), np.uint64)
+    lengths = np.fromiter((len(m) for m in members), np.int64,
+                          len(members))
+    prime = np.uint64(fnv._FNV64_PRIME)
+    for n in np.unique(lengths).tolist():
+        at = np.flatnonzero(lengths == n)
+        raw = np.frombuffer(b"".join(members[i] for i in at.tolist()),
+                            np.uint8).reshape(at.size, n).astype(np.uint64)
+        h = np.full(at.size, fnv._FNV64_OFFSET, np.uint64)
+        for col in range(n):
+            h = (h ^ raw[:, col]) * prime
+        out[at] = h
+    with np.errstate(over="ignore"):
+        for mult in (0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53):
+            out ^= out >> np.uint64(33)
+            out *= np.uint64(mult)
+        out ^= out >> np.uint64(33)
+    return out
 
+
+def _set_reference(seed: int, num_keys: int, members: int,
+                   more_seeds=(), ids=None) -> np.ndarray:
+    """The reference HLL's estimate per key over members u<seed>-<k>-<j>,
+    j < members, of `seed` and each of `more_seeds`; k runs over `ids`
+    (default range(num_keys)). The registers are built from vectorised
+    member hashes, and each key is estimated by hll_ref's own estimator."""
+    from veneur_tpu_torch.ops import hll_ref
+    keys = list(range(num_keys) if ids is None else ids)
+    names = [f"u{s}-{k}-{j}".encode() for k in keys
+             for s in (seed, *more_seeds) for j in range(members)]
+    h = _member_hashes(names)
+    p = np.uint64(hll_ref.P)
+    idx = (h >> np.uint64(64 - hll_ref.P)).astype(np.int64)
+    w = (h << p) | np.uint64(1 << (hll_ref.P - 1))
+    # rho = leading zeros of w + 1, by a binary search over the bits
+    lz = np.zeros(w.size, np.int64)
+    for shift in (32, 16, 8, 4, 2, 1):
+        top = (w >> np.uint64(64 - shift)) == 0
+        lz[top] += shift
+        w[top] <<= np.uint64(shift)
+    rho = (lz + 1).astype(np.int8)
+    per = members * (1 + len(more_seeds))
+    est = np.empty(num_keys)
+    regs = np.zeros(hll_ref.M, np.int8)
+    for i in range(num_keys):
+        sl = slice(i * per, (i + 1) * per)
+        regs[:] = 0
+        np.maximum.at(regs, idx[sl], rho[sl])
+        est[i] = hll_ref.estimate_from_registers(regs)
+    return est
 
 def _datagrams(lines):
     out, cur, size, counts = [], [], 0, []
@@ -757,17 +833,19 @@ def _check_exact(got: dict, expect: dict) -> None:
 
 
 def _check_timers(got: dict, timers: np.ndarray, aggregates: bool = True,
-                  percentiles: bool = True) -> int:
-    """Timer series of the keys `smoke.t<k>` against their sorted samples:
-    min/max/count exactly, p50/p99 within the t-digest's rank slack."""
+                  percentiles: bool = True, prefix: str = "smoke.t",
+                  ids=None) -> int:
+    """Timer series of the keys `<prefix><k>` (k over `ids`, default
+    0..) against their sorted samples: min/max/count exactly, p50/p99
+    within the t-digest's rank slack."""
     n = timers.shape[1]
-    t = np.arange(timers.shape[0])
+    t = np.arange(timers.shape[0]) if ids is None else ids
     if aggregates:
         for suffix, want in (("min", timers[:, 0]), ("max", timers[:, -1])):
-            vals = np.array([got[f"smoke.t{k}.{suffix}"] for k in t])
+            vals = np.array([got[f"{prefix}{k}.{suffix}"] for k in t])
             if not np.array_equal(vals, want.astype(np.float64)):
                 raise AssertionError(f"timer {suffix} differs")
-        counts = np.array([got[f"smoke.t{k}.count"] for k in t])
+        counts = np.array([got[f"{prefix}{k}.count"] for k in t])
         if not (counts == n).all():
             raise AssertionError("timer counts differ")
     for p, label in (((0.5, "50"), (0.99, "99")) if percentiles else ()):
@@ -776,7 +854,7 @@ def _check_timers(got: dict, timers: np.ndarray, aggregates: bool = True,
         # between neighbouring centroids' midpoints
         lo = np.maximum(np.floor(n * _q_of_k(_k_scale(p) - 1)) - 1, 0)
         hi = np.minimum(np.ceil(n * _q_of_k(_k_scale(p) + 1)), n - 1)
-        vals = np.array([got[f"smoke.t{k}.{label}percentile"] for k in t])
+        vals = np.array([got[f"{prefix}{k}.{label}percentile"] for k in t])
         eps = 1e-5 * np.abs(vals) + 1e-4
         below = vals < timers[:, int(lo)] - eps
         above = vals > timers[:, int(hi)] + eps
@@ -787,8 +865,9 @@ def _check_timers(got: dict, timers: np.ndarray, aggregates: bool = True,
 
 
 def _check_sets(got: dict, set_ref: np.ndarray, members: int,
-                slack: int = 1) -> dict:
-    est = np.array([got[f"smoke.s{k}"] for k in range(set_ref.shape[0])])
+                slack: int = 1, prefix: str = "smoke.s", ids=None) -> dict:
+    est = np.array([got[f"{prefix}{k}"] for k in (
+        range(set_ref.shape[0]) if ids is None else ids)])
     if not np.array_equal(est, set_ref):
         raise AssertionError(
             f"set estimates differ from the reference HLL for "
@@ -807,12 +886,15 @@ def _fmt_le(bound: float) -> str:
 
 
 def _check_llhists(got: dict, buckets: dict, prefix: str,
-                   vals: np.ndarray, weights: np.ndarray) -> int:
-    """Every series of the llhist keys `<prefix><k>` against a host
+                   vals: np.ndarray, weights: np.ndarray, ids=None,
+                   sample_quantile: bool = True) -> int:
+    """Every series of the llhist keys `<prefix><k>` (k over `ids`,
+    default 0..) against a host
     reference built with llhist_ref from exactly the values sent:
     `.count` and every `.bucket` line exactly, `.sum` against the bins'
     midpoint sum, each percentile against llhist_ref.quantiles and
-    within one bin of the sample quantile. Returns series checked."""
+    (with `sample_quantile`, for keys of many samples) within one bin of
+    the sample quantile. Returns series checked."""
     from veneur_tpu_torch.ops import llhist_ref as ref
     num_keys, samples = vals.shape
     bins = ref.bin_index(vals.ravel()).reshape(num_keys, samples)
@@ -831,7 +913,7 @@ def _check_llhists(got: dict, buckets: dict, prefix: str,
     checked = 0
     bad = []
     for k in range(num_keys):
-        name = f"{prefix}{k}"
+        name = f"{prefix}{k if ids is None else ids[k]}"
         lo, hi = starts[k], (starts[k + 1] if k + 1 < num_keys else w.size)
         want_b = {f"le:{_fmt_le(ref.UPPER_SORTED[s])}": float(c)
                   for s, c in zip(slot[lo:hi].tolist(), cum[lo:hi].tolist())}
@@ -852,7 +934,7 @@ def _check_llhists(got: dict, buckets: dict, prefix: str,
                                 abs_tol=1e-12):
                 bad.append((name, p, q, want_q[j]))
             x = inv_cdf[k, j]
-            if not ref.clamped_mask(x):
+            if sample_quantile and not ref.clamped_mask(x):
                 width = ref.BIN_WIDTH[ref.bin_index(x)]
                 if abs(q - x) > width * (1 + 1e-6) + 1e-9 * abs(x):
                     bad.append((name, p, q, "sample quantile", x))
@@ -963,6 +1045,7 @@ PHASE_A_KEYS = {"counter": 40_000, "gauge": 20_000, "timer": 30_000,
 PHASE_C_KEYS = {k: (v // 10 if k not in ("timer_samples", "set_members")
                     else v) for k, v in PHASE_A_KEYS.items()}
 PHASE_C_LL_KEYS = 500
+PHASE_C_SEEDS = (5,)  # one interval
 PHASE_B_KEYS = {"counter": 20_000, "timer": 30_000, "timer_samples": 16,
                 "llhist": 5_000, "llhist_samples": 32}
 
@@ -1014,7 +1097,7 @@ def _phase_c() -> dict:
     from veneur_tpu_torch.sinks.channel import ChannelMetricSink
     corpora = [_corpus(seed, PHASE_C_KEYS, PHASE_C_LL_KEYS) + (_set_reference(
         seed, PHASE_C_KEYS["set"], PHASE_C_KEYS["set_members"]),)
-        for seed in (5, 6)]
+        for seed in PHASE_C_SEEDS]
     server = _server({}, {"counter_capacity": 8192, "gauge_capacity": 4096,
                           "histo_capacity": 4096, "set_capacity": 2048,
                           "llhist_capacity": 1024,
@@ -2525,6 +2608,8 @@ def _g_surface(server, api) -> dict:
 PHASE_H2_KEYS = {k: (v // 10 if k not in ("timer_samples", "set_members")
                      else v) for k, v in PHASE_A_KEYS.items()}
 PHASE_H2_LL_KEYS = PHASE_D_LL_KEYS // 10
+# B stops at interval 2 and returns at 4, the last
+PHASE_H2_INTERVALS = 4
 PHASE_H2_FORWARDED = (PHASE_H2_KEYS["counter"] // 2
                       + PHASE_H2_KEYS["gauge"] // 2 + PHASE_H2_KEYS["timer"]
                       + PHASE_H2_KEYS["set"] + PHASE_H2_LL_KEYS)
@@ -2870,7 +2955,7 @@ def _h_wait_event(proxy: _Proxy, kind: str, address: str) -> float:
 
 def _phase_h2(workdir: str) -> dict:
     """Kill and restore global B behind the proxy at a tenth of phase D's
-    keys, six intervals: B's import server stops at interval 2, after
+    keys, four intervals: B's import server stops at interval 2, after
     the ingest and just before the locals flush (so the proxy routes to
     B until it ejects it, and what it took for B in that window is
     dropped and must be counted), and returns on the same port at
@@ -2882,7 +2967,7 @@ def _phase_h2(workdir: str) -> dict:
     ring.set_members(addresses)
     keys = PHASE_H2_KEYS
     intervals = [_phase_d_interval(seed, keys, PHASE_H2_LL_KEYS)
-                 for seed in range(21, 27)]
+                 for seed in range(21, 21 + PHASE_H2_INTERVALS)]
     gservers = _h_servers(ports)
     locals_, proxy = [], None
     report = {"intervals": []}
@@ -2973,7 +3058,7 @@ def _phase_h2(workdir: str) -> dict:
         "no_destination": no_dest,
         "loss_unaccounted": sent - merged - dropped - no_dest}
     if report["accounting"]["loss_unaccounted"] or \
-            sent != 6 * 2 * PHASE_H2_FORWARDED:
+            sent != PHASE_H2_INTERVALS * 2 * PHASE_H2_FORWARDED:
         raise AssertionError(f"phase H2: accounting "
                              f"{report['accounting']}")
     report["launches"] = _read_launches()
@@ -4414,7 +4499,1179 @@ def _phase_j() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase S: the pull sources and the table lifecycle
+# ---------------------------------------------------------------------------
+
+PHASE_S1_KEYS = {"sum": 40_000, "gauge": 20_000, "ehist": 5_000}
+PHASE_S1_POINTS = 1_000      # data points per OTLP request
+PHASE_S1_BUCKETS = 32        # populated positive buckets per histogram
+PHASE_S2_SERIES = {"counter": 20_000, "histogram": 1_000,
+                   "summary": 1_000, "gauge": 5_000}
+PHASE_S2_LE = ("0.005", "0.01", "0.025", "0.05", "0.1", "0.25", "0.5", "1",
+               "2.5", "5", "10", "+Inf")
+PHASE_S2_SCRAPES = 8
+PHASE_S3_KEYS = {"counter": 40_000, "gauge": 20_000, "timer": 30_000,
+                 "set": 10_000, "llhist": 5_000}
+PHASE_S3_SAMPLES = 4         # per timer, set and `|l` key
+PHASE_S3_INTERVALS = 8
+PHASE_S4_KEYS = 3_000
+PHASE_S4_CAP = 2_000
+
+
+def _s_varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _s_ld(field: int, payload: bytes) -> bytes:
+    return _s_varint((field << 3) | 2) + _s_varint(len(payload)) + payload
+
+
+def _s_zz(v: int) -> int:
+    return (v << 1) ^ (v >> 63)
+
+
+_S_ATTR = _s_ld(1, b"pod") + _s_ld(2, _s_ld(1, b"smoke"))  # KeyValue
+
+
+def _s_point_pb(kind: str, value) -> bytes:
+    """One data point's protobuf: a number point (a gauge as_double, a
+    sum as_int) or an exponential-histogram point (value = (scale, zero,
+    (pos offset, counts), (neg offset, counts)))."""
+    if kind == "gauge":
+        return (_s_ld(7, _S_ATTR) + bytes([(4 << 3) | 1])
+                + np.float64(value).tobytes())
+    if kind == "sum":
+        return (_s_ld(7, _S_ATTR) + bytes([(6 << 3) | 1])
+                + np.int64(value).tobytes())
+    scale, zero, pos, neg = value
+    out = _s_ld(1, _S_ATTR) + _s_varint(6 << 3) + _s_varint(_s_zz(scale))
+    out += bytes([(7 << 3) | 1]) + np.uint64(zero).tobytes()
+    for field, (offset, counts) in ((8, pos), (9, neg)):
+        out += _s_ld(field, _s_varint(1 << 3) + _s_varint(_s_zz(offset))
+                     + _s_ld(2, b"".join(_s_varint(int(c))
+                                         for c in counts)))
+    return out
+
+
+def _s_metric_pb(name: str, kind: str, value) -> bytes:
+    point = _s_ld(1, _s_point_pb(kind, value))
+    if kind == "gauge":
+        return _s_ld(1, name.encode()) + _s_ld(5, point)
+    if kind == "sum":  # cumulative, monotonic
+        return (_s_ld(1, name.encode())
+                + _s_ld(7, point + _s_varint(2 << 3) + _s_varint(2)
+                        + _s_varint(3 << 3) + _s_varint(1)))
+    return (_s_ld(1, name.encode())
+            + _s_ld(10, point + _s_varint(2 << 3) + _s_varint(2)))
+
+
+def _s_metric_json(name: str, kind: str, value) -> dict:
+    attrs = [{"key": "pod", "value": {"stringValue": "smoke"}}]
+    if kind == "gauge":
+        return {"name": name, "gauge": {"dataPoints": [
+            {"asDouble": float(value), "attributes": attrs}]}}
+    if kind == "sum":
+        return {"name": name, "sum": {
+            "isMonotonic": True,
+            "aggregationTemporality": "AGGREGATION_TEMPORALITY_CUMULATIVE",
+            "dataPoints": [{"asInt": str(int(value)), "attributes": attrs}]}}
+    scale, zero, pos, neg = value
+    return {"name": name, "exponentialHistogram": {
+        "aggregationTemporality": 2, "dataPoints": [{
+            "attributes": attrs, "scale": scale, "zeroCount": str(zero),
+            "positive": {"offset": pos[0],
+                         "bucketCounts": [str(int(c)) for c in pos[1]]},
+            "negative": {"offset": neg[0],
+                         "bucketCounts": [str(int(c)) for c in neg[1]]}}]}}
+
+
+def _s_downscale(offset: int, counts, d: int):
+    """(offset, counts) at scale s re-bucketed onto scale s - d: index i
+    covers (base^i, base^(i+1)], so its coarse index is i >> d."""
+    new_off = offset >> d
+    out = [0] * (((offset + len(counts) - 1) >> d) - new_off + 1)
+    for i, c in enumerate(counts):
+        out[((offset + i) >> d) - new_off] += int(c)
+    return new_off, out
+
+
+def _s1_corpus(seed: int):
+    """Three pushes of cumulative OTLP series: per push the points to send
+    (name, kind, value) and what its flush must hold: counter deltas (push
+    1 primes and emits none; in push 3 a tenth of the sums reset), gauge
+    values, and per histogram the (value, count) pairs its delta puts in
+    the llhist family (midpoints taken after a downscale; push 1's prime
+    lets the cumulative point stand)."""
+    keys = PHASE_S1_KEYS
+    rng = np.random.default_rng(seed)
+    ns, ng, ne, nb = keys["sum"], keys["gauge"], keys["ehist"], \
+        PHASE_S1_BUCKETS
+    sums = np.empty((3, ns), np.int64)
+    sums[0] = rng.integers(1_000, 1_000_000, ns)
+    sums[1] = sums[0] + rng.integers(1, 5_000, ns)
+    reset = np.arange(ns) % 10 == 0
+    sums[2] = np.where(reset, rng.integers(0, 900, ns),
+                       sums[1] + rng.integers(1, 5_000, ns))
+    gauges = np.round(rng.normal(0, 100, (3, ng)), 3)
+    pos_off = rng.integers(-80, 160 - nb, ne)
+    neg_off = rng.integers(-40, 40, ne)
+    pos = np.cumsum(np.stack([rng.integers(1, 20, (ne, nb)),
+                              rng.integers(0, 6, (ne, nb)),
+                              rng.integers(0, 6, (ne, nb))]), axis=0)
+    neg = np.cumsum(np.stack([rng.integers(1, 9, (ne, 3)),
+                              rng.integers(0, 3, (ne, 3)),
+                              rng.integers(0, 3, (ne, 3))]), axis=0)
+    zero = np.cumsum(rng.integers(0, 4, (3, ne)), axis=0)
+    downscaled = np.arange(ne) % 2 == 0
+    pushes = []
+    for p in range(3):
+        points = ([(f"so.c{k}", "sum", int(sums[p, k])) for k in range(ns)]
+                  + [(f"so.g{k}", "gauge", float(gauges[p, k]))
+                     for k in range(ng)])
+        counters = {}
+        if p:
+            delta = np.where(sums[p] < sums[p - 1], np.maximum(sums[p], 0),
+                             sums[p] - sums[p - 1])
+            counters = {f"so.c{k}": float(delta[k]) for k in range(ns)}
+        gauge_want = {f"so.g{k}": float(np.float32(gauges[p, k]))
+                      for k in range(ng)}
+        pairs_key, pairs_val, pairs_w = [], [], []
+        for k in range(ne):
+            cur_pos, cur_neg = pos[p, k].tolist(), neg[p, k].tolist()
+            if p == 0:
+                d_pos, d_neg, dz = cur_pos, cur_neg, int(zero[0, k])
+            else:
+                d_pos = (pos[p, k] - pos[p - 1, k]).tolist()
+                d_neg = (neg[p, k] - neg[p - 1, k]).tolist()
+                dz = int(zero[p, k] - zero[p - 1, k])
+            scale, po, no = 3, int(pos_off[k]), int(neg_off[k])
+            if p == 2 and downscaled[k]:
+                scale = 2
+                (po, cur_pos), (no, cur_neg) = (
+                    _s_downscale(int(pos_off[k]), cur_pos, 1),
+                    _s_downscale(int(neg_off[k]), cur_neg, 1))
+                _po, d_pos = _s_downscale(int(pos_off[k]), d_pos, 1)
+                _no, d_neg = _s_downscale(int(neg_off[k]), d_neg, 1)
+            points.append((f"so.h{k}", "ehist",
+                           (scale, int(zero[p, k]), (po, cur_pos),
+                            (no, cur_neg))))
+            # the source's expression for a bucket's midpoint, exactly
+            base = 2.0 ** (2.0 ** -float(scale))
+            if dz > 0:
+                pairs_key.append(k)
+                pairs_val.append(0.0)
+                pairs_w.append(dz)
+            for sign, offset, counts in ((1.0, po, d_pos),
+                                         (-1.0, no, d_neg)):
+                for i, cnt in enumerate(counts):
+                    if cnt > 0:
+                        pairs_key.append(k)
+                        pairs_val.append(sign * base ** (offset + i + 0.5))
+                        pairs_w.append(cnt)
+        pushes.append({
+            "points": points, "counters": counters, "gauges": gauge_want,
+            "pairs": (np.asarray(pairs_key, np.int64),
+                      np.asarray(pairs_val, np.float64),
+                      np.asarray(pairs_w, np.int64))})
+    return pushes
+
+
+def _s1_requests(points) -> list:
+    """The push as requests of PHASE_S1_POINTS points: every tenth JSON,
+    every other gzip."""
+    import gzip
+    out = []
+    for r, i in enumerate(range(0, len(points), PHASE_S1_POINTS)):
+        chunk = points[i:i + PHASE_S1_POINTS]
+        if r % 10 == 9:
+            body = json.dumps({"resourceMetrics": [{"scopeMetrics": [{
+                "metrics": [_s_metric_json(*pt) for pt in chunk]}]}]}
+            ).encode()
+            ctype = "application/json"
+        else:
+            body = _s_ld(1, _s_ld(2, b"".join(
+                _s_ld(2, _s_metric_pb(*pt)) for pt in chunk)))
+            ctype = "application/x-protobuf"
+        encoding = ""
+        if r % 2:
+            body, encoding = gzip.compress(body, mtime=0), "gzip"
+        out.append((body, ctype, encoding))
+    return out
+
+
+def _s_post(port: int, body: bytes, ctype: str, encoding: str) -> int:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        headers = {"Content-Type": ctype}
+        if encoding:
+            headers["Content-Encoding"] = encoding
+        conn.request("POST", "/v1/metrics", body, headers)
+        resp = conn.getresponse()
+        resp.read()
+        return resp.status
+    finally:
+        conn.close()
+
+
+def _check_llhist_pairs(got: dict, buckets: dict, names, pairs) -> int:
+    """Every series of the llhist keys `names` against llhist_ref over the
+    (key index, value, count) pairs the smoke sent: `.count` and every
+    `.bucket` line exactly, `.sum` against the bins' midpoint sum, each
+    percentile against llhist_ref.quantiles. Returns series checked."""
+    from veneur_tpu_torch.ops import llhist_ref as ref
+    keys, vals, wts = pairs
+    bins = ref.bin_index(vals)
+    checked, bad = 0, []
+    for lo in range(0, len(names), 1_000):
+        hi = min(lo + 1_000, len(names))
+        sel = (keys >= lo) & (keys < hi)
+        dense = np.zeros((hi - lo, ref.BINS), np.int64)
+        np.add.at(dense, (keys[sel] - lo, bins[sel]), wts[sel])
+        srt = dense[:, ref.ORDER]
+        cum = np.cumsum(srt, axis=1)
+        sums = dense.astype(np.float64) @ ref.BIN_MID
+        for j in range(hi - lo):
+            name = names[lo + j]
+            nz = np.flatnonzero(srt[j])
+            want_b = {f"le:{_fmt_le(ref.UPPER_SORTED[s])}": float(cum[j, s])
+                      for s in nz.tolist()}
+            want_b["le:+Inf"] = float(cum[j, -1])
+            if buckets.get(f"{name}.bucket") != want_b:
+                bad.append((name, "bucket"))
+            if got.get(f"{name}.count") != float(cum[j, -1]):
+                bad.append((name, "count", got.get(f"{name}.count"),
+                            float(cum[j, -1])))
+            if not math.isclose(got.get(f"{name}.sum", math.nan), sums[j],
+                                rel_tol=1e-12, abs_tol=1e-9):
+                bad.append((name, "sum"))
+            want_q = ref.quantiles(dense[j], PS)
+            for i, p in enumerate(PS):
+                q = got.get(f"{name}.{int(p * 100)}percentile", math.nan)
+                if not math.isclose(q, want_q[i], rel_tol=LL_RTOL,
+                                    abs_tol=1e-12):
+                    bad.append((name, p, q, want_q[i]))
+            checked += len(want_b) + 2 + len(PS)
+    if bad:
+        raise AssertionError(f"{len(bad)} llhist series wrong, e.g. "
+                             f"{bad[:3]}")
+    return checked
+
+
+def _s1_inputs(seed: int):
+    """Each push's expectations and its requests."""
+    pushes = _s1_corpus(seed)
+    return [(push, _s1_requests(push.pop("points"))) for push in pushes]
+
+
+def _phase_s1(inputs=None) -> dict:
+    """OTLP/HTTP at phase A's key widths: three pushes into a server with
+    an otlp source, each flushed and checked. `inputs` are _s1_inputs'
+    (built here when not given)."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    t_phase = time.perf_counter()
+    inputs = _s1_inputs(31) if inputs is None else inputs
+    server = _server({"statsd_listen_addresses": [],
+                      "sources": [{"kind": "otlp", "name": "otlp", "config": {
+                          "listen_address": "127.0.0.1:0"}}]},
+                     {"counter_capacity": 65536, "gauge_capacity": 32768,
+                      "llhist_capacity": 8192}, ChannelMetricSink())
+    names = [f"so.h{k}" for k in range(PHASE_S1_KEYS["ehist"])]
+    report = {"intervals": []}
+    _zero_launches()
+    server.start()
+    try:
+        src = server.sources[0]
+        port = src.wait_started(30)
+        seen = _read_launches()
+        for p, (push, requests) in enumerate(inputs):
+            t0 = time.perf_counter()
+            statuses = [_s_post(port, *req) for req in requests]
+            ingest_s = time.perf_counter() - t0
+            if set(statuses) != {200}:
+                raise AssertionError(f"phase S1 push {p + 1}: answers "
+                                     f"{sorted(set(statuses))}")
+            server.flush()
+            now = _read_launches()
+            got, buckets = _collect(server.metric_sinks[0])
+            primed = [n for n in got if n.startswith("so.c")]
+            if p == 0 and primed:
+                raise AssertionError(f"phase S1: push 1 emitted counters "
+                                     f"{primed[:3]}")
+            _check_exact(got, push["counters"])
+            _check_exact(got, push["gauges"])
+            checked = len(push["counters"]) + len(push["gauges"]) + \
+                _check_llhist_pairs(got, buckets, names, push["pairs"])
+            report["intervals"].append({
+                "requests": len(requests),
+                "points": sum(PHASE_S1_KEYS.values()),
+                "llhist_samples": int(push["pairs"][0].size),
+                "ingest_s": ingest_s,
+                "points_per_s": sum(PHASE_S1_KEYS.values()) / ingest_s,
+                "flush": dict(server.last_flush_timings),
+                "launches": {k: now[k] - seen[k] for k in now},
+                "series_checked": checked})
+            seen = now
+    finally:
+        server.shutdown()
+    report["launches"] = _read_launches()
+    counts = {k: v for k, v in
+              server.telemetry.registry.snapshot()["counters"].items()
+              if k.startswith("otlp.")}
+    report["otlp_counts"] = counts
+    if counts.get("otlp.parse_errors_total", 0) or \
+            counts.get("otlp.gzip_rejected_total", 0):
+        raise AssertionError(f"phase S1: otlp errors {counts}")
+    stats = server.stats_snapshot()
+    if stats["ingest_dispatch_errors"] or stats["unknown_rejected"]:
+        raise AssertionError(f"phase S1: {stats}")
+    if report["launches"]["llhist_apply"] <= 0:
+        raise AssertionError("phase S1: llhist_apply was not launched")
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
+
+
+class _OmFake:
+    """A 127.0.0.1 /metrics endpoint whose GET n serves every series at
+    its value n: counters, histogram buckets and counts grow, gauges and
+    summary quantiles move. `scale` divides PHASE_S2_SERIES."""
+
+    def __init__(self, seed: int, scale: int = 1):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        rng = np.random.default_rng(seed)
+        n = {k: v // scale for k, v in PHASE_S2_SERIES.items()}
+        self.n = n
+        self.c_base = rng.integers(0, 100_000, n["counter"])
+        self.c_inc = rng.integers(1, 1_000, n["counter"])
+        nle = len(PHASE_S2_LE)
+        self.h_base = np.cumsum(rng.integers(0, 50, (n["histogram"], nle)),
+                                axis=1)
+        self.h_inc = np.cumsum(rng.integers(0, 20, (n["histogram"], nle)),
+                               axis=1)
+        self.q_base = rng.integers(0, 1_000, (n["summary"], 3))
+        self.s_count = rng.integers(0, 1_000, n["summary"])
+        self.g_base = rng.integers(-1_000, 1_000, n["gauge"])
+        self.gets = 0
+        self._lock = threading.Lock()
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                pass
+
+            def do_GET(self):  # noqa: N802
+                with fake._lock:
+                    i = fake.gets
+                    fake.gets += 1
+                data = fake.text(i).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(
+            target=self.httpd.serve_forever, kwargs={"poll_interval": 0.1},
+            daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/metrics"
+
+    def values(self, i: int) -> dict:
+        """(name, tags) -> value as GET i serves it, by conversion kind."""
+        counters, gauges = {}, {}
+        for k, v in enumerate((self.c_base + i * self.c_inc).tolist()):
+            counters[("om_reqs_total", (f"id:{k}",))] = float(v)
+        hist = self.h_base + i * self.h_inc
+        for h in range(self.n["histogram"]):
+            for j, le in enumerate(PHASE_S2_LE):
+                counters[("om_lat_bucket", (f"h:{h}", f"le:{le}"))] = \
+                    float(hist[h, j])
+            counters[("om_lat_count", (f"h:{h}",))] = float(hist[h, -1])
+            gauges[("om_lat_sum", (f"h:{h}",))] = float(hist[h, -1]) * 0.5
+        for s in range(self.n["summary"]):
+            for j, q in enumerate(("0.5", "0.9", "0.99")):
+                gauges[("om_rpc", (f"quantile:{q}", f"s:{s}"))] = \
+                    float(self.q_base[s, j]) + 0.25 * i
+            counters[("om_rpc_count", (f"s:{s}",))] = \
+                float(self.s_count[s] + 3 * i)
+        for g, v in enumerate(self.g_base.tolist()):
+            gauges[("om_temp", (f"g:{g}",))] = v + 0.5 * i
+        return {"counters": counters, "gauges": gauges}
+
+    def text(self, i: int) -> str:
+        vals = self.values(i)
+        lines = ["# TYPE om_reqs_total counter", "# TYPE om_lat histogram",
+                 "# TYPE om_rpc summary", "# TYPE om_temp gauge",
+                 "# TYPE zz_other gauge"]
+        for (name, tags), v in list(vals["counters"].items()) + \
+                list(vals["gauges"].items()):
+            labels = ",".join('%s="%s"' % tuple(t.split(":", 1))
+                              for t in tags)
+            lines.append(f"{name}{{{labels}}} {v!r}")
+        for s in range(self.n["summary"]):  # denied by the denylist
+            lines.append(f'om_rpc_sum{{s="{s}"}} {1.5 * i}')
+        for z in range(100):  # outside the allowlist
+            lines.append(f'zz_other{{z="{z}"}} {z}')
+        return "\n".join(lines) + "\n"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def _s2_check(fake, flushes, gets: int) -> int:
+    """Over every flush: each counter's sum equals the last value served
+    minus the first, each gauge's last value the last served; the
+    filtered families are absent. Returns series checked."""
+    first, last = fake.values(0), fake.values(gets - 1)
+    sums, latest = {}, {}
+    for tagged in flushes:
+        for key, v in tagged.items():
+            sums[key] = sums.get(key, 0.0) + v
+            latest[key] = v
+    bad = [(k, sums.get(k), v - first["counters"][k])
+           for k, v in last["counters"].items()
+           if sums.get(k) != v - first["counters"][k]]
+    bad += [(k, latest.get(k), v) for k, v in last["gauges"].items()
+            if latest.get(k) != v]
+    stray = [k for k in sums if k[0] in ("om_rpc_sum", "zz_other")]
+    if bad or stray:
+        raise AssertionError(f"phase S2: {len(bad)} series wrong, e.g. "
+                             f"{bad[:3]}; filtered families present "
+                             f"{stray[:3]}")
+    return len(last["counters"]) + len(last["gauges"])
+
+
+def _phase_s2() -> dict:
+    """OpenMetrics: a server scraping a ~46 000-line exposition every
+    second, flushed every two scrapes and shut down after eight; then
+    veneur-prometheus as a subprocess into a port server's UDP listener."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    t_phase = time.perf_counter()
+    report = {}
+    fake = _OmFake(41)
+    try:
+        sink = ChannelMetricSink()
+        server = _server({
+            "statsd_listen_addresses": [], "flush_on_shutdown": True,
+            "sources": [{"kind": "openmetrics", "name": "om", "config": {
+                "url": fake.url, "scrape_interval": "1s",
+                "allowlist": "^om_", "denylist": "^om_rpc_sum$"}}]},
+            {"counter_capacity": 65536, "gauge_capacity": 16384}, sink)
+        _zero_launches()
+        server.start()
+        src = server.sources[0]
+        flushes, flush_s = [], []
+        try:
+            for target in range(2, PHASE_S2_SCRAPES, 2):
+                deadline = time.monotonic() + 120
+                while src.scrapes + src.scrape_failures < target:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("phase S2: the scrapes stalled")
+                    time.sleep(0.02)
+                server.flush()
+                flush_s.append(server.last_flush_timings["total_s"])
+                flushes.append(_collect_tagged(sink)[0])
+            deadline = time.monotonic() + 120
+            while src.scrapes + src.scrape_failures < PHASE_S2_SCRAPES:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase S2: the scrapes stalled")
+                time.sleep(0.02)
+        finally:
+            server.shutdown()  # the source first, then the last flush
+        last = {}
+        for m in sink.drain():
+            last[(m.name, tuple(m.tags))] = m.value
+        flushes.append(last)
+        stats = server.stats_snapshot()
+        if stats["source_scrape_failures"]:
+            raise AssertionError(f"phase S2: scrape failures {stats}")
+        if stats["ingest_dispatch_errors"] or stats["unknown_rejected"]:
+            raise AssertionError(f"phase S2: {stats}")
+        checked = _s2_check(fake, flushes, fake.gets)
+        report["S2"] = {"scrapes": stats["source_scrapes"],
+                        "gets": fake.gets, "lines_per_scrape":
+                        fake.text(0).count("\n"),
+                        "flush_s": flush_s, "series_checked": checked,
+                        "launches": _read_launches()}
+    finally:
+        fake.close()
+    report["prometheus"] = _s2_prometheus()
+    report["seconds"] = time.perf_counter() - t_phase
+    report["launches"] = report["S2"]["launches"]
+    return report
+
+
+def _s2_prometheus() -> dict:
+    """veneur-prometheus (`-scrapes 3`) as a subprocess against a fake
+    with a tenth of the series, into a port server's UDP listener: every
+    packet it reports sent arrives; the counters flush the deltas of
+    scrapes 2 and 3, the gauges the last scrape's values."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    fake = _OmFake(43, scale=10)
+    server = _server({"read_buffer_size_bytes": 32 << 20}, {},
+                     ChannelMetricSink())
+    server.start()
+    try:
+        port = server.listen_addresses[0][1]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "veneur_tpu_torch.cmd.veneur_prometheus",
+             "-h", fake.url, "-s", f"127.0.0.1:{port}", "-i", "200ms",
+             "-ignored-metrics", "^om_rpc_sum$,^zz_", "-scrapes", "3"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        run_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"veneur-prometheus exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        sent = json.loads(out.stdout.strip().splitlines()[-1])
+        deadline = time.monotonic() + 60
+        while server.stats_snapshot()["lines_received"] < sent["sent"]:
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"veneur-prometheus: sent {sent}, received "
+                    f"{server.stats_snapshot()['lines_received']}")
+            time.sleep(0.01)
+        stats = server.stats_snapshot()
+        if stats["lines_received"] != sent["sent"] or \
+                sent["scrape_failures"] or stats["lines_rejected"]:
+            raise AssertionError(f"veneur-prometheus: sent {sent}, "
+                                 f"server {stats}")
+        server.flush()
+        tagged = _collect_tagged(server.metric_sinks[0])[0]
+    finally:
+        fake.close()
+        server.shutdown()
+    checked = _s2_check(fake, [tagged], fake.gets)
+    return {"sent": sent, "run_s": run_s, "series_checked": checked}
+
+
+def _s3_corpus(i: int):
+    """Interval i's lines (shuffled): per family the key ids
+    [i*N/2, i*N/2 + N), half of them new, half from interval i-1."""
+    keys = PHASE_S3_KEYS
+    rng = np.random.default_rng(500 + i)
+    n_s = PHASE_S3_SAMPLES
+    ids = {f: np.arange(i * n // 2, i * n // 2 + n) for f, n in keys.items()}
+    lines, expect = [], {}
+    cvals = rng.integers(1, 10_000, keys["counter"])
+    for k, v in zip(ids["counter"].tolist(), cvals.tolist()):
+        lines.append(f"sc.c{k}:{v}|c")
+        expect[f"sc.c{k}"] = float(v)
+    gtext = np.char.mod("%.3f", rng.normal(0, 100, keys["gauge"]))
+    for k, v in zip(ids["gauge"].tolist(), gtext.tolist()):
+        lines.append(f"sc.g{k}:{v}|g")
+        expect[f"sc.g{k}"] = float(np.float32(float(v)))
+    ttext = np.char.mod("%.3f", rng.gamma(2.0, 25.0, (keys["timer"], n_s)))
+    for k, row in zip(ids["timer"].tolist(), ttext.tolist()):
+        lines.extend(f"sc.t{k}:{v}|ms" for v in row)
+    seed = 600 + i
+    for k in ids["set"].tolist():
+        lines.extend(f"sc.s{k}:u{seed}-{k}-{j}|s" for j in range(n_s))
+    lvals = 10.0 ** rng.uniform(-3, 6, (keys["llhist"], n_s))
+    ltext = np.char.mod("%.6g", lvals)
+    for k, row in zip(ids["llhist"].tolist(), ltext.tolist()):
+        lines.extend(f"sc.l{k}:{v}|l" for v in row)
+    order = rng.permutation(len(lines))
+    return {"lines": [lines[j] for j in order], "expect": expect,
+            "ids": ids,
+            "timers": np.sort(ttext.astype(np.float64).astype(np.float32),
+                              axis=1),
+            "set_ref": _set_reference(seed, keys["set"], n_s,
+                                      ids=ids["set"].tolist()),
+            "llhist": ltext.astype(np.float64)}
+
+
+def _s_table_bytes(table) -> int:
+    state = getattr(table, "state", None)
+    tensors = (state.values() if isinstance(state, dict)
+               else [state] if state is not None else [])
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _phase_s3(corpora=None) -> dict:
+    """Key churn with reclamation at phase A's key widths: eight
+    intervals on the pump with `idle_key_intervals: 2`, every series
+    exact, the tables flat over the last three intervals. `corpora` are
+    futures of _s3_corpus per interval (built here when not given)."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    t_phase = time.perf_counter()
+    sink = ChannelMetricSink()
+    server = _server({"count_unique_timeseries": True,
+                      "ledger_strict": True},
+                     {"counter_capacity": 65536, "gauge_capacity": 32768,
+                      "histo_capacity": 32768, "set_capacity": 16384,
+                      "llhist_capacity": 8192, "idle_key_intervals": 2,
+                      "set_promote_samples": 2}, sink)
+    report = {"intervals": []}
+    keys = PHASE_S3_KEYS
+    series = sum(keys.values())
+    uniq_key = "flush.unique_timeseries_total|global_veneur:true"
+    _zero_launches()
+    server.start()
+    try:
+        addr = server.listen_addresses[0]
+        rcvbuf = sum(s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+                     for s in server._listeners[0]._socks)
+        window = min(PUMP_WINDOW, rcvbuf // (2 * _QUEUED_BYTES_PER_LINE))
+        base, seen, uniq_seen = 0, _read_launches(), 0.0
+        tables = dict(server.store.tables())
+        for i in range(PHASE_S3_INTERVALS):
+            corpus = (_s3_corpus(i) if corpora is None
+                      else corpora[i].result())
+            free_before = {f: set(t._free_rows) for f, t in tables.items()}
+            ingest_s = _send(server, addr, corpus["lines"], base, window)
+            base += len(corpus["lines"])
+            stats = server.stats_snapshot()
+            if stats["lines_received"] != base or \
+                    stats["ingest_dispatch_errors"]:
+                raise AssertionError(f"phase S3 interval {i + 1}: {stats}")
+            # keys of this interval on rows that an earlier key left
+            on_recycled = {f: len(free_before[f] - set(t._free_rows))
+                           for f, t in tables.items()}
+            server.flush()  # strict ledger: raises on an imbalance
+            now = _read_launches()
+            got, buckets = _collect(sink)
+            ids = corpus["ids"]
+            _check_exact(got, corpus["expect"])
+            checked = len(corpus["expect"]) + _check_timers(
+                got, corpus["timers"], prefix="sc.t",
+                ids=ids["timer"].tolist())
+            _check_sets(got, corpus["set_ref"], PHASE_S3_SAMPLES,
+                        prefix="sc.s", ids=ids["set"].tolist())
+            # four samples a key: the percentiles are held to llhist_ref
+            # only (a sample on a bin edge reads back the edge above in
+            # float32, past the one-bin bound of well-filled keys)
+            checked += keys["set"] + _check_llhists(
+                got, buckets, "sc.l", corpus["llhist"],
+                np.ones(keys["llhist"]), ids=ids["llhist"].tolist(),
+                sample_quantile=False)
+            uniq = server.telemetry.registry.snapshot()["counters"].get(
+                uniq_key, 0.0)
+            if uniq - uniq_seen != series:
+                raise AssertionError(f"phase S3 interval {i + 1}: "
+                                     f"unique_timeseries {uniq - uniq_seen}"
+                                     f", sent {series}")
+            uniq_seen = uniq
+            live = sum(len(t.rows) for t in tables.values())
+            intern = server._ingester.size()
+            if intern > live:
+                raise AssertionError(f"phase S3: intern table {intern} > "
+                                     f"live rows {live}")
+            rec = {
+                "lines": len(corpus["lines"]), "ingest_s": ingest_s,
+                "lines_per_s": len(corpus["lines"]) / ingest_s,
+                "flush": dict(server.last_flush_timings),
+                "launches": {k: now[k] - seen[k] for k in now},
+                "series_checked": checked, "unique_timeseries": uniq,
+                "on_recycled_rows": on_recycled,
+                "tables": {f: {"capacity": t.capacity, "rows": len(t.meta),
+                               "live": len(t.rows),
+                               "free": len(t._free_rows),
+                               "recycled_total": t.recycled_total}
+                           for f, t in tables.items()},
+                "intern_table_size": intern, "live_rows": live}
+            if i in (0, 3, PHASE_S3_INTERVALS - 1):
+                rec["device_bytes"] = {f: _s_table_bytes(t)
+                                       for f, t in tables.items()}
+            report["intervals"].append(rec)
+            seen = now
+    finally:
+        server.shutdown()
+    ivs = report["intervals"]
+    recycled = sum(r["recycled_total"] for r in ivs[4]["tables"].values())
+    if recycled <= 0:
+        raise AssertionError("phase S3: no row recycled by interval 5")
+    for rec in ivs[4:]:
+        short = [f for f in ("counter", "gauge", "histogram", "set",
+                             "llhist") if rec["on_recycled_rows"][f] <= 0]
+        if short:
+            raise AssertionError(f"phase S3: no new key on a recycled row "
+                                 f"of {short}")
+    flat = [{f: (t["capacity"], t["rows"]) for f, t in r["tables"].items()}
+            for r in ivs[-3:]]
+    if not flat[0] == flat[1] == flat[2]:
+        raise AssertionError(f"phase S3: tables grew in the last three "
+                             f"intervals: {flat}")
+    report["launches"] = _read_launches()
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase S3: {kernel} was not launched")
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
+
+
+def _phase_s4() -> dict:
+    """The row cap: 3 000 counter and 3 000 `|l` keys into a server
+    capped at 2 000 rows a family; 2 000 of each flush, exactly, and the
+    other keys' samples are counted dropped and rejected."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    t_phase = time.perf_counter()
+    n, cap = PHASE_S4_KEYS, PHASE_S4_CAP
+    rng = np.random.default_rng(700)
+    cvals = rng.integers(1, 1_000, n)
+    lvals = np.char.mod("%.6g", 10.0 ** rng.uniform(-3, 6, n))
+    lines = [f"cap.c{k}:{cvals[k]}|c" for k in range(n)] + \
+        [f"cap.l{k}:{lvals[k]}|l" for k in range(n)]
+    lines = [lines[j] for j in rng.permutation(len(lines))]
+    sink = ChannelMetricSink()
+    server = _server({"ledger_strict": True},
+                     {"max_rows_per_family": cap}, sink)
+    _zero_launches()
+    server.start()
+    try:
+        ingest_s = _send(server, server.listen_addresses[0], lines, 0,
+                         PUMP_WINDOW)
+        server.flush()
+        got, buckets = _collect(sink)
+        stats = server.stats_snapshot()
+        dropped = server.telemetry.registry.snapshot()["counters"].get(
+            "intern.keys_dropped_total", 0.0)
+        rejected = dict(server.ledger._history[-1]["stages"].get(
+            "agg.rejected", {}))
+    finally:
+        server.shutdown()
+    counters = {k: v for k, v in got.items() if k.startswith("cap.c")}
+    if len(counters) != cap:
+        raise AssertionError(f"phase S4: {len(counters)} counters flushed")
+    wrong = [k for k, v in counters.items()
+             if v != float(cvals[int(k[len("cap.c"):])])]
+    ll_ids = sorted(int(k[len("cap.l"):-len(".count")]) for k in got
+                    if k.startswith("cap.l") and k.endswith(".count"))
+    if len(ll_ids) != cap or wrong:
+        raise AssertionError(f"phase S4: {len(ll_ids)} llhists flushed, "
+                             f"{len(wrong)} counters wrong")
+    checked = cap + _check_llhists(
+        got, buckets, "cap.l",
+        lvals[ll_ids].astype(np.float64)[:, None], np.ones(cap), ids=ll_ids,
+        sample_quantile=False)
+    want = {"counter": float(n - cap), "llhist": float(n - cap)}
+    if stats["keys_dropped"] != 2 * (n - cap) or \
+            dropped != 2 * (n - cap) or rejected != want:
+        raise AssertionError(f"phase S4: dropped {stats['keys_dropped']} / "
+                             f"{dropped}, ledger agg.rejected {rejected}")
+    launches = _read_launches()
+    if launches["llhist_apply"] <= 0:
+        raise AssertionError("phase S4: llhist_apply was not launched")
+    return {"lines": len(lines), "ingest_s": ingest_s,
+            "series_checked": checked, "keys_dropped": stats["keys_dropped"],
+            "agg_rejected": rejected, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _phase_s() -> dict:
+    """S1-S4. Two worker processes (spawned: the card is never forked)
+    build S1's requests and S3's corpora while the servers run."""
+    import concurrent.futures
+    import multiprocessing
+    t0 = time.perf_counter()
+    rep = {}
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        s1_inputs = pool.submit(_s1_inputs, 31)
+        s3_corpora = [pool.submit(_s3_corpus, i)
+                      for i in range(PHASE_S3_INTERVALS)]
+        for part, run in (("S1", lambda: _phase_s1(s1_inputs.result())),
+                          ("S2", _phase_s2),
+                          ("S3", lambda: _phase_s3(s3_corpora)),
+                          ("S4", _phase_s4)):
+            rep[part] = run()
+            torch.cuda.empty_cache()
+            print(f"phase {part} passed in {rep[part]['seconds']:.1f} s",
+                  flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    rep["launches"] = {k: sum(rep[p]["launches"][k]
+                              for p in ("S1", "S2", "S3", "S4"))
+                       for k in rep["S1"]["launches"]}
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
+
+
+PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S")
+
+
+def _selected_phases(argv) -> tuple:
+    """The server phases to run: `--phases S,J` or the CHIP_SMOKE_PHASES
+    variable; every phase when neither is given. The kernel checks always
+    run."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--phases", default=os.environ.get(
+        "CHIP_SMOKE_PHASES", ""), help="comma-separated phases of "
+        + ",".join(PHASES) + " (default: all)")
+    args = ap.parse_args(argv)
+    chosen = tuple(p.strip().upper() for p in args.phases.split(",")
+                   if p.strip())
+    unknown = sorted(set(chosen) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
+    return chosen or PHASES
+
+
+def _report_abc(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase A, B or C."""
+    for i, rec in enumerate(rep["intervals"]):
+        print(f"phase {name} interval {i}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s, flush "
+              f"{rec['flush']['total_s']:.3f} s (llhist bins "
+              f"{rec['flush']['llhist_bins_s']:.3f} s), "
+              f"{rec['series_checked']} series checked, K3 launches "
+              f"{rec['launches']['llhist_apply']}", flush=True)
+    print(f"phase {name} launches: {rep['launches']}", flush=True)
+
+
+def _report_d(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase D, the forward tier."""
+    for i, rec in enumerate(rep["intervals"]):
+        for j, flush in enumerate(rec["local_flush"]):
+            print(f"phase D interval {i} local {j}: {rec['lines'][j]} lines "
+                  f"in {rec['ingest_s'][j]:.2f} s, flush "
+                  f"{flush['total_s']:.3f} s (dispatch "
+                  f"{flush['dispatch_s']:.4f}, device sync "
+                  f"{flush['device_sync_s']:.4f}, forward encode "
+                  f"{flush['forward_encode_s']:.3f}, forward "
+                  f"{flush['forward_s']:.3f})", flush=True)
+        g = rec["global_flush"]
+        merge = ", ".join(f"{k} {v:.3f}" for k, v in rec["merge_s"].items())
+        print(f"phase D interval {i} global: import s over both bodies "
+              f"{merge}; V1 body {rec['v1_body_bytes']:.0f} bytes per local; "
+            f"flush {g['total_s']:.3f} s (swap {g['swap_s']:.4f}, dispatch "
+            f"{g['dispatch_s']:.4f}, device sync {g['device_sync_s']:.4f}, "
+            f"assembly {g['assembly_s']:.3f}, sinks {g['sinks_s']:.3f}); "
+            f"{rec['series_checked']} series checked; launches "
+            f"{rec['launches']}", flush=True)
+    print(f"phase D launches: {rep['launches']}", flush=True)
+
+
+def _report_e(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase E, forward resilience."""
+    for rec in rep["intervals"]:
+        flush = rec["local_flush"]
+        line = (f"phase E {rec['interval']}: {rec['lines']} lines in "
+                f"{rec['ingest_s']:.2f} s; local flush " + ", ".join(
+                    f"{k} {flush[k]:.4f}" for k in _LOCAL_TIMING_KEYS))
+        if "retries" in rec:
+            line += f"; retries {rec['retries']}"
+        if "segment_bytes" in rec:
+            replay = rec["replay_flush"]
+            line += (f"; segment {rec['segment_bytes']} bytes; replay "
+                     f"{rec['replay_age_s']:.1f} s after the interval "
+                     f"began, flush " + ", ".join(
+                         f"{k} {replay[k]:.4f}" for k in _LOCAL_TIMING_KEYS)
+                     + f"; global backfill merge {rec['backfill_merge_s']:.3f}"
+                     f" s, drain s " + ", ".join(
+                         f"{g.get('backfill_drain_s', 0.0):.3f}"
+                         for g in rec["global_flush"])
+                     + f", {rec['backfilled_series']} backfilled series")
+        elif "merge_s" in rec:
+            g = rec["global_flush"]
+            line += ("; global import s " + ", ".join(
+                f"{k} {v:.3f}" for k, v in rec["merge_s"].items())
+                + f"; global flush {g['total_s']:.3f} s (backfill drain "
+                f"{g['backfill_drain_s']:.4f})")
+        if "series_checked" in rec:
+            line += f"; {rec['series_checked']} series checked"
+        if "launches" in rec:
+            line += f"; launches {rec['launches']}"
+        print(line, flush=True)
+    print(f"phase E launches: {rep['launches']} (E1 {rep['e1_launches']})",
+          flush=True)
+
+
+def _report_f(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase F, the sink plane."""
+    for i, rec in enumerate(rep["intervals"]):
+        flush = rec["flush"]
+        print(f"phase F interval {i}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s; flush "
+              f"{flush['total_s']:.3f} s (assembly {flush['assembly_s']:.3f}"
+              f", sinks {flush['sinks_s']:.3f}); " + "; ".join(
+                  f"{name} duration {flush['sink:' + name]['duration_s']:.3f}"
+                  f" cpu {flush['sink:' + name]['cpu_s']:.3f}"
+                  + (f" encode {flush['sink:' + name]['encode_s']:.3f} send "
+                     f"{flush['sink:' + name]['send_s']:.3f}"
+                     if flush["sink:" + name]["encoder"] else "")
+                  for name in _F_SINKS), flush=True)
+        sinks = rec["sinks"]
+        print(f"phase F interval {i}: channel {rec['channel_series']} "
+              f"series; datadog {sinks['datadog']['series']} series in "
+              f"{sinks['datadog']['bodies']} bodies, "
+              f"{sinks['datadog']['body_bytes']} gzip bytes "
+              f"({sinks['datadog']['json_bytes']} JSON); cortex "
+              f"{sinks['cortex']['series']} series, "
+              f"{sinks['cortex']['body_bytes']} snappy bytes "
+              f"({sinks['cortex']['write_bytes']} raw, snappy encode "
+              f"{sinks['cortex']['snappy_encode_s']:.3f} s); prometheus "
+              f"{sinks['prometheus']['series']} lines, "
+              f"{sinks['prometheus']['body_bytes']} bytes; "
+              f"{rec['series_checked']} series checked; launches "
+              f"{rec['launches']}", flush=True)
+    print(f"phase F launches: {rep['launches']}", flush=True)
+
+
+def _report_f2(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase F2, the thread plane."""
+    for i, rec in enumerate(rep["flushes"]):
+        print(f"phase F2 flush {i + 1}: total {rec['total_s']:.3f} s, sinks "
+              f"{rec['sinks_s']:.3f} s; " + ", ".join(
+                  f"{name} {r['status']}" for name, r in
+                  rec["records"].items()), flush=True)
+    print(f"phase F2: blocking sink's breaker {rep['breaker']}, counts "
+          f"{rep['flushes'][-1]['counts']}, datadog series per interval "
+          f"{rep['datadog_series_per_interval']}; launches "
+          f"{rep['launches']}", flush=True)
+
+
+def _report_g(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase G, the operator surface."""
+    for i, rec in enumerate(rep["intervals"]):
+        g_flush = rec["flush"]
+        beside_f = ""
+        if "F" in phases:  # phase F's corpus, four sinks
+            f_rec = phases["F"]["intervals"][i]
+            f_flush = f_rec["flush"]
+            beside_f = (
+                f" (phase F {f_rec['lines_per_s']:.0f} lines/s, total_s "
+                f"{f_flush['total_s']:.3f}, before the sinks "
+                f"{f_flush['total_s'] - f_flush['sinks_s']:.3f})")
+        print(f"phase G interval {i}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s, flush wall "
+              f"{rec['flush_wall_s']:.3f} s, total_s "
+              f"{g_flush['total_s']:.3f}, before the sinks "
+              f"{g_flush['total_s'] - g_flush['sinks_s']:.3f} s"
+              f"{beside_f}, readout lock wait "
+              f"{g_flush.get('readout_lock_wait_s', 0.0):.4f} s; "
+              f"{rec['series_checked']} series checked; "
+              f"{rec['self_packets']} self-metric packets", flush=True)
+    q = rep["intervals"][1]
+    pin = q["pin"]
+    in_flush = q["query_latency_in_flush"]
+    print(f"phase G readers: {q['reader_queries']} queries from interval "
+          f"2's ingest through its flush, all answered, client latency by "
+          f"kind " + ", ".join(
+              f"{k} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f} ms "
+              f"(n {v['n']})" for k, v in sorted(q["query_latency"].items()))
+          + f"; in flight during the flush n {in_flush['n']} p50 "
+          f"{in_flush['p50_ms']:.2f} p99 {in_flush['p99_ms']:.2f} ms; "
+          f"stale_pending {q['reader_stale_pending']}; alert ticks "
+          f"{q['alert_ticks']}; readiness with the watchdog tripped "
+          f"{rep['intervals'][0]['ready']}", flush=True)
+    surface = rep["surface"]
+    print(f"phase G pin: {pin['rows']} rows == the flush "
+          f"({pin['equal']} equal), one capture {pin['capture_s']:.3f} s, "
+          f"stale_pending {pin['stale_pending']}, launches "
+          f"{pin['launches']}; alerts firing {pin['firing']}, idle "
+          f"{pin['idle']}; alert tick s {surface['alert_tick_s']}; "
+          f"self-metric series {q['self_metric_series']}", flush=True)
+    print(f"phase G routes (server-side ms): " + ", ".join(
+        f"{k} n {v['count']} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f}"
+        for k, v in sorted(surface["routes"].items()))
+        + f"; /metrics {surface['metric_rows']} rows, device bytes in use "
+        f"{surface['device_bytes_in_use']:.0f} >= tables "
+        f"{surface['table_bytes']}", flush=True)
+    print(f"phase G launches: {rep['launches']}, by role "
+          f"{rep['launches_by_role']}; {rep['seconds']:.1f} s", flush=True)
+
+
+def _report_h(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase H, the proxy tier."""
+    for part in ("H1", "H2"):
+        for i, rec in enumerate(rep[part]["intervals"]):
+            label = f"phase {part} interval {rec.get('interval', i + 1)}"
+            for j, flush in enumerate(rec["local_flush"]):
+                print(f"{label} local {j}: {rec['lines'][j]} lines in "
+                      f"{rec['ingest_s'][j]:.2f} s, flush "
+                      f"{flush['total_s']:.3f} s (forward encode "
+                      f"{flush.get('forward_encode_s', 0.0):.3f}, forward "
+                      f"{flush.get('forward_s', 0.0):.3f})", flush=True)
+            p = rec["proxy"]
+            print(f"{label} proxy: received {p['received']:.0f}, routed "
+                  f"{p['routed']:.0f}, dropped {p['dest_dropped']:.0f}, "
+                  f"no destination {p['no_destination']:.0f}; RPC s "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              sorted(rec["proxy_rpc_s"].items()))
+                  + "; send s " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in
+                      sorted(rec["dest_send_s"].items()))
+                  + f"; drain wait {rec['proxy_drain_s']:.3f} s",
+                  flush=True)
+            for j, (g, merge) in enumerate(zip(rec["global_flush"],
+                                               rec["merge_s"])):
+                print(f"{label} global {'AB'[j]}: {rec['imported'][j]} "
+                      f"metrics imported, {rec['keys_per_global'][j]} keys "
+                      f"flushed; merge s " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in merge.items())
+                      + f"; flush {g['total_s']:.3f} s", flush=True)
+        print(f"phase {part}: ledger intervals closed "
+              f"{rep[part]['ledger_intervals']}", flush=True)
+    print(f"phase H2: accounting {rep['H2']['accounting']}, events "
+          f"{rep['H2']['events']}; phase H launches {rep['launches']}; "
+          f"{rep['seconds']:.1f} s", flush=True)
+
+
+def _report_i(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase I, the SSF plane."""
+    for i, rec in enumerate(rep["I1"]["intervals"]):
+        flush = rec["flush"]
+        print(f"phase I1 interval {i + 1}: {rec['datagrams']} SSF datagrams "
+              f"({rec['samples']} samples) in {rec['ingest_s']:.2f} s, "
+              f"{rec['spans_per_s']:.0f} spans/s, {rec['samples_per_s']:.0f} "
+              f"samples/s; flush {flush['total_s']:.3f} s (dispatch "
+              f"{flush['dispatch_s']:.4f}, device sync "
+              f"{flush['device_sync_s']:.4f}, assembly "
+              f"{flush['assembly_s']:.3f}, sinks {flush['sinks_s']:.3f}); "
+              f"{rec['series_checked']} series checked; launches "
+              f"{rec['launches']}", flush=True)
+    for i, rec in enumerate(rep["I2"]["intervals"]):
+        flush = rec["flush"]
+        print(f"phase I2 interval {i + 1}: {rec['spans']} spans delivered to "
+              f"3 sinks in {rec['delivered_s']:.2f} s ({rec['spans_per_s']:.0f}"
+              f" spans/s; UDP send {rec['udp_send_s']:.2f} s), span workers "
+              f"{rec['span_worker_s']:.2f} s; flush {flush['total_s']:.3f} s "
+              f"(sinks {flush['sinks_s']:.3f}; datadog "
+              f"{flush['span_sink:datadog']['duration_s']:.3f}, kafka "
+              f"{flush['span_sink:kafka']['duration_s']:.3f}); datadog "
+              f"{rec['datadog_body_bytes']} bytes in {rec['datadog_bodies']} "
+              f"PUTs, kafka {rec['kafka_records']} records; "
+              f"{rec['series_checked']} series checked", flush=True)
+    for i, rec in enumerate(rep["I3"]["intervals"]):
+        print(f"phase I3 interval {i + 1}: TCP {rec['tcp_lines']} lines, UNIX "
+              f"{rec['unix_lines']} lines (sent in {rec['unix_send_s']:.2f} "
+              f"s), gRPC {rec['grpc_lines']} lines + {rec['grpc_spans']} "
+              f"spans in {rec['grpc_s']:.2f} s; all in {rec['ingest_s']:.2f} "
+              f"s; emit runs s {rec['emit_s']}; flush "
+              f"{rec['flush']['total_s']:.3f} s; {rec['series_checked']} "
+              f"series checked; launches {rec['launches']}", flush=True)
+    print(f"phase I launches: {rep['launches']} (I1 "
+          f"{rep['I1']['launches']}, I2 {rep['I2']['launches']}, I3 "
+          f"{rep['I3']['launches']}); {rep['seconds']:.1f} s", flush=True)
+
+
+def _report_j(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase J, the overload and self-trace planes."""
+    for i, rec in enumerate(rep["J1"]["intervals"]):
+        print(f"phase J1 interval {i + 1}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s under a "
+              f"{PHASE_J_RATE} samples/s limit; admitted "
+              f"{rec['admitted']:.0f}, shed {rec['shed']}; histogram kept "
+              f"{rec['histogram_kept']}, set kept {rec['set_kept']}; flush "
+              f"{rec['flush']['total_s']:.3f} s; K3 launches "
+              f"{rec['launches']['llhist_apply']}", flush=True)
+    print(f"phase J1: kernel_drops_visible "
+          f"{rep['J1']['kernel_drops_visible']}, max heartbeat age s "
+          f"{rep['J1']['max_heartbeat_age_s']}, pump stall probes "
+          f"{rep['J1']['pump_stall_probes']}; {rep['J1']['seconds']:.1f} s",
+          flush=True)
+    for i, rec in enumerate(rep["J2"]["intervals"]):
+        print(f"phase J2 interval {i + 1} ({rec['state']}): {rec['lines']} "
+              f"lines at {rec['lines_per_s']:.0f} lines/s; shed "
+              f"{ {k: v for k, v in rec['shed'].items() if v} }; flush "
+              f"{rec['flush']['total_s']:.3f} s; "
+              f"{rec['series_checked']} series checked; K3 launches "
+              f"{rec['launches']['llhist_apply']}"
+              + (f", {rec['k3_strided_calls']} strided applies recorded"
+                 if "k3_strided_calls" in rec else "")
+              + (f"; ready {rec['ready'][:2]}" if "ready" in rec else ""),
+              flush=True)
+    print(f"phase J2: RSS after start {rep['J2']['rss_after_start']} bytes, "
+          f"transitions {rep['J2']['events']}; {rep['J2']['seconds']:.1f} s",
+          flush=True)
+    print(f"phase J3: mangle {rep['J3']['mangle']['faults']}, "
+          f"{rep['J3']['mangle']['reached_parser']} of "
+          f"{rep['J3']['mangle']['datagrams']} datagrams reached the "
+          f"parser; leak drill {rep['J3']['leak']['leaked']} samples, "
+          f"ledger imbalance {rep['J3']['leak']['imbalance']}; "
+          f"{rep['J3']['seconds']:.1f} s", flush=True)
+    for i, rec in enumerate(rep["J4"]["intervals"]):
+        print(f"phase J4 interval {i + 1}: traces " + "; ".join(
+            f"{t['trace_id']} {t['spans']} spans, {t['merges']} merges, "
+            f"{t['services']}" for t in rec["traces"])
+            + f"; {rec['exemplar_lines']} exemplar lines; "
+            f"{rec['series_checked']} series checked", flush=True)
+    print(f"phase J4: self-spans at the span sinks local1 "
+          f"{rep['J4']['local1_self_spans']}, local2 "
+          f"{rep['J4']['local2_self_spans']}, global "
+          f"{rep['J4']['global_self_spans']}; {rep['J4']['seconds']:.1f} s",
+          flush=True)
+    print(f"phase J5 ({smi}): flush total_s " + ", ".join(
+        f"rate {f['sample_rate']:g} {f['total_s']:.4f}"
+        for f in rep["J5"]["flushes"]), flush=True)
+    print(f"phase J launches: {rep['launches']}; {rep['seconds']:.1f} s",
+          flush=True)
+
+
+def _report_s(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase S, the pull sources and the table lifecycle."""
+    for i, rec in enumerate(rep["S1"]["intervals"]):
+        flush = rec["flush"]
+        print(f"phase S1 push {i + 1}: {rec['points']} OTLP points in "
+              f"{rec['requests']} requests in {rec['ingest_s']:.2f} s "
+              f"({rec['points_per_s']:.0f} points/s, "
+              f"{rec['llhist_samples']} llhist samples); flush "
+              f"{flush['total_s']:.3f} s; {rec['series_checked']} series "
+              f"checked; K3 launches "
+              f"{rec['launches']['llhist_apply']}", flush=True)
+    s2, prom = rep["S2"]["S2"], rep["S2"]["prometheus"]
+    print(f"phase S2: {s2['scrapes']} scrapes of {s2['lines_per_scrape']}"
+          f" lines ({s2['gets']} GETs), flushes s {s2['flush_s']}, "
+          f"{s2['series_checked']} series checked; veneur-prometheus "
+          f"{prom['sent']} in {prom['run_s']:.2f} s, "
+          f"{prom['series_checked']} series checked; "
+          f"{rep['S2']['seconds']:.1f} s", flush=True)
+    for i, rec in enumerate(rep["S3"]["intervals"]):
+        tables = rec["tables"]
+        print(f"phase S3 interval {i + 1}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s; flush "
+              f"{rec['flush']['total_s']:.3f} s; "
+              f"{rec['series_checked']} series checked, unique "
+              f"{rec['unique_timeseries']:.0f}; new keys on recycled rows "
+              f"{rec['on_recycled_rows']}; capacity/rows "
+              + ", ".join(f"{f} {t['capacity']}/{t['rows']}"
+                          for f, t in tables.items())
+              + f"; intern {rec['intern_table_size']} <= live "
+              f"{rec['live_rows']}; launches {rec['launches']}"
+              + (f"; device bytes {rec['device_bytes']}"
+                 if "device_bytes" in rec else ""), flush=True)
+    s4 = rep["S4"]
+    print(f"phase S4: {s4['series_checked']} series checked, "
+          f"keys_dropped {s4['keys_dropped']}, ledger agg.rejected "
+          f"{s4['agg_rejected']}; launches {s4['launches']}", flush=True)
+    print(f"phase S launches: {rep['launches']}; S1 "
+          f"{rep['S1']['seconds']:.1f} s, S2 {rep['S2']['seconds']:.1f} "
+          f"s, S3 {rep['S3']['seconds']:.1f} s, S4 "
+          f"{rep['S4']['seconds']:.1f} s; {rep['seconds']:.1f} s",
+          flush=True)
+
+
+# each phase's run and the report it prints
+_PHASE_RUNS = {
+    "A": (_phase_a, _report_abc),
+    "B": (_phase_b, _report_abc),
+    "C": (_phase_c, _report_abc),
+    "D": (_phase_d, _report_d),
+    "E": (_phase_e, _report_e),
+    "F": (_phase_f, _report_f),
+    "F2": (_phase_f2, _report_f2),
+    "G": (_phase_g, _report_g),
+    "H": (_phase_h, _report_h),
+    "I": (_phase_i, _report_i),
+    "J": (_phase_j, _report_j),
+    "S": (_phase_s, _report_s),
+}
+
+
+def main(argv=None) -> int:
+    selected = _selected_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4484,277 +5741,18 @@ def main() -> int:
           f"{k3['launch_path_us']}", flush=True)
 
     phases = {}
-    for name, run in (("A", _phase_a), ("B", _phase_b), ("C", _phase_c)):
+    for name in PHASES:
+        if name not in selected:
+            continue
+        run, report = _PHASE_RUNS[name]
+        t0 = time.perf_counter()
         phases[name] = rep = run()
+        rep["seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        for i, rec in enumerate(rep["intervals"]):
-            print(f"phase {name} interval {i}: {rec['lines']} lines at "
-                  f"{rec['lines_per_s']:.0f} lines/s, flush "
-                  f"{rec['flush']['total_s']:.3f} s (llhist bins "
-                  f"{rec['flush']['llhist_bins_s']:.3f} s), "
-                  f"{rec['series_checked']} series checked, K3 launches "
-                  f"{rec['launches']['llhist_apply']}", flush=True)
-        print(f"phase {name} launches: {rep['launches']}", flush=True)
-    phases["D"] = rep = _phase_d()
-    torch.cuda.empty_cache()
-    for i, rec in enumerate(rep["intervals"]):
-        for j, flush in enumerate(rec["local_flush"]):
-            print(f"phase D interval {i} local {j}: {rec['lines'][j]} lines "
-                  f"in {rec['ingest_s'][j]:.2f} s, flush "
-                  f"{flush['total_s']:.3f} s (dispatch "
-                  f"{flush['dispatch_s']:.4f}, device sync "
-                  f"{flush['device_sync_s']:.4f}, forward encode "
-                  f"{flush['forward_encode_s']:.3f}, forward "
-                  f"{flush['forward_s']:.3f})", flush=True)
-        g = rec["global_flush"]
-        merge = ", ".join(f"{k} {v:.3f}" for k, v in rec["merge_s"].items())
-        print(f"phase D interval {i} global: import s over both bodies "
-              f"{merge}; V1 body {rec['v1_body_bytes']:.0f} bytes per local; "
-            f"flush {g['total_s']:.3f} s (swap {g['swap_s']:.4f}, dispatch "
-            f"{g['dispatch_s']:.4f}, device sync {g['device_sync_s']:.4f}, "
-            f"assembly {g['assembly_s']:.3f}, sinks {g['sinks_s']:.3f}); "
-            f"{rec['series_checked']} series checked; launches "
-            f"{rec['launches']}", flush=True)
-    print(f"phase D launches: {rep['launches']}", flush=True)
-    phases["E"] = rep = _phase_e()
-    torch.cuda.empty_cache()
-    for rec in rep["intervals"]:
-        flush = rec["local_flush"]
-        line = (f"phase E {rec['interval']}: {rec['lines']} lines in "
-                f"{rec['ingest_s']:.2f} s; local flush " + ", ".join(
-                    f"{k} {flush[k]:.4f}" for k in _LOCAL_TIMING_KEYS))
-        if "retries" in rec:
-            line += f"; retries {rec['retries']}"
-        if "segment_bytes" in rec:
-            replay = rec["replay_flush"]
-            line += (f"; segment {rec['segment_bytes']} bytes; replay "
-                     f"{rec['replay_age_s']:.1f} s after the interval "
-                     f"began, flush " + ", ".join(
-                         f"{k} {replay[k]:.4f}" for k in _LOCAL_TIMING_KEYS)
-                     + f"; global backfill merge {rec['backfill_merge_s']:.3f}"
-                     f" s, drain s " + ", ".join(
-                         f"{g.get('backfill_drain_s', 0.0):.3f}"
-                         for g in rec["global_flush"])
-                     + f", {rec['backfilled_series']} backfilled series")
-        elif "merge_s" in rec:
-            g = rec["global_flush"]
-            line += ("; global import s " + ", ".join(
-                f"{k} {v:.3f}" for k, v in rec["merge_s"].items())
-                + f"; global flush {g['total_s']:.3f} s (backfill drain "
-                f"{g['backfill_drain_s']:.4f})")
-        if "series_checked" in rec:
-            line += f"; {rec['series_checked']} series checked"
-        if "launches" in rec:
-            line += f"; launches {rec['launches']}"
-        print(line, flush=True)
-    print(f"phase E launches: {rep['launches']} (E1 {rep['e1_launches']})",
-          flush=True)
-    phases["F"] = rep = _phase_f()
-    torch.cuda.empty_cache()
-    for i, rec in enumerate(rep["intervals"]):
-        flush = rec["flush"]
-        print(f"phase F interval {i}: {rec['lines']} lines at "
-              f"{rec['lines_per_s']:.0f} lines/s; flush "
-              f"{flush['total_s']:.3f} s (assembly {flush['assembly_s']:.3f}"
-              f", sinks {flush['sinks_s']:.3f}); " + "; ".join(
-                  f"{name} duration {flush['sink:' + name]['duration_s']:.3f}"
-                  f" cpu {flush['sink:' + name]['cpu_s']:.3f}"
-                  + (f" encode {flush['sink:' + name]['encode_s']:.3f} send "
-                     f"{flush['sink:' + name]['send_s']:.3f}"
-                     if flush["sink:" + name]["encoder"] else "")
-                  for name in _F_SINKS), flush=True)
-        sinks = rec["sinks"]
-        print(f"phase F interval {i}: channel {rec['channel_series']} "
-              f"series; datadog {sinks['datadog']['series']} series in "
-              f"{sinks['datadog']['bodies']} bodies, "
-              f"{sinks['datadog']['body_bytes']} gzip bytes "
-              f"({sinks['datadog']['json_bytes']} JSON); cortex "
-              f"{sinks['cortex']['series']} series, "
-              f"{sinks['cortex']['body_bytes']} snappy bytes "
-              f"({sinks['cortex']['write_bytes']} raw, snappy encode "
-              f"{sinks['cortex']['snappy_encode_s']:.3f} s); prometheus "
-              f"{sinks['prometheus']['series']} lines, "
-              f"{sinks['prometheus']['body_bytes']} bytes; "
-              f"{rec['series_checked']} series checked; launches "
-              f"{rec['launches']}", flush=True)
-    print(f"phase F launches: {rep['launches']}", flush=True)
-    phases["F2"] = rep = _phase_f2()
-    for i, rec in enumerate(rep["flushes"]):
-        print(f"phase F2 flush {i + 1}: total {rec['total_s']:.3f} s, sinks "
-              f"{rec['sinks_s']:.3f} s; " + ", ".join(
-                  f"{name} {r['status']}" for name, r in
-                  rec["records"].items()), flush=True)
-    print(f"phase F2: blocking sink's breaker {rep['breaker']}, counts "
-          f"{rep['flushes'][-1]['counts']}, datadog series per interval "
-          f"{rep['datadog_series_per_interval']}; launches "
-          f"{rep['launches']}", flush=True)
-    t0 = time.perf_counter()
-    phases["G"] = rep = _phase_g()
-    rep["seconds"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    for i, rec in enumerate(rep["intervals"]):
-        f_rec = phases["F"]["intervals"][i]
-        g_flush, f_flush = rec["flush"], f_rec["flush"]
-        print(f"phase G interval {i}: {rec['lines']} lines at "
-              f"{rec['lines_per_s']:.0f} lines/s (phase F "
-              f"{f_rec['lines_per_s']:.0f}), flush wall "
-              f"{rec['flush_wall_s']:.3f} s, total_s "
-              f"{g_flush['total_s']:.3f} (phase F, four sinks, "
-              f"{f_flush['total_s']:.3f}), before the sinks "
-              f"{g_flush['total_s'] - g_flush['sinks_s']:.3f} s (phase F "
-              f"{f_flush['total_s'] - f_flush['sinks_s']:.3f}), readout "
-              f"lock wait {g_flush.get('readout_lock_wait_s', 0.0):.4f} s; "
-              f"{rec['series_checked']} series checked; "
-              f"{rec['self_packets']} self-metric packets", flush=True)
-    q = rep["intervals"][1]
-    pin = q["pin"]
-    in_flush = q["query_latency_in_flush"]
-    print(f"phase G readers: {q['reader_queries']} queries from interval "
-          f"2's ingest through its flush, all answered, client latency by "
-          f"kind " + ", ".join(
-              f"{k} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f} ms "
-              f"(n {v['n']})" for k, v in sorted(q["query_latency"].items()))
-          + f"; in flight during the flush n {in_flush['n']} p50 "
-          f"{in_flush['p50_ms']:.2f} p99 {in_flush['p99_ms']:.2f} ms; "
-          f"stale_pending {q['reader_stale_pending']}; alert ticks "
-          f"{q['alert_ticks']}; readiness with the watchdog tripped "
-          f"{rep['intervals'][0]['ready']}", flush=True)
-    surface = rep["surface"]
-    print(f"phase G pin: {pin['rows']} rows == the flush "
-          f"({pin['equal']} equal), one capture {pin['capture_s']:.3f} s, "
-          f"stale_pending {pin['stale_pending']}, launches "
-          f"{pin['launches']}; alerts firing {pin['firing']}, idle "
-          f"{pin['idle']}; alert tick s {surface['alert_tick_s']}; "
-          f"self-metric series {q['self_metric_series']}", flush=True)
-    print(f"phase G routes (server-side ms): " + ", ".join(
-        f"{k} n {v['count']} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f}"
-        for k, v in sorted(surface["routes"].items()))
-        + f"; /metrics {surface['metric_rows']} rows, device bytes in use "
-        f"{surface['device_bytes_in_use']:.0f} >= tables "
-        f"{surface['table_bytes']}", flush=True)
-    print(f"phase G launches: {rep['launches']}, by role "
-          f"{rep['launches_by_role']}; {rep['seconds']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    phases["H"] = rep = _phase_h()
-    rep["seconds"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    for part in ("H1", "H2"):
-        for i, rec in enumerate(rep[part]["intervals"]):
-            label = f"phase {part} interval {rec.get('interval', i + 1)}"
-            for j, flush in enumerate(rec["local_flush"]):
-                print(f"{label} local {j}: {rec['lines'][j]} lines in "
-                      f"{rec['ingest_s'][j]:.2f} s, flush "
-                      f"{flush['total_s']:.3f} s (forward encode "
-                      f"{flush.get('forward_encode_s', 0.0):.3f}, forward "
-                      f"{flush.get('forward_s', 0.0):.3f})", flush=True)
-            p = rec["proxy"]
-            print(f"{label} proxy: received {p['received']:.0f}, routed "
-                  f"{p['routed']:.0f}, dropped {p['dest_dropped']:.0f}, "
-                  f"no destination {p['no_destination']:.0f}; RPC s "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in
-                              sorted(rec["proxy_rpc_s"].items()))
-                  + "; send s " + ", ".join(
-                      f"{k} {v:.3f}" for k, v in
-                      sorted(rec["dest_send_s"].items()))
-                  + f"; drain wait {rec['proxy_drain_s']:.3f} s",
-                  flush=True)
-            for j, (g, merge) in enumerate(zip(rec["global_flush"],
-                                               rec["merge_s"])):
-                print(f"{label} global {'AB'[j]}: {rec['imported'][j]} "
-                      f"metrics imported, {rec['keys_per_global'][j]} keys "
-                      f"flushed; merge s " + ", ".join(
-                          f"{k} {v:.3f}" for k, v in merge.items())
-                      + f"; flush {g['total_s']:.3f} s", flush=True)
-        print(f"phase {part}: ledger intervals closed "
-              f"{rep[part]['ledger_intervals']}", flush=True)
-    print(f"phase H2: accounting {rep['H2']['accounting']}, events "
-          f"{rep['H2']['events']}; phase H launches {rep['launches']}; "
-          f"{rep['seconds']:.1f} s", flush=True)
-    phases["I"] = rep = _phase_i()
-    for i, rec in enumerate(rep["I1"]["intervals"]):
-        flush = rec["flush"]
-        print(f"phase I1 interval {i + 1}: {rec['datagrams']} SSF datagrams "
-              f"({rec['samples']} samples) in {rec['ingest_s']:.2f} s, "
-              f"{rec['spans_per_s']:.0f} spans/s, {rec['samples_per_s']:.0f} "
-              f"samples/s; flush {flush['total_s']:.3f} s (dispatch "
-              f"{flush['dispatch_s']:.4f}, device sync "
-              f"{flush['device_sync_s']:.4f}, assembly "
-              f"{flush['assembly_s']:.3f}, sinks {flush['sinks_s']:.3f}); "
-              f"{rec['series_checked']} series checked; launches "
-              f"{rec['launches']}", flush=True)
-    for i, rec in enumerate(rep["I2"]["intervals"]):
-        flush = rec["flush"]
-        print(f"phase I2 interval {i + 1}: {rec['spans']} spans delivered to "
-              f"3 sinks in {rec['delivered_s']:.2f} s ({rec['spans_per_s']:.0f}"
-              f" spans/s; UDP send {rec['udp_send_s']:.2f} s), span workers "
-              f"{rec['span_worker_s']:.2f} s; flush {flush['total_s']:.3f} s "
-              f"(sinks {flush['sinks_s']:.3f}; datadog "
-              f"{flush['span_sink:datadog']['duration_s']:.3f}, kafka "
-              f"{flush['span_sink:kafka']['duration_s']:.3f}); datadog "
-              f"{rec['datadog_body_bytes']} bytes in {rec['datadog_bodies']} "
-              f"PUTs, kafka {rec['kafka_records']} records; "
-              f"{rec['series_checked']} series checked", flush=True)
-    for i, rec in enumerate(rep["I3"]["intervals"]):
-        print(f"phase I3 interval {i + 1}: TCP {rec['tcp_lines']} lines, UNIX "
-              f"{rec['unix_lines']} lines (sent in {rec['unix_send_s']:.2f} "
-              f"s), gRPC {rec['grpc_lines']} lines + {rec['grpc_spans']} "
-              f"spans in {rec['grpc_s']:.2f} s; all in {rec['ingest_s']:.2f} "
-              f"s; emit runs s {rec['emit_s']}; flush "
-              f"{rec['flush']['total_s']:.3f} s; {rec['series_checked']} "
-              f"series checked; launches {rec['launches']}", flush=True)
-    print(f"phase I launches: {rep['launches']} (I1 "
-          f"{rep['I1']['launches']}, I2 {rep['I2']['launches']}, I3 "
-          f"{rep['I3']['launches']}); {rep['seconds']:.1f} s", flush=True)
-    phases["J"] = rep = _phase_j()
-    for i, rec in enumerate(rep["J1"]["intervals"]):
-        print(f"phase J1 interval {i + 1}: {rec['lines']} lines at "
-              f"{rec['lines_per_s']:.0f} lines/s under a "
-              f"{PHASE_J_RATE} samples/s limit; admitted "
-              f"{rec['admitted']:.0f}, shed {rec['shed']}; histogram kept "
-              f"{rec['histogram_kept']}, set kept {rec['set_kept']}; flush "
-              f"{rec['flush']['total_s']:.3f} s; K3 launches "
-              f"{rec['launches']['llhist_apply']}", flush=True)
-    print(f"phase J1: kernel_drops_visible "
-          f"{rep['J1']['kernel_drops_visible']}, max heartbeat age s "
-          f"{rep['J1']['max_heartbeat_age_s']}, pump stall probes "
-          f"{rep['J1']['pump_stall_probes']}; {rep['J1']['seconds']:.1f} s",
-          flush=True)
-    for i, rec in enumerate(rep["J2"]["intervals"]):
-        print(f"phase J2 interval {i + 1} ({rec['state']}): {rec['lines']} "
-              f"lines at {rec['lines_per_s']:.0f} lines/s; shed "
-              f"{ {k: v for k, v in rec['shed'].items() if v} }; flush "
-              f"{rec['flush']['total_s']:.3f} s; "
-              f"{rec['series_checked']} series checked; K3 launches "
-              f"{rec['launches']['llhist_apply']}"
-              + (f", {rec['k3_strided_calls']} strided applies recorded"
-                 if "k3_strided_calls" in rec else "")
-              + (f"; ready {rec['ready'][:2]}" if "ready" in rec else ""),
-              flush=True)
-    print(f"phase J2: RSS after start {rep['J2']['rss_after_start']} bytes, "
-          f"transitions {rep['J2']['events']}; {rep['J2']['seconds']:.1f} s",
-          flush=True)
-    print(f"phase J3: mangle {rep['J3']['mangle']['faults']}, "
-          f"{rep['J3']['mangle']['reached_parser']} of "
-          f"{rep['J3']['mangle']['datagrams']} datagrams reached the "
-          f"parser; leak drill {rep['J3']['leak']['leaked']} samples, "
-          f"ledger imbalance {rep['J3']['leak']['imbalance']}; "
-          f"{rep['J3']['seconds']:.1f} s", flush=True)
-    for i, rec in enumerate(rep["J4"]["intervals"]):
-        print(f"phase J4 interval {i + 1}: traces " + "; ".join(
-            f"{t['trace_id']} {t['spans']} spans, {t['merges']} merges, "
-            f"{t['services']}" for t in rec["traces"])
-            + f"; {rec['exemplar_lines']} exemplar lines; "
-            f"{rec['series_checked']} series checked", flush=True)
-    print(f"phase J4: self-spans at the span sinks local1 "
-          f"{rep['J4']['local1_self_spans']}, local2 "
-          f"{rep['J4']['local2_self_spans']}, global "
-          f"{rep['J4']['global_self_spans']}; {rep['J4']['seconds']:.1f} s",
-          flush=True)
-    print(f"phase J5 ({smi}): flush total_s " + ", ".join(
-        f"rate {f['sample_rate']:g} {f['total_s']:.4f}"
-        for f in rep["J5"]["flushes"]), flush=True)
-    print(f"phase J launches: {rep['launches']}; {rep['seconds']:.1f} s",
-          flush=True)
+        report(name, rep, phases, smi)
+    print("phase seconds: " + ", ".join(
+        f"{name} {rep['seconds']:.1f}" for name, rep in phases.items()),
+        flush=True)
 
     def launches(kernel):
         return sum(p["launches"][kernel] for p in phases.values())

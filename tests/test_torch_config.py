@@ -1,0 +1,200 @@
+"""The port's configuration against the JAX package's: the VENEUR_*
+environment overlay, the read-buffer default, the lifecycle and sources
+keys, and the JAX keys the port lacks, which raise by name from the
+environment as they do from a file."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import pytest
+
+from veneur_tpu import config as jax_config
+from veneur_tpu_torch import config as port_config
+
+_YAML = ("interval: 5s\n"
+         "percentiles: [0.5, 0.99]\n"
+         "metric_sinks:\n"
+         "  - kind: blackhole\n"
+         "    name: bh\n"
+         "extend_tags: ['env:test']\n")
+
+
+def _plain(value):
+    """A config value in a form both packages' values compare in: a
+    dataclass as a dict of its fields, a secret by its value."""
+    if dataclasses.is_dataclass(value):
+        return {f.name: _plain(getattr(value, f.name))
+                for f in dataclasses.fields(value)}
+    if hasattr(value, "reveal"):
+        return value.reveal()
+    if isinstance(value, list):
+        return [_plain(v) for v in value]
+    return value
+
+
+def _assert_same(port_cfg, jax_cfg) -> int:
+    """Every field the two packages share, equal; a block's shared
+    fields likewise. Returns the fields compared."""
+    jax_names = {f.name for f in dataclasses.fields(jax_cfg)}
+    compared = 0
+    for f in dataclasses.fields(port_cfg):
+        if f.name not in jax_names:
+            continue
+        got = _plain(getattr(port_cfg, f.name))
+        want = _plain(getattr(jax_cfg, f.name))
+        if isinstance(got, dict) and isinstance(want, dict):
+            shared = got.keys() & want.keys()
+            got = {k: got[k] for k in shared}
+            want = {k: want[k] for k in shared}
+        assert got == want, f.name
+        compared += 1
+    return compared
+
+
+@pytest.mark.parametrize("text, env", [
+    # tests/test_server.py::TestConfig::test_yaml_and_env
+    (_YAML, {"VENEUR_INTERVAL": "30s", "VENEUR_DEBUG": "true"}),
+    # tests/test_server.py::TestNestedEnvOverlay::test_tpu_fields_from_env
+    ("interval: 5s\n", {"VENEUR_TPU_HISTO_CAPACITY": "12345",
+                        "VENEUR_TPU_DISABLE_NATIVE_PARSER": "true",
+                        "VENEUR_INTERVAL": "20s"}),
+    # ::test_empty_tpu_section_tolerated
+    ("interval: 5s\ntpu:\n", {"VENEUR_TPU_SET_CAPACITY": "777"}),
+    # every coercion: int, float, bool, list, percentiles, duration,
+    # string, secret, and a lifecycle key of each block
+    ("hostname: h\n", {"VENEUR_NUM_READERS": "3",
+                       "VENEUR_CHAOS_ERROR_RATE": "0.25",
+                       "VENEUR_FORWARD_ONLY": "yes",
+                       "VENEUR_EXTEND_TAGS": "a:1,b:2",
+                       "VENEUR_PERCENTILES": "0.5,0.9",
+                       "VENEUR_SUPERVISOR_DEADLINE": "1500ms",
+                       "VENEUR_FORWARD_ADDRESS": "127.0.0.1:8128",
+                       "VENEUR_TLS_KEY": "secret-key",
+                       "VENEUR_COUNT_UNIQUE_TIMESERIES": "1",
+                       "VENEUR_TPU_IDLE_KEY_INTERVALS": "2",
+                       "VENEUR_TPU_MAX_ROWS_PER_FAMILY": "1000",
+                       "VENEUR_NOT_A_KEY": "ignored",
+                       "PATH": "/bin"}),
+    # the environment under an empty file, and the defaults alone
+    ("", {"VENEUR_HOSTNAME": "from-env"}),
+    ("", {}),
+])
+def test_env_overlay_matches_jax(tmp_path, text, env):
+    path = tmp_path / "cfg.yaml"
+    path.write_text(text)
+    port_cfg = port_config.read_config(str(path), env=env)
+    jax_cfg = jax_config.read_config(str(path), env=env)
+    assert _assert_same(port_cfg, jax_cfg) == 97
+    assert _assert_same(port_cfg.tpu, jax_cfg.tpu) == 11
+
+
+def test_the_yaml_and_env_case_field_values(tmp_path):
+    """The values test_server.py pins, on the port."""
+    path = tmp_path / "cfg.yaml"
+    path.write_text(_YAML)
+    cfg = port_config.read_config(str(path), env={
+        "VENEUR_INTERVAL": "30s", "VENEUR_DEBUG": "true"})
+    assert cfg.interval == 30.0
+    assert cfg.debug is True
+    assert cfg.percentiles == [0.5, 0.99]
+    assert cfg.metric_sinks[0].kind == "blackhole"
+    assert cfg.is_local is False
+
+
+def test_read_config_reads_os_environ(tmp_path, monkeypatch):
+    path = tmp_path / "cfg.yaml"
+    path.write_text("interval: 5s\n")
+    monkeypatch.setenv("VENEUR_INTERVAL", "7s")
+    monkeypatch.setenv("VENEUR_TPU_COUNTER_CAPACITY", "99")
+    cfg = port_config.read_config(str(path))
+    assert cfg.interval == 7.0 and cfg.tpu.counter_capacity == 99
+    assert jax_config.read_config(str(path)).interval == 7.0
+
+
+def test_env_overlay_precedes_the_defaults(tmp_path):
+    """The defaults follow the overlay, as in the JAX package: a span
+    channel raised from the environment sizes the sink queue."""
+    path = tmp_path / "cfg.yaml"
+    path.write_text("")
+    env = {"VENEUR_SPAN_CHANNEL_CAPACITY": "1000", "VENEUR_INTERVAL": "0s"}
+    port_cfg = port_config.read_config(str(path), env=env)
+    jax_cfg = jax_config.read_config(str(path), env=env)
+    assert port_cfg.span_sink_queue_capacity == 8000
+    assert port_cfg.span_sink_queue_capacity == \
+        jax_cfg.span_sink_queue_capacity
+    assert port_cfg.interval == jax_cfg.interval == 10.0
+
+
+@pytest.mark.parametrize("name", [
+    "VENEUR_SENTRY_DSN", "VENEUR_FLUSH_ASYNC", "VENEUR_CARDINALITY_TOP_K",
+    "VENEUR_RESHARD_SPOOL_DIR", "VENEUR_JAX_COMPILATION_CACHE_DIR",
+    "VENEUR_OVERLOAD_DEVICE_SOFT_BYTES", "VENEUR_LATENCY_OBSERVATORY",
+    "VENEUR_TPU_SHARDS", "VENEUR_TPU_SHARD_ROUTING",
+    "VENEUR_TPU_PALLAS_TDIGEST_FLUSH"])
+def test_env_naming_a_jax_only_key_raises_by_name(tmp_path, name):
+    path = tmp_path / "cfg.yaml"
+    path.write_text("interval: 5s\n")
+    key = name[len("VENEUR_"):].lower()
+    if key.startswith("tpu_"):
+        key = key[len("tpu_"):]
+    with pytest.raises(ValueError, match=key):
+        port_config.read_config(str(path), env={name: "1"})
+
+
+@pytest.mark.parametrize("name", ["VENEUR_METRIC_SINKS", "VENEUR_SOURCES",
+                                  "VENEUR_FEATURES", "VENEUR_TPU",
+                                  "VENEUR_VENEUR_METRICS_SCOPES"])
+def test_env_cannot_set_a_structured_key(tmp_path, name):
+    path = tmp_path / "cfg.yaml"
+    path.write_text("")
+    with pytest.raises(ValueError, match="environment"):
+        port_config.read_config(str(path), env={name: "x"})
+
+
+@pytest.mark.parametrize("value", [0, -1])
+def test_read_buffer_size_defaults_like_jax(tmp_path, value):
+    path = tmp_path / "cfg.yaml"
+    path.write_text(f"read_buffer_size_bytes: {value}\n")
+    port_cfg = port_config.read_config(str(path), env={})
+    jax_cfg = jax_config.read_config(str(path), env={})
+    assert port_cfg.read_buffer_size_bytes == 2 * 1024 * 1024
+    assert port_cfg.read_buffer_size_bytes == jax_cfg.read_buffer_size_bytes
+    env_cfg = port_config.read_config(
+        str(path), env={"VENEUR_READ_BUFFER_SIZE_BYTES": str(value)})
+    assert env_cfg.read_buffer_size_bytes == 2 * 1024 * 1024
+    assert port_config.config_from_dict(
+        {"read_buffer_size_bytes": value}).read_buffer_size_bytes == \
+        2 * 1024 * 1024
+
+
+def test_sources_and_lifecycle_keys_parse_like_jax(tmp_path):
+    path = tmp_path / "cfg.yaml"
+    path.write_text(
+        "count_unique_timeseries: true\n"
+        "debug: true\n"
+        "tpu: {idle_key_intervals: 3, max_rows_per_family: 500}\n"
+        "sources:\n"
+        "  - kind: otlp\n"
+        "    name: collector\n"
+        "    tags: ['team:obs']\n"
+        "    config: {listen_address: '127.0.0.1:0'}\n"
+        "  - kind: openmetrics\n"
+        "    config: {url: 'http://127.0.0.1:1/metrics',"
+        " scrape_interval: 1s}\n")
+    port_cfg = port_config.read_config(str(path), env={})
+    jax_cfg = jax_config.read_config(str(path), env={})
+    _assert_same(port_cfg, jax_cfg)
+    assert port_cfg.sources[0].tags == ["team:obs"]
+    assert port_cfg.tpu.idle_key_intervals == 3
+    defaults = port_config.Config()
+    assert defaults.tpu.idle_key_intervals == \
+        jax_config.Config().tpu.idle_key_intervals == 5
+    assert defaults.tpu.max_rows_per_family == \
+        jax_config.Config().tpu.max_rows_per_family == 2_000_000
+
+
+def test_unknown_source_entry_key_raises():
+    with pytest.raises(ValueError, match="sources.*bogus"):
+        port_config.config_from_dict(
+            {"sources": [{"kind": "otlp", "bogus": 1}]})

@@ -237,7 +237,8 @@ walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
           "sinks.falconer", "sinks.lightstep", "core.grpc_ingest",
           "core.protos.dogstatsd_pb2", "trace", "cmd.veneur_emit",
           "util.crash", "trace.context", "trace.opentracing",
-          "trace.store", "core.overload"}
+          "trace.store", "core.overload", "util.protowire", "sources",
+          "sources.otlp", "sources.openmetrics", "cmd.veneur_prometheus"}
 missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
 assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))

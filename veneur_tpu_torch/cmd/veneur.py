@@ -1,7 +1,8 @@
 """The port's server CLI: load a YAML config, start the server on the
 card (or on the CPU with `-device cpu`), and run until SIGINT/SIGTERM
 (or POST /quitquitquit with `http_quit`). SIGHUP reloads the `alerts:`
-block from the config file.
+block from the config file. `VENEUR_<KEY>` and `VENEUR_TPU_<FIELD>`
+environment variables override the file (config.read_config).
 
 Run: python -m veneur_tpu_torch.cmd.veneur -f config.yaml [-device cpu]
 """
@@ -43,6 +44,8 @@ def main(argv=None) -> int:
     except (OSError, ValueError, TypeError) as e:
         log.error("could not read config: %s", e)
         return 1
+    if args.debug:
+        cfg.debug = True
     if args.validate_config:
         print("config OK")
         return 0

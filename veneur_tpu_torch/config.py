@@ -8,10 +8,20 @@ configuration is never half-applied in silence. Durations accept Go-style string
 "500ms") or numbers of seconds; the private keys (`grpc_tls_key`,
 `forward_tls_key`, `tls_key`) become StringSecrets, redacted in
 /config/json.
+
+`read_config` overlays the environment on the file, as the JAX package
+does: `VENEUR_<KEY>` sets a top-level key and `VENEUR_TPU_<FIELD>` a
+field of `tpu:`, each string coerced by the type of the key's current
+value (bool, int, float, a comma-separated list, a duration). A
+`VENEUR_*` variable that names a JAX key the port lacks raises with its
+name, as that key would in the file; a structured key (a block, a list
+of blocks, a mapping) cannot come from the environment and raises too.
+Any other `VENEUR_*` name is ignored.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import socket
 from dataclasses import dataclass, field, fields
@@ -52,6 +62,18 @@ class SinkConfig:
     max_tags: int = 0
     strip_tags: List[Dict[str, Any]] = field(default_factory=list)
     add_tags: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class SourceConfig:
+    """One `sources` entry: a pull source of kind `otlp` or
+    `openmetrics` (veneur_tpu_torch/sources), its own `config` mapping,
+    and tags added to everything it ingests."""
+
+    kind: str = ""
+    name: str = ""
+    config: Dict[str, Any] = field(default_factory=dict)
+    tags: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -110,6 +132,14 @@ class TpuConfig:
     # and pump (the native library builds with g++ at first use, and a
     # failed build raises rather than falling back)
     disable_native_parser: bool = False
+    # idle-row reclamation: a key idle for this many flushes loses its
+    # row (its dictionary entry and intern mappings go at once, the row
+    # id is recycled one flush later); 0 keeps every row for good
+    idle_key_intervals: int = 5
+    # hard cap on the rows of each family: a new key past it is dropped
+    # and counted (intern.keys_dropped_total, the ledger's agg.rejected)
+    # until reclamation frees rows; 0 = unlimited
+    max_rows_per_family: int = 2_000_000
 
 
 @dataclass
@@ -156,6 +186,11 @@ class Config:
     # how long it stays open before its one half-open probe (duration)
     circuit_breaker_failure_threshold: int = 3
     circuit_breaker_recovery: float = 30.0
+    # emit flush.unique_timeseries_total: the series touched in each
+    # interval, counted exactly from the tables' touched masks
+    count_unique_timeseries: bool = False
+    # set by the CLI's -debug, as in the JAX package; nothing reads it
+    debug: bool = False
     # tags added to every metric the DogStatsD slow path parses (the
     # columnar path leaves them out, as the JAX package's does)
     extend_tags: List[str] = field(default_factory=list)
@@ -259,6 +294,9 @@ class Config:
         default_factory=lambda: [0.5, 0.75, 0.99])
     # SO_RCVBUF of each UDP listener socket
     read_buffer_size_bytes: int = 2 * 1024 * 1024
+    # pull sources (veneur_tpu_torch/sources): OTLP/HTTP listeners and
+    # OpenMetrics scrapes, each on a thread of its own
+    sources: List[SourceConfig] = field(default_factory=list)
     # spans the channel to the span workers holds; a full channel drops
     span_channel_capacity: int = 100
     # spans each span sink's isolation buffer holds; 0 = max(4096, 8 x
@@ -325,6 +363,8 @@ class Config:
             self.interval = 10.0
         if self.metric_max_length <= 0:
             self.metric_max_length = 4096
+        if self.read_buffer_size_bytes <= 0:
+            self.read_buffer_size_bytes = 2 * 1024 * 1024
         if self.span_channel_capacity <= 0:
             self.span_channel_capacity = 100
         if self.span_sink_queue_capacity <= 0:
@@ -376,8 +416,9 @@ def _routing_config(item) -> SinkRoutingConfig:
         not_matched=sinks.get("not_matched", []) or [])
 
 
-def config_from_dict(raw: Dict[str, Any]) -> Config:
-    """A Config from parsed YAML; raises on any key the port lacks."""
+def _config_from_raw(raw: Dict[str, Any]) -> Config:
+    """A Config from parsed YAML, before the defaults; raises on any key
+    the port lacks."""
     raw = dict(raw or {})
     _check_keys(raw, Config, "")
     cfg = Config()
@@ -390,13 +431,14 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
             value = dict(value or {})
             _check_keys(value, TpuConfig, "tpu.")
             value = TpuConfig(**value)
-        elif key in ("metric_sinks", "span_sinks"):
-            sinks = []
+        elif key in ("metric_sinks", "span_sinks", "sources"):
+            cls = SourceConfig if key == "sources" else SinkConfig
+            items = []
             for item in value or []:
                 item = dict(item or {})
-                _check_keys(item, SinkConfig, f"{key}.")
-                sinks.append(SinkConfig(**item))
-            value = sinks
+                _check_keys(item, cls, f"{key}.")
+                items.append(cls(**item))
+            value = items
         elif key == "features":
             value = dict(value or {})
             _check_keys(value, Features, "features.")
@@ -411,16 +453,100 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
         elif key == "percentiles":
             value = [float(p) for p in value]
         setattr(cfg, key, value)
-    return cfg.apply_defaults()
+    return cfg
+
+
+def config_from_dict(raw: Dict[str, Any]) -> Config:
+    """A Config from parsed YAML; raises on any key the port lacks."""
+    return _config_from_raw(raw).apply_defaults()
+
+
+# the JAX package's keys that the port does not implement: a VENEUR_*
+# variable naming one raises, as the key does in a file
+_JAX_ONLY_KEYS = frozenset({
+    "block_profile_rate", "cardinality_degraded_keep",
+    "cardinality_hard_limit", "cardinality_hll_min_mints",
+    "cardinality_hll_names", "cardinality_soft_limit", "cardinality_top_k",
+    "chaos_reshard_append_fault_nth", "chaos_reshard_cutover_delay_s",
+    "chaos_reshard_prewarm_delay_s", "device_observatory",
+    "enable_profiling", "flush_async", "jax_compilation_cache_dir",
+    "latency_observatory", "mutex_profile_fraction",
+    "overload_device_hard_bytes", "overload_device_soft_bytes",
+    "prewarm_ladder", "profile_server_port", "reshard_deadline",
+    "reshard_spool_dir", "sentry_dsn"})
+_JAX_ONLY_TPU_KEYS = frozenset({"pallas_tdigest_flush", "shard_routing",
+                                "shards"})
+
+
+def _env_value(raw: str, current: Any, key: str) -> Any:
+    """An environment string coerced by the type of the key's current
+    value (the JAX package's rule)."""
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int):
+        return int(raw)
+    if key in _DURATION_FIELDS:
+        return parse_duration(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, StringSecret):
+        return StringSecret(raw)
+    if isinstance(current, list):
+        vals = [v for v in raw.split(",") if v]
+        if key == "percentiles":
+            return [float(v) for v in vals]
+        return vals
+    if isinstance(current, str):
+        return raw
+    raise ValueError(f"config key {key!r} cannot be set from the "
+                     f"environment")
+
+
+_LIST_OF_BLOCKS = frozenset({"metric_sinks", "span_sinks", "sources",
+                             "metric_sink_routing"})
+
+
+def _overlay_env(cfg: Config, env) -> Config:
+    """VENEUR_<KEY> over the top-level keys and VENEUR_TPU_<FIELD> over
+    `tpu:`; a JAX key the port lacks raises by name."""
+    for env_key, raw in env.items():
+        if not env_key.startswith("VENEUR_"):
+            continue
+        key = env_key[len("VENEUR_"):].lower()
+        if key.startswith("tpu_"):
+            field_name = key[len("tpu_"):]
+            if field_name in _JAX_ONLY_TPU_KEYS:
+                raise ValueError(
+                    f"config key 'tpu.{field_name}' ({env_key}) is not "
+                    f"supported by veneur_tpu_torch")
+            if field_name in _known(TpuConfig):
+                setattr(cfg.tpu, field_name, _env_value(
+                    str(raw), getattr(cfg.tpu, field_name), field_name))
+                continue
+        if key in _JAX_ONLY_KEYS:
+            raise ValueError(f"config key {key!r} ({env_key}) is not "
+                             f"supported by veneur_tpu_torch")
+        if key not in _known(Config):
+            continue
+        if key in _LIST_OF_BLOCKS:
+            raise ValueError(f"config key {key!r} cannot be set from the "
+                             f"environment")
+        setattr(cfg, key, _env_value(str(raw), getattr(cfg, key), key))
+    return cfg
 
 
 def read_config(path: Optional[str] = None,
-                overrides: Optional[dict] = None) -> Config:
-    """Load a YAML config file (plus `overrides`); see config_from_dict."""
+                overrides: Optional[dict] = None,
+                env: Optional[Dict[str, str]] = None) -> Config:
+    """Load a YAML config file (plus `overrides`), overlay the VENEUR_*
+    variables of `env` (os.environ when None), then apply the defaults;
+    see config_from_dict and the module note."""
     raw: Dict[str, Any] = {}
     if path:
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
     if overrides:
         raw.update(overrides)
-    return config_from_dict(raw)
+    cfg = _config_from_raw(raw)
+    return _overlay_env(cfg, os.environ if env is None else env
+                        ).apply_defaults()

@@ -80,6 +80,17 @@ class ColumnarDecoder:
                  rate: float) -> None:
         self.table[meta_key] = (family, int(row), float(rate))
 
+    def unregister_rows(self, dead: set) -> None:
+        """Drop every mapping that points at a ``(family, row)`` of
+        `dead`, the decoder's half of idle-row reclamation (the contract
+        of the native table's one-sweep unregister). ``list(items())``
+        takes its snapshot under the interpreter lock: reader threads
+        register concurrently, and iterating the live dict would raise."""
+        table = self.table
+        for key, ent in list(table.items()):
+            if (ent[0], ent[1]) in dead:
+                table.pop(key, None)
+
     def size(self) -> int:
         return len(self.table)
 

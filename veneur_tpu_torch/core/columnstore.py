@@ -129,14 +129,18 @@ class _BaseTable:
     ledger = None
 
     def __init__(self, device: torch.device, capacity: int = 1024,
-                 batch_cap: int = 8192):
+                 batch_cap: int = 8192, max_rows: int = 0):
         self.device = device
         self.capacity = capacity
         self.batch_cap = batch_cap
+        # hard row cap (0 = unlimited): a new key past it is dropped
+        self.max_rows = max_rows
         self.rows: Dict[int, int] = {}  # (digest64 << 2 | scope) -> row
+        # row -> its key's identity; None for a free (recycled) row
         self.meta: List[RowMeta] = []
-        # metric name -> its rows in ascending order, appended at intern
-        # (rows are never removed): the query plane's lookup
+        # metric name -> its rows, appended at intern: the query plane's
+        # lookup. Reclamation replaces (never edits) the lists of the
+        # names whose rows it recycled, so a reader iterating one is safe.
         self.name_rows: Dict[str, List[int]] = {}
         self.touched = np.zeros(capacity, bool)
         self.lock = threading.Lock()
@@ -152,6 +156,22 @@ class _BaseTable:
         # in between invalidates it). Guarded by apply_lock.
         self._spare = None
         self._spare_cap = -1
+        # idle-row reclamation (reclaim_idle): the flush generation, per
+        # row the generation it was last touched in and the one it was
+        # tombstoned in (-1: live), whether it holds a key, the rows-dict
+        # key it was interned under, and the free rows a new key takes
+        self._generation = 0
+        self._last_touched = np.zeros(capacity, np.int64)
+        self._tombstone_gen = np.full(capacity, -1, np.int64)
+        self._has_meta = np.zeros(capacity, bool)
+        self._dict_key_of: List[int] = []
+        self._free_rows: List[int] = []
+        # monotonic, under ``lock``: keys refused by the row cap, rows
+        # minted (fresh or recycled), tombstoned and recycled
+        self.keys_dropped = 0
+        self.minted_total = 0
+        self.tombstoned_total = 0
+        self.recycled_total = 0
         self._init_arrays()
 
     # subclasses define _init_arrays / _grow_arrays / _apply_cols_state /
@@ -215,7 +235,9 @@ class _BaseTable:
         no device work. Extra kwargs ride into the snap (ps)."""
         snap = dict(kw)
         with self.lock:
-            if self._idle_swap_locked(snap):
+            idle = self._idle_swap_locked(snap)
+            self._note_generation_locked()
+            if idle:
                 return snap
             snap["cols"] = self._swap_locked()
             with self.apply_lock:
@@ -378,22 +400,114 @@ class _BaseTable:
         return snap
 
     def row_for(self, metric: UDPMetric) -> int:
+        """The key's row, interned on first sight (caller holds
+        ``lock``): a recycled free row when there is one, else a fresh
+        row. -1 when the row cap refuses a new key; the refusal is
+        counted (keys_dropped, the ledger's agg.rejected)."""
         # scope is part of row identity: the reference keeps separate maps
         # per scope variant (worker.go:59-102)
         dict_key = (metric.digest64 << 2) | int(metric.scope)
         row = self.rows.get(dict_key)
         if row is None:
-            row = len(self.meta)
-            if row >= self.capacity:
-                self._grow()
-            self.meta.append(RowMeta(
+            meta = RowMeta(
                 name=metric.key.name, tags=list(metric.tags),
                 joined_tags=metric.key.joined_tags, digest32=metric.digest,
-                scope=metric.scope, wire_type=metric.key.type))
+                scope=metric.scope, wire_type=metric.key.type)
+            if self._free_rows:
+                row = self._free_rows.pop()
+                self.meta[row] = meta
+                self._dict_key_of[row] = dict_key
+                # the previous key's cached flush names and tags go
+                # before the new key's first flush renders
+                self._tags_cache[row] = None
+                for arr in self._flush_name_cache.values():
+                    if row < arr.shape[0]:
+                        arr[row] = None
+            elif self.max_rows and len(self.rows) >= self.max_rows:
+                self.keys_dropped += 1
+                if self.ledger is not None:
+                    self.ledger.note("agg.rejected", 1, key=self.family)
+                return -1
+            else:
+                row = len(self.meta)
+                if row >= self.capacity:
+                    self._grow()
+                self.meta.append(meta)
+                self._dict_key_of.append(dict_key)
+            # creation counts as activity: a row interned late in its
+            # life must not read as idle since generation 0
+            self._last_touched[row] = self._generation
+            self._has_meta[row] = True
             self.scope_code[row] = int(metric.scope)
             self.rows[dict_key] = row
             self.name_rows.setdefault(metric.key.name, []).append(row)
+            self.minted_total += 1
         return row
+
+    def _note_generation_locked(self) -> None:
+        """Advance the flush generation and stamp the rows touched this
+        interval (caller holds ``lock``, before ``touched`` is cleared)."""
+        self._generation += 1
+        self._last_touched[self.touched] = self._generation
+
+    def reclaim_idle(self, idle_intervals: int) -> List[int]:
+        """Two-phase idle-row reclamation, run after each flush; returns
+        the rows tombstoned by this call.
+
+        Phase 1 (tombstone): a row idle for >= idle_intervals flushes
+        loses its rows-dict entry now; the caller erases its intern
+        mappings (native table or numpy decoder), so no NEW sample can
+        reach it, and a returning key interns afresh.
+
+        Phase 2 (recycle): a row tombstoned at least one flush ago and
+        untouched since goes to the free list. The dependency: a row
+        touched in snapshot N must not be recycled before flush N+1,
+        because flush N's assembly still reads its meta and cached names
+        (core/flusher.py), and a chunk parsed against the old intern
+        mapping may still be in flight. A tombstoned row touched in the
+        gap (such a straggler, emitted normally) re-arms its tombstone
+        and waits one more flush; a row touched between swap_out and
+        this call (its value sits in the new pending buffer) counts as
+        touched here, so its value is never credited to another key."""
+        if idle_intervals <= 0:
+            return []
+        with self.lock:
+            gen = self._generation
+            n = len(self.meta)
+            if n == 0:
+                return []
+            last = self._last_touched[:n]
+            tomb = self._tombstone_gen[:n]
+            # phase 2
+            rearm = (tomb >= 0) & ((last > tomb) | self.touched[:n])
+            tomb[rearm] = gen
+            recycle = np.flatnonzero((tomb >= 0) & (gen > tomb)
+                                     & (last <= tomb))
+            freed_names = set()
+            for row in recycle.tolist():
+                tomb[row] = -1
+                freed_names.add(self.meta[row].name)
+                self.meta[row] = None
+                self._has_meta[row] = False
+                self._free_rows.append(row)
+            self.recycled_total += int(recycle.size)
+            for name in freed_names:
+                kept = [r for r in self.name_rows.get(name, ())
+                        if self.meta[r] is not None
+                        and self.meta[r].name == name]
+                if kept:
+                    self.name_rows[name] = kept
+                else:
+                    self.name_rows.pop(name, None)
+            # phase 1
+            evicted = np.flatnonzero(
+                (tomb < 0) & (gen - last >= idle_intervals)
+                & self._has_meta[:n]).tolist()
+            for row in evicted:
+                self.rows.pop(self._dict_key_of[row], None)
+                tomb[row] = gen
+            self.tombstoned_total += len(evicted)
+        return evicted
 
     def flush_names(self, key, rows: np.ndarray, meta_list,
                     render) -> np.ndarray:
@@ -432,6 +546,11 @@ class _BaseTable:
         new_cap = self.capacity * 2
         pad = new_cap - self.capacity
         self.touched = np.concatenate([self.touched, np.zeros(pad, bool)])
+        self._last_touched = np.concatenate(
+            [self._last_touched, np.zeros(pad, np.int64)])
+        self._tombstone_gen = np.concatenate(
+            [self._tombstone_gen, np.full(pad, -1, np.int64)])
+        self._has_meta = np.concatenate([self._has_meta, np.zeros(pad, bool)])
         self.scope_code = np.concatenate(
             [self.scope_code, np.full(pad, -1, np.int8)])
         self._tags_cache = np.concatenate(
@@ -484,13 +603,18 @@ class _BaseTable:
         if led is not None and n:
             led.note("agg.applied", n, key=self.family)
 
-    def _intern_stubs_locked(self, stubs) -> np.ndarray:
+    def _intern_stubs_locked(self, stubs):
         """Intern the import path's metric stubs and mark them touched
-        (caller holds ``lock``): int32 rows, one per stub."""
+        (caller holds ``lock``): (int32 rows of the interned stubs, the
+        mask of the stubs interned). A stub the row cap refuses drops out
+        of both, counted by row_for, and its applied stamp with it."""
         rows = np.fromiter((self.row_for(s) for s in stubs), np.int32,
                            len(stubs))
+        ok = rows >= 0
+        rows = rows[ok]
         self.touched[rows] = True
-        return rows
+        self._note_applied(int(rows.size))
+        return rows, ok
 
     def _add_row_locked(self, row: int, *values) -> None:
         """Buffer one sample for an interned row (caller holds lock)."""
@@ -519,12 +643,13 @@ class CounterTable(_BaseTable):
     def _grow_arrays(self, new_cap):
         self.state = {k: _pad_cap(v, new_cap) for k, v in self.state.items()}
 
-    def add(self, metric: UDPMetric):
+    def add(self, metric: UDPMetric) -> bool:
         with self.lock:
             row = self.row_for(metric)
             if row >= 0:
                 self._add_row_locked(row, metric.value,
                                      max(metric.sample_rate, 1e-9))
+        return row >= 0
 
     def _apply_cols_state(self, state, cols):
         rows, vals, rates = (_to_device(c, self.device) for c in cols)
@@ -534,13 +659,13 @@ class CounterTable(_BaseTable):
         """Import-path merge: intern, touch and accumulate in one ``lock``
         hold, so a flush never sees a touched row without its value."""
         with self.lock:
-            rows = self._intern_stubs_locked(stubs)
-            self._note_applied(len(stubs))
+            rows, ok = self._intern_stubs_locked(stubs)
             if self._import_acc.shape[0] < self.capacity:
                 grown = np.zeros(self.capacity, np.float64)
                 grown[: self._import_acc.shape[0]] = self._import_acc
                 self._import_acc = grown
-            np.add.at(self._import_acc, rows, np.asarray(values, np.float64))
+            np.add.at(self._import_acc, rows,
+                      np.asarray(values, np.float64)[ok])
 
     def _swap_extras_locked(self, snap: dict) -> None:
         snap["import_acc"] = self._import_acc
@@ -587,11 +712,12 @@ class GaugeTable(_BaseTable):
     def _grow_arrays(self, new_cap):
         self.state = {k: _pad_cap(v, new_cap) for k, v in self.state.items()}
 
-    def add(self, metric: UDPMetric):
+    def add(self, metric: UDPMetric) -> bool:
         with self.lock:
             row = self.row_for(metric)
             if row >= 0:
                 self._add_row_locked(row, metric.value)
+        return row >= 0
 
     def _apply_cols_state(self, state, cols):
         rows, vals = (_to_device(c, self.device) for c in cols)
@@ -602,13 +728,12 @@ class GaugeTable(_BaseTable):
         ``lock``; the state update takes ``apply_lock`` before ``lock`` is
         released, so it orders after any batch already swapped out."""
         with self.lock:
-            rows = self._intern_stubs_locked(stubs)
-            self._note_applied(len(stubs))
+            rows, ok = self._intern_stubs_locked(stubs)
             self.apply_lock.acquire()
         try:
             scalars.merge_gauges(
                 self.state, _to_device(rows, self.device),
-                _to_device(np.asarray(values, np.float32), self.device))
+                _to_device(np.asarray(values, np.float32)[ok], self.device))
         finally:
             self.apply_lock.release()
 
@@ -655,12 +780,13 @@ class HistoTable(_BaseTable):
         extended[: self._staged_counts.shape[0]] = self._staged_counts
         self._staged_counts = extended
 
-    def add(self, metric: UDPMetric):
+    def add(self, metric: UDPMetric) -> bool:
         with self.lock:
             row = self.row_for(metric)
             if row >= 0:
                 self._add_row_locked(row, metric.value,
                                      1.0 / max(metric.sample_rate, 1e-9))
+        return row >= 0
 
     def _apply_cols(self, cols):
         self._apply_cols_state(self.state, cols, self._staged_counts)
@@ -687,17 +813,13 @@ class HistoTable(_BaseTable):
         the state update under ``apply_lock`` taken before ``lock`` is
         released."""
         with self.lock:
-            rows = self._intern_stubs_locked(stubs)
-            self._note_applied(len(stubs))
+            rows, ok = self._intern_stubs_locked(stubs)
             self.apply_lock.acquire()
         try:
+            cols = [rows] + [np.asarray(c, np.float32)[ok] for c in (
+                in_means, in_weights, in_min, in_max, in_recip)]
             batch_tdigest.merge_centroid_rows(
-                self.state, *(_to_device(np.asarray(c, dtype), self.device)
-                              for c, dtype in (
-                                  (rows, np.int32), (in_means, np.float32),
-                                  (in_weights, np.float32),
-                                  (in_min, np.float32), (in_max, np.float32),
-                                  (in_recip, np.float32))))
+                self.state, *(_to_device(c, self.device) for c in cols))
             # the merge folds the staging of every row with staged weight,
             # so the whole occupancy map resets
             self._staged_counts[:] = 0
@@ -793,11 +915,11 @@ class SetTable(_BaseTable):
 
     def __init__(self, device: torch.device, capacity: int = 256,
                  batch_cap: int = 8192, promote_samples: int = 0,
-                 max_dev_slots: int = 0):
+                 max_dev_slots: int = 0, max_rows: int = 0):
         self._promote_samples = promote_samples
         if max_dev_slots > 0:
             self.MAX_DEV_SLOTS = max_dev_slots
-        super().__init__(device, capacity, batch_cap)
+        super().__init__(device, capacity, batch_cap, max_rows)
 
     @property
     def PROMOTE_SAMPLES(self) -> int:
@@ -854,14 +976,14 @@ class SetTable(_BaseTable):
         self._slot_row.append(row)
         self._nslots += 1
 
-    def add(self, metric: UDPMetric):
+    def add(self, metric: UDPMetric) -> bool:
         member = metric.value if isinstance(metric.value, bytes) else str(
             metric.value).encode()
         idx, rho = hll_ref.pos_val(hll_ref.hash_member(member))
         with self.lock:
             row = self.row_for(metric)
             if row < 0:
-                return
+                return False
             self.touched[row] = True
             self._counts[row] += 1
             slot = self._slot_of[row]
@@ -873,7 +995,7 @@ class SetTable(_BaseTable):
                 self._coo_scalar[0].append(row)
                 self._coo_scalar[1].append(idx)
                 self._coo_scalar[2].append(rho)
-                return
+                return True
             n = self._n
             self._prow[n] = slot
             self._pidx[n] = idx
@@ -881,6 +1003,7 @@ class SetTable(_BaseTable):
             self._n = n + 1
             if self._n >= self.batch_cap:
                 self._dispatch_pending_locked()
+        return True
 
     def add_batch(self, rows, reg_idx, rho) -> None:
         """Members already hashed to (idx, rho) for interned rows: each
@@ -931,9 +1054,8 @@ class SetTable(_BaseTable):
         into the host COO tier instead (nonzero registers become (idx,
         rho) pairs)."""
         with self.lock:
-            rows = self._intern_stubs_locked(stubs)
-            self._note_applied(len(stubs))
-            regs = np.asarray(in_regs, np.int8)
+            rows, ok = self._intern_stubs_locked(stubs)
+            regs = np.asarray(in_regs, np.int8)[ok]
             for r in rows.tolist():
                 if self._slot_of[r] < 0:
                     self._promote_locked(r)
@@ -1107,7 +1229,7 @@ class LLHistTable(_BaseTable):
     def _grow_arrays(self, new_cap):
         self.state = _pad_cap(self.state, new_cap)
 
-    def add(self, metric: UDPMetric):
+    def add(self, metric: UDPMetric) -> bool:
         value = float(metric.value)
         bin_idx = int(llhist_ref.bin_index(value))
         # clamp into int32: registers are int32, and an absurd-but-valid
@@ -1118,11 +1240,12 @@ class LLHistTable(_BaseTable):
         with self.lock:
             row = self.row_for(metric)
             if row < 0:
-                return
+                return False
             self.samples_total += weight
             if llhist_ref.clamped_mask(value):
                 self.clamped_total += weight
             self._add_row_locked(row, bin_idx, weight)
+        return True
 
     def add_batch(self, rows, vals, weights) -> None:
         """Pre-interned rows, raw values (binned here) and 1/sample_rate
@@ -1224,9 +1347,8 @@ class LLHistTable(_BaseTable):
         ``lock``; the state update takes ``apply_lock`` before ``lock`` is
         released."""
         with self.lock:
-            rows = self._intern_stubs_locked(stubs)
-            self._note_applied(len(stubs))
-            padded = batch_llhist.pad_rows_to_device(in_bins)
+            rows, ok = self._intern_stubs_locked(stubs)
+            padded = batch_llhist.pad_rows_to_device(np.asarray(in_bins)[ok])
             self.samples_total += int(padded.sum(dtype=np.int64))
             self.apply_lock.acquire()
         try:
@@ -1302,23 +1424,25 @@ class StatusTable(_BaseTable):
     def _grow_arrays(self, new_cap):
         pass
 
-    def add(self, metric: UDPMetric):
+    def add(self, metric: UDPMetric) -> bool:
         with self.lock:
             row = self.row_for(metric)
             if row < 0:
-                return
+                return False
             while len(self.values) <= row:
                 self.values.append(StatusEntry())
             self.touched[row] = True
             self.values[row] = StatusEntry(
                 value=float(metric.value), message=metric.message,
                 hostname=metric.hostname)
+        return True
 
     def apply_pending(self):
         pass
 
     def snapshot_and_reset(self):
         with self.lock:
+            self._note_generation_locked()
             vals = list(self.values)
             touched = self.touched.copy()
             meta = list(self.meta)
@@ -1341,20 +1465,23 @@ class ColumnStore:
                  histo_capacity=1024, set_capacity=256, batch_cap=8192,
                  set_promote_samples=0, set_max_dev_slots=0,
                  llhist_capacity=1024, histogram_encoding="tdigest",
-                 device=None):
+                 max_rows=0, device=None):
         if histogram_encoding not in ("tdigest", "circllhist"):
             raise ValueError(
                 f"unknown histogram_encoding: {histogram_encoding!r}")
         self.histogram_encoding = histogram_encoding
         self.device = dev = pick_device(device)
-        self.counters = CounterTable(dev, counter_capacity, batch_cap)
-        self.gauges = GaugeTable(dev, gauge_capacity, batch_cap)
-        self.histos = HistoTable(dev, histo_capacity, batch_cap)
-        self.llhists = LLHistTable(dev, llhist_capacity, batch_cap)
+        self.counters = CounterTable(dev, counter_capacity, batch_cap,
+                                     max_rows)
+        self.gauges = GaugeTable(dev, gauge_capacity, batch_cap, max_rows)
+        self.histos = HistoTable(dev, histo_capacity, batch_cap, max_rows)
+        self.llhists = LLHistTable(dev, llhist_capacity, batch_cap, max_rows)
         self.sets = SetTable(dev, set_capacity, batch_cap,
                              promote_samples=set_promote_samples,
-                             max_dev_slots=set_max_dev_slots)
-        self.statuses = StatusTable(dev, batch_cap=batch_cap)
+                             max_dev_slots=set_max_dev_slots,
+                             max_rows=max_rows)
+        self.statuses = StatusTable(dev, batch_cap=batch_cap,
+                                    max_rows=max_rows)
         for family, table in self.tables():
             table.family = family
         # samples routed to a table, and samples of a wire type no
@@ -1406,18 +1533,29 @@ class ColumnStore:
             if self.ledger is not None:
                 self.ledger.note("agg.rejected", 1, key="unknown")
             return
-        table.add(metric)
-        table._note_applied(1)
+        # a key the row cap refuses is counted agg.rejected by row_for
+        if table.add(metric):
+            table._note_applied(1)
         self.count_processed(1)
 
     def apply_all_pending(self):
         for _family, table in self.tables():
             table.apply_pending()
 
+    def unique_timeseries(self) -> int:
+        """The series touched this interval, exact: the tables' touched
+        masks (the reference estimates it with an HLL per worker)."""
+        total = 0
+        for _family, table in self.tables():
+            with table.lock:
+                total += int(np.count_nonzero(table.touched))
+        return total
+
     def telemetry_rows(self) -> List[tuple]:
         """(name, kind, value, tags) scrape-time rows under the JAX
         package's names, for what the port's tables track: per-family
-        row capacity and live rows, the batch buffers, the set table's
+        row capacity, live and free rows, the keys minted, tombstoned,
+        recycled and dropped by the row cap, the batch buffers, the set table's
         promoted slots and the llhist family's sample accounting. Reads
         are lock-free point reads (a torn gauge is one scrape stale)."""
         rows: List[tuple] = []
@@ -1427,6 +1565,15 @@ class ColumnStore:
                          float(t.capacity), tags))
             rows.append(("columnstore.live_rows", "gauge",
                          float(len(t.rows)), tags))
+            rows.append(("columnstore.free_rows", "gauge",
+                         float(len(t._free_rows)), tags))
+            for name, value in (
+                    ("keys_minted_total", t.minted_total),
+                    ("keys_tombstoned_total", t.tombstoned_total),
+                    ("keys_recycled_total", t.recycled_total),
+                    ("keys_dropped_total", t.keys_dropped)):
+                rows.append((f"columnstore.{name}", "counter",
+                             float(value), tags))
             pending = getattr(t, "_n", None)
             if pending is not None:  # statuses have no batch buffers
                 rows.append(("columnstore.batch_cap", "gauge",

@@ -308,7 +308,7 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
 
     # ---- counters & gauges ---------------------------------------------
     def scalar_family(table, vals, touched, meta_list, mtype, fwd_list):
-        rows = np.flatnonzero(touched)
+        rows = _valid_rows(touched, meta_list)
         vals_sel = np.asarray(vals, np.float64)[rows]
         if is_local and rows.size:
             fwd_mask = table.scope_code[rows] == global_code
@@ -329,7 +329,7 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
                   fwd.gauges)
 
     # ---- histograms & timers -------------------------------------------
-    hr = np.flatnonzero(h_touched)
+    hr = _valid_rows(h_touched, h_meta)
     if hr.size:
         htab = store.histos
         scope = htab.scope_code[hr]
@@ -403,7 +403,7 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
                 for j, row in enumerate(fr.tolist()))
 
     # ---- sets -----------------------------------------------------------
-    sr = np.flatnonzero(s_touched)
+    sr = _valid_rows(s_touched, s_meta)
     if sr.size:
         stab = store.sets
         er = sr
@@ -427,6 +427,12 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
     bucket_sections: List[BucketSection] = []
     llr = np.flatnonzero(ll_touched)
     quants = np.asarray(ll_out.get("quantiles", ()), np.float64)
+    if llr.size:
+        # the readout and bins are compact over llr: drop stragglers
+        # from all three together
+        keep = _live_mask(llr, ll_meta)
+        if not keep.all():
+            llr, ll_bins, quants = llr[keep], ll_bins[keep], quants[keep]
     if is_local and llr.size:
         # bins and readout are compact over llr: split both by scope
         fwd_mask = store.llhists.scope_code[llr] != local_code
@@ -470,6 +476,8 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
     extras: List[InterMetric] = []
     for row in np.flatnonzero(st_touched).tolist():
         meta = st_meta[row]
+        if meta is None:  # recycled mid-interval (a reclaim straggler)
+            continue
         entry = st_vals[row]
         extras.append(InterMetric(
             name=meta.name, timestamp=now, value=entry.value,
@@ -486,6 +494,21 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
         timings["assembly_s"] = time.perf_counter() - t_sync
         timings["families"] = families
     return FlushBatch(now, sections, extras, bucket_sections), fwd
+
+
+def _live_mask(rows: np.ndarray, meta_list) -> np.ndarray:
+    """Which of the touched `rows` hold a key in the snapshot's meta. A
+    touched row whose meta is None was recycled between the swap and
+    its tombstone's straggler (core/columnstore.py reclaim_idle): it has
+    no key to be emitted under, so it is skipped."""
+    return np.fromiter((meta_list[r] is not None for r in rows.tolist()),
+                       bool, rows.size)
+
+
+def _valid_rows(touched: np.ndarray, meta_list) -> np.ndarray:
+    """The touched rows whose snapshot meta holds a key (_live_mask)."""
+    rows = np.flatnonzero(touched)
+    return rows[_live_mask(rows, meta_list)] if rows.size else rows
 
 
 def flush_columnstore_batch(store: ColumnStore, is_local: bool,

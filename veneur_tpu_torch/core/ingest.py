@@ -162,8 +162,13 @@ class _ColumnarIngesterBase:
 
             def capture(metric):
                 if metric.key.type == m.GAUGE:
+                    # admitted before the intern: a row-cap rejection
+                    # stamps agg.rejected inside row_for
                     ledger.note("ingest.admitted", 1, key="python")
-                    gauge_rows.append(store.gauges.intern(metric))
+                    row = store.gauges.intern(metric)
+                    if row < 0:  # the row cap: dropped, already counted
+                        return
+                    gauge_rows.append(row)
                     gauge_vals.append(metric.value)
                     gauge_lines.append(line_no)
                 else:
@@ -301,6 +306,15 @@ class PyBatchIngester(_ColumnarIngesterBase):
     def _register_entry(self, meta_key: bytes, family: int, row: int,
                         rate: float) -> None:
         self.decoder.register(meta_key, family, row, rate)
+
+    def unregister_rows_multi(self, pairs) -> None:
+        """Idle-row reclamation's intern sweep (the contract of
+        native.Engine.unregister_rows_multi)."""
+        self.decoder.unregister_rows({(int(f), int(r)) for f, r in pairs})
+
+    def size(self) -> int:
+        """Intern-table size (the native.Engine duck type)."""
+        return self.decoder.size()
 
 
 class BatchIngester(_ColumnarIngesterBase):
@@ -461,6 +475,15 @@ class BatchIngester(_ColumnarIngesterBase):
     def _register_entry(self, meta_key: bytes, family: int, row: int,
                         rate: float) -> None:
         self._engine.register(meta_key, family, row, rate)
+
+    def unregister_rows_multi(self, pairs) -> None:
+        """Idle-row reclamation's intern sweep: one pass over the native
+        table for every family's tombstoned rows."""
+        self._engine.unregister_rows_multi(pairs)
+
+    def size(self) -> int:
+        """Intern-table size: DogStatsD and SSF keys."""
+        return self._engine.size()
 
     # ---- C++-resident pump ------------------------------------------------
 

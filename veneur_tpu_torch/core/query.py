@@ -128,12 +128,15 @@ def _named_rows(fam: dict, name: str, tags: Tuple[str, ...]) -> List[int]:
     requested tag (subset match, the standard dashboard filter), found
     through the table's name index instead of a scan of every row (an
     alert tick evaluates 64 specs over tables of tens of thousands of
-    rows)."""
+    rows). The index is live, so a row is matched against the
+    capture's own meta: a row recycled since (another key's now, or
+    free) is skipped, and the rows come back in ascending order."""
     meta, touched = fam["meta"], fam["touched"]
     want = set(tags)
-    return [row for row in fam["name_rows"].get(name, ())
-            if row < len(meta) and touched[row]
-            and (not want or want.issubset(meta[row].tags or ()))]
+    return sorted({row for row in fam["name_rows"].get(name, ())
+                   if row < len(meta) and touched[row]
+                   and meta[row] is not None and meta[row].name == name
+                   and (not want or want.issubset(meta[row].tags or ()))})
 
 
 class LiveQueryPlane:

@@ -70,6 +70,22 @@ forward carries the interval's lineage and exemplars (`x-veneur-trace`,
 import that adopted it. `|l` samples on the slow path are exemplar
 candidates; events and ledger intervals carry the active trace id.
 
+Pull sources (sources/): `sources:` builds each by kind from the
+registry (an unknown kind raises): OTLP/HTTP listeners and OpenMetrics
+scrapes, each on a thread of its own, started after the import server
+and stopped and joined first on shutdown, before the listeners close and
+the last flush, so nothing a source took arrives after it. They ingest
+through `ingest_metric`, the slow path.
+
+The table lifecycle (core/columnstore.py): after each flush an idle row
+(no sample for `tpu.idle_key_intervals` flushes) is tombstoned: its key
+leaves the tables' dictionaries and, in one sweep per flush over every
+family, the intern table (native or numpy); its row is recycled one
+flush later for a new key. `tpu.max_rows_per_family` caps each family's
+rows: a new key past it is dropped and counted. With
+`count_unique_timeseries` each flush counts the series of its interval
+exactly (`flush.unique_timeseries_total`).
+
 The span plane (reference server.go:654-736, worker.go:547-686): SSF
 arrives over UDP (one span per datagram; with the native library the
 reader decodes the spans and extracts their metrics in C++), over UNIX
@@ -107,8 +123,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from veneur_tpu_torch import protocol
+from veneur_tpu_torch import native, protocol
 from veneur_tpu_torch import sinks as sinks_mod
+from veneur_tpu_torch import sources as sources_mod
 from veneur_tpu_torch.config import Config, SinkConfig, read_config
 from veneur_tpu_torch.core import telemetry as telemetry_mod
 from veneur_tpu_torch.core.alerts import AlertEngine
@@ -154,6 +171,16 @@ _SHED_CLASS = {
     m.TIMER: overload_mod.CLASS_HISTOGRAM,
     m.LLHIST: overload_mod.CLASS_HISTOGRAM,
     m.SET: overload_mod.CLASS_SET,
+}
+
+# column-store family -> the intern table's family code (statuses are
+# never registered there)
+_NATIVE_FAMILY = {
+    "counter": native.FAM_COUNTER,
+    "gauge": native.FAM_GAUGE,
+    "histogram": native.FAM_HISTO,
+    "llhist": native.FAM_LLHIST,
+    "set": native.FAM_SET,
 }
 
 
@@ -272,6 +299,7 @@ class Server:
             set_max_dev_slots=tpu.set_max_dev_slots,
             llhist_capacity=tpu.llhist_capacity,
             histogram_encoding=config.histogram_encoding,
+            max_rows=tpu.max_rows_per_family,
             device=self.device)
         self._build_ledger()
         self.aggregates = HistogramAggregates.from_names(config.aggregates)
@@ -292,6 +320,17 @@ class Server:
             if factory is None:
                 raise ValueError(f"unknown span sink kind: {sc.kind}")
             self.span_sinks.append(factory(sc, config))
+        # pull sources, started by start() on a thread each
+        sources_mod.register_builtin_sources()
+        self.sources: List = []
+        for src_cfg in config.sources:
+            factory = sources_mod.SourceTypes.get(src_cfg.kind)
+            if factory is None:
+                raise ValueError(f"unknown source kind: {src_cfg.kind}")
+            self.sources.append(factory(src_cfg, config))
+        self._source_threads: List[threading.Thread] = []
+        # keys the row cap refused, as of the last intern.keys_dropped_total
+        self._keys_dropped_reported = 0
         self._sink_filters: Dict[str, SinkConfig] = {
             sc.name or sc.kind: sc for sc in config.metric_sinks
             if (sc.strip_tags or sc.add_tags or sc.max_name_length
@@ -937,10 +976,11 @@ class Server:
         channel and per span sink, the extraction's totals, dispatch
         errors, the llhist family's sample and
         clamp totals, samples of unknown wire type, the pumps' reader
-        stalls and lines lost at shutdown, the forward tier's counts:
-        metrics forwarded and failed sends (a local server), metrics
-        imported and failed merges (a global one), and the sink plane's
-        (see _sink_plane_stats)."""
+        stalls and lines lost at shutdown, the table lifecycle's counts,
+        the pull sources' scrapes and failed scrapes, the forward tier's
+        counts: metrics forwarded and failed sends (a local server),
+        metrics imported and failed merges (a global one), and the sink
+        plane's (see _sink_plane_stats)."""
         with self._stats_lock:
             out = dict(self.stats)
         out.update(self._sink_plane_stats())
@@ -958,6 +998,18 @@ class Server:
         out["spans_extracted"] = ext.spans_processed
         out["span_metrics_generated"] = ext.metrics_generated
         out["stalls"] = sum(p.stalls() for p in pumps)
+        # the table lifecycle: keys refused by the row cap, rows
+        # tombstoned and recycled, the intern table's entries
+        tables = [t for _f, t in self.store.tables()]
+        out["keys_dropped"] = sum(t.keys_dropped for t in tables)
+        out["rows_tombstoned"] = sum(t.tombstoned_total for t in tables)
+        out["rows_recycled"] = sum(t.recycled_total for t in tables)
+        out["intern_table_size"] = self._ingester.size()
+        # pull sources: scrapes run and failed (OpenMetrics)
+        out["source_scrapes"] = sum(getattr(src, "scrapes", 0)
+                                    for src in self.sources)
+        out["source_scrape_failures"] = sum(
+            getattr(src, "scrape_failures", 0) for src in self.sources)
         out["lost_lines"] = sum(p.lost_lines() for p in pumps)
         fc, imp = self.forward_client, self.import_server
         out["forwarded_total"] = fc.stats["forwarded_total"] if fc else 0
@@ -1028,6 +1080,12 @@ class Server:
             self.ledger.probe("import.deduped",
                               lambda: imp.duplicates_dropped_total,
                               key="forward")
+        for source in self.sources:
+            thread = threading.Thread(target=source.start, args=(self,),
+                                      name=f"source-{source.name()}",
+                                      daemon=True)
+            thread.start()
+            self._source_threads.append(thread)
         for address in cfg.statsd_listen_addresses:
             self._listeners.append(start_statsd(
                 address, self, cfg.num_readers,
@@ -1208,6 +1266,14 @@ class Server:
             self.last_flush_unix = self._interval_start_unix = time.time()
             self.flush_count += 1
             flush_span, traced = self._open_flush_span()
+            if self.config.count_unique_timeseries:
+                # the series touched this interval, exact (reference
+                # flusher.go:43)
+                self.statsd.count(
+                    "flush.unique_timeseries_total",
+                    self.store.unique_timeseries(),
+                    tags=[f"global_veneur:"
+                          f"{str(not self.config.is_local).lower()}"])
             batch, fwd = flush_columnstore_batch(
                 self.store, self.config.is_local, self.percentiles,
                 self.aggregates, collect_forward=fc is not None,
@@ -1272,6 +1338,7 @@ class Server:
         self._record_flush(timings, len(batch),
                            trace_id_hex(flush_span.trace_id) if traced
                            else "")
+        self._reclaim_idle_rows()
         try:
             # the flow ledger's interval close: fold the probe deltas,
             # read the stocks, check every identity (strict: raise on
@@ -1282,6 +1349,33 @@ class Server:
             self.trace_plane.roll()
         self._raise_dispatch_error()
         self._raise_forward_error()
+
+    def _reclaim_idle_rows(self) -> None:
+        """Idle-row reclamation and the intern self-metrics, once per
+        flush (after the flush's assembly read its snapshot's meta): each
+        family tombstones its idle rows, then one combined sweep erases
+        their intern mappings, so the pump readers wait on the intern
+        lock once per flush; the rows are recycled one flush later
+        (ColumnStore tables' reclaim_idle)."""
+        idle = self.config.tpu.idle_key_intervals
+        tables = self.store.tables()
+        if idle > 0:
+            pairs = []
+            for family, table in tables:
+                evicted = table.reclaim_idle(idle)
+                fam = _NATIVE_FAMILY.get(family)
+                if evicted and fam is not None:
+                    pairs.extend((fam, row) for row in evicted)
+            if pairs:
+                self._ingester.unregister_rows_multi(pairs)
+        self.statsd.gauge("intern.rows_total",
+                          sum(len(t.rows) for _f, t in tables))
+        self.statsd.gauge("intern.native_table_size", self._ingester.size())
+        dropped = sum(t.keys_dropped for _f, t in tables)
+        if dropped > self._keys_dropped_reported:
+            self.statsd.count("intern.keys_dropped_total",
+                              dropped - self._keys_dropped_reported)
+            self._keys_dropped_reported = dropped
 
     def _open_flush_span(self):
         """The interval's `flush` span and whether its trace is sampled
@@ -1733,6 +1827,15 @@ class Server:
         # are not stalls
         self.overload.stop()
         self.alerts.stop()
+        # sources first: an in-flight scrape or request finishes its
+        # ingest before the listeners close and the last flush runs
+        for source in self.sources:
+            source.stop()
+        for source, thread in zip(self.sources, self._source_threads):
+            thread.join(timeout=source.join_timeout)
+            if thread.is_alive():
+                logger.error("source %s still running %.1f s after stop",
+                             source.name(), source.join_timeout)
         for listener in self._listeners + self._ssf_listeners:
             listener.close()
         for ingest in self.grpc_ingest_servers:

@@ -19,9 +19,9 @@ datagram and SSF UDP listeners (`NativeReader`) and the pump (`Pump`)
 on the ingest side; the MetricList import parser (`parse_metric_list`,
 `decode_import_key`) and the digest encoder and metric wrapper
 (`vnt_digest_encode`, `vnt_metric_wrap`, called by forward/convert.py)
-on the forward tier, and the proxy's route walk (`route_parse`). The
-row-unregister (idle-row reclamation) and load-generator entry points
-of the library wait for their slices.
+on the forward tier, the proxy's route walk (`route_parse`), and the
+row unregister of idle-row reclamation (`Engine.unregister_rows_multi`).
+The load-generator entry points of the library wait for their slices.
 """
 
 from __future__ import annotations
@@ -131,6 +131,8 @@ def _declare(lib) -> None:
     lib.vnt_register.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_double]
+    lib.vnt_unregister_rows2.restype = None
+    lib.vnt_unregister_rows2.argtypes = [ctypes.c_void_p, i32p, i32p, i64]
     lib.vnt_parse.restype = i64
     lib.vnt_parse.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, i64,
@@ -316,6 +318,17 @@ class Engine:
                  rate: float) -> None:
         self._lib.vnt_register(
             self.ptr, meta_key, len(meta_key), family, row, rate)
+
+    def unregister_rows_multi(self, pairs) -> None:
+        """Erase every (family, row) mapping of `pairs` in one sweep of
+        the table: the per-flush form of idle-row reclamation, so pump
+        readers wait on the intern lock once per flush, not per family."""
+        fams = np.asarray([f for f, _r in pairs], np.int32)
+        rows = np.asarray([r for _f, r in pairs], np.int32)
+        if fams.size:
+            self._lib.vnt_unregister_rows2(
+                self.ptr, _ptr(fams, ctypes.c_int32),
+                _ptr(rows, ctypes.c_int32), fams.size)
 
 
 class NativeParser:

@@ -6,7 +6,7 @@ card, then runs the port's server end to end on the card.
     python3 chip_smoke.py [--phases S,J]
 
 `--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
-to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S); with neither,
+to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O); with neither,
 every phase runs. The kernel checks always run, and the last line is
 the same either way.
 
@@ -106,7 +106,7 @@ the package is not beside it). Phases, each fatal on failure:
      process of its own, with static destinations, probes every 100 ms
      and `ledger_strict`, in front of two globals on fixed 127.0.0.1
      ports, fed by two locals; every server on cuda:0 with
-     `ledger_strict`. H1: phase D's width and corpus, two intervals; the
+     `ledger_strict`. H1: phase D's width and corpus, one interval; the
      proxy received and routed 2 x 75 000 metrics per interval and sent
      them all (its /metrics), each local's FlowCounts from the proxy
      are whole, every forwarded key flushed on exactly the global the
@@ -123,7 +123,7 @@ the package is not beside it). Phases, each fatal on failure:
      ledger interval of the four servers and the proxy balances.
  13. phase I, the SSF plane (BASELINE config 5): I1 carries phase A's
      key set as SSF samples, four per span and one span per UDP
-     datagram (220 000 spans an interval from 8 sender sockets, every
+     datagram (220 000 spans in one interval from 8 sender sockets, every
      fourth an indicator span over 50 services x 20 names, 16
      undecodable datagrams), through the native reader and the C++ SSF
      decoder; every counter, gauge, timer and set series is checked as
@@ -193,6 +193,35 @@ the package is not beside it). Phases, each fatal on failure:
      native intern table within the live rows. S4 `max_rows_per_family:
      2000` under 3 000 counter and 3 000 `|l` keys: 2 000 of each flush
      exactly, the others' samples counted dropped and `agg.rejected`.
+ 16. phase O, the overlapped flush and the observatories, on cuda:0:
+     O1 phase F's corpus (A's keys plus 5 000 `|l` keys x 32) on the
+     pump with `flush_async`, the latency observatory and a strict
+     ledger: tick 1 swaps interval 1 (the ledger's
+     `flush_inflight_snapshot` stock holds its 105 000 rows) and its
+     readout runs on the executor while interval 2's lines arrive; tick
+     2 delivers interval 1 and the deliver-only pass of shutdown()
+     (`flush_on_shutdown: false`) delivers interval 2, each checked as
+     phases A and B check theirs; `/debug/latency` gives the dogstatsd
+     sample age and each queue's dwell. O2 `cardinality_soft_limit:
+     2000`, `cardinality_hard_limit: 10000`, `cardinality_degraded_keep:
+     0.1`, `prewarm_ladder` and `llhist_capacity: 4096`: phase A's
+     counter and timer keys (one sample each) and 60 000 new `pod:`
+     values of `storm.lat` (`|l`) in each of two intervals, interval 2
+     re-sending interval 1's admitted pods: each interval admits 2 800
+     mints and sheds 7 200 `cardinality_degraded` and 50 000
+     `cardinality` exactly (the shed table, the ledger's `ingress.shed`
+     and `agg.rejected`), every series exact, the `pod` tag's HLL
+     estimate within 3 % of the values its mint attempts carried,
+     `storm.lat` first in `/debug/cardinality` and on the exemplar watch
+     list; interval 2 doubles the llhist table, and a second server
+     without the prewarmer doubles its own with 6 144 `|l` names of one
+     key each, so the first apply after the resize is printed with the
+     prewarm and without it.
+
+Two spawned worker processes build the selected phases' big corpora
+(A, B, D, F, G, H1, I1, J1, O1) ahead, in phase order, while the kernels
+build and the earlier phases run; a phase takes its corpora from them,
+or builds them itself when run alone.
 
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
@@ -206,6 +235,7 @@ last `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -636,6 +666,26 @@ PY_WINDOW = 1_500
 _QUEUED_BYTES_PER_LINE = 45
 
 
+# corpora main() started building in worker processes, by builder and
+# arguments, each a FIFO of futures (two phases may ask for the same one)
+_PREBUILT: dict = {}
+
+
+def _prebuildable(fn):
+    """A corpus builder whose result main() may have started building in
+    a worker process (_start_prebuild): a call takes the oldest such
+    result for its arguments, else builds here."""
+    @functools.wraps(fn)
+    def build(*args, **kwargs):
+        pending = None if kwargs else _PREBUILT.get((fn.__name__,
+                                                     repr(args)))
+        if pending:
+            return pending.pop(0).result()
+        return fn(*args, **kwargs)
+    return build
+
+
+@_prebuildable
 def _corpus(seed: int, keys: dict, ll_keys: int = 0):
     """One interval's phase A/C lines (shuffled), the expected counter
     and gauge series, the sorted timer samples, and the `|l` samples."""
@@ -689,6 +739,7 @@ def _llhist_lines(rng, lines: list, prefix: str, num_keys: int,
     return prefix, text.astype(np.float64), np.rint(1.0 / rates)
 
 
+@_prebuildable
 def _phase_b_corpus(seed: int):
     """Phase B: circllhist timers, explicit `|l` keys and counters."""
     keys = PHASE_B_KEYS
@@ -735,6 +786,7 @@ def _member_hashes(members) -> np.ndarray:
     return out
 
 
+@_prebuildable
 def _set_reference(seed: int, num_keys: int, members: int,
                    more_seeds=(), ids=None) -> np.ndarray:
     """The reference HLL's estimate per key over members u<seed>-<k>-<j>,
@@ -1167,6 +1219,7 @@ def _phase_d_corpus(seed: int, local: int, keys: dict = PHASE_A_KEYS,
     return lines, local_expect, global_expect, timers, ll_vals, ll_weights
 
 
+@_prebuildable
 def _phase_d_interval(seed: int, keys: dict = PHASE_A_KEYS,
                       ll_keys: int = PHASE_D_LL_KEYS):
     """Both locals' corpora of one interval and the global's references:
@@ -2609,6 +2662,7 @@ PHASE_H2_KEYS = {k: (v // 10 if k not in ("timer_samples", "set_members")
                      else v) for k, v in PHASE_A_KEYS.items()}
 PHASE_H2_LL_KEYS = PHASE_D_LL_KEYS // 10
 # B stops at interval 2 and returns at 4, the last
+PHASE_H1_SEEDS = (11,)          # one interval
 PHASE_H2_INTERVALS = 4
 PHASE_H2_FORWARDED = (PHASE_H2_KEYS["counter"] // 2
                       + PHASE_H2_KEYS["gauge"] // 2 + PHASE_H2_KEYS["timer"]
@@ -2874,13 +2928,13 @@ def _h_interval(locals_, gservers, proxy, parts, bases, windows,
 
 def _phase_h1(workdir: str) -> dict:
     """Two locals -> the proxy (a process of its own, started through its
-    CLI) -> two globals, at phase D's width, two intervals."""
+    CLI) -> two globals, at phase D's width, one interval."""
     from veneur_tpu_torch.proxy.ring import ConsistentRing
     ports = [_free_port(), _free_port()]
     addresses = [f"127.0.0.1:{p}" for p in ports]
     ring = ConsistentRing()
     ring.set_members(addresses)
-    intervals = [_phase_d_interval(seed) for seed in (11, 12)]
+    intervals = [_phase_d_interval(seed) for seed in PHASE_H1_SEEDS]
     gservers = _h_servers(ports)
     locals_, proxy = [], None
     report = {"intervals": []}
@@ -3087,6 +3141,7 @@ PHASE_I_KEYS = PHASE_A_KEYS
 PHASE_I_SERVICES = 50
 PHASE_I_NAMES = 20
 PHASE_I_BAD = 16                 # undecodable datagrams per interval
+PHASE_I1_SEEDS = (11,)           # one interval
 PHASE_I_SENDERS = 8
 PHASE_I2_SPANS = {"udp": 40_000, "unix": 10_000, "tcp": 2_000}
 PHASE_I2_STREAMS = 4             # unix:// connections of trace.StreamBackend
@@ -3146,6 +3201,7 @@ def _ssf_span(span_id: int, start: int, duration: int, service: bytes,
     return b"".join(out)
 
 
+@_prebuildable
 def _i1_corpus(seed: int) -> dict:
     """One interval of phase I1: phase A's key set carried as SSF samples,
     four per span and one span per datagram (a gauge key's two samples
@@ -3321,7 +3377,7 @@ def _check_i1(corpus, tagged, got) -> int:
 
 
 def _phase_i1() -> dict:
-    corpora = [_i1_corpus(seed) for seed in (11, 12)]
+    corpora = [_i1_corpus(seed) for seed in PHASE_I1_SEEDS]
     server = _i_server({"ssf_listen_addresses": ["udp://127.0.0.1:0"],
                         "statsd_listen_addresses": [],
                         "indicator_span_timer_name": "sli.t",
@@ -4273,7 +4329,9 @@ def _phase_j4() -> dict:
     port's proxy (its CLI, a process of its own), every tier at
     trace_self_sample_rate 1, two intervals: one trace per local and
     interval across /debug/traces of every tier, the self-spans at the
-    channel span sinks, the `|l` exemplars on the global's bucket lines."""
+    channel span sinks, the `|l` exemplars on the global's bucket lines
+    (and on the series of the names the locals' cardinality observatory
+    put on their exemplar watch lists)."""
     import shutil
     import tempfile
     from veneur_tpu_torch.sinks.channel import (ChannelMetricSink,
@@ -4313,6 +4371,9 @@ def _phase_j4() -> dict:
         bases = [0, 0]
         seen = _read_launches()
         all_tids: list = []
+        # OpenMetrics names of the locals' exemplar watch lists (the
+        # cardinality observatory's top names, refreshed every flush)
+        watched = set()
         for seed in (71, 72):
             parts, (g_expect, timers, ll_vals, ll_w, set_ref) = \
                 _phase_d_interval(seed, keys, PHASE_J4_LL_KEYS)
@@ -4326,6 +4387,8 @@ def _phase_j4() -> dict:
                 server.flush()
                 tids.append(server.telemetry.flushes.snapshot()[-1][
                     "trace_id"])
+                watched.update(n.replace(".", "_")
+                               for n in server.trace_plane._watch)
             all_tids.extend(tids)
             want = sum(s.stats_snapshot()["forwarded_total"]
                        for s in locals_)
@@ -4394,8 +4457,8 @@ def _phase_j4() -> dict:
             ex_lines = [ln for ln in om.splitlines() if "# {trace_id=" in ln]
             fams = {}
             for ln in ex_lines:
-                fam = ln.split("{", 1)[0]
-                if not fam.endswith("_bucket"):
+                fam = ln.split("{", 1)[0].split(" ", 1)[0]
+                if not fam.endswith("_bucket") and fam not in watched:
                     raise AssertionError(f"phase J4: exemplar on {ln[:80]}")
                 fams[fam] = fams.get(fam, 0) + 1
                 if not any(f'trace_id="{t}"' in ln for t in all_tids):
@@ -5297,7 +5360,467 @@ def _phase_s() -> dict:
     return rep
 
 
-PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S")
+# -- phase O: the overlapped flush and the cardinality rung -------------
+
+PHASE_O_LL_KEYS = 5_000          # the D/F corpus: A's keys + `|l` x 32
+PHASE_O2_STORM = 60_000          # new `pod:` values of storm.lat a interval
+PHASE_O2_LIMITS = {"cardinality_soft_limit": 2_000,
+                   "cardinality_hard_limit": 10_000,
+                   "cardinality_degraded_keep": 0.1}
+PHASE_O2_LL_CAPACITY = 4_096     # interval 2's mints double the table
+PHASE_O2_BATCH = 1_024           # so an apply follows the resize in-interval
+
+
+def _o_latency(report: dict) -> dict:
+    """The /debug/latency numbers phase O prints: the dogstatsd sample
+    age and each queue's dwell."""
+    age = report["sample_age"].get("dogstatsd", {})
+    return {"sample_age": {k: age.get(k) for k in ("count", "p50", "p99",
+                                                    "max")},
+            "queues": {name: {"depth": q.get("depth"),
+                              **{k: q.get("dwell", {}).get(k)
+                                 for k in ("count", "p50", "p99")}}
+                       for name, q in report["queues"].items()}}
+
+
+def _phase_o1() -> dict:
+    """The overlapped flush at full width: phase D/F's corpus (A's keys
+    plus 5 000 `|l` keys x 32) on the pump with `flush_async` and the
+    latency observatory. Tick 1 swaps interval 1 and submits its readout;
+    interval 2's lines are sent while it runs; tick 2 delivers interval
+    1 and submits interval 2; shutdown() without flush_on_shutdown
+    delivers interval 2 in its deliver-only pass. Both intervals are
+    checked series by series, every ledger interval is strict."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    corpora = [_corpus(seed, PHASE_A_KEYS, PHASE_O_LL_KEYS) + (
+        _set_reference(seed, PHASE_A_KEYS["set"],
+                       PHASE_A_KEYS["set_members"]),) for seed in (31, 32)]
+    server = _server({"flush_async": True, "latency_observatory": True,
+                      "ledger_strict": True, "flush_on_shutdown": False,
+                      "http_address": "127.0.0.1:0"},
+                     {"counter_capacity": 65536, "gauge_capacity": 32768,
+                      "histo_capacity": 32768, "set_capacity": 16384,
+                      "llhist_capacity": 8192}, ChannelMetricSink())
+    sink = server.metric_sinks[0]
+    check = _check_a_or_c(PHASE_A_KEYS)
+    swapped_rows = (sum(PHASE_A_KEYS[k] for k in ("counter", "gauge",
+                                                  "timer", "set"))
+                    + PHASE_O_LL_KEYS)
+    report = {"intervals": []}
+    _zero_launches()
+    server.start()
+    try:
+        addr = server.listen_addresses[0]
+        window = _pump_window(server)
+        n1 = len(corpora[0][0])
+        ingest1 = _send(server, addr, corpora[0][0], 0, window)
+        tick1_start = time.time()
+        server.flush()  # tick 1: swap + submit, nothing delivered
+        tick1 = dict(server.last_flush_timings)
+        head = server._inflight_flushes[0]
+        stock = server.ledger._history[-1]["stocks"]["closing"][
+            "flush_inflight_snapshot"]
+        if not (server._inflight_rows == head["swap"]["rows"] == stock
+                == swapped_rows):
+            raise AssertionError(
+                f"phase O1: in-flight rows {server._inflight_rows}, swap "
+                f"{head['swap']['rows']}, ledger stock {stock}, want "
+                f"{swapped_rows}")
+        if sink.drain():
+            raise AssertionError("phase O1: tick 1 delivered metrics")
+        # interval 2's lines while readout 1 runs on the executor
+        ingest2 = _send(server, addr, corpora[1][0], n1, window)
+        readout1_done_by_send_end = head["pending"].done()
+        tick2_start = time.time()
+        server.flush()  # tick 2: delivers interval 1, submits interval 2
+        tick2 = dict(server.last_flush_timings)
+        round2 = server.telemetry.flushes.snapshot()[-1]
+        got, buckets = _collect(sink)
+        rec1 = check(corpora[0], got, buckets)
+        if not (round2.get("async") and round2.get("delivered_flush") == 1
+                and head["readout_start_unix"] < tick2_start):
+            raise AssertionError(f"phase O1: tick 2 round {round2}")
+        status, body = _http(server.http_api.address, "/debug/latency")
+        if status != 200:
+            raise AssertionError(f"phase O1: /debug/latency {status}")
+        latency_tick2 = _o_latency(json.loads(body))
+        stats = server.stats_snapshot()
+        if stats["lines_received"] != n1 + len(corpora[1][0]):
+            raise AssertionError(f"phase O1: lines {stats}")
+    except BaseException:
+        # a failed check ends the phase: no deliver-only pass
+        server.config.flush_async = False
+        server.shutdown()
+        raise
+    server.shutdown()  # the deliver-only pass: interval 2
+    got, buckets = _collect(sink)
+    rec2 = check(corpora[1], got, buckets)
+    tick3 = dict(server.last_flush_timings)
+    report["launches"] = _read_launches()
+    readout_s = sum(tick2.get(k, 0.0) for k in ("dispatch_s",
+                                                "device_sync_s",
+                                                "assembly_s"))
+    report.update(
+        swapped_rows=swapped_rows,
+        intervals=[{"lines": n1, "ingest_s": ingest1,
+                    "lines_per_s": n1 / ingest1, **rec1},
+                   {"lines": len(corpora[1][0]), "ingest_s": ingest2,
+                    "lines_per_s": len(corpora[1][0]) / ingest2, **rec2}],
+        ticks=[{k: tick[k] for k in ("swap_s", "join_s", "dispatch_s",
+                                     "device_sync_s", "assembly_s",
+                                     "sinks_s", "total_s") if k in tick}
+               for tick in (tick1, tick2, tick3)],
+        critical_path_s=round2["phases"]["critical_path_s"],
+        readout1_s=readout_s,
+        readout1_start_after_tick1_s=head["readout_start_unix"]
+        - tick1_start,
+        readout1_done_by_send_end=readout1_done_by_send_end,
+        latency_tick2=latency_tick2,
+        latency=_o_latency(server.latency.report()),
+        readout_failed=server.stats_snapshot()["readout_failed"],
+        ledger_intervals=len(server.ledger._history))
+    if report["readout_failed"]:
+        raise AssertionError("phase O1: a readout failed")
+    if report["latency"]["sample_age"]["count"] != 4:
+        raise AssertionError(f"phase O1: sample ages {report['latency']}")
+    for kernel in ("tdigest_flush", "hll_estimate", "llhist_apply"):
+        if report["launches"][kernel] <= 0:
+            raise AssertionError(f"phase O1: {kernel} was not launched")
+    return report
+
+
+def _o2_lines(seed: int, interval: int, resend=None):
+    """Phase O2's lines of one interval (shuffled): phase A's counter and
+    timer keys, one sample each; storm.lat (`|l`) with PHASE_O2_STORM
+    new `pod:` values; in interval 2 also one new sample for each of
+    interval 1's admitted pods (`resend`). Returns the lines, the
+    counters' expected values, the timers' samples and each pod's
+    value."""
+    rng = np.random.default_rng(seed)
+    lines, expect = [], {}
+    cvals = rng.integers(1, 1000, PHASE_A_KEYS["counter"])
+    for k, v in enumerate(cvals.tolist()):
+        lines.append(f"smoke.c{k}:{v}|c")
+        expect[f"smoke.c{k}"] = float(v)
+    ttext = np.char.mod("%.3f", rng.gamma(2.0, 25.0,
+                                          PHASE_A_KEYS["timer"]))
+    lines.extend(f"smoke.t{k}:{v}|ms" for k, v in enumerate(ttext))
+    timers = ttext.astype(np.float64).astype(np.float32)[:, None]
+    pods = list(range(interval * PHASE_O2_STORM,
+                      (interval + 1) * PHASE_O2_STORM)) + list(resend or ())
+    text = np.char.mod("%.6g", 10.0 ** rng.uniform(-3, 6, len(pods)))
+    lines.extend(f"storm.lat:{v}|l|#pod:p{p}" for p, v in zip(pods, text))
+    values = dict(zip(pods, text.astype(np.float64).tolist()))
+    order = rng.permutation(len(lines))
+    return [lines[i] for i in order], expect, timers, values
+
+
+def _o2_collect(sink) -> tuple:
+    """One flush: the untagged series by name, and storm.lat's series by
+    pod ({"count", "sum", "le:<bound>": bucket, ...})."""
+    got, storm = {}, {}
+    for m in sink.wait_flush(timeout=600):
+        pod = next((t[4:] for t in m.tags if t.startswith("pod:")), None)
+        if pod is None:
+            got[m.name] = m.value
+            continue
+        entry = storm.setdefault(int(pod[1:]), {})
+        if m.name.endswith(".bucket"):
+            entry[next(t for t in m.tags if t.startswith("le:"))] = m.value
+        else:
+            entry[m.name[len("storm.lat."):]] = m.value
+    return got, storm
+
+
+def _o2_check_storm(storm: dict, values: dict) -> int:
+    """Every admitted storm series holds exactly its one sample: `.count`
+    1, one bucket at its bin's upper bound and `+Inf`, each 1, `.sum` the
+    bin's midpoint and every percentile llhist_ref's."""
+    from veneur_tpu_torch.ops import llhist_ref as ref
+    pods = sorted(storm)
+    vals = np.array([values[p] for p in pods])
+    rank = np.empty(ref.BINS, np.int64)
+    rank[ref.ORDER] = np.arange(ref.BINS)
+    bins = ref.bin_index(vals)
+    slots = rank[bins]
+    bad = []
+    for p, b, s in zip(pods, bins.tolist(), slots.tolist()):
+        entry = storm[p]
+        want_b = {f"le:{_fmt_le(ref.UPPER_SORTED[s])}": 1.0, "le:+Inf": 1.0}
+        got_b = {k: v for k, v in entry.items() if k.startswith("le:")}
+        dense = np.zeros(ref.BINS, np.int64)
+        dense[b] = 1
+        want_q = ref.quantiles(dense, PS)
+        if (got_b != want_b or entry.get("count") != 1.0
+                or not math.isclose(entry.get("sum", math.nan),
+                                    ref.MID_SORTED[s], rel_tol=1e-12)
+                or not all(math.isclose(
+                    entry.get(f"{int(q * 100)}percentile", math.nan), w,
+                    rel_tol=LL_RTOL) for q, w in zip(PS, want_q))):
+            bad.append((p, entry))
+    if bad:
+        raise AssertionError(f"phase O2: {len(bad)} storm series wrong, "
+                             f"e.g. {bad[:2]}")
+    return len(pods) * (3 + len(PS))
+
+
+def _o2_server(prewarm: bool, tpu_extra: dict):
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    return _server({**PHASE_O2_LIMITS, "prewarm_ladder": prewarm,
+                    "ledger_strict": True, "http_address": "127.0.0.1:0"},
+                   {"batch_cap": PHASE_O2_BATCH,
+                    "llhist_capacity": PHASE_O2_LL_CAPACITY, **tpu_extra},
+                   ChannelMetricSink())
+
+
+def _o2_run() -> dict:
+    """O2's prewarmed server through two storm intervals, with phase A's
+    counter and timer keys, and every check."""
+    server = _o2_server(True, {"counter_capacity": 65536,
+                               "histo_capacity": 32768})
+    sink = server.metric_sinks[0]
+    llh = server.store.llhists
+    soft = PHASE_O2_LIMITS["cardinality_soft_limit"]
+    hard = PHASE_O2_LIMITS["cardinality_hard_limit"]
+    keep = soft + (hard - soft) // round(
+        1 / PHASE_O2_LIMITS["cardinality_degraded_keep"])
+    out = {"intervals": []}
+    _zero_launches()
+    server.start()
+    try:
+        t0 = time.perf_counter()
+        while 2 * PHASE_O2_LL_CAPACITY not in llh._prewarmed_caps:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("phase O2: the prewarmer did not "
+                                     "reach the llhist rung")
+            time.sleep(0.05)
+        out["prewarm_wait_s"] = time.perf_counter() - t0
+        addr = server.listen_addresses[0]
+        window = _pump_window(server)
+        base = 0
+        admitted = []
+        for interval in range(2):
+            lines, expect, timers, values = _o2_lines(
+                41 + interval, interval, resend=admitted)
+            ingest_s = _send(server, addr, lines, base, window)
+            base += len(lines)
+            server.flush()
+            timings = dict(server.last_flush_timings)
+            got, storm = _o2_collect(sink)
+            rec = {"lines": len(lines), "ingest_s": ingest_s,
+                   "lines_per_s": len(lines) / ingest_s,
+                   "storm_series": len(storm),
+                   "flush_s": timings["total_s"],
+                   "flush": {k: timings[k] for k in (
+                       "swap_s", "dispatch_s", "device_sync_s",
+                       "assembly_s", "sinks_s") if k in timings}}
+            new = sorted(p for p in storm if p >= interval * PHASE_O2_STORM)
+            if len(new) != keep or (interval and sorted(
+                    p for p in storm if p < PHASE_O2_STORM) != admitted):
+                raise AssertionError(
+                    f"phase O2 interval {interval + 1}: {len(new)} new "
+                    f"storm series (want {keep}); resent "
+                    f"{len(storm) - len(new)} of {len(admitted)}")
+            stages = server.ledger._history[-1]["stages"]
+            shed = {k: v for k, v in stages.get("ingress.shed", {}).items()
+                    if v}
+            want_shed = {"llhist|cardinality": PHASE_O2_STORM - hard,
+                         "llhist|cardinality_degraded": hard - keep}
+            kept = stages["agg.applied"].get("llhist", 0)
+            if (shed != want_shed
+                    or stages.get("agg.rejected") != {
+                        "llhist": PHASE_O2_STORM - keep}
+                    or kept != keep + len(admitted)
+                    or kept - len(admitted) + sum(shed.values())
+                    != PHASE_O2_STORM):
+                raise AssertionError(
+                    f"phase O2 interval {interval + 1}: shed {shed}, "
+                    f"stages {stages}")
+            rec.update(shed=shed, kept=kept)
+            _check_exact(got, expect)
+            checked = len(expect) + _check_timers(got, timers)
+            rec["series_checked"] = checked + _o2_check_storm(storm, values)
+            pod = server.cardinality.tag_report("storm.lat")[
+                "tag_keys"]["pod"]
+            hll_min = server.config.cardinality_hll_min_mints
+            truth = (interval + 1) * PHASE_O2_STORM - (hll_min - 1)
+            rec["pod_estimate"] = pod
+            rec["pod_truth"] = truth
+            if abs(pod - truth) > 0.03 * truth:
+                raise AssertionError(f"phase O2: pod estimate {pod} "
+                                     f"against {truth}")
+            status, body = _http(server.http_api.address,
+                                 "/debug/cardinality?top=5")
+            top = json.loads(body)["top"] if status == 200 else []
+            if not top or top[0]["name"] != "storm.lat":
+                raise AssertionError(f"phase O2: /debug/cardinality "
+                                     f"{status} {top[:2]}")
+            rec["top"] = [(t["name"], t["live_rows"],
+                           t.get("mints_last_interval")) for t in top[:3]]
+            if "storm.lat" not in server.trace_plane._watch:
+                raise AssertionError("phase O2: storm.lat is not on the "
+                                     "exemplar watch list")
+            out["intervals"].append(rec)
+            admitted = sorted(new)
+        shed_total = server.overload.shed_snapshot()
+        if shed_total.get("llhist|cardinality") != \
+                2 * (PHASE_O2_STORM - hard):
+            raise AssertionError(f"phase O2: shed table {shed_total}")
+        out.update(
+            resize_total=llh.resize_total, capacity=llh.capacity,
+            resize_s=llh.resize_last_seconds,
+            first_apply_s=llh.first_apply_last_seconds,
+            first_apply_events=server.telemetry.events.snapshot(
+                kind="columnstore_first_apply"),
+            prewarm=server.prewarmer.telemetry_rows())
+    finally:
+        server.shutdown()
+    out["launches"] = _read_launches()
+    if llh.resize_total != 1 or llh.capacity != 2 * PHASE_O2_LL_CAPACITY:
+        raise AssertionError(f"phase O2: llhist resized "
+                             f"{llh.resize_total} times to {llh.capacity}")
+    return out
+
+
+def _o2_cold_resize() -> dict:
+    """O2's server without the prewarmer, doubled the same way: one
+    interval of 1.5 x PHASE_O2_LL_CAPACITY `|l` names of one key each
+    (no budget is hit), so the llhist table resizes from 4 096 to 8 192
+    rows and an apply follows in the interval; every `.count` exact."""
+    server = _o2_server(False, {})
+    sink = server.metric_sinks[0]
+    llh = server.store.llhists
+    n = PHASE_O2_LL_CAPACITY + PHASE_O2_LL_CAPACITY // 2
+    lines = [f"cold.l{k}:{1.5 + k % 97}|l" for k in range(n)]
+    _zero_launches()
+    server.start()
+    try:
+        ingest_s = _send(server, server.listen_addresses[0], lines, 0,
+                         _pump_window(server))
+        server.flush()
+        got, _buckets = _collect(sink)
+        wrong = [k for k in range(n) if got.get(f"cold.l{k}.count") != 1.0]
+        if wrong:
+            raise AssertionError(f"phase O2 cold: {len(wrong)} `|l` counts "
+                                 f"wrong, e.g. cold.l{wrong[0]}")
+        out = {"lines": n, "lines_per_s": n / ingest_s,
+               "resize_total": llh.resize_total, "capacity": llh.capacity,
+               "resize_s": llh.resize_last_seconds,
+               "first_apply_s": llh.first_apply_last_seconds,
+               "first_apply_events": server.telemetry.events.snapshot(
+                   kind="columnstore_first_apply")}
+    finally:
+        server.shutdown()
+    out["launches"] = _read_launches()
+    if llh.resize_total != 1 or llh.capacity != 2 * PHASE_O2_LL_CAPACITY \
+            or not out["first_apply_events"]:
+        raise AssertionError(f"phase O2 cold: llhist resized "
+                             f"{llh.resize_total} times to {llh.capacity}")
+    return out
+
+
+def _o2_gate_cost(calls: int = 200_000) -> dict:
+    """The mint gate alone on the host: admit_mint + note_mint for
+    `calls` new keys of one name under O2's limits, and of `calls`
+    names of one key each (no budget hit)."""
+    from veneur_tpu_torch.core.cardinality import CardinalityAccountant
+    out = {}
+    for label, names in (("one_name", ["storm.lat"] * calls),
+                         ("distinct_names", [f"n{i}" for i in
+                                             range(calls)])):
+        acc = CardinalityAccountant(
+            soft_limit=PHASE_O2_LIMITS["cardinality_soft_limit"],
+            hard_limit=PHASE_O2_LIMITS["cardinality_hard_limit"],
+            degraded_keep=PHASE_O2_LIMITS["cardinality_degraded_keep"],
+            on_shed=lambda *a: None)
+        tags = [[f"pod:p{i}"] for i in range(calls)]
+        t0 = time.perf_counter()
+        for name, tg in zip(names, tags):
+            if acc.admit_mint("llhist", name, tg):
+                acc.note_mint("llhist", name)
+        out[f"{label}_us"] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def _phase_o2() -> dict:
+    """The cardinality rung and the prewarmer: a server with
+    cardinality_soft_limit 2 000, hard 10 000, degraded keep 0.1 takes
+    phase A's counter and timer keys (one sample each, one key a name)
+    and a storm of 60 000 new `pod:` values of storm.lat (`|l`) in each
+    of two intervals, interval 2 re-sending interval 1's admitted pods.
+    Each interval admits 2 000 + 8 000 / 10 = 2 800 mints and sheds
+    7 200 `cardinality_degraded` and 50 000 `cardinality`, exactly;
+    every admitted series is exact. With prewarm_ladder and
+    llhist_capacity 4 096 interval 2 doubles the llhist table; a second
+    server, prewarm off, doubles its own (_o2_cold_resize), for the
+    first apply after the resize without the prewarm."""
+    t0 = time.perf_counter()
+    prewarmed = _o2_run()
+    t1 = time.perf_counter()
+    cold = _o2_cold_resize()
+    t2 = time.perf_counter()
+    launches = {k: prewarmed["launches"][k] + cold["launches"][k]
+                for k in prewarmed["launches"]}
+    for kernel in ("tdigest_flush", "llhist_apply"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"phase O2: {kernel} was not launched")
+    return {"prewarmed": prewarmed, "cold": cold, "launches": launches,
+            "gate": _o2_gate_cost(), "prewarmed_s": t1 - t0,
+            "cold_s": t2 - t1}
+
+
+def _phase_o() -> dict:
+    t0 = time.perf_counter()
+    o1 = _phase_o1()
+    o1["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    o2 = _phase_o2()
+    o2["seconds"] = time.perf_counter() - t0
+    return {"O1": o1, "O2": o2,
+            "launches": {k: o1["launches"][k] + o2["launches"][k]
+                         for k in o1["launches"]}}
+
+
+def _prebuild_plan() -> dict:
+    """Per phase, the corpora it builds first, called exactly as the
+    phase calls them (the key is the arguments' repr)."""
+    a, sets = PHASE_A_KEYS, (PHASE_A_KEYS["set"], PHASE_A_KEYS["set_members"])
+
+    def with_sets(seeds, *extra):
+        return [item for seed in seeds for item in (
+            (_corpus, (seed, a) + extra), (_set_reference, (seed,) + sets))]
+    return {
+        "A": with_sets((1, 2)),
+        "B": [(_phase_b_corpus, (seed,)) for seed in (3, 4)],
+        "D": [(_phase_d_interval, (seed,)) for seed in (7, 8)],
+        "F": with_sets((21, 22), PHASE_F_LL_KEYS),
+        "G": with_sets((31, 32), PHASE_F_LL_KEYS),
+        "H": [(_phase_d_interval, (seed,)) for seed in PHASE_H1_SEEDS],
+        "I": [(_i1_corpus, (seed,)) for seed in PHASE_I1_SEEDS],
+        "J": [(_corpus, (seed, a, PHASE_J_LL_KEYS)) for seed in (41, 42)],
+        "O": with_sets((31, 32), PHASE_O_LL_KEYS),
+    }
+
+
+def _start_prebuild(selected):
+    """Two worker processes (spawned: the card is never forked) build the
+    selected phases' big corpora, in phase order, while the kernels build
+    and the earlier phases run; returns the pool to shut down."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    plan = _prebuild_plan()
+    for name in PHASES:
+        if name in selected:
+            for fn, args in plan.get(name, ()):
+                _PREBUILT.setdefault((fn.__name__, repr(args)), []).append(
+                    pool.submit(fn, *args))
+    return pool
+
+
+PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O")
 
 
 def _selected_phases(argv) -> tuple:
@@ -5653,6 +6176,50 @@ def _report_s(name: str, rep: dict, phases: dict, smi: str) -> None:
           flush=True)
 
 
+def _report_o(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase O, the overlapped flush and the cardinality rung."""
+    o1, o2 = rep["O1"], rep["O2"]
+    for i, rec in enumerate(o1["intervals"]):
+        print(f"phase O1 interval {i + 1}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s; {rec['series_checked']} "
+              f"series checked", flush=True)
+    print(f"phase O1 ({smi}): ticks " + "; ".join(
+        ", ".join(f"{k} {v:.4f}" for k, v in tick.items())
+        for tick in o1["ticks"]) + f"; tick 2 critical path "
+        f"{o1['critical_path_s']:.4f} s, readout 1 "
+        f"{o1['readout1_s']:.4f} s on the executor, started "
+        f"{o1['readout1_start_after_tick1_s']:.4f} s into tick 1, done by "
+        f"the end of interval 2's send: {o1['readout1_done_by_send_end']}; "
+        f"in-flight rows {o1['swapped_rows']}; {o1['seconds']:.1f} s",
+        flush=True)
+    print(f"phase O1 /debug/latency: dogstatsd sample age at shutdown "
+          f"{o1['latency']['sample_age']}; queue dwell at tick 2 (s) "
+          + "; ".join(f"{q} depth {v['depth']} n {v['count']} p50 "
+                      f"{v['p50']} p99 {v['p99']}"
+                      for q, v in o1["latency_tick2"]["queues"].items()),
+          flush=True)
+    for i, rec in enumerate(o2["prewarmed"]["intervals"]):
+        print(f"phase O2 interval {i + 1}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s; storm series "
+              f"{rec['storm_series']}, kept {rec['kept']}, shed "
+              f"{rec['shed']}; flush {rec['flush_s']:.3f} s ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec["flush"].items())
+              + f"); {rec['series_checked']} series checked; pod estimate "
+              f"{rec['pod_estimate']} of {rec['pod_truth']}; top "
+              f"{rec['top']}", flush=True)
+    for label in ("prewarmed", "cold"):
+        run = o2[label]
+        print(f"phase O2 {label} ({smi}): llhist {run['resize_total']} "
+              f"resize to {run['capacity']} in {run['resize_s']:.6f} s, "
+              f"first apply after it {run['first_apply_s']:.6f} s; "
+              f"launches {run['launches']}", flush=True)
+    print(f"phase O2 mint gate alone (host): {o2['gate']}; O2 "
+          f"{o2['seconds']:.1f} s (prewarmed server {o2['prewarmed_s']:.1f},"
+          f" cold {o2['cold_s']:.1f})", flush=True)
+    print(f"phase O launches: {rep['launches']}; {rep['seconds']:.1f} s",
+          flush=True)
+
+
 # each phase's run and the report it prints
 _PHASE_RUNS = {
     "A": (_phase_a, _report_abc),
@@ -5667,6 +6234,7 @@ _PHASE_RUNS = {
     "I": (_phase_i, _report_i),
     "J": (_phase_j, _report_j),
     "S": (_phase_s, _report_s),
+    "O": (_phase_o, _report_o),
 }
 
 
@@ -5680,6 +6248,15 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    pool = _start_prebuild(selected)
+    try:
+        return _smoke(selected)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _smoke(selected) -> int:
+    """The kernel checks, the selected server phases and the report."""
     from veneur_tpu_torch import native
     from veneur_tpu_torch.ops import _cuda
 

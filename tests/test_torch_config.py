@@ -1,7 +1,7 @@
 """The port's configuration against the JAX package's: the VENEUR_*
-environment overlay, the read-buffer default, the lifecycle and sources
-keys, and the JAX keys the port lacks, which raise by name from the
-environment as they do from a file."""
+environment overlay, the read-buffer default, the lifecycle, sources,
+observatory and overlapped-flush keys, and the JAX keys the port lacks,
+which raise by name from the environment as they do from a file."""
 
 from __future__ import annotations
 
@@ -76,6 +76,19 @@ def _assert_same(port_cfg, jax_cfg) -> int:
                        "VENEUR_TPU_MAX_ROWS_PER_FAMILY": "1000",
                        "VENEUR_NOT_A_KEY": "ignored",
                        "PATH": "/bin"}),
+    # the observatory and overlapped-flush keys, from the file and from
+    # the environment
+    ("flush_async: true\nprewarm_ladder: true\n"
+     "latency_observatory: false\ncardinality_soft_limit: 2000\n"
+     "cardinality_hard_limit: 10000\ncardinality_degraded_keep: 0.1\n",
+     {"VENEUR_CARDINALITY_TOP_K": "64",
+      "VENEUR_CARDINALITY_HLL_NAMES": "4",
+      "VENEUR_CARDINALITY_HLL_MIN_MINTS": "128",
+      "VENEUR_CARDINALITY_DEGRADED_KEEP": "0.25"}),
+    ("", {"VENEUR_FLUSH_ASYNC": "true", "VENEUR_PREWARM_LADDER": "1",
+          "VENEUR_LATENCY_OBSERVATORY": "false",
+          "VENEUR_CARDINALITY_SOFT_LIMIT": "5",
+          "VENEUR_CARDINALITY_HARD_LIMIT": "9"}),
     # the environment under an empty file, and the defaults alone
     ("", {"VENEUR_HOSTNAME": "from-env"}),
     ("", {}),
@@ -85,7 +98,7 @@ def test_env_overlay_matches_jax(tmp_path, text, env):
     path.write_text(text)
     port_cfg = port_config.read_config(str(path), env=env)
     jax_cfg = jax_config.read_config(str(path), env=env)
-    assert _assert_same(port_cfg, jax_cfg) == 97
+    assert _assert_same(port_cfg, jax_cfg) == 106
     assert _assert_same(port_cfg.tpu, jax_cfg.tpu) == 11
 
 
@@ -127,9 +140,9 @@ def test_env_overlay_precedes_the_defaults(tmp_path):
 
 
 @pytest.mark.parametrize("name", [
-    "VENEUR_SENTRY_DSN", "VENEUR_FLUSH_ASYNC", "VENEUR_CARDINALITY_TOP_K",
+    "VENEUR_SENTRY_DSN", "VENEUR_ENABLE_PROFILING", "VENEUR_RESHARD_DEADLINE",
     "VENEUR_RESHARD_SPOOL_DIR", "VENEUR_JAX_COMPILATION_CACHE_DIR",
-    "VENEUR_OVERLOAD_DEVICE_SOFT_BYTES", "VENEUR_LATENCY_OBSERVATORY",
+    "VENEUR_OVERLOAD_DEVICE_SOFT_BYTES", "VENEUR_DEVICE_OBSERVATORY",
     "VENEUR_TPU_SHARDS", "VENEUR_TPU_SHARD_ROUTING",
     "VENEUR_TPU_PALLAS_TDIGEST_FLUSH"])
 def test_env_naming_a_jax_only_key_raises_by_name(tmp_path, name):
@@ -192,6 +205,34 @@ def test_sources_and_lifecycle_keys_parse_like_jax(tmp_path):
         jax_config.Config().tpu.idle_key_intervals == 5
     assert defaults.tpu.max_rows_per_family == \
         jax_config.Config().tpu.max_rows_per_family == 2_000_000
+
+
+_SLICE12_KEYS = ("flush_async", "prewarm_ladder", "latency_observatory",
+                 "cardinality_soft_limit", "cardinality_hard_limit",
+                 "cardinality_degraded_keep", "cardinality_top_k",
+                 "cardinality_hll_names", "cardinality_hll_min_mints")
+
+
+@pytest.mark.parametrize("key", _SLICE12_KEYS)
+def test_observatory_and_async_keys_default_and_load_like_jax(tmp_path,
+                                                              key):
+    """Each of the nine keys: the JAX default, and a value from the
+    environment over a file value, field by field like the JAX
+    read_config."""
+    assert getattr(port_config.Config(), key) == \
+        getattr(jax_config.Config(), key)
+    default = getattr(jax_config.Config(), key)
+    file_value, env_value = {bool: (not default, default),
+                             int: (7, 11), float: (0.5, 0.125)}[
+        type(default)]
+    path = tmp_path / "cfg.yaml"
+    path.write_text(f"{key}: {str(file_value).lower()}\n")
+    for env in ({}, {f"VENEUR_{key.upper()}": str(env_value).lower()}):
+        port_cfg = port_config.read_config(str(path), env=env)
+        jax_cfg = jax_config.read_config(str(path), env=env)
+        assert getattr(port_cfg, key) == getattr(jax_cfg, key) == (
+            env_value if env else file_value)
+    assert key not in port_config._JAX_ONLY_KEYS
 
 
 def test_unknown_source_entry_key_raises():

@@ -392,8 +392,8 @@ def test_operator_keys_are_accepted(raw):
 
 @pytest.mark.parametrize("key", ["overload_device_soft_bytes",
                                  "enable_profiling",
-                                 "latency_observatory", "sentry_dsn",
-                                 "cardinality_soft_limit", "flush_async"])
+                                 "device_observatory", "sentry_dsn",
+                                 "profile_server_port", "reshard_deadline"])
 def test_unported_keys_still_raise(key):
     with pytest.raises(ValueError, match=key):
         config_from_dict({key: 1})

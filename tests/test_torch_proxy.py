@@ -762,7 +762,7 @@ def test_cli_builds_both_config_shapes(shape):
             api.stop()
 
 
-@pytest.mark.parametrize("key", ["latency_observatory",
+@pytest.mark.parametrize("key", ["flush_async",
                                  "cardinality_soft_limit",
                                  "chaos_reshard_append_fault_nth",
                                  "no_such_key"])
@@ -886,8 +886,8 @@ def test_server_config_accepts_the_slice_keys(key):
 
 @pytest.mark.parametrize("key", ["overload_device_soft_bytes",
                                  "overload_device_hard_bytes",
-                                 "cardinality_soft_limit",
-                                 "cardinality_hard_limit", "sentry_dsn",
+                                 "device_observatory",
+                                 "mutex_profile_fraction", "sentry_dsn",
                                  "chaos_reshard_prewarm_delay_s",
                                  "chaos_reshard_append_fault_nth",
                                  "chaos_reshard_cutover_delay_s"])

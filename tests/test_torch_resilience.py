@@ -397,7 +397,7 @@ def test_config_accepts_the_resilience_keys():
         assert getattr(tcfg, key) == getattr(jcfg, key), key
 
 
-@pytest.mark.parametrize("key", ["cardinality_top_k", "reshard_spool_dir",
+@pytest.mark.parametrize("key", ["block_profile_rate", "reshard_spool_dir",
                                  "chaos_forward_fail_rate",
                                  "overload_device_hard_bytes"])
 def test_config_still_rejects_what_the_port_lacks(key):

@@ -190,7 +190,7 @@ def test_device_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("cardinality_hard_limit", 5),
+    ("block_profile_rate", 5),
     ("chaos_reshard_prewarm_delay_s", 0.5),
     ("overload_device_soft_bytes", 1),
     ("tpu", {"shards": 4}),
@@ -238,7 +238,8 @@ walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
           "core.protos.dogstatsd_pb2", "trace", "cmd.veneur_emit",
           "util.crash", "trace.context", "trace.opentracing",
           "trace.store", "core.overload", "util.protowire", "sources",
-          "sources.otlp", "sources.openmetrics", "cmd.veneur_prometheus"}
+          "sources.otlp", "sources.openmetrics", "cmd.veneur_prometheus",
+          "core.cardinality", "core.latency", "core.flushexec"}
 missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
 assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))

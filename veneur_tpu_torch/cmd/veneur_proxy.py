@@ -17,8 +17,7 @@ Both config shapes of the JAX CLI are read: the v2 shape
 (`forward_address` as a comma-separated list,
 `consul_refresh_interval`, `consul_forward_service_name`). Where the JAX
 CLI ignores a key it does not read, this one raises with the key's
-name; the key of the plane the port lacks (`latency_observatory`)
-raises too. There is no SIGUSR2 handoff (core/restart.py is not ported).
+name. There is no SIGUSR2 handoff (core/restart.py is not ported).
 """
 
 from __future__ import annotations
@@ -51,11 +50,8 @@ KEYS = frozenset({
     "ledger_strict", "ledger_history", "statsd",
     "runtime_metrics_interval", "http_address",
     "trace_self_sample_rate", "trace_store_traces", "trace_store_spans",
+    "latency_observatory",
 })
-# keys of the JAX proxy that configure planes the port does not have
-MISSING_PLANES = {
-    "latency_observatory": "the latency observatory",
-}
 _SECRET_KEYS = ("tls_key", "forward_tls_key")
 
 
@@ -64,11 +60,6 @@ def check_keys(raw: dict) -> dict:
     config with its private keys as StringSecrets (redacted in
     /config/json)."""
     for key in raw:
-        if key in MISSING_PLANES:
-            raise ValueError(
-                f"proxy config key {key!r} configures "
-                f"{MISSING_PLANES[key]}, which veneur_tpu_torch does not "
-                f"port yet")
         if key not in KEYS:
             raise ValueError(f"proxy config key {key!r} is not supported "
                              f"by veneur_tpu_torch")
@@ -212,6 +203,7 @@ def build_from_config(raw: dict, args, log):
         destination_tls=dest_tls or None,
         max_consecutive_failures=int(
             raw.get("circuit_breaker_failure_threshold") or 3),
+        latency_observatory=bool(raw.get("latency_observatory", True)),
         health_check_interval=parse_duration(
             raw.get("health_check_interval", "2s")),
         health_check_timeout=parse_duration(
@@ -268,7 +260,8 @@ def build_from_config(raw: dict, args, log):
                            ledger=proxy.ledger.report,
                            query=query_view.query,
                            cardinality=proxy.cardinality_report,
-                           traces=proxy.trace_plane.report)
+                           traces=proxy.trace_plane.report,
+                           latency=proxy.latency.report)
         http_api.start()
         log.info("veneur-proxy HTTP API on %s:%d", *http_api.address)
 

@@ -162,6 +162,19 @@ class Config:
     # failed forward intervals merge into the next snapshot for at most
     # this many consecutive intervals (0 disables the carryover)
     carryover_max_intervals: int = 3
+    # the cardinality observatory (core/cardinality.py): per-NAME budgets
+    # of new-key mints per interval (0 = off). Past soft, a name's further
+    # mints are kept 1 in round(1/degraded_keep); past hard they are
+    # refused; both are shed (reason cardinality_degraded / cardinality).
+    # Existing rows always update. The tracker keeps top_k names; the
+    # hll_names top offenders get per-tag-key HLLs once a name mints
+    # hll_min_mints keys in one interval.
+    cardinality_soft_limit: int = 0
+    cardinality_hard_limit: int = 0
+    cardinality_degraded_keep: float = 0.1
+    cardinality_top_k: int = 512
+    cardinality_hll_names: int = 8
+    cardinality_hll_min_mints: int = 64
     # fault injection at the egress seams (util/chaos.py): seeded
     # probabilistic errors and delays at forward_send, sink_flush,
     # http_post and health_probe (`chaos_seams`, empty = all), and a
@@ -195,6 +208,10 @@ class Config:
     # columnar path leaves them out, as the JAX package's does)
     extend_tags: List[str] = field(default_factory=list)
     features: Features = field(default_factory=Features)
+    # overlap the flush with the next interval (core/flushexec.py): each
+    # tick swaps its interval out, reads it out on the readout executor,
+    # and delivers the previous interval's readout
+    flush_async: bool = False
     # run a last flush in shutdown()
     flush_on_shutdown: bool = False
     # not ready (/healthcheck/ready 503), and the process aborts, after
@@ -258,6 +275,9 @@ class Config:
     # full ring blocks the reader, counted as a stall
     ingest_ring_slots: int = 4
     interval: float = 10.0
+    # the latency observatory (core/latency.py): sample age per plane,
+    # queue dwell and depth; false hands out plain queues
+    latency_observatory: bool = True
     # the flow ledger (core/ledger.py): per-interval conservation checks
     # closed at every flush; strict raises LedgerImbalance out of the
     # flush (for tests and soaks); closed intervals kept for
@@ -292,6 +312,9 @@ class Config:
     overload_watermark_degraded_keep: float = 0.25
     percentiles: List[float] = field(
         default_factory=lambda: [0.5, 0.75, 0.99])
+    # launch each family's next capacity rung ahead of need, at startup
+    # and after every resize (core/flushexec.py ShapeLadderPrewarmer)
+    prewarm_ladder: bool = False
     # SO_RCVBUF of each UDP listener socket
     read_buffer_size_bytes: int = 2 * 1024 * 1024
     # pull sources (veneur_tpu_torch/sources): OTLP/HTTP listeners and
@@ -464,16 +487,12 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
 # the JAX package's keys that the port does not implement: a VENEUR_*
 # variable naming one raises, as the key does in a file
 _JAX_ONLY_KEYS = frozenset({
-    "block_profile_rate", "cardinality_degraded_keep",
-    "cardinality_hard_limit", "cardinality_hll_min_mints",
-    "cardinality_hll_names", "cardinality_soft_limit", "cardinality_top_k",
-    "chaos_reshard_append_fault_nth", "chaos_reshard_cutover_delay_s",
-    "chaos_reshard_prewarm_delay_s", "device_observatory",
-    "enable_profiling", "flush_async", "jax_compilation_cache_dir",
-    "latency_observatory", "mutex_profile_fraction",
-    "overload_device_hard_bytes", "overload_device_soft_bytes",
-    "prewarm_ladder", "profile_server_port", "reshard_deadline",
-    "reshard_spool_dir", "sentry_dsn"})
+    "block_profile_rate", "chaos_reshard_append_fault_nth",
+    "chaos_reshard_cutover_delay_s", "chaos_reshard_prewarm_delay_s",
+    "device_observatory", "enable_profiling", "jax_compilation_cache_dir",
+    "mutex_profile_fraction", "overload_device_hard_bytes",
+    "overload_device_soft_bytes", "profile_server_port",
+    "reshard_deadline", "reshard_spool_dir", "sentry_dsn"})
 _JAX_ONLY_TPU_KEYS = frozenset({"pallas_tdigest_flush", "shard_routing",
                                 "shards"})
 

@@ -127,6 +127,14 @@ class _BaseTable:
     # every sample a table accepts stamps agg.applied, the out-side of
     # the server's ingest identity
     ledger = None
+    # the cardinality accountant (core/cardinality.py), set by
+    # ColumnStore.attach_cardinality: a new key's mint asks it first
+    cardinality = None
+    # hook(family, old_cap, new_cap, seconds, kind=, prewarmed=), set by
+    # ColumnStore.attach_resize_hook: fired under ``lock`` by a capacity
+    # doubling (kind "resize") and by the first batch apply after it
+    # (kind "first_apply"), so it may only record or enqueue
+    on_resize = None
 
     def __init__(self, device: torch.device, capacity: int = 1024,
                  batch_cap: int = 8192, max_rows: int = 0):
@@ -172,6 +180,14 @@ class _BaseTable:
         self.minted_total = 0
         self.tombstoned_total = 0
         self.recycled_total = 0
+        # capacity doublings and their seconds, and the first batch apply
+        # after the last one (timed to the device's completion); the
+        # capacities the shape-ladder prewarmer launched ahead of need
+        self.resize_total = 0
+        self.resize_last_seconds = 0.0
+        self.first_apply_last_seconds = 0.0
+        self._first_apply_pending = False
+        self._prewarmed_caps = set()
         self._init_arrays()
 
     # subclasses define _init_arrays / _grow_arrays / _apply_cols_state /
@@ -208,10 +224,35 @@ class _BaseTable:
         self.apply_lock.acquire()
         self.lock.release()
         try:
-            self._apply_cols(cols)
+            if self._first_apply_pending:
+                self._time_first_apply(lambda: self._apply_cols(cols))
+            else:
+                self._apply_cols(cols)
         finally:
             self.apply_lock.release()
             self.lock.acquire()
+
+    def _time_first_apply(self, apply) -> None:
+        """Run the first batch apply after a capacity doubling to the
+        device's completion and report its seconds through on_resize
+        (the JAX package times its post-resize retrace at the same
+        point; the port has none, so this is the apply's own cost at
+        the new size). Caller holds ``apply_lock``."""
+        self._first_apply_pending = False
+        t0 = time.perf_counter()
+        apply()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.perf_counter() - t0
+        self.first_apply_last_seconds = elapsed
+        hook = self.on_resize
+        if hook is not None:
+            try:
+                hook(self.family, self.capacity, self.capacity, elapsed,
+                     kind="first_apply",
+                     prewarmed=self.capacity in self._prewarmed_caps)
+            except Exception:
+                logger.exception("resize hook failed")
 
     def apply_pending(self):
         with self.lock:
@@ -409,6 +450,15 @@ class _BaseTable:
         dict_key = (metric.digest64 << 2) | int(metric.scope)
         row = self.rows.get(dict_key)
         if row is None:
+            # the cardinality rung: a NEW key asks the accountant's
+            # per-name mint budget before any allocation (existing rows
+            # never come here); it counts the shed itself
+            card = self.cardinality
+            if card is not None and not card.admit_mint(
+                    self.family, metric.key.name, metric.tags):
+                if self.ledger is not None:
+                    self.ledger.note("agg.rejected", 1, key=self.family)
+                return -1
             meta = RowMeta(
                 name=metric.key.name, tags=list(metric.tags),
                 joined_tags=metric.key.joined_tags, digest32=metric.digest,
@@ -442,6 +492,8 @@ class _BaseTable:
             self.rows[dict_key] = row
             self.name_rows.setdefault(metric.key.name, []).append(row)
             self.minted_total += 1
+            if card is not None:
+                card.note_mint(self.family, metric.key.name)
         return row
 
     def _note_generation_locked(self) -> None:
@@ -471,6 +523,7 @@ class _BaseTable:
         touched here, so its value is never credited to another key."""
         if idle_intervals <= 0:
             return []
+        evicted_names: List[str] = []
         with self.lock:
             gen = self._generation
             n = len(self.meta)
@@ -506,7 +559,11 @@ class _BaseTable:
             for row in evicted:
                 self.rows.pop(self._dict_key_of[row], None)
                 tomb[row] = gen
+                evicted_names.append(self.meta[row].name)
             self.tombstoned_total += len(evicted)
+        # live-row accounting outside the buffer lock (JAX order)
+        if evicted_names and self.cardinality is not None:
+            self.cardinality.note_evicted(self.family, evicted_names)
         return evicted
 
     def flush_names(self, key, rows: np.ndarray, meta_list,
@@ -543,6 +600,7 @@ class _BaseTable:
 
     def _grow(self):
         """Double the row capacity (caller holds ``lock``)."""
+        t0 = time.perf_counter()
         new_cap = self.capacity * 2
         pad = new_cap - self.capacity
         self.touched = np.concatenate([self.touched, np.zeros(pad, bool)])
@@ -565,7 +623,57 @@ class _BaseTable:
             self._grow_arrays(new_cap)
         logger.info("%s table capacity %d -> %d", self.family,
                     self.capacity, new_cap)
-        self.capacity = new_cap
+        old_cap, self.capacity = self.capacity, new_cap
+        elapsed = time.perf_counter() - t0
+        self.resize_total += 1
+        self.resize_last_seconds = elapsed
+        self._first_apply_pending = True
+        hook = self.on_resize
+        if hook is not None:
+            try:
+                hook(self.family, old_cap, new_cap, elapsed, kind="resize")
+            except Exception:
+                logger.exception("resize hook failed")
+
+    # -- shape-ladder prewarm (core/flushexec.py) -------------------------
+
+    def prewarm_rung(self, capacity: int, percentiles=(),
+                     need_export: bool = True) -> bool:
+        """The torch meaning of the JAX rung prewarm: launch this
+        family's batch apply and readout kernels once on throwaway
+        tensors of `capacity` rows, waited for, so the caching allocator
+        holds blocks of that size before a doubling asks for them. There
+        is no graph and no compile cache to fill. Runs on the prewarmer's
+        thread: it touches no live state and takes no table lock. Returns
+        True when the rung was launched."""
+        cols = self._prewarm_cols()
+        if cols is None:
+            return False
+        state = self._fresh_state_at(capacity)
+        self._prewarm_apply(state, cols, capacity)
+        snap = {"ps": tuple(percentiles), "need_export": need_export,
+                "touched": np.ones(capacity, bool)}
+        self._prewarm_readout(state, snap)
+        self._reset_state_(state)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prewarmed_caps.add(capacity)
+        return True
+
+    def _prewarm_cols(self):
+        """An all-padding pending batch with the live buffers' dtypes
+        (None: the family has no batch apply)."""
+        pcols = getattr(self, "_pcols", None)
+        if not pcols:
+            return None
+        return (np.full(self.batch_cap, PAD_ROW, np.int32),) + tuple(
+            np.zeros(self.batch_cap, c.dtype) for c in pcols[1:])
+
+    def _prewarm_apply(self, state, cols, capacity: int) -> None:
+        self._apply_cols_state(state, cols)
+
+    def _prewarm_readout(self, state, snap: dict) -> None:
+        self._readout_device(state, snap)
 
     def _append_batch(self, columns, touch_rows=None) -> None:
         """Vectorized append of parallel sample columns (rows first) into
@@ -829,6 +937,9 @@ class HistoTable(_BaseTable):
     def _fresh_state_at(self, capacity: int):
         return batch_tdigest.init_state(capacity, self.device)
 
+    def _prewarm_apply(self, state, cols, capacity: int) -> None:
+        self._apply_cols_state(state, cols, np.zeros(capacity, np.int32))
+
     def _reset_state_(self, captured) -> None:
         # zeros alone would corrupt the ±inf extrema into fabricated 0.0
         batch_tdigest.reset_state_(captured)
@@ -1081,6 +1192,13 @@ class SetTable(_BaseTable):
     def _state_capacity(self) -> int:
         return self._dev_cap
 
+    def prewarm_rung(self, capacity: int, percentiles=(),
+                     need_export: bool = True) -> bool:
+        """No-op, as in the JAX package: the dense bank rides its own 8x
+        slot ladder (`_dev_cap`), decoupled from row-capacity doublings
+        (_promote_locked)."""
+        return False
+
     def _fresh_state_at(self, capacity: int):
         return batch_hll.init_state(capacity, self.device)
 
@@ -1318,7 +1436,11 @@ class LLHistTable(_BaseTable):
         self.lock.release()
         try:
             # a _grow may have replaced the state: read it under apply_lock
-            batch_llhist.apply_packed(self.state, block)
+            if self._first_apply_pending:
+                self._time_first_apply(
+                    lambda: batch_llhist.apply_packed(self.state, block))
+            else:
+                batch_llhist.apply_packed(self.state, block)
         finally:
             self.apply_lock.release()
             self.lock.acquire()
@@ -1507,6 +1629,63 @@ class ColumnStore:
         self.ledger = ledger
         for _family, table in self.tables():
             table.ledger = ledger
+
+    def attach_cardinality(self, accountant) -> None:
+        """Wire the cardinality accountant (core/cardinality.py) into
+        every table's interning path."""
+        for _family, table in self.tables():
+            table.cardinality = accountant
+
+    def attach_resize_hook(self, hook) -> None:
+        """hook(family, old_cap, new_cap, seconds, kind=, prewarmed=) on
+        every capacity doubling (kind "resize") and on the first batch
+        apply after it (kind "first_apply"); see _BaseTable.on_resize."""
+        for _family, table in self.tables():
+            table.on_resize = hook
+
+    def capacity_report(self) -> dict:
+        """Per-family capacity and churn for /debug/cardinality (the JAX
+        keys the port tracks)."""
+        out = {}
+        for family, t in self.tables():
+            out[family] = {
+                "row_capacity": t.capacity,
+                "live_rows": len(t.rows),
+                "allocated_rows": len(t.meta),
+                "free_rows": len(t._free_rows),
+                "minted_total": t.minted_total,
+                "tombstoned_total": t.tombstoned_total,
+                "recycled_total": t.recycled_total,
+                "keys_dropped_total": t.keys_dropped,
+                "resize_total": t.resize_total,
+                "resize_last_seconds": round(t.resize_last_seconds, 6),
+                "first_apply_last_seconds": round(
+                    t.first_apply_last_seconds, 6),
+            }
+        return out
+
+    def live_rows_by_name(self) -> Dict[str, dict]:
+        """Exact per-name series accounting for /debug/cardinality: each
+        table's meta copied under its buffer lock, grouped outside it.
+        Proportional to capacity: the operator's drill-down, never the
+        hot path."""
+        per_name: Dict[str, dict] = {}
+        for family, t in self.tables():
+            with t.lock:
+                metas = list(t.meta)
+                touched = t.touched.copy()
+            for row, meta in enumerate(metas):
+                if meta is None:
+                    continue
+                entry = per_name.setdefault(
+                    meta.name, {"live_rows": 0, "touched_rows": 0,
+                                "families": {}})
+                entry["live_rows"] += 1
+                entry["families"][family] = \
+                    entry["families"].get(family, 0) + 1
+                if row < touched.shape[0] and touched[row]:
+                    entry["touched_rows"] += 1
+        return per_name
 
     def process(self, metric: UDPMetric) -> None:
         """Route one parsed metric to its family table (the equivalent of

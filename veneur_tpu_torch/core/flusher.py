@@ -201,6 +201,11 @@ def swap_columnstore(store: ColumnStore, is_local: bool,
         "set": store.sets.swap_out(),
         "status": store.statuses.snapshot_and_reset(),
     }
+    # the touched rows of the device families: the in-flight snapshot's
+    # size, the ledger's flush_inflight_snapshot stock under flush_async
+    swap["rows"] = int(sum(
+        np.count_nonzero(swap[f].get("touched", ()))
+        for f in ("histogram", "counter", "gauge", "llhist", "set")))
     if timings is not None:
         timings["swap_s"] = time.perf_counter() - t0
     return swap

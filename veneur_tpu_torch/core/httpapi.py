@@ -21,13 +21,17 @@ the alert engine are served at:
                      ?n=N); /metrics renders OpenMetrics exemplars when
                      the scraper asks for application/openmetrics-text
 
+  GET /debug/latency the latency observatory (core/latency.py)
+  GET /debug/cardinality  top names by live rows and mints, tag-key HLL
+                     estimates, limits (?top=N, ?name=)
+
 A standalone API (the proxy's, cmd/veneur_proxy.py) passes its own
-telemetry, readiness, ledger, query, cardinality and trace sources.
+telemetry, readiness, ledger, query, cardinality, trace and latency
+sources.
 
 Every route of the JAX package answers. Those whose source the port
 lacks answer what the JAX package answers for a server without one:
-/debug/latency, /debug/reshard, /debug/device, and /debug/cardinality
-on a server, 404 with the same body. The
+/debug/reshard and /debug/device, 404 with the same body. The
 profiling routes (/debug/pprof/profile, heap, allocs, goroutine, block,
 mutex, threadcreate, /debug/profile/cpu and /debug/profile/device) need
 core/profiling.py, which is not ported yet: they answer 501 naming it.
@@ -79,7 +83,6 @@ _TIMED_ROUTES = frozenset({
 
 # the JAX package's answers for a server without the route's source
 _NO_SOURCE = {
-    "/debug/latency": b"no latency source\n",
     "/debug/reshard": b"no reshard controller\n",
     "/debug/device": b"no device source\n",
 }
@@ -262,10 +265,26 @@ class _Handler(BaseHTTPRequestHandler):
                 limit=int(_query_float(self.path, "n", 0.0,
                                        max_value=1e6))),
                 indent=2, default=str).encode(), "application/json")
+        elif path == "/debug/latency":
+            # the latency observatory: per-plane sample age, queue dwell
+            # and depth, egress splits (a server's, or the proxy's)
+            source = api.latency_source
+            if source is None:
+                latency = getattr(api.server, "latency", None)
+                source = getattr(latency, "report", None)
+            if source is None:
+                self._send(404, b"no latency source\n")
+                return
+            self._send(200, json.dumps(source(), indent=2,
+                                       default=str).encode(),
+                       "application/json")
         elif path == "/debug/cardinality":
-            # served by the proxy (per-destination forwarded-key
-            # estimates); the server's observatory is not ported yet
+            # the server's cardinality observatory (top names, tag-key
+            # HLLs, limits; ?name= drills into one name), or the proxy's
+            # per-destination forwarded-key estimates
             source = api.cardinality_source
+            if source is None:
+                source = getattr(api.server, "cardinality_report", None)
             if source is None:
                 self._send(404, b"no cardinality source\n")
                 return
@@ -405,7 +424,7 @@ class HTTPApi:
     def __init__(self, config, server=None, address: str = "127.0.0.1:0",
                  http_quit: bool = False, on_quit=None, telemetry=None,
                  ready=None, ledger=None, query=None, cardinality=None,
-                 traces=None):
+                 traces=None, latency=None):
         self.config = config
         self.server = server
         self.http_quit = http_quit
@@ -414,12 +433,13 @@ class HTTPApi:
         # and then read from `server`: ready() -> (ready, reason or body
         # dict); ledger(intervals=N) -> dict; query(QuerySpec) -> dict;
         # cardinality(top=, name=) -> dict; traces(trace_id=, interval=,
-        # limit=) -> dict
+        # limit=) -> dict; latency() -> dict
         self.ready_source = ready
         self.trace_source = traces
         self.ledger_source = ledger
         self.query_source = query
         self.cardinality_source = cardinality
+        self.latency_source = latency
         # per-route latency: every request lands in a per-(method, path)
         # llhist, exported as http.route.* rows
         self._route_hists: Dict[str, LatencyHist] = {}

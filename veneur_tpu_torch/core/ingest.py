@@ -507,14 +507,32 @@ class BatchIngester(_ColumnarIngesterBase):
         whatever they sealed on the way out. It beats the pipeline
         supervisor every loop (the 200 ms chunk wait bounds the beat
         interval), under a component name of its own listener, with the
-        pump's native stall counter as a probe."""
-        supervisor = self.server.overload.supervisor
+        pump's native stall counter as a probe. With the latency
+        observatory each reader's ready ring is the queue
+        `ingest_ring:<host:port>:<reader>`: its depth, read from the
+        native counters at scrape, and each chunk's seal-to-dispatch
+        dwell, stamped by the C++ side."""
+        server = self.server
+        supervisor = server.overload.supervisor
         sup_name = f"ingest-pump:{listener.address}"
         supervisor.register(sup_name)
         supervisor.add_probe(sup_name, pump.stalls)
+        latency = server.latency
+        ring_names: list = []
+        ring_hists: list = []
+        if latency.enabled:
+            caps = pump.ring_stats()[1]
+            label = ":".join(str(part) for part in listener.address)
+            for i in range(len(caps)):
+                name = f"ingest_ring:{label}:{i}"
+                ring_names.append(name)
+                ring_hists.append(latency.queue_hist(name))
+                latency.register_queue(
+                    name, lambda idx=i: int(pump.ring_stats()[0][idx]),
+                    int(caps[i]))
         while not listener.closed:
             supervisor.beat(sup_name)
-            self._dispatch_one(pump, timeout_ms=200)
+            self._dispatch_one(pump, timeout_ms=200, ring_hists=ring_hists)
         # readers may be blocked waiting for a free chunk: keep draining
         # while they wind down so their partial chunks (and the samples in
         # them) reach the store before the final flush
@@ -530,12 +548,20 @@ class BatchIngester(_ColumnarIngesterBase):
                            lost)
         # a listener closed on purpose is not a stall
         supervisor.unregister(sup_name)
+        for name in ring_names:
+            latency.unregister_queue(name)
 
-    def _dispatch_one(self, pump: native.Pump, timeout_ms: int) -> bool:
+    def _dispatch_one(self, pump: native.Pump, timeout_ms: int,
+                      ring_hists=()) -> bool:
         chunk = pump.next(timeout_ms)
         if chunk is None:
             return False
         server = self.server
+        # the sample-age stamp nearest the C++ socket read (a reader seals
+        # within its seal age of the first sample), one per chunk
+        server.latency.note_arrival("dogstatsd", chunk.samples or 1)
+        if ring_hists:
+            ring_hists[chunk.reader].observe(chunk.dwell_ms / 1000.0)
         try:
             if chunk.dropped:
                 # oversized datagrams, dropped in C++ (metric_max_length):

@@ -201,6 +201,15 @@ def start_statsd(address: str, server, num_readers: int,
                      f"{address!r}")
 
 
+def _note_arrival_fn(server):
+    """The server's sample-age stamp (core/latency.py note_arrival), or
+    a no-op for a duck-typed server without an observatory."""
+    latency = getattr(server, "latency", None)
+    if latency is not None:
+        return latency.note_arrival
+    return lambda plane, n=1, t=None: None
+
+
 def _watch_kernel_drops(server, socks, label: str) -> None:
     """Register bound UDP sockets with the overload manager's kernel-drop
     monitor (/proc/net/udp polled by inode), so receive-queue overflow
@@ -275,6 +284,7 @@ def _read_native_datagrams(sock, server, listener: Listener) -> None:
     reader = native.NativeReader(max_msgs=_MAX_BATCH, max_dgram=max_len + 1)
     ing = server._ingester
     fd = sock.fileno()
+    note_arrival = _note_arrival_fn(server)
     while not listener.closed:
         length, _n, dropped = reader.read(fd, max_len)
         if length < 0:
@@ -282,6 +292,7 @@ def _read_native_datagrams(sock, server, listener: Listener) -> None:
         if dropped:
             server.count_lines(dropped, 0)
         if length > 0:
+            note_arrival("dogstatsd")  # one stamp per batch read
             try:
                 ing.ingest_ptr(reader.buf_ptr, length)
             except Exception as e:  # surfaced by Server.flush/shutdown
@@ -361,6 +372,7 @@ def _read_tcp_lines(conn, server, listener: Listener) -> None:
     parses in essential-only mode (counter and gauge samples kept)."""
     max_len = server.config.metric_max_length
     admit = server.overload.admit_statsd_packet
+    note_arrival = _note_arrival_fn(server)
     buf = b""
     while not listener.closed:
         try:
@@ -369,6 +381,7 @@ def _read_tcp_lines(conn, server, listener: Listener) -> None:
             return
         if not chunk:
             return
+        note_arrival("dogstatsd")  # stamped per recv
         buf += chunk
         lines = buf.split(b"\n")
         buf = lines.pop()
@@ -481,6 +494,7 @@ def _read_ssf_frames(conn, server, listener: Listener) -> None:
     framing error (or a frame over trace_max_length_bytes) closes the
     stream; an undecodable frame is counted and skipped."""
     max_len = int(server.config.trace_max_length_bytes)
+    note_arrival = _note_arrival_fn(server)
     with conn.makefile("rb") as stream:
         while not listener.closed:
             try:
@@ -496,4 +510,5 @@ def _read_ssf_frames(conn, server, listener: Listener) -> None:
                 return
             if span is None:
                 return
+            note_arrival("ssf")
             server.handle_ssf_span(span)

@@ -119,6 +119,7 @@ import queue
 import random
 import threading
 import time
+from concurrent.futures import TimeoutError as JoinTimeout
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -129,12 +130,17 @@ from veneur_tpu_torch import sources as sources_mod
 from veneur_tpu_torch.config import Config, SinkConfig, read_config
 from veneur_tpu_torch.core import telemetry as telemetry_mod
 from veneur_tpu_torch.core.alerts import AlertEngine
+from veneur_tpu_torch.core.cardinality import CardinalityAccountant
 from veneur_tpu_torch.core.columnstore import ColumnStore
 from veneur_tpu_torch.core.diagnostics import DiagnosticsLoop
-from veneur_tpu_torch.core.flusher import FlushBatch, flush_columnstore_batch
+from veneur_tpu_torch.core.flushexec import (FlushReadoutExecutor,
+                                             ShapeLadderPrewarmer)
+from veneur_tpu_torch.core.flusher import (FlushBatch, readout_columnstore,
+                                           swap_columnstore)
 from veneur_tpu_torch.core.grpc_ingest import GrpcIngestServer
 from veneur_tpu_torch.core.httpapi import HTTPApi
 from veneur_tpu_torch.core.ingest import BatchIngester, PyBatchIngester
+from veneur_tpu_torch.core.latency import LatencyObservatory
 from veneur_tpu_torch.core.ledger import FlowLedger
 from veneur_tpu_torch.core.networking import Listener, start_ssf, start_statsd
 from veneur_tpu_torch.core import overload as overload_mod
@@ -204,14 +210,24 @@ class _SpanSinkWorker:
     a chunk that would overflow is dropped whole (counted), except that
     an empty buffer always takes one chunk. `accepted` and `completed`
     (chunks ingested, or failed and logged) let the server's drain wait
-    for the buffer to empty; `progress` is called after each round."""
+    for the buffer to empty; `progress` is called after each round.
+    With the latency observatory the buffer is the queue
+    `span_sink:<name>`: its depth in spans, and each chunk's
+    enqueue-to-drain dwell."""
 
-    def __init__(self, sink, capacity: int, progress: Callable[[], None]):
+    def __init__(self, sink, capacity: int, progress: Callable[[], None],
+                 observatory=None):
         self.sink = sink
         self.capacity = max(16, capacity)
         self._progress = progress
-        self._pending: list = []
+        self._pending: list = []  # (enqueue monotonic, chunk) pairs
         self._pending_spans = 0
+        self._dwell = None
+        if observatory is not None and observatory.enabled:
+            qname = f"span_sink:{sink.name()}"
+            self._dwell = observatory.queue_hist(qname)
+            observatory.register_queue(
+                qname, lambda: self._pending_spans, self.capacity)
         self._lock = threading.Lock()
         self._ready = threading.Condition(self._lock)
         self.dropped = 0
@@ -235,7 +251,7 @@ class _SpanSinkWorker:
             if self._pending and self._pending_spans + n > self.capacity:
                 self.dropped += n
                 return
-            self._pending.append(spans)
+            self._pending.append((time.monotonic(), spans))
             self._pending_spans += n
             self.accepted += n
             self._ready.notify()
@@ -249,7 +265,11 @@ class _SpanSinkWorker:
                     self._ready.wait(timeout=0.5)
                 chunks, self._pending = self._pending, []
                 self._pending_spans = 0
-            for chunk in chunks:
+            dwell = self._dwell
+            now = time.monotonic() if dwell is not None else 0.0
+            for enqueued, chunk in chunks:
+                if dwell is not None:
+                    dwell.observe(now - enqueued)
                 try:
                     self.sink.ingest_many(chunk)
                     self.ingested += len(chunk)
@@ -302,6 +322,12 @@ class Server:
             max_rows=tpu.max_rows_per_family,
             device=self.device)
         self._build_ledger()
+        # the latency observatory (core/latency.py): per-plane sample age
+        # from socket read to sink ack, and the dwell and depth of every
+        # bounded hand-off; arrivals stamp the ledger's ingress.observed
+        self.latency = LatencyObservatory(
+            enabled=config.latency_observatory)
+        self.latency.ledger = self.ledger if self.ledger.enabled else None
         self.aggregates = HistogramAggregates.from_names(config.aggregates)
         self.percentiles = tuple(config.percentiles)
         sinks_mod.register_builtin_sinks()
@@ -374,6 +400,8 @@ class Server:
                                       # forward was still running
                                       "forward_undispatched": 0}
         self._stats_lock = threading.Lock()
+        # in-flight readouts dropped (raised, or wedged past the limit)
+        self.readout_failed_total = 0
         self._dispatch_error: Optional[BaseException] = None
         # the columnar ingester: native unless explicitly disabled, and a
         # native build failure raises
@@ -391,8 +419,8 @@ class Server:
             random.Random(self.rng.getrandbits(64)),
             indicator_timer_name=config.indicator_span_timer_name,
             objective_timer_name=config.objective_span_timer_name)
-        self.span_chan: "queue.Queue" = queue.Queue(
-            maxsize=config.span_channel_capacity)
+        self.span_chan: "queue.Queue" = self.latency.instrument_queue(
+            "span_channel", maxsize=config.span_channel_capacity)
         self._span_workers: List[threading.Thread] = []
         self._span_sink_workers: List[_SpanSinkWorker] = []
         self._span_cv = threading.Condition()
@@ -450,6 +478,14 @@ class Server:
         # thread that outlives the flush lands its record later, marked
         # `late`.
         self.last_flush_timings: Dict[str, Any] = {}
+        # the overlapped flush (`flush_async`, core/flushexec.py): the
+        # readout executor, made at the first async tick; the intervals
+        # swapped and submitted to it, oldest first (their touched rows
+        # are the ledger's flush_inflight_snapshot stock); and with
+        # `prewarm_ladder`, the shape-ladder prewarmer started by start()
+        self._flush_executor: Optional[FlushReadoutExecutor] = None
+        self._inflight_flushes: List[dict] = []
+        self.prewarmer: Optional[ShapeLadderPrewarmer] = None
         self._build_operator_surface()
         self._build_overload_and_trace()
         self.ledger.on_event = self.telemetry.record_event
@@ -491,6 +527,11 @@ class Server:
             "forward_tier", inputs=("forward.acked_reported",),
             outputs=("forward.remote_merged", "forward.remote_rejected",
                      "forward.remote_deduped"))
+        # an interval swapped out of the tables but not yet delivered
+        # (flush_async) is inventory, not loss: its touched rows
+        self._inflight_rows = 0
+        ledger.stock("flush_inflight_snapshot",
+                     lambda: float(self._inflight_rows))
         self.store.attach_ledger(ledger if ledger.enabled else None)
 
     def _build_operator_surface(self) -> None:
@@ -505,6 +546,7 @@ class Server:
         registry.add_collector(self._live_telemetry_rows)
         registry.add_collector(self._ring_telemetry_rows)
         registry.add_collector(self.store.telemetry_rows)
+        registry.add_collector(self.latency.telemetry_rows)
         if self.device.type == "cuda":
             registry.add_collector(telemetry_mod.device_memory_rows)
         if self.backfill is not None:
@@ -569,6 +611,22 @@ class Server:
             on_stall=self._supervisor_stall)
         registry.add_collector(self.overload.telemetry_rows)
         self.ledger.probe_map("ingress.shed", self.overload.shed_snapshot)
+        # the cardinality observatory (core/cardinality.py), fed by every
+        # table's mint path: heavy-hitter names, per-tag-key HLLs of the
+        # top offenders, and the cardinality rung of the shed ladder (a
+        # refused mint lands in the shed table, reason cardinality*)
+        self.cardinality = CardinalityAccountant(
+            soft_limit=config.cardinality_soft_limit,
+            hard_limit=config.cardinality_hard_limit,
+            degraded_keep=config.cardinality_degraded_keep,
+            top_k=config.cardinality_top_k,
+            hll_names=config.cardinality_hll_names,
+            hll_min_mints=config.cardinality_hll_min_mints,
+            on_shed=self.overload.shed,
+            on_event=self.telemetry.record_event)
+        self.store.attach_cardinality(self.cardinality)
+        registry.add_collector(self.cardinality.telemetry_rows)
+        self.store.attach_resize_hook(self._store_resize)
         self.trace_plane = SelfTracePlane(
             service="veneur-tpu",
             sample_rate=config.trace_self_sample_rate,
@@ -605,6 +663,75 @@ class Server:
         duplicates were dropped by token before here). The flush itself
         sets the plane's active trace when it takes the adoption."""
         self._adopted_trace = (int(trace_id), int(parent_span_id))
+
+    def _store_resize(self, family: str, old_cap: int, new_cap: int,
+                      seconds: float, kind: str = "resize",
+                      prewarmed: bool = False) -> None:
+        """Flight-recorder hook for every capacity doubling (kind
+        "resize", fired under the table's buffer lock: an event and an
+        enqueue only) and for the first batch apply after it (kind
+        "first_apply", the apply's seconds to the device's completion,
+        tagged `prewarmed` when the shape-ladder prewarmer launched this
+        rung first). With the prewarmer, a resize queues the rung after
+        the one just reached."""
+        if kind == "resize" and self.prewarmer is not None:
+            self.prewarmer.note_resize(family, new_cap)
+        self.telemetry.record_event(
+            f"columnstore_{kind}", family=family, old_capacity=old_cap,
+            new_capacity=new_cap, duration_s=round(seconds, 6),
+            **({"prewarmed": True} if prewarmed else {}))
+
+    def cardinality_report(self, top: int = 20, name: str = "") -> dict:
+        """The /debug/cardinality payload (the JAX server's): with
+        `name`, one name's exact per-family rows and its tag-key HLL
+        estimates; otherwise the top names by live rows and by mint
+        activity, the tables' capacity and churn, and the limits. The
+        per-name scan is proportional to capacity: operator-triggered
+        only."""
+        if name:
+            detail = self.cardinality.name_report(name)
+            exact = self.store.live_rows_by_name().get(name)
+            if exact is not None:
+                detail.update(exact)
+            else:
+                detail.setdefault("live_rows", 0)
+            return detail
+        per_name = self.store.live_rows_by_name()
+        tracked = {r["name"]: r for r in self.cardinality.top(top)}
+        # the top names by exact live rows and the tracker's top by mint
+        # activity: a refused storm has few admitted rows, but its mint
+        # rate is what the operator came to see
+        by_rows = sorted(
+            per_name, key=lambda nm: (per_name[nm]["live_rows"],
+                                      per_name[nm]["touched_rows"]),
+            reverse=True)[:max(0, top)]
+        top_list = []
+        for nm in set(by_rows) | set(tracked):
+            row = {"name": nm}
+            row.update(per_name.get(
+                nm, {"live_rows": 0, "touched_rows": 0, "families": {}}))
+            rec = tracked.get(nm)
+            if rec is not None:
+                for field in ("mints_interval", "mints_last_interval",
+                              "mint_rate_per_s", "shed_total"):
+                    row[field] = rec[field]
+            tag_report = self.cardinality.tag_report(nm)
+            if tag_report is not None:
+                row["tags"] = tag_report
+            top_list.append(row)
+        top_list.sort(
+            key=lambda r: (r["live_rows"] + r.get("mints_interval", 0)
+                           + r.get("mints_last_interval", 0)),
+            reverse=True)
+        del top_list[max(0, top):]
+        return {
+            "generated_unix": round(time.time(), 3),
+            "interval_s": round(self.cardinality.interval_s, 3),
+            "total_names": len(per_name),
+            "tables": self.store.capacity_report(),
+            "top": top_list,
+            "limits": self.cardinality.limits_report(),
+        }
 
     def _self_packet(self, packet: bytes) -> None:
         """Loop a self-metric packet straight back into the parse path."""
@@ -779,6 +906,7 @@ class Server:
         chaos = self.chaos
         if chaos is not None and chaos.ingest_faults_planned:
             datagrams = chaos.mangle_packets(datagrams)
+        self.latency.note_arrival("dogstatsd", len(datagrams))
         good = [d for d in datagrams
                 if len(d) <= self.config.metric_max_length]
         if len(good) < len(datagrams):
@@ -821,6 +949,7 @@ class Server:
         """One unframed SSF datagram through the Python decode (reference
         server.go:1053-1100): the span goes on the channel, and the span
         workers extract its metrics."""
+        self.latency.note_arrival("ssf")
         try:
             span = protocol.parse_ssf(packet)
         except protocol.SSFDecodeError:
@@ -853,9 +982,11 @@ class Server:
         spans are on the channel."""
         ing = self._ingester
         if not isinstance(ing, BatchIngester):
+            # handle_ssf_packet stamps each datagram's arrival
             for off, ln in zip(offs, lens):
                 self.handle_ssf_packet(buf[int(off):int(off) + int(ln)])
             return
+        self.latency.note_arrival("ssf", len(offs))
         decoded = ing.ingest_ssf_buffer(buf, offs, lens)
         idxs = np.flatnonzero(decoded)
         # batch admission decides the span hand-off only (the metrics
@@ -1011,6 +1142,7 @@ class Server:
         out["source_scrape_failures"] = sum(
             getattr(src, "scrape_failures", 0) for src in self.sources)
         out["lost_lines"] = sum(p.lost_lines() for p in pumps)
+        out["readout_failed"] = self.readout_failed_total
         fc, imp = self.forward_client, self.import_server
         out["forwarded_total"] = fc.stats["forwarded_total"] if fc else 0
         out["forward_errors"] = fc.errors if fc else 0
@@ -1060,12 +1192,20 @@ class Server:
                               lambda: fc.carryover.pending_metrics)
             self.ledger.stock("forward_inflight",
                               lambda: fc.inflight_metrics)
+            # the forward plane's bounded hand-offs in the observatory:
+            # the carryover (depth in intervals) and the spool
+            self.latency.register_queue(
+                "forward_carryover", lambda: fc.carryover.depth,
+                cfg.carryover_max_intervals)
             if fc.spool is not None:
                 spool = fc.spool
                 self.ledger.stock("forward_spool",
                                   lambda: spool.pending_metrics)
                 self.ledger.stock("spool_quarantine",
                                   lambda: spool.quarantined_metrics)
+                self.latency.register_queue(
+                    "forward_spool", lambda: spool.depth,
+                    cfg.carryover_spool_max_segments)
         if cfg.grpc_address:
             self.import_server = imp = ImportServer(
                 self, cfg.grpc_address,
@@ -1105,6 +1245,17 @@ class Server:
             self.http_api.start()
         if self.diagnostics is not None:
             self.diagnostics.start()
+        if cfg.prewarm_ladder:
+            # each family's next capacity rung launched ahead of need, at
+            # startup and after every resize (core/flushexec.py)
+            self.prewarmer = ShapeLadderPrewarmer(
+                self.store, percentiles=self.percentiles,
+                need_export=cfg.is_local and self.forward_client is not None,
+                on_event=self.telemetry.record_event)
+            self.telemetry.registry.add_collector(
+                self.prewarmer.telemetry_rows)
+            self.prewarmer.start()
+            self.prewarmer.prewarm_initial()
         supervisor = self.overload.supervisor
         self._flush_thread = threading.Thread(
             target=self._flush_loop, name="flush-loop", daemon=True)
@@ -1136,7 +1287,8 @@ class Server:
             sink.start(self)
             worker = _SpanSinkWorker(sink,
                                      self.config.span_sink_queue_capacity,
-                                     self._span_progress)
+                                     self._span_progress,
+                                     observatory=self.latency)
             worker.start()
             self._span_sink_workers.append(worker)
         for i in range(max(1, self.config.num_span_workers)):
@@ -1171,6 +1323,7 @@ class Server:
                 quarantine_max_bytes=cfg.carryover_spool_quarantine_max_bytes,
                 quarantine_max_segments=(
                     cfg.carryover_spool_quarantine_max_segments),
+                dwell_hist=self.latency.queue_hist("forward_spool"),
                 ledger=ledger)
         replay_limiter = None
         if cfg.forward_wal and cfg.wal_replay_rate_limit > 0:
@@ -1241,23 +1394,49 @@ class Server:
                 faulthandler.dump_traceback(all_threads=True)
                 os._exit(2)
 
+    # a readout still running at this many consecutive joins is dropped
+    READOUT_MISS_LIMIT = 3
+
     def flush(self) -> None:
-        """One flush pass (reference flusher.go:26-122): swap every table
-        out, read it out on the device, add the backfill plane's closed
-        intervals, start every sink's flush thread and, on a local
-        server, the forward thread with the forwardable state, then wait
-        for all of them, outside the flush lock, up to one interval from
-        the flush's start. Raises afterwards if an ingest chunk failed to
-        apply or a forward thread raised.
+        """One flush pass (reference flusher.go:26-122), in three stages
+        (the JAX server's): swap every table out at one interval boundary,
+        read the swapped generation out on the device (the readout: its
+        kernels, the device sync, the host copies and the assembly, plus
+        the backfill plane's closed intervals and the forward's wire
+        encoding), and deliver: start every sink's flush thread and, on a
+        local server, the forward thread, then wait for all of them,
+        outside the flush lock, up to one interval from the flush's
+        start. Raises afterwards if an ingest chunk failed to apply or a
+        forward thread raised.
+
+        With `flush_async` the readout runs on the readout executor
+        (core/flushexec.py) instead of inline: each tick swaps its
+        interval out and submits it, joins the intervals still in flight
+        (oldest first, each for at most min(5, max(1, interval/4)) s;
+        one not done is carried to the next tick, and dropped after
+        READOUT_MISS_LIMIT ticks, as is one whose readout raised, both
+        counted in `flush.readout_failed_total`), and delivers them. So
+        interval N is delivered at tick N+1, and the device work leaves
+        the flush loop's critical path.
 
         The flush is a span, `flush`, whose children are one
         `flush.family` per family readout and one `flush.sink` per sink
         thread (the forward's included, whose thread carries it as the
-        ambient span, so the send carries its lineage): on a local it
-        roots the interval's trace, on a global it parents under the
-        import that a local's trace reached. They go into this server's
-        span pipeline, and into its trace store when the interval is
-        sampled. The trace plane rolls to the next interval's id last."""
+        ambient span, so the send carries its lineage); a delivered
+        interval's children parent under the span of the tick that
+        swapped it. On a local the span roots the interval's trace, on a
+        global it parents under the import that a local's trace reached.
+        They go into this server's span pipeline, and into its trace
+        store when the interval is sampled. The trace plane rolls to the
+        next interval's id last, watching the cardinality observatory's
+        top names."""
+        self._flush()
+
+    def _flush(self, deliver_only: bool = False) -> None:
+        """flush(); `deliver_only` (the shutdown drain without
+        `flush_on_shutdown`) swaps nothing: it joins and delivers the
+        intervals already in flight, so a swapped interval still reaches
+        the WAL, the forward and the sinks."""
         t0 = time.perf_counter()
         timings: Dict[str, Any] = {}
         with self._flush_lock:
@@ -1274,37 +1453,66 @@ class Server:
                     self.store.unique_timeseries(),
                     tags=[f"global_veneur:"
                           f"{str(not self.config.is_local).lower()}"])
-            batch, fwd = flush_columnstore_batch(
-                self.store, self.config.is_local, self.percentiles,
-                self.aggregates, collect_forward=fc is not None,
-                timings=timings, device_lock=self._readout_lock)
-            # informational stages: what the interval's snapshot produced
-            self.ledger.note("flush.emitted", len(batch))
-            self.ledger.note("flush.forward_rows", len(fwd))
-            if self.backfill is not None:
-                t_bf = time.perf_counter()
-                backfilled = self.backfill.drain()
-                batch.extras.extend(backfilled)
-                timings["backfill_drain_s"] = time.perf_counter() - t_bf
-                if backfilled:
-                    self.statsd.count("flush.backfilled_series_total",
-                                      len(backfilled))
-            # a pending carryover merges into fwd on the forward thread
-            # and invalidates frames encoded here
-            if (fc is not None and len(fwd)
-                    and not fc.carryover.pending_metrics):
-                t_enc = time.perf_counter()
-                fwd.wire = forwardable_to_wire(fwd)
-                timings["forward_encode_s"] = time.perf_counter() - t_enc
-            forward = None
-            if fc is not None:
-                forward = self._dispatch_forward(fc, fwd, interval_start,
-                                                 flush_span, traced)
+            # the sample-age watermarks roll at the swap's boundary
+            watermarks = self.latency.take_watermarks()
+            drain = deliver_only or self._shutdown.is_set()
+            async_on = bool(self.config.flush_async) and not drain
+            record = None
+            if not deliver_only:
+                t_lock = time.perf_counter()
+                with self._readout_lock:
+                    timings["readout_lock_wait_s"] = \
+                        time.perf_counter() - t_lock
+                    swap = swap_columnstore(
+                        self.store, self.config.is_local, self.percentiles,
+                        collect_forward=fc is not None, timings=timings)
+                record = {"swap": swap, "flush": self.flush_count,
+                          "interval_start": interval_start,
+                          "watermarks": watermarks, "span": flush_span,
+                          "traced": traced}
+            delivered = self._join_readouts(
+                drain, timings,
+                book=bool(self.config.flush_async) or deliver_only)
+            inline_device_s = 0.0
+            if async_on:
+                record["pending"] = self._readout_executor().submit(
+                    lambda rec=record: self._run_readout(rec))
+                self._inflight_flushes.append(record)
+            elif record is not None:
+                self._run_readout(record)
+                r_timings = record["result"][2]
+                inline_device_s = sum(
+                    r_timings.get(k, 0.0)
+                    for k in ("dispatch_s", "device_sync_s", "assembly_s"))
+                delivered.append(record)
+            self._inflight_rows = sum(r["swap"]["rows"]
+                                      for r in self._inflight_flushes)
             with self._events_lock:
                 events, self._events = self._events, []
             t_sinks = time.perf_counter()
-            dispatched = self._dispatch_sinks(batch, events, timings,
-                                              flush_span, traced)
+            metrics = 0
+            dispatched: List[tuple] = []
+            forwards: List[tuple] = []
+            # a tick that delivers nothing (the first async tick, or a
+            # readout carried or dropped) still delivers its events and
+            # the sinks' spill on time
+            for i, rec in enumerate(delivered or [None]):
+                if i:
+                    # a drain delivering two intervals: one thread per
+                    # sink and one forward, so the second round waits for
+                    # the first's, under one shared grace
+                    self._join_round(dispatched, forwards,
+                                     time.perf_counter()
+                                     + max(self.interval, 30.0))
+                n, round_dispatched, forward = self._deliver_round(
+                    rec, events if i == 0 else [], timings, i == 0,
+                    flush_span, traced)
+                metrics += n
+                dispatched.extend(round_dispatched)
+                if forward is not None:
+                    forwards.append(forward)
+            dispatched.extend(self._dispatch_span_sinks(timings, flush_span,
+                                                        traced))
         # bounded wait outside the flush lock: a hung sink or send holds
         # up neither the next flush nor shutdown past the interval; the
         # stragglers run on and are skipped next interval
@@ -1313,8 +1521,7 @@ class Server:
             thread.join(max(0.0, deadline - time.perf_counter()))
         timings["sinks_s"] = time.perf_counter() - t_sinks
         stuck = self._sweep_timed_out(dispatched)
-        if forward is not None:
-            thread, record = forward
+        for thread, record in forwards:
             thread.join(max(0.0, deadline - time.perf_counter()))
             if thread.is_alive():
                 stuck += 1
@@ -1331,13 +1538,16 @@ class Server:
         imp = self.import_server
         if imp is not None:
             imp.rpc_stats.emit(self.statsd, prefix="import.rpc")
-        self._record_family_spans(flush_span, timings.get("families", {}))
+        # the sink joins are the ack point of the delivered intervals
+        self._after_delivery(delivered, time.time())
         flush_span.finish()
         timings["total_s"] = time.perf_counter() - t0
         self.last_flush_timings = timings
-        self._record_flush(timings, len(batch),
-                           trace_id_hex(flush_span.trace_id) if traced
-                           else "")
+        self._record_flush(
+            timings, metrics,
+            trace_id_hex(flush_span.trace_id) if traced else "",
+            async_on=async_on, inline_device_s=inline_device_s,
+            delivered=delivered[0] if delivered else None)
         self._reclaim_idle_rows()
         try:
             # the flow ledger's interval close: fold the probe deltas,
@@ -1345,10 +1555,159 @@ class Server:
             # imbalance); it stamps this interval's trace id
             self.ledger.close_interval()
         finally:
-            # the next interval's trace id, and a fresh exemplar budget
-            self.trace_plane.roll()
+            # the next interval's trace id, a fresh exemplar budget, and
+            # the heavy-hitter names the exemplar capture watches
+            self.trace_plane.roll(
+                [r["name"] for r in self.cardinality.top(16)])
         self._raise_dispatch_error()
         self._raise_forward_error()
+
+    def _join_readouts(self, drain: bool, timings: Dict[str, Any],
+                       book: bool) -> List[dict]:
+        """Join the in-flight readouts, oldest first; returns those to
+        deliver. A head not done within the join timeout is carried to
+        the next tick (at most READOUT_MISS_LIMIT ticks); one that raised,
+        or stays wedged, or is not done at a drain's longer timeout is
+        dropped and counted. Books `join_s` when `book`."""
+        t_join = time.perf_counter()
+        inflight = self._inflight_flushes
+        delivered: List[dict] = []
+        timeout = (max(self.interval, 60.0) if drain
+                   else min(5.0, max(1.0, self.interval / 4)))
+        while inflight:
+            head = inflight[0]
+            head["async"] = True
+            try:
+                head["pending"].result(timeout=timeout)
+            except JoinTimeout:
+                if not drain:
+                    head["join_misses"] = head.get("join_misses", 0) + 1
+                    if head["join_misses"] < self.READOUT_MISS_LIMIT:
+                        break  # carried to the next tick
+                logger.error("flush readout for interval %s wedged; "
+                             "dropping it", head["flush"])
+                self._readout_failed()
+                inflight.pop(0)
+                continue
+            except Exception:
+                logger.exception("flush readout for interval %s failed; "
+                                 "the interval is lost", head["flush"])
+                self._readout_failed()
+                inflight.pop(0)
+                continue
+            inflight.pop(0)
+            delivered.append(head)
+        if book:
+            timings["join_s"] = time.perf_counter() - t_join
+        return delivered
+
+    def _readout_failed(self) -> None:
+        with self._stats_lock:
+            self.readout_failed_total += 1
+        self.statsd.count("flush.readout_failed_total", 1)
+
+    def _run_readout(self, record: dict) -> tuple:
+        """The readout of one swapped interval (inline, or on the readout
+        executor under `flush_async`): the device readout under
+        `_readout_lock` (its launches and sync order against a query's,
+        core/flusher.py), the assembly, the backfill plane's closed
+        intervals (their series carry their original timestamps), and
+        the forward's wire encoding unless a pending carryover will merge
+        into the snapshot. Sets and returns record["result"]: (batch,
+        fwd, readout timings)."""
+        record["readout_start_unix"] = time.time()
+        r_timings: Dict[str, Any] = {}
+        fc = self.forward_client
+        batch, fwd = readout_columnstore(
+            self.store, record["swap"], self.config.is_local,
+            self.aggregates, collect_forward=fc is not None,
+            timings=r_timings, device_lock=self._readout_lock)
+        if self.backfill is not None:
+            t_bf = time.perf_counter()
+            backfilled = self.backfill.drain()
+            batch.extras.extend(backfilled)
+            r_timings["backfill_drain_s"] = time.perf_counter() - t_bf
+            if backfilled:
+                self.statsd.count("flush.backfilled_series_total",
+                                  len(backfilled))
+        # a pending carryover merges into fwd on the forward thread and
+        # invalidates frames encoded here
+        if fc is not None and len(fwd) and not fc.carryover.pending_metrics:
+            t_enc = time.perf_counter()
+            fwd.wire = forwardable_to_wire(fwd)
+            r_timings["forward_encode_s"] = time.perf_counter() - t_enc
+        record["result"] = (batch, fwd, r_timings)
+        return record["result"]
+
+    def _readout_executor(self) -> FlushReadoutExecutor:
+        """Get-or-create the readout executor, supervised like the flush
+        loop: a wedged readout trips the same stall ladder."""
+        if self._flush_executor is None:
+            supervisor = self.overload.supervisor
+            supervisor.register("flush-readout", deadline=max(
+                supervisor.deadline, 2.5 * self.interval, 60.0))
+            self._flush_executor = FlushReadoutExecutor(
+                beat=supervisor.beat)
+        return self._flush_executor
+
+    def _deliver_round(self, rec: Optional[dict], events: List,
+                       timings: Dict[str, Any], primary: bool, flush_span,
+                       traced: bool) -> tuple:
+        """Hand one read-out interval to the forward and the metric sinks
+        (caller holds _flush_lock); None delivers only `events` and the
+        sinks' spill. Only the primary round's readout timings land in
+        this tick's. Returns (metrics delivered, the sinks dispatched,
+        the forward dispatched or None)."""
+        if rec is None:
+            empty = FlushBatch(int(self.last_flush_unix), [], [])
+            return 0, self._dispatch_sinks(empty, events, timings,
+                                           flush_span, traced), None
+        batch, fwd, r_timings = rec["result"]
+        if primary:
+            for key, value in r_timings.items():
+                if key == "readout_lock_wait_s":
+                    timings[key] = timings.get(key, 0.0) + value
+                else:
+                    timings[key] = value
+        # informational stages: what the interval's snapshot produced
+        self.ledger.note("flush.emitted", len(batch))
+        self.ledger.note("flush.forward_rows", len(fwd))
+        forward = None
+        fc = self.forward_client
+        if fc is not None:
+            forward = self._dispatch_forward(
+                fc, fwd, rec["interval_start"], rec["span"], rec["traced"])
+        dispatched = self._dispatch_sinks(batch, events, timings,
+                                          rec["span"], rec["traced"])
+        return len(batch), dispatched, forward
+
+    def _join_round(self, dispatched: List[tuple], forwards: List[tuple],
+                    deadline: float) -> None:
+        """Wait, until `deadline`, for the sink and forward threads a
+        drain's earlier round started."""
+        threads = [t for _k, t, _r in dispatched] + [t for t, _r in forwards]
+        for thread in threads:
+            thread.join(max(0.0, deadline - time.perf_counter()))
+
+    def _after_delivery(self, delivered: List[dict], ack_unix: float) -> None:
+        """Each delivered interval's sample ages, observed at the sinks'
+        ack (with its worst case as the `pipeline.sample_age` exemplar
+        of a traced interval), and its `flush.family` spans under the
+        span of the tick that swapped it, marked as the async lane when
+        its readout ran on the executor."""
+        for rec in delivered:
+            marks = rec["watermarks"]
+            self.latency.observe_sample_age(marks, ack_unix)
+            if rec["traced"] and marks:
+                oldest = min(mark[0] for mark in marks.values())
+                self.trace_plane.exemplars.capture(
+                    "pipeline.sample_age", max(0.0, ack_unix - oldest),
+                    rec["span"].trace_id, ts=ack_unix)
+            families = rec["result"][2].get("families", {})
+            if rec.get("async"):
+                for frec in families.values():
+                    frec["lane"] = "async"
+            self._record_family_spans(rec["span"], families)
 
     def _reclaim_idle_rows(self) -> None:
         """Idle-row reclamation and the intern self-metrics, once per
@@ -1356,10 +1715,16 @@ class Server:
         family tombstones its idle rows, then one combined sweep erases
         their intern mappings, so the pump readers wait on the intern
         lock once per flush; the rows are recycled one flush later
-        (ColumnStore tables' reclaim_idle)."""
+        (ColumnStore tables' reclaim_idle). Under `flush_async` it runs
+        at the end of every tick, as in the JAX server, after the join
+        that delivered the previous interval; while an older readout is
+        still carried in flight it waits, since a row that interval
+        touched could otherwise be recycled before its assembly read the
+        row's cached names. Then the cardinality accountant rolls its
+        interval (the mint budgets reset)."""
         idle = self.config.tpu.idle_key_intervals
         tables = self.store.tables()
-        if idle > 0:
+        if idle > 0 and len(self._inflight_flushes) <= 1:
             pairs = []
             for family, table in tables:
                 evicted = table.reclaim_idle(idle)
@@ -1376,6 +1741,9 @@ class Server:
             self.statsd.count("intern.keys_dropped_total",
                               dropped - self._keys_dropped_reported)
             self._keys_dropped_reported = dropped
+        # after the reclaim, so its live-row decrements land in the
+        # interval they happened in
+        self.cardinality.roll_interval()
 
     def _open_flush_span(self):
         """The interval's `flush` span and whether its trace is sampled
@@ -1425,18 +1793,21 @@ class Server:
             child.finish(end_time=base + end_off)
 
     def _record_flush(self, timings: Dict[str, Any], metrics: int,
-                      trace_hex: str = "") -> None:
+                      trace_hex: str = "", async_on: bool = False,
+                      inline_device_s: float = 0.0,
+                      delivered: Optional[dict] = None) -> None:
         """The flush's self-metrics (the JAX flush's names), its round in
         the flight recorder and its event. The critical path is the wall
-        time less the inline device readout (dispatch, sync, assembly),
-        as the JAX package computes it for a flush that reads out
-        inline."""
+        time less the device readout that ran inline this tick (dispatch,
+        sync, assembly; none under `flush_async`), as the JAX package
+        computes it. The round carries the family segments of the first
+        interval it delivered (the waterfall's tree) and, when that
+        interval's readout ran on the executor, its flush number; an
+        async tick is marked."""
         duration = timings["total_s"]
         phases = {k: v for k, v in timings.items()
                   if isinstance(v, (int, float))}
-        phases["critical_path_s"] = max(0.0, duration - sum(
-            timings.get(k, 0.0)
-            for k in ("dispatch_s", "device_sync_s", "assembly_s")))
+        phases["critical_path_s"] = max(0.0, duration - inline_device_s)
         self.statsd.timing("flush.critical_path_s", phases["critical_path_s"])
         self.statsd.gauge("flush.total_duration_ns", int(duration * 1e9))
         self.statsd.timing("flush.total_duration", duration)
@@ -1459,6 +1830,14 @@ class Server:
         if trace_hex:
             # /debug/flush points at the interval's /debug/traces entry
             round_info["trace_id"] = trace_hex
+        if async_on:
+            round_info["async"] = True
+        if delivered is not None:
+            if delivered.get("async"):
+                round_info["delivered_flush"] = delivered["flush"]
+            families = delivered["result"][2].get("families")
+            if families:
+                round_info["families"] = _round_family_tree(families)
         self.telemetry.flushes.record(round_info)
         self.telemetry.record_event(
             "flush", flush=self.flush_count,
@@ -1533,11 +1912,10 @@ class Server:
     def _dispatch_sinks(self, batch: FlushBatch, events: List,
                         timings: Dict[str, Any], flush_span,
                         traced: bool) -> List[tuple]:
-        """Start each sink's flush thread for this interval (the caller
-        holds _flush_lock); returns [(key, thread, record)]. A metric
-        sink is dispatched only when there is something for it: metrics,
-        events, or its spill; a span sink every interval, as in the JAX
-        package (its buffer is its own)."""
+        """Start each metric sink's flush thread for one delivered
+        interval (the caller holds _flush_lock); returns [(key, thread,
+        record)]. A metric sink is dispatched only when there is
+        something for it: metrics, events, or its spill."""
         if self._routing is not None and len(batch):
             # routing annotates each metric with its sinks, so it needs
             # objects; materialised once, shared by every sink thread
@@ -1560,6 +1938,13 @@ class Server:
                 lambda k=key, s=sink: self._flush_sink_safe(k, s, batch,
                                                             events),
                 flush_span, traced)
+        return dispatched
+
+    def _dispatch_span_sinks(self, timings: Dict[str, Any], flush_span,
+                             traced: bool) -> List[tuple]:
+        """Start each span sink's flush thread, once per tick, as in the
+        JAX package (its buffer is its own)."""
+        dispatched: List[tuple] = []
         for sink in self.span_sinks:
             key = f"span:{sink.name()}"
             record = timings[f"span_sink:{sink.name()}"] = _sink_record()
@@ -1816,9 +2201,11 @@ class Server:
     def shutdown(self) -> None:
         """Stop the alert loop, the listeners, the gRPC ingest, the span
         plane (after it drained what it holds) and the flush loop, run the
-        last flush when `flush_on_shutdown` asks for it, then stop the
-        forward tier and the HTTP API, wait up to one interval for the
-        sink threads, and stop the sinks. Raises afterwards if an ingest
+        last flush when `flush_on_shutdown` asks for it (without it, under
+        `flush_async`, a pass that delivers the intervals already swapped
+        and opens none), stop the readout executor and the prewarmer,
+        then the forward tier and the HTTP API, wait up to one interval
+        for the sink threads, and stop the sinks. Raises afterwards if an ingest
         chunk failed to apply, a forward thread raised or the last flush
         failed."""
         self.telemetry.record_event("shutdown", pid=os.getpid())
@@ -1847,11 +2234,21 @@ class Server:
         if self._watchdog_thread is not None:
             self._watchdog_thread.join(timeout=5.0)
         final_error: Optional[BaseException] = None
-        if self.config.flush_on_shutdown:
-            try:
+        try:
+            if self.config.flush_on_shutdown:
+                # a full last flush: it delivers the interval in flight
+                # and the partial one
                 self.flush()
-            except Exception as e:  # re-raised once everything stopped
-                final_error = e
+            elif self.config.flush_async:
+                # no partial interval, but an interval already swapped
+                # is complete: join and deliver it (WAL, forward, sinks)
+                self._flush(deliver_only=True)
+        except Exception as e:  # re-raised once everything stopped
+            final_error = e
+        if self._flush_executor is not None:
+            self._flush_executor.stop()
+        if self.prewarmer is not None:
+            self.prewarmer.stop()
         if self._forward_thread is not None:
             # the send is bounded by its deadline, the interval
             self._forward_thread.join(timeout=self.interval)
@@ -1859,6 +2256,9 @@ class Server:
             self.import_server.stop()
         if self.forward_client is not None:
             self.forward_client.close()
+            # the forward plane's queues leave the observatory with it
+            self.latency.unregister_queue("forward_carryover")
+            self.latency.unregister_queue("forward_spool")
         if self.http_api is not None:
             self.http_api.stop()
             self.http_api = None
@@ -1879,6 +2279,21 @@ class Server:
         self._raise_forward_error()
         if final_error is not None:
             raise final_error
+
+
+def _round_family_tree(families: dict) -> dict:
+    """The readout's per-family segments for the flight recorder and the
+    waterfall (floats to the microsecond, structure kept), as the JAX
+    server records them."""
+    out = {}
+    for family, rec in families.items():
+        entry = {k: (round(v, 6) if isinstance(v, float) else v)
+                 for k, v in rec.items() if k != "devices"}
+        entry["devices"] = {
+            dev: {k: round(v, 6) for k, v in seg.items()}
+            for dev, seg in rec.get("devices", {}).items()}
+        out[family] = entry
+    return out
 
 
 def _sink_record() -> Dict[str, Any]:

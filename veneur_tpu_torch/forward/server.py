@@ -177,6 +177,7 @@ class ImportServer:
         received = merged = 0
         try:
             tspan = self._trace_begin(ctx)
+            self._note_arrival()
             received, merged = merge()
             ok = True
         except Exception as e:
@@ -195,6 +196,14 @@ class ImportServer:
             ledger.note("import.received", received, key="forward")
             ledger.note("ingest.admitted", merged, key="forward")
         return encode_flow_counts(received, merged)
+
+    def _note_arrival(self, n: int = 1) -> None:
+        """The forward plane's sample-age stamp: a forwarded interval ages
+        on this global from the moment its import lands until its flush's
+        sinks ack (core/latency.py)."""
+        latency = getattr(self._server, "latency", None)
+        if latency is not None:
+            latency.note_arrival("forward", n)
 
     def _trace_begin(self, ctx):
         """Continue the sender's interval trace: merge the exemplar

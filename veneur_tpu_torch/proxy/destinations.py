@@ -1,9 +1,10 @@
 """Destination pool: one buffered gRPC sender per global instance, plus
 the consistent-hash ring that maps metric keys onto them (a copy of
-veneur_tpu/proxy/destinations.py without its latency-observatory queue
-instrumentation, which waits for that plane, and with each send queue
-counting what enters it and what leaves it under its own lock: see
-`_SendQueue`). Each batch carries the routing tier's active trace
+veneur_tpu/proxy/destinations.py, with each send queue counting what
+enters it and what leaves it under its own lock: see `_SendQueue`).
+With the proxy's latency observatory, each send queue is the queue
+`proxy_dest:<address>`: its depth and each metric's enqueue-to-send
+dwell. Each batch carries the routing tier's active trace
 lineage and exemplar sidecar, and its send is a `proxy.dest.send` span.
 
 Parity with reference proxy/destinations/destinations.go:14-152 and
@@ -21,6 +22,7 @@ import queue
 import threading
 import time
 import uuid
+from collections import deque
 from typing import Callable, Dict, List, Optional
 
 import grpc
@@ -55,7 +57,14 @@ class _SendQueue(queue.Queue):
     taken beside the counters, never finds a metric on neither side or
     on both (the JAX package counts after each queue call returns, and a
     close landing in between sees an imbalance that the next one
-    reverses)."""
+    reverses). With `dwell` (a LatencyHist) each item's enqueue-to-take
+    seconds are observed, the stamps kept in FIFO order under the same
+    lock (core/latency.py InstrumentedQueue)."""
+
+    def __init__(self, maxsize: int = 0, dwell=None):
+        self._dwell = dwell
+        self._stamps: deque = deque()
+        super().__init__(maxsize)
 
     def _init(self, maxsize):
         super()._init(maxsize)
@@ -65,9 +74,13 @@ class _SendQueue(queue.Queue):
     def _put(self, item):
         super()._put(item)
         self.enqueued += 1
+        if self._dwell is not None:
+            self._stamps.append(time.monotonic())
 
     def _get(self):
         self.taken += 1
+        if self._dwell is not None and self._stamps:
+            self._dwell.observe(time.monotonic() - self._stamps.popleft())
         return super()._get()
 
 
@@ -79,6 +92,7 @@ class Destination:
                  max_consecutive_failures: int = 3,
                  tls: Optional[GrpcTLS] = None,
                  breaker: Optional[CircuitBreaker] = None,
+                 observatory=None,
                  hedge_after: float = 0.0,
                  hedge_peer: Optional[Callable[[], Optional["Destination"]]]
                  = None, ledger=None, trace_source=None, trace_plane=None):
@@ -106,7 +120,18 @@ class Destination:
         # idempotency token namespace for this sender's batches
         self._token_id = uuid.uuid4().hex[:12]
         self._token_seq = 0
-        self._queue = _SendQueue(maxsize=send_buffer)
+        # the latency observatory's `proxy_dest:<address>` queue: depth
+        # and enqueue-to-send dwell (retired with the destination)
+        self._observatory = (observatory if observatory is not None
+                             and observatory.enabled else None)
+        qname = f"proxy_dest:{address}"
+        self._queue = _SendQueue(
+            maxsize=send_buffer,
+            dwell=(self._observatory.queue_hist(qname)
+                   if self._observatory is not None else None))
+        if self._observatory is not None:
+            self._observatory.register_queue(qname, self._queue.qsize,
+                                             send_buffer)
         self._batch = batch
         self._flush_interval = flush_interval
         # shared breaker replaces the old ad-hoc _failures counter: the
@@ -513,6 +538,9 @@ class Destination:
             self._book(dropped=drained)
             logger.info("destination %s closed with %d undelivered "
                         "metrics (counted dropped)", self.address, drained)
+        if self._observatory is not None:
+            # discovery churn must not grow the observatory
+            self._observatory.unregister_queue(f"proxy_dest:{self.address}")
         if notify:
             self._on_close(self)
         try:
@@ -528,6 +556,7 @@ class Destinations:
                  flush_interval: float = 0.5,
                  tls: Optional[GrpcTLS] = None,
                  max_consecutive_failures: int = 3,
+                 observatory=None,
                  hedge_after: float = 0.0,
                  failover_walk: int = 2,
                  ledger=None, trace_plane=None,
@@ -555,6 +584,7 @@ class Destinations:
         self._flush_interval = flush_interval
         self._tls = tls
         self._max_failures = max_consecutive_failures
+        self._observatory = observatory
         self._hedge_after = max(0.0, float(hedge_after))
         # bounded failover: how many ADDITIONAL ring members past the
         # primary a sick key's lookup may walk; deterministic, so every
@@ -619,6 +649,7 @@ class Destinations:
                         send_buffer=self._send_buffer, batch=self._batch,
                         flush_interval=self._flush_interval, tls=self._tls,
                         max_consecutive_failures=self._max_failures,
+                        observatory=self._observatory,
                         hedge_after=self._hedge_after,
                         hedge_peer=(lambda a=address:
                                     self.hedge_peer_for(a)),

@@ -1,6 +1,5 @@
 """veneur-proxy: consistent-hash gRPC router in front of the global tier
-(a copy of veneur_tpu/proxy/proxy.py without the latency observatory,
-which waits for its plane; it imports no torch).
+(a copy of veneur_tpu/proxy/proxy.py; it imports no torch).
 
 Parity with reference proxy/proxy.go:33-120 and
 proxy/handlers/handlers.go:40-164: a gRPC server accepting
@@ -24,6 +23,7 @@ from typing import Dict, List, Optional
 import grpc
 
 from veneur_tpu_torch import native
+from veneur_tpu_torch.core.latency import LatencyObservatory
 from veneur_tpu_torch.core.ledger import FlowLedger, LedgerImbalance
 from veneur_tpu_torch.core.telemetry import Telemetry
 from veneur_tpu_torch.forward.protos import forward_pb2, metric_pb2
@@ -55,6 +55,7 @@ class ProxyServer:
                  tls_listen_address: str = "",
                  destination_tls: Optional[GrpcTLS] = None,
                  max_consecutive_failures: int = 3,
+                 latency_observatory: bool = True,
                  health_check_interval: float = 2.0,
                  health_check_timeout: float = 1.0,
                  health_unhealthy_after: int = 3,
@@ -82,6 +83,9 @@ class ProxyServer:
         # events) land here; the CLI shares this instance with its
         # /metrics registry so the events surface at /debug/events
         self.telemetry = telemetry if telemetry is not None else Telemetry()
+        # the latency observatory (core/latency.py): per-destination
+        # queue dwell and depth, under the server's knob
+        self.latency = LatencyObservatory(enabled=latency_observatory)
         # cross-tier self-tracing (trace/store.py): the proxy follows the
         # interval traces its locals sampled. Incoming trace metadata is
         # continued with proxy.route and proxy.dest.send spans into the
@@ -119,6 +123,7 @@ class ProxyServer:
         self.destinations = Destinations(
             send_buffer=send_buffer, batch=batch, tls=destination_tls,
             max_consecutive_failures=max_consecutive_failures,
+            observatory=self.latency,
             hedge_after=hedge_after, failover_walk=failover_walk,
             ledger=self.ledger if self.ledger.enabled else None,
             trace_plane=self.trace_plane,
@@ -360,6 +365,7 @@ class ProxyServer:
         rows.extend(self.destinations.telemetry_rows())
         if self.ring_health is not None:
             rows.extend(self.ring_health.telemetry_rows())
+        rows.extend(self.latency.telemetry_rows())
         rows.extend(self.trace_plane.telemetry_rows())
         rows.extend(self.ledger.telemetry_rows())
         return rows

@@ -8,9 +8,10 @@ MetricSinkTypes and SpanSinkTypes (reference server.go:62-91).
 
 A sink that encodes straight from the FlushBatch columns reports its
 encode-vs-send split through `note_egress`; the server copies the last
-report into its `last_flush_timings` under `sink:<name>`. (The JAX
-package also feeds it to the latency observatory and the ambient flush
-span, which arrive with their planes.)
+report into its `last_flush_timings` under `sink:<name>`, and the owning
+server's latency observatory takes it as the sink's `egress.encode_s` /
+`egress.send_s` rows. (The JAX package also tags the ambient flush span
+with it.)
 """
 
 from __future__ import annotations
@@ -34,14 +35,16 @@ class MetricSink(abc.ABC):
 
     # the last flush's (encode_s, send_s, encoder), or None
     last_egress: Optional[Tuple[float, float, str]] = None
+    # the owning server's latency observatory, bound at start()
+    _latency = None
 
     def start(self, server) -> None:  # noqa: B027
         self.bind_server(server)
 
     def bind_server(self, server) -> None:
-        """Capture what the sink reads of its owning server. Sinks that
-        override start() call this first. The port has no self-metrics
-        client or latency observatory yet, so nothing is bound."""
+        """Capture what the sink reads of its owning server: its latency
+        observatory. Sinks that override start() call this first."""
+        self._latency = getattr(server, "latency", None)
 
     @abc.abstractmethod
     def flush(self, metrics: List[InterMetric]) -> None: ...
@@ -58,6 +61,8 @@ class MetricSink(abc.ABC):
         """Report one flush's encode-vs-send split and which encoder ran
         ("columnar", or "legacy" for the per-InterMetric path)."""
         self.last_egress = (encode_s, send_s, encoder)
+        if self._latency is not None:
+            self._latency.note_egress(self.name(), encode_s, send_s)
 
     def flush_other_samples(self, samples: Sequence[Any]) -> None:  # noqa: B027
         """Receive events/service-check samples that aren't InterMetrics."""

@@ -6,7 +6,7 @@ card, then runs the port's server end to end on the card.
     python3 chip_smoke.py [--phases S,J]
 
 `--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
-to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O); with neither,
+to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P); with neither,
 every phase runs. The kernel checks always run, and the last line is
 the same either way.
 
@@ -63,13 +63,14 @@ the package is not beside it). Phases, each fatal on failure:
   8. phase E, forward resilience: one local (phase D's per-local corpus,
      `carryover_max_intervals: 3`, `forward_retry_max_attempts: 3`,
      `circuit_breaker_failure_threshold: 3`) and one global at a fixed
-     127.0.0.1 port, all on cuda:0. E1: interval 1 as in phase D; in
-     interval 2 the global's import server is down, the send fails after
-     its retries and the carryover holds the interval's 75 000 rows; in
-     interval 3 the import server is back at the same address and one
-     send carries intervals 2 and 3 merged, and the global's flush is
-     checked against the union (counters summed, interval 3's gauges,
-     samples and set members of both). E2: a local with `forward_wal:
+     127.0.0.1 port, all on cuda:0. E1: in interval 1 the global's
+     import server is down, the send fails after its retries and the
+     carryover holds the interval's 75 000 rows; in interval 2 the
+     import server is back at the same address and one send carries
+     both intervals merged, and the global's flush is checked against
+     the union (counters summed, interval 2's gauges, samples and set
+     members of both; an interval delivered with the global up is
+     phase D's check). E2: a local with `forward_wal:
      true` appends (fsync'd) an interval while the global is down and
      is shut down; a fresh local on the same spool replays the segment
      to the restarted global (`wal_stale_after_intervals: 0.001` on
@@ -183,7 +184,7 @@ the package is not beside it). Phases, each fatal on failure:
      failed scrape; then veneur-prometheus as a subprocess into a server's
      UDP listener, every packet it reports sent received, its deltas
      exact. S3 key churn on the pump with `idle_key_intervals: 2`,
-     `count_unique_timeseries` and a strict ledger: eight intervals of
+     `count_unique_timeseries` and a strict ledger: six intervals of
      phase A's key counts (40 000 counters, 20 000 gauges, 30 000 timers,
      10 000 sets, 5 000 `|l` keys; four samples a timer, set and `|l`
      key), half the keys new each interval: every series exact (recycled
@@ -217,9 +218,47 @@ the package is not beside it). Phases, each fatal on failure:
      without the prewarmer doubles its own with 6 144 `|l` names of one
      key each, so the first apply after the resize is printed with the
      prewarm and without it.
+ 17. phase P, the device observatory, the profiling plane and the
+     SIGUSR2 handoff, on cuda:0. P1: phase D's local corpus (A's keys
+     plus 5 000 `|l` keys x 32) on a server with `device_observatory`,
+     two intervals, every series checked; after every swap, readout,
+     recycle, prewarm rung and resize of every table the HBM ledger's
+     total equals the bytes of the tables' live, spare and in-flight
+     tensors (walked here) and stays within torch.cuda.memory_allocated;
+     one llhist prewarm rung (booked `prewarm` while it runs) and one
+     forced doubling of the llhist table inside flush 3's readout, where
+     the device watermark rung (soft set between the totals before and
+     after the doubling) goes degraded, sheds a tenth of A's timer and
+     set samples (kept + shed == sent, from the shed table and the
+     ledger) and returns to ok when the recycle releases the old
+     generation (`/debug/device`, the `overload_device_*` rows and the
+     events show both edges); the kernel registry's launches equal the
+     wrappers' counts. P2: `/debug/pprof/profile?seconds=2` during
+     interval 2 is a valid pprof with frames of the ingest path, and
+     `/debug/profile/device` over interval 2's last twentieth and its
+     flush holds K1, K2 and K3 events (each kernel's events and device
+     time, the flush window's device busy share, the top five device
+     operations) or answers 503 naming why the host gives no device
+     events. P3: the port's CLI (`python -m
+     veneur_tpu_torch.cmd.veneur`, started before P1) with UDP, the
+     HTTP API, `interval: 1s`, flush_on_shutdown and a datadog sink at a
+     capturing fake takes counter lines over four sockets at 5 000/s
+     through a SIGUSR2 handoff with a TCP connect to its HTTP port every
+     20 ms: no connect refused, the ready pid moves to the replacement,
+     the old process exits 0, the counters the two processes delivered
+     equal the lines they received (each logs its count at shutdown),
+     and sent - received stays within 1 %.
+
+Phases I and S run in a side process of their own on the same card,
+started where I stands in the order, beside the main process's J, O and
+P (each of them spends most of its time on one interpreter lock, so the
+two processes share the host's cores); the side process prints its
+phases' reports as one JSON line, which the main process reports after
+its own phases, and its failure is the run's. The last `phase seconds`
+line gives each phase's seconds and the smoke's wall time.
 
 Two spawned worker processes build the selected phases' big corpora
-(A, B, D, F, G, H1, I1, J1, O1) ahead, in phase order, while the kernels
+(A, B, D, F, G, H1, J1, O1, P1) ahead, in phase order, while the kernels
 build and the earlier phases run; a phase takes its corpora from them,
 or builds them itself when run alone.
 
@@ -1454,9 +1493,10 @@ def _ingest_e(server, part, base: int) -> float:
 def _phase_e() -> dict:
     """Forward resilience on the card. E1: one local (phase D's per-local
     key set, on the pump) and one global at a fixed 127.0.0.1 port, all
-    on cuda:0; the global's import server is down for interval 2 and back
-    at the same address for interval 3, whose one send carries intervals
-    2 and 3 merged by the carryover. E2: a local with `forward_wal: true`
+    on cuda:0; the global's import server is down for the first interval
+    and back at the same address for the second, whose one send carries
+    both intervals merged by the carryover (phase D checks an interval
+    delivered with the global up). E2: a local with `forward_wal: true`
     appends its interval while the global is down, is shut down, and a
     fresh local on the same spool replays it to the restarted global,
     which files it in its backfill plane under the original interval;
@@ -1488,19 +1528,19 @@ def _phase_e() -> dict:
         local.start()
         started.append(local)
         seen = _read_launches()
-        parts = {seed: _phase_d_corpus(seed, 0) for seed in (11, 12, 13)}
+        parts = {seed: _phase_d_corpus(seed, 0) for seed in (12, 13)}
         base = 0
         # -- E1: an outage the carryover absorbs ----------------------------
-        for i, seed in enumerate((11, 12, 13)):
+        for i, seed in enumerate((12, 13)):
             part = parts[seed]
             rec = {"interval": f"E1.{i + 1}", "lines": len(part[0])}
-            if i == 1:
+            if i == 0:
                 gserver.import_server.stop()
-            if i == 2:
+            else:
                 _restart_import(gserver, address)
             rec["ingest_s"] = _ingest_e(local, part, base)
             base += len(part[0])
-            if i == 2:
+            if i == 1:
                 rec["channel_wait_s"] = _await_channel(local)
             imp = gserver.import_server
             merge_before = dict(imp.merge_s)
@@ -1511,7 +1551,7 @@ def _phase_e() -> dict:
             stats = local.stats_snapshot()
             rec["retries"] = stats["forward_retries"] - retries_before
             rec["checked_local"] = _check_local(local, part, "phase E1")
-            if i == 1:
+            if i == 0:
                 if (stats["forward_errors"] != 1 or rec["retries"] < 1
                         or stats["carryover_depth"] != 1
                         or stats["carryover_pending"] != PHASE_D_FORWARDED
@@ -1524,13 +1564,12 @@ def _phase_e() -> dict:
             if (flow != {"received": PHASE_D_FORWARDED,
                          "merged": PHASE_D_FORWARDED, "duplicate": False}
                     or imp.imported_total != PHASE_D_FORWARDED or imp.errors
-                    or stats["forward_errors"] != (1 if i else 0)):
+                    or stats["forward_errors"] != 1):
                 raise AssertionError(f"phase E1 interval {i + 1}: flow "
                                      f"{flow}, imported {imp.imported_total}"
                                      f", {stats}")
-            if i == 2 and (stats["carryover_merged"] != PHASE_D_FORWARDED
-                           or stats["carryover_shed"]
-                           or stats["carryover_depth"]):
+            if (stats["carryover_merged"] != PHASE_D_FORWARDED
+                    or stats["carryover_shed"] or stats["carryover_depth"]):
                 raise AssertionError(f"phase E1 recovery: {stats}")
             rec["merge_s"] = {k: imp.merge_s[k] - merge_before[k]
                               for k in imp.merge_s}
@@ -1538,26 +1577,19 @@ def _phase_e() -> dict:
             gserver.flush()
             rec["global_flush"] = dict(gserver.last_flush_timings)
             got, buckets = _collect(gserver.metric_sinks[0])
-            if i == 0:
-                rec.update(_check_global(
-                    got, buckets, part[2], part[3], part[4], part[5],
-                    _set_reference(seed, keys["set"], members), members,
-                    "phase E1"))
-            else:
-                # the union of intervals 2 and 3: counters summed, gauges
-                # interval 3's, samples and set members of both
-                old = parts[12]
-                expect = dict(part[2])
-                for name, value in old[2].items():
-                    if name.startswith("smoke.fc"):
-                        expect[name] += value
-                rec.update(_check_global(
-                    got, buckets, expect,
-                    np.sort(np.concatenate([old[3], part[3]], axis=1),
-                            axis=1),
-                    np.concatenate([old[4], part[4]], axis=1), part[5],
-                    _set_reference(12, keys["set"], members, (13,)),
-                    2 * members, "phase E1"))
+            # the union of both intervals: counters summed, gauges the
+            # second's, samples and set members of both
+            old = parts[12]
+            expect = dict(part[2])
+            for name, value in old[2].items():
+                if name.startswith("smoke.fc"):
+                    expect[name] += value
+            rec.update(_check_global(
+                got, buckets, expect,
+                np.sort(np.concatenate([old[3], part[3]], axis=1), axis=1),
+                np.concatenate([old[4], part[4]], axis=1), part[5],
+                _set_reference(12, keys["set"], members, (13,)),
+                2 * members, "phase E1"))
             rec["stats"] = stats
             report["intervals"].append(rec)
         report["e1_launches"] = {k: v - seen[k]
@@ -1704,6 +1736,9 @@ class _Fake:
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
         outer = self
         self.bodies = []
+        # each body's arrival on the perf_counter clock, in step with
+        # `bodies` (P3 lays the deliveries out on a timeline)
+        self.arrivals = []
         self._lock = threading.Lock()
 
         class Handler(BaseHTTPRequestHandler):
@@ -1716,6 +1751,7 @@ class _Fake:
                     outer.bodies.append(
                         (self.path, self.headers.get("Content-Encoding"),
                          body))
+                    outer.arrivals.append(time.perf_counter())
                 self.send_response(200)
                 self.send_header("Content-Length", "2")
                 self.end_headers()
@@ -1735,7 +1771,15 @@ class _Fake:
 
     def take(self) -> list:
         with self._lock:
-            out, self.bodies = self.bodies, []
+            out, self.bodies, self.arrivals = self.bodies, [], []
+        return out
+
+    def take_timed(self) -> list:
+        """take() with each body's arrival time: [(t, path, encoding,
+        body)]."""
+        with self._lock:
+            out = [(t, *body) for t, body in zip(self.arrivals, self.bodies)]
+            self.bodies, self.arrivals = [], []
         return out
 
     def close(self) -> None:
@@ -4577,7 +4621,7 @@ PHASE_S2_SCRAPES = 8
 PHASE_S3_KEYS = {"counter": 40_000, "gauge": 20_000, "timer": 30_000,
                  "set": 10_000, "llhist": 5_000}
 PHASE_S3_SAMPLES = 4         # per timer, set and `|l` key
-PHASE_S3_INTERVALS = 8
+PHASE_S3_INTERVALS = 6     # recycling from 5, flat tables over 4-6
 PHASE_S4_KEYS = 3_000
 PHASE_S4_CAP = 2_000
 
@@ -5161,7 +5205,7 @@ def _s_table_bytes(table) -> int:
 
 
 def _phase_s3(corpora=None) -> dict:
-    """Key churn with reclamation at phase A's key widths: eight
+    """Key churn with reclamation at phase A's key widths: six
     intervals on the pump with `idle_key_intervals: 2`, every series
     exact, the tables flat over the last three intervals. `corpora` are
     futures of _s3_corpus per interval (built here when not given)."""
@@ -5782,6 +5826,683 @@ def _phase_o() -> dict:
                          for k in o1["launches"]}}
 
 
+PHASE_P_LL_KEYS = PHASE_O_LL_KEYS  # D's local corpus: A's keys + `|l` x 32
+PHASE_P_SEEDS = (61, 62)
+PHASE_P_TAIL = 20                  # interval 2's last 1/20th: in the trace
+PHASE_P_TRACE_S = 6.0              # the device capture spanning flush 2
+PHASE_P3_RATE = 5_000              # counter lines/s through the handoff
+PHASE_P3_PER_DGRAM = 50
+PHASE_P3_PROBE_S = 0.02            # TCP connect probes of the HTTP port
+
+
+def _p_nbytes(tree) -> int:
+    """Bytes of a table generation, walked here: numel x element size of
+    every tensor in it."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(_p_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+class _PLedger:
+    """Holds the device observatory's HBM ledger to the tensors: wraps each
+    device table's swap_out, readout, recycle and prewarm_rung, and the
+    llhist table's _grow, and after every call the ledger's total must
+    equal the bytes of every table's live and spare tensors plus the
+    generations swapped out and not yet recycled (and, mid-prewarm, the
+    rung's throwaway state), and stay within torch.cuda.memory_allocated().
+    `hooks[(family, name)]` runs before the wrapped call."""
+
+    def __init__(self, server):
+        self.obs = server.deviceobs
+        self.tables = [(f, t) for f, t in server.store.tables()
+                       if f != "status"]
+        self.inflight = {}
+        self.hooks = {}
+        self.checks = {}
+        self.prewarm_mid = None
+        for family, table in self.tables:
+            names = ["swap_out", "readout", "recycle", "prewarm_rung"]
+            if family == "llhist":
+                names += ["_grow", "_prewarm_apply"]
+            for name in names:
+                setattr(table, name, self._wrap(family, table, name))
+
+    def _wrap(self, family, table, name):
+        real = getattr(table, name)
+
+        def call(*args, **kwargs):
+            hook = self.hooks.get((family, name))
+            if hook is not None:
+                hook()
+            if name == "_prewarm_apply":
+                self.check(f"{family}.prewarm (mid)", extra=args[0])
+                self.prewarm_mid = self.obs.ledger()["by_family"][family][
+                    "prewarm"]
+            out = real(*args, **kwargs)
+            if name == "swap_out" and "state" in out:
+                self.inflight[id(out)] = out["state"]
+            elif name == "recycle":
+                self.inflight.pop(id(args[0]), None)
+            if name != "_prewarm_apply":
+                self.check(f"{family}.{name.strip('_')}")
+            return out
+        return call
+
+    def walk(self, extra=None) -> int:
+        return (sum(_p_nbytes(t.state) + _p_nbytes(t._spare)
+                    for _f, t in self.tables)
+                + sum(_p_nbytes(s) for s in self.inflight.values())
+                + _p_nbytes(extra))
+
+    def check(self, step: str, extra=None) -> None:
+        total, walked = self.obs.total_bytes(), self.walk(extra)
+        allocated = torch.cuda.memory_allocated()
+        if total != walked or total > allocated:
+            raise AssertionError(
+                f"phase P1 after {step}: ledger {total} bytes, tensors "
+                f"{walked}, allocated {allocated}")
+        self.checks[step] = self.checks.get(step, 0) + 1
+
+    def snapshot(self, label: str) -> dict:
+        led = self.obs.ledger()
+        return {"at": label, "total": led["total_bytes"],
+                "by_family": {f: {s: n for s, n in st.items() if n}
+                              for f, st in led["by_family"].items()},
+                "allocated": torch.cuda.memory_allocated(),
+                "reserved": torch.cuda.memory_reserved()}
+
+
+def _p_hook_cost(table, calls: int = 20_000) -> dict:
+    """Host microseconds of one kernel-registry hook (the table's `_noted`
+    around an empty call) with an observatory attached, less the same
+    call without one, and of one ledger retag; measured on a throwaway
+    observatory, so the server's registry is left as it was."""
+    from veneur_tpu_torch.core.deviceobs import DeviceObservatory
+
+    def per_call_us(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) / calls * 1e6
+    attached = table._deviceobs
+    scratch = DeviceObservatory()
+    tok = scratch.note_generation("counter", "live", table.state)
+    try:
+        table._deviceobs = None
+        bare = per_call_us(lambda: table._noted("apply", lambda: None))
+        table._deviceobs = scratch
+        hooked = per_call_us(lambda: table._noted("apply", lambda: None))
+    finally:
+        table._deviceobs = attached
+    retag = per_call_us(lambda: scratch.retag(tok, "live"))
+    return {"hook_us": hooked - bare, "bare_us": bare, "retag_us": retag}
+
+
+def _p_pprof_strings(body: bytes) -> list:
+    """The string table of a gzipped pprof profile (field 6); raises on a
+    malformed one."""
+    import gzip
+    from veneur_tpu_torch.util.protowire import read_fields
+    if body[:2] != b"\x1f\x8b":
+        raise AssertionError("phase P2: the pprof body is not gzipped")
+    fields: dict = {}
+    for num, _wt, value in read_fields(gzip.decompress(body)):
+        fields.setdefault(num, []).append(value)
+    for num in (1, 2, 4, 5, 6, 12):
+        if num not in fields:
+            raise AssertionError(f"phase P2: pprof field {num} missing")
+    return [s.decode("utf-8", "replace") for s in fields[6]]
+
+
+def _p_trace_numbers(trace: dict, window) -> dict:
+    """From a torch.profiler Chrome trace: each path kernel's events and
+    summed device time, and over the flush's wall-clock window (unix
+    seconds, placed on the trace's clock by its baseTimeNanoseconds) the
+    device busy share (the union of kernel, copy and set intervals over
+    the window) and the top five device operations by time."""
+    events = trace.get("traceEvents", ())
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    base_us = trace["baseTimeNanoseconds"] / 1e3
+    lo, hi = (t * 1e6 - base_us for t in window)
+    spans = [e for e in events if e.get("cat") == "Trace"
+             and str(e.get("name", "")).startswith("PyTorch Profiler")]
+    captured = (min(e["ts"] for e in spans),
+                max(e["ts"] + e["dur"] for e in spans)) if spans else None
+    if captured is None or lo < captured[0] or hi > captured[1]:
+        raise AssertionError(f"phase P2: the flush window {lo}..{hi} us "
+                             f"is not inside the capture {captured}")
+    out = {"device_events": len(device), "kernels": {}}
+    for kernel in ("tdigest_flush_kernel", "hll_estimate_kernel",
+                   "llhist_apply_kernel"):
+        evs = [e for e in device if kernel in e["name"]]
+        out["kernels"][kernel] = {"events": len(evs), "device_ms": sum(
+            e["dur"] for e in evs) / 1e3}
+    inside = [e for e in device if e["ts"] < hi and e["ts"] + e["dur"] > lo]
+    busy, end = 0.0, lo
+    for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                       for e in inside):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    per_op: dict = {}
+    for e in inside:
+        per_op[e["name"]] = per_op.get(e["name"], 0.0) + e["dur"]
+    out.update(flush_window_ms=(hi - lo) / 1e3, busy_ms=busy / 1e3,
+               busy_share=busy / (hi - lo), flush_device_events=len(inside),
+               top5=[(name[:80], us / 1e3) for name, us in sorted(
+                   per_op.items(), key=lambda kv: -kv[1])[:5]])
+    return out
+
+
+def _p3_start_cli(workdir: str, dd_url: str) -> dict:
+    """The port's server CLI on the card, started ahead (its start-up
+    overlaps P1): UDP DogStatsD and the HTTP API at fixed ports,
+    `interval: 1s`, flush_on_shutdown, a datadog sink at the capturing
+    fake; its log (and its replacement's) in workdir."""
+    udp_port, http_port = _free_port(), _free_port()
+    cfg = os.path.join(workdir, "p3.yaml")
+    with open(cfg, "w") as f:
+        json.dump({"statsd_listen_addresses": [f"udp://127.0.0.1:{udp_port}"],
+                   "http_address": f"127.0.0.1:{http_port}",
+                   "interval": "1s", "flush_on_shutdown": True,
+                   "hostname": "smoke-p3", "stats_address": "",
+                   "metric_sinks": [{"kind": "datadog", "name": "datadog",
+                                     "config": {
+                                         "datadog_api_key": "smoke",
+                                         "datadog_api_hostname": dd_url}}]},
+                  f)
+    log_path = os.path.join(workdir, "p3.log")
+    log = open(log_path, "w")
+    # a process group of its own: the SIGUSR2 replacement joins it, so
+    # one killpg stops both whatever state a failure left them in
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veneur_tpu_torch.cmd.veneur", "-f", cfg],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    log.close()
+    return {"proc": proc, "udp": udp_port, "http": http_port,
+            "log": log_path}
+
+
+def _p3_ready_pid(http_port: int):
+    """The pid that answered /healthcheck/ready 200, else None."""
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{http_port}/healthcheck/ready",
+                timeout=2) as r:
+            if r.status == 200:
+                return int(r.headers.get("X-Veneur-Pid", "0"))
+    except Exception:
+        return None
+    return None
+
+
+def _p3_gone(pid: int) -> bool:
+    """True once `pid` has exited (a reparented zombie counts)."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return any(line.startswith("State:") and "Z" in line.split()[1]
+                       for line in f)
+    except OSError:
+        return True
+
+
+def _p3_log_tail(cli) -> str:
+    with open(cli["log"]) as f:
+        return f.read()[-4000:]
+
+
+def _phase_p3(cli, dd_fake) -> dict:
+    """The SIGUSR2 handoff of the CLI on the card: counter lines paced at
+    PHASE_P3_RATE over four sockets and a TCP connect to the HTTP port
+    every 20 ms, from before the signal until after the old process
+    exited; the replacement is then stopped. No connect refused, the
+    ready pid moves to the replacement, the old process exits 0 after
+    its shutdown flush, the counter total the two delivered equals the
+    lines they received, and at most 1 % of what was sent is lost."""
+    import re
+    import signal
+    old, http_port = cli["proc"], cli["http"]
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 120
+    while _p3_ready_pid(http_port) != old.pid:
+        if old.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"phase P3: the CLI never became ready: "
+                                 f"{_p3_log_tail(cli)}")
+        time.sleep(0.2)
+    startup_wait_s = time.perf_counter() - t0
+    stop = threading.Event()
+    counts = {"sent": 0, "probes": 0, "refused": 0, "probe_errors": {}}
+
+    def send():
+        dgram = b"\n".join([b"p3.c:1|c"] * PHASE_P3_PER_DGRAM)
+        socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                 for _ in range(4)]
+        start, i = time.perf_counter(), 0
+        try:
+            while not stop.is_set():
+                ahead = counts["sent"] / PHASE_P3_RATE - (
+                    time.perf_counter() - start)
+                if ahead > 0:
+                    time.sleep(ahead)
+                socks[i % 4].sendto(dgram, ("127.0.0.1", cli["udp"]))
+                counts["sent"] += PHASE_P3_PER_DGRAM
+                i += 1
+        finally:
+            for s in socks:
+                s.close()
+
+    def probe():
+        # a client's connect: a SYN the listener's queue drops is sent
+        # again, so only a refusal means no listener on the port
+        while not stop.is_set():
+            counts["probes"] += 1
+            try:
+                socket.create_connection(("127.0.0.1", http_port),
+                                         timeout=10).close()
+            except ConnectionRefusedError:
+                counts["refused"] += 1
+            except OSError as e:
+                kind = type(e).__name__
+                counts["probe_errors"][kind] = \
+                    counts["probe_errors"].get(kind, 0) + 1
+            stop.wait(PHASE_P3_PROBE_S)
+
+    threads = [threading.Thread(target=send, name="p3-send"),
+               threading.Thread(target=probe, name="p3-probe")]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.0)
+        t_sig = time.perf_counter()
+        old.send_signal(signal.SIGUSR2)
+        new_pid = None
+        deadline = time.monotonic() + 120
+        while new_pid is None:
+            pid = _p3_ready_pid(http_port)
+            if pid and pid != old.pid:
+                new_pid = pid
+            elif time.monotonic() > deadline:
+                raise AssertionError(f"phase P3: no replacement became "
+                                     f"ready: {_p3_log_tail(cli)}")
+            else:
+                time.sleep(0.1)
+        ready_s = time.perf_counter() - t_sig
+        rc = old.wait(timeout=120)
+        old_exit_s = time.perf_counter() - t_sig
+        if rc != 0:
+            raise AssertionError(f"phase P3: the old process exited {rc}: "
+                                 f"{_p3_log_tail(cli)}")
+        time.sleep(1.0)
+        if _p3_ready_pid(http_port) != new_pid:
+            raise AssertionError("phase P3: the port is not the "
+                                 "replacement's after the handoff")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+    stop_s = time.perf_counter() - t_sig
+    os.kill(new_pid, signal.SIGTERM)
+    deadline = time.monotonic() + 120
+    while not _p3_gone(new_pid):
+        if time.monotonic() > deadline:
+            os.kill(new_pid, signal.SIGKILL)
+            raise AssertionError(f"phase P3: the replacement did not exit: "
+                                 f"{_p3_log_tail(cli)}")
+        time.sleep(0.1)
+    with open(cli["log"]) as f:
+        log = f.read()
+    received = {int(pid): int(n) for pid, n in re.findall(
+        r"shutdown of pid (\d+) complete: (\d+) lines received", log)}
+    if set(received) != {old.pid, new_pid}:
+        raise AssertionError(f"phase P3: shutdown counts {received}: "
+                             f"{log[-4000:]}")
+    import gzip
+    delivered, posts = 0.0, []
+    for t, path, encoding, body in dd_fake.take_timed():
+        if not path.startswith("/api/v1/series"):
+            continue
+        if encoding == "gzip":
+            body = gzip.decompress(body)
+        for series in json.loads(body)["series"]:
+            if series["metric"] == "p3.c":
+                value = sum(p[1] for p in series["points"])
+                delivered += value
+                posts.append((round(t - t_sig, 3), value))
+    total_received = sum(received.values())
+    lost = counts["sent"] - total_received
+    report = {"sent": counts["sent"], "received": received,
+              "delivered": delivered, "lost": lost,
+              "lost_share": lost / max(1, counts["sent"]),
+              "probes": counts["probes"], "refused": counts["refused"],
+              "probe_errors": counts["probe_errors"],
+              "old_pid": old.pid, "new_pid": new_pid,
+              "startup_wait_s": startup_wait_s, "ready_s": ready_s,
+              "old_exit_s": old_exit_s, "stop_s": stop_s,
+              # (seconds after the signal, p3.c total) of each delivery
+              "posts": posts,
+              # the two processes' flushes whose sinks outlasted the
+              # interval, and the sink deliveries skipped as pileups
+              "sink_timeouts": log.count("flush exceeded the"),
+              "sink_skips": log.count("previous flush still running")}
+    if counts["refused"]:
+        raise AssertionError(f"phase P3: connects refused: {report}")
+    if delivered != total_received:
+        # the two processes' warnings and errors: skips, timeouts, failed
+        # POSTs, lines discarded at close
+        noted = [line for line in log.splitlines()
+                 if " WARNING " in line or " ERROR " in line
+                 or "Traceback" in line]
+        raise AssertionError(f"phase P3: delivered {delivered} != "
+                             f"received {total_received}: {report}; the "
+                             f"CLI's warnings and errors: {noted[-40:]}")
+    if report["lost_share"] > 0.01:
+        raise AssertionError(f"phase P3: lost {lost} of {counts['sent']}")
+    return report
+
+
+def _phase_p12(cli) -> dict:
+    """P1, the device plane, and P2, the profiles, on one server at phase
+    D's local width (A's keys + 5 000 `|l` keys x 32) with the device
+    observatory on: the HBM ledger held to the tensors after every swap,
+    readout, recycle, prewarm and resize; interval 2's CPU profile and a
+    device trace over its tail and flush; a prewarm rung and a forced
+    doubling of the llhist table inside flush 3's readout, where the
+    device watermark rung (its soft threshold set between the totals
+    before and after the doubling) goes degraded and sheds a tenth of
+    A's timer and set samples, then back to ok when the recycle releases
+    the old generation. The kernel registry's launches equal the
+    wrappers' counts."""
+    from veneur_tpu_torch.core import overload as ov
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    corpora = [_corpus(seed, PHASE_A_KEYS, PHASE_P_LL_KEYS) + (
+        _set_reference(seed, PHASE_A_KEYS["set"],
+                       PHASE_A_KEYS["set_members"]),)
+        for seed in PHASE_P_SEEDS]
+    server = _server({"device_observatory": True, "ledger_strict": True,
+                      "http_address": "127.0.0.1:0",
+                      # the rung is engaged but ticked by hand; its soft
+                      # threshold is set from the measured totals
+                      "overload_device_soft_bytes": 1 << 50,
+                      "overload_watermark_poll": "1h"},
+                     {"counter_capacity": 65536, "gauge_capacity": 32768,
+                      "histo_capacity": 32768, "set_capacity": 16384,
+                      "llhist_capacity": 8192}, ChannelMetricSink())
+    led = _PLedger(server)
+    dw = server.overload.device_watermarks
+    sink = server.metric_sinks[0]
+    check = _check_a_or_c(PHASE_A_KEYS)
+    report = {"intervals": [], "ledger": []}
+    _zero_launches()
+    server.start()
+    try:
+        api = server.http_api.address
+        addr = server.listen_addresses[0]
+        window = _pump_window(server)
+        led.check("start")
+        report["ledger"].append(led.snapshot("start"))
+        base = 0
+        for i, corpus in enumerate(corpora):
+            lines = corpus[0]
+            rec = {"lines": len(lines)}
+            if i == 1:
+                prof = {}
+                pth = threading.Thread(target=lambda: prof.update(
+                    http=_http(api, "/debug/pprof/profile?seconds=2")))
+                pth.start()
+                cut = len(lines) - len(lines) // PHASE_P_TAIL
+                ingest_s = _send(server, addr, lines[:cut], base, window)
+                pth.join(timeout=120)
+                from veneur_tpu_torch.core import profiling
+                trace = {}
+                tth = threading.Thread(target=lambda: trace.update(
+                    http=_http(api, "/debug/profile/device?seconds="
+                               f"{PHASE_P_TRACE_S}")))
+                tth.start()
+                # the capture's profiler records before the tail is sent
+                if not profiling.capturing.wait(60):
+                    raise AssertionError("phase P2: the device capture "
+                                         "never started")
+                ingest_s += _send(server, addr, lines[cut:], base + cut,
+                                  window)
+                t_flush = time.perf_counter()
+                window_unix = [time.time()]
+                server.flush()
+                window_unix.append(time.time())
+                flush_s = time.perf_counter() - t_flush
+                tth.join(timeout=120)
+                rec["pprof"], rec["device_trace"] = prof["http"], \
+                    trace["http"]
+                rec["flush_window_unix"] = window_unix
+            else:
+                ingest_s = _send(server, addr, lines, base, window)
+                t_flush = time.perf_counter()
+                server.flush()
+                flush_s = time.perf_counter() - t_flush
+            base += len(lines)
+            got, buckets = _collect(sink)
+            rec.update(ingest_s=ingest_s, lines_per_s=len(lines) / ingest_s,
+                       flush_s=flush_s, flush=dict(server.last_flush_timings),
+                       rung=dw.tick(), **check(corpus, got, buckets))
+            if rec["rung"] != ov.OK:
+                raise AssertionError(f"phase P1: rung {rec['rung']}")
+            report["intervals"].append(rec)
+            report["ledger"].append(led.snapshot(f"flush {i + 1}"))
+
+        # -- P2's answers ------------------------------------------------
+        status, body = report["intervals"][1].pop("pprof")
+        if status != 200:
+            raise AssertionError(f"phase P2: pprof {status} {body[:200]}")
+        strings = _p_pprof_strings(body)
+        ingest_frames = sorted({s for s in strings
+                                if s.endswith(("core/ingest.py",
+                                               "core/networking.py"))})
+        if not ingest_frames:
+            raise AssertionError("phase P2: no ingest frame in the CPU "
+                                 "profile")
+        report["pprof"] = {"bytes": len(body), "strings": len(strings),
+                           "ingest_files": ingest_frames}
+        status, body = report["intervals"][1].pop("device_trace")
+        if status == 200:
+            import io
+            import zipfile
+            zf = zipfile.ZipFile(io.BytesIO(body))
+            summary = json.loads(zf.read("summary.json"))
+            numbers = _p_trace_numbers(
+                json.loads(zf.read("trace.json")),
+                report["intervals"][1].pop("flush_window_unix"))
+            missing = [k for k, v in numbers["kernels"].items()
+                       if not v["events"]]
+            if missing:
+                raise AssertionError(f"phase P2: the device trace holds "
+                                     f"no {missing} events: {numbers}")
+            report["device_trace"] = {"status": 200, "summary": summary,
+                                      "zip_bytes": len(body), **numbers}
+        elif status == 503 and b"no device activity" in body:
+            # the card's host gives no CUPTI events: said, not hidden
+            report["device_trace"] = {"status": 503,
+                                      "reason": body.decode().strip()}
+        else:
+            raise AssertionError(f"phase P2: device trace {status} "
+                                 f"{body[:300]}")
+
+        # -- a prewarm rung of the llhist table ----------------------------
+        ll = server.store.llhists
+        before = server.deviceobs.total_bytes()
+        if not ll.prewarm_rung(2 * ll.capacity, PS):
+            raise AssertionError("phase P1: the llhist rung did not run")
+        rung_bytes = _p_nbytes(ll._fresh_state_at(2 * ll.capacity))
+        if led.prewarm_mid != rung_bytes or \
+                server.deviceobs.total_bytes() != before:
+            raise AssertionError(f"phase P1: prewarm booked "
+                                 f"{led.prewarm_mid} of {rung_bytes}")
+        report["prewarm"] = {"capacity": 2 * ll.capacity,
+                             "bytes": rung_bytes}
+        report["ledger"].append(led.snapshot("prewarm"))
+
+        # -- flush 3: the forced doubling inside the llhist readout --------
+        soft_keys = {k: v // 10 for k, v in PHASE_A_KEYS.items()
+                     if k in ("timer", "set")}
+        rng = np.random.default_rng(63)
+        soft_lines = [f"smoke.t{k}:{v:.3f}|ms"
+                      for k in range(soft_keys["timer"])
+                      for v in rng.gamma(2.0, 25.0, PHASE_A_KEYS[
+                          "timer_samples"])]
+        soft_lines += [f"smoke.s{k}:p3-{k}-{j}|s"
+                       for k in range(soft_keys["set"])
+                       for j in range(PHASE_A_KEYS["set_members"])]
+        soft_sent = {"histogram": soft_keys["timer"]
+                     * PHASE_A_KEYS["timer_samples"],
+                     "set": soft_keys["set"] * PHASE_A_KEYS["set_members"]}
+        rung = {}
+
+        def applied() -> dict:
+            rep = server.ledger.report()
+            out = {}
+            for stages in (rep["stage_totals"], rep["pending_stages"]):
+                for fam, n in stages.get("agg.applied", {}).items():
+                    out[fam] = out.get(fam, 0.0) + n
+            return out
+
+        def double_in_readout():
+            led.hooks.pop(("llhist", "readout"))
+            live = _p_nbytes(ll.state)
+            t_before = server.deviceobs.total_bytes()
+            dw.soft_bytes = t_before + live // 2
+            with ll.lock:
+                ll._grow()
+            rung.update(before=t_before, live=live, soft=dw.soft_bytes,
+                        after=server.deviceobs.total_bytes(),
+                        state=dw.tick())
+            rung["device_report"] = json.loads(_http(api, "/debug/device")[1])[
+                "watermarks"]
+            shed0, applied0 = server.overload.shed_snapshot(), applied()
+            n = base + len(ll3)
+            rung["soft_ingest_s"] = _send(server, addr, soft_lines, n,
+                                          window)
+            rung["shed"] = {k: v - shed0.get(k, 0) for k, v in
+                            server.overload.shed_snapshot().items()
+                            if v - shed0.get(k, 0)}
+            rung["applied0"] = applied0
+        ll3 = [f"smoke.l{k}:{1.5 + k % 7}|l" for k in range(2_000)]
+        _send(server, addr, ll3, base, window)
+        led.hooks[("llhist", "readout")] = double_in_readout
+        server.flush()  # flush 3
+        base += len(ll3) + len(soft_lines)
+        _collect(sink)
+        rung["after_recycle"] = server.deviceobs.total_bytes()
+        rung["state_after_recycle"] = dw.tick()
+        report["ledger"].append(led.snapshot("flush 3 (doubled)"))
+        server.flush()  # flush 4: the soft interval's kept samples
+        _collect(sink)
+        rung["after_flush4"] = server.deviceobs.total_bytes()
+        rung["state_after_flush4"] = dw.tick()
+        report["ledger"].append(led.snapshot("flush 4"))
+        now = applied()
+        kept = {"histogram": sum(now.get(f, 0) - rung["applied0"].get(f, 0)
+                                 for f in ("histogram", "llhist")),
+                "set": now.get("set", 0) - rung["applied0"].get("set", 0)}
+        rung.pop("applied0")
+        rung["kept"] = kept
+        rung["soft_sent"] = soft_sent
+        for cls in ("histogram", "set"):
+            if kept[cls] + rung["shed"].get(f"{cls}|degraded", 0) \
+                    != soft_sent[cls] or not rung["shed"].get(
+                        f"{cls}|degraded"):
+                raise AssertionError(f"phase P1 rung: {cls} kept "
+                                     f"{kept[cls]} + shed {rung['shed']} "
+                                     f"!= sent {soft_sent[cls]}")
+        report["rung"] = rung
+        status, body = _http(api, "/debug/device")
+        device = json.loads(body)
+        prom = {k: [v for _labels, v in vals] for k, vals in
+                _g_prom_rows(_http(api, "/metrics")[1].decode()).items()
+                if "overload_device" in k}
+        events = [(e["old"], e["new"]) for e in
+                  server.telemetry.events.snapshot(kind="overload_state")]
+        report["rung"].update(events=events, final=device["watermarks"],
+                              prom=prom, capacity=ll.capacity)
+        if (rung["state"] != ov.DEGRADED
+                or rung["device_report"]["state"] != ov.DEGRADED
+                or rung["state_after_recycle"] != ov.OK
+                or rung["after"] - rung["before"] != rung["live"]
+                or events != [(ov.OK, ov.DEGRADED), (ov.DEGRADED, ov.OK)]
+                or device["watermarks"]["transitions"] != 2
+                or ll.capacity != 16384
+                or not any(v == [2.0] for k, v in prom.items()
+                           if "transitions" in k)):
+            raise AssertionError(f"phase P1 rung: {report['rung']}")
+        report["device_report"] = {
+            k: device[k] for k in ("reconciliation", "backend_devices",
+                                   "kernel_launches", "compiles",
+                                   "last_compile_seconds")}
+        # the observatory's own cost: every registry row is one hook, and
+        # a flush makes at most three ledger calls a family
+        cost = _p_hook_cost(server.store.counters)
+        hooks = sum(k["dispatches"] for k in device["kernels"])
+        flushes = sum(rec["flush_s"] for rec in report["intervals"])
+        cost["hooks"] = hooks
+        cost["seconds"] = (hooks * cost["hook_us"]
+                           + 4 * 15 * cost["retag_us"]) / 1e6
+        cost["share_of_flush_wall"] = cost["seconds"] / flushes
+        report["observatory_cost"] = cost
+        report["registry"] = {
+            f"{k['kind']}/{k['family']}": {
+                "dispatches": k["dispatches"],
+                "launches": k.get("launches", 0),
+                "p50_s": k.get("wall", {}).get("p50")}
+            for k in device["kernels"]}
+    finally:
+        server.shutdown()
+    report["launches"] = _read_launches()
+    booked = server.deviceobs.kernel_launches()
+    report["registry_launches"] = {k: booked.get(k, 0)
+                                   for k in report["launches"]}
+    report["conservation_checks"] = led.checks
+    if report["registry_launches"] != report["launches"] or \
+            min(report["launches"].values()) <= 0:
+        raise AssertionError(f"phase P1: registry launches "
+                             f"{report['registry_launches']} != wrappers' "
+                             f"{report['launches']}")
+    for step in ("counter.swap_out", "llhist.readout", "set.recycle",
+                 "llhist.grow", "llhist.prewarm_rung",
+                 "llhist.prewarm (mid)"):
+        if not led.checks.get(step):
+            raise AssertionError(f"phase P1: no ledger check after {step}")
+    return report
+
+
+def _phase_p() -> dict:
+    """Phase P: the device observatory, the profiling plane and the
+    SIGUSR2 handoff (P1, P2, P3). The CLI of P3 starts first, so that its
+    start-up overlaps P1."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="smoke-p3-")
+    dd_fake = _Fake()
+    cli = _p3_start_cli(workdir, dd_fake.url)
+    try:
+        t0 = time.perf_counter()
+        report = {"P1": _phase_p12(cli)}
+        report["P1"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["P3"] = _phase_p3(cli, dd_fake)
+        report["P3"]["seconds"] = time.perf_counter() - t0
+    finally:
+        _kill_group(cli["proc"])
+        dd_fake.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    report["launches"] = report["P1"]["launches"]
+    return report
+
+
 def _prebuild_plan() -> dict:
     """Per phase, the corpora it builds first, called exactly as the
     phase calls them (the key is the arguments' repr)."""
@@ -5800,27 +6521,95 @@ def _prebuild_plan() -> dict:
         "I": [(_i1_corpus, (seed,)) for seed in PHASE_I1_SEEDS],
         "J": [(_corpus, (seed, a, PHASE_J_LL_KEYS)) for seed in (41, 42)],
         "O": with_sets((31, 32), PHASE_O_LL_KEYS),
+        "P": with_sets(PHASE_P_SEEDS, PHASE_P_LL_KEYS),
     }
 
 
-def _start_prebuild(selected):
+def _start_prebuild(selected, side=()):
     """Two worker processes (spawned: the card is never forked) build the
     selected phases' big corpora, in phase order, while the kernels build
-    and the earlier phases run; returns the pool to shut down."""
+    and the earlier phases run; returns the pool to shut down. The side
+    process's phases build their own."""
     import concurrent.futures
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     plan = _prebuild_plan()
     for name in PHASES:
-        if name in selected:
+        if name in selected and name not in side:
             for fn, args in plan.get(name, ()):
                 _PREBUILT.setdefault((fn.__name__, repr(args)), []).append(
                     pool.submit(fn, *args))
     return pool
 
 
-PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O")
+PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O",
+          "P")
+# phases run in a process of their own, on the same card, beside the
+# main process's later phases (J, O and P) when the run has others: each
+# spends most of its time on one interpreter lock (the SSF reader, the
+# OTLP and churn slow paths), so the two processes share the host's
+# cores instead of taking turns
+SIDE_PHASES = ("I", "S")
+
+_SIDE = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from veneur_tpu_torch import native
+from veneur_tpu_torch.ops import _cuda
+_cuda.build_all()
+native.load()
+out = {}
+for name in sys.argv[1].split(","):
+    t0 = time.perf_counter()
+    out[name] = cs._PHASE_RUNS[name][0]()
+    out[name]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+print(json.dumps(out), flush=True)
+"""
+
+
+def _side_phases(selected) -> tuple:
+    """The selected side phases, when the run also has a main phase."""
+    side = tuple(n for n in SIDE_PHASES if n in selected)
+    return side if set(selected) - set(SIDE_PHASES) else ()
+
+
+def _start_side(names):
+    """The side process: runs `names` in turn and prints their reports as
+    one JSON line (its other output goes to the same stderr). It leads a
+    process group of its own, which _kill_group stops with whatever its
+    phases started."""
+    return subprocess.Popen([sys.executable, "-c", _SIDE, ",".join(names)],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def _kill_group(proc) -> None:
+    """SIGKILL the process group that `proc` leads (its children too,
+    which may hold its pipes or outlive it) and reap `proc`."""
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass  # the group has ended
+    proc.communicate(timeout=60)
+
+
+def _finish_side(proc, names, timeout: float = 1100.0) -> dict:
+    """Wait for the side process and return its phase reports; its failure
+    is the run's."""
+    out, _ = proc.communicate(timeout=timeout)
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(out[-6000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"side phases {names} failed (exit "
+                             f"{proc.returncode})")
+    for line in lines[:-1]:
+        print(line, flush=True)
+    return json.loads(lines[-1])
 
 
 def _selected_phases(argv) -> tuple:
@@ -6220,6 +7009,71 @@ def _report_o(name: str, rep: dict, phases: dict, smi: str) -> None:
           flush=True)
 
 
+def _report_p(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase P: the device plane, the profiles, the handoff."""
+    p1, p3 = rep["P1"], rep["P3"]
+    for i, rec in enumerate(p1["intervals"]):
+        print(f"phase P1 interval {i + 1}: {rec['lines']} lines at "
+              f"{rec['lines_per_s']:.0f} lines/s, flush {rec['flush_s']:.3f}"
+              f" s; {rec['series_checked']} series checked", flush=True)
+    for snap in p1["ledger"]:
+        print(f"phase P1 ledger at {snap['at']} ({smi}): total "
+              f"{snap['total']} bytes, allocator allocated "
+              f"{snap['allocated']}, reserved {snap['reserved']}; "
+              + "; ".join(f"{f} " + ", ".join(f"{s} {n}" for s, n in
+                                              st.items())
+                          for f, st in snap["by_family"].items()),
+              flush=True)
+    rung = p1["rung"]
+    print(f"phase P1 device rung: before the llhist doubling "
+          f"{rung['before']} bytes, after {rung['after']} (+{rung['live']},"
+          f" capacity {rung['capacity']}), soft {rung['soft']} -> "
+          f"{rung['state']}; after the recycle {rung['after_recycle']} -> "
+          f"{rung['state_after_recycle']}; after flush 4 "
+          f"{rung['after_flush4']} -> {rung['state_after_flush4']}; "
+          f"shed {rung['shed']}, kept {rung['kept']} of {rung['soft_sent']};"
+          f" events {rung['events']}; /metrics {rung['prom']}", flush=True)
+    print(f"phase P1 prewarm rung {p1['prewarm']}; ledger checks "
+          f"{p1['conservation_checks']}; registry launches "
+          f"{p1['registry_launches']} = wrappers' {p1['launches']}; "
+          f"registry {p1['registry']}; /debug/device "
+          f"{p1['device_report']}", flush=True)
+    cost = p1["observatory_cost"]
+    print(f"phase P1 observatory cost on the host ({smi}): "
+          f"{cost['hook_us']:.3f} us a registry hook (bare call "
+          f"{cost['bare_us']:.3f} us), {cost['retag_us']:.3f} us a ledger "
+          f"retag; {cost['hooks']} hooks over four intervals: "
+          f"{cost['seconds']:.6f} s, {100 * cost['share_of_flush_wall']:.5f}"
+          f" % of the flushes' wall time", flush=True)
+    print(f"phase P2 pprof ({smi}): {p1['pprof']}", flush=True)
+    trace = p1["device_trace"]
+    if trace["status"] == 200:
+        print(f"phase P2 device trace ({smi}): {trace['device_events']} "
+              f"device events, {trace['zip_bytes']} zip bytes; per kernel "
+              + "; ".join(f"{k} {v['events']} events {v['device_ms']:.4f} ms"
+                          for k, v in trace["kernels"].items())
+              + f"; flush window {trace['flush_window_ms']:.3f} ms with "
+              f"{trace['flush_device_events']} device events, device "
+              f"busy {trace['busy_ms']:.3f} ms, busy share "
+              f"{trace['busy_share']:.6f}; top 5 {trace['top5']}",
+              flush=True)
+    else:
+        print(f"phase P2 device trace ({smi}): 503, {trace['reason']}",
+              flush=True)
+    print(f"phase P3 SIGUSR2 handoff ({smi}): sent {p3['sent']}, received "
+          f"{p3['received']}, delivered {p3['delivered']}, sent - received "
+          f"{p3['lost']} ({100 * p3['lost_share']:.4f} %); {p3['probes']} "
+          f"connect probes, {p3['refused']} refused, other errors "
+          f"{p3['probe_errors']}; replacement ready "
+          f"{p3['ready_s']:.2f} s after the signal, old exited "
+          f"{p3['old_exit_s']:.2f} s after; CLI ready wait "
+          f"{p3['startup_wait_s']:.2f} s; flushes past the interval "
+          f"{p3['sink_timeouts']}, sink deliveries skipped "
+          f"{p3['sink_skips']}; deliveries (s after the signal, count) "
+          f"{p3['posts']}; P1 {p1['seconds']:.1f} s, P3 "
+          f"{p3['seconds']:.1f} s", flush=True)
+
+
 # each phase's run and the report it prints
 _PHASE_RUNS = {
     "A": (_phase_a, _report_abc),
@@ -6235,7 +7089,11 @@ _PHASE_RUNS = {
     "J": (_phase_j, _report_j),
     "S": (_phase_s, _report_s),
     "O": (_phase_o, _report_o),
+    "P": (_phase_p, _report_p),
 }
+
+
+T_START = time.perf_counter()
 
 
 def main(argv=None) -> int:
@@ -6248,7 +7106,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
-    pool = _start_prebuild(selected)
+    pool = _start_prebuild(selected, _side_phases(selected))
     try:
         return _smoke(selected)
     finally:
@@ -6318,17 +7176,34 @@ def _smoke(selected) -> int:
           f"{k3['launch_path_us']}", flush=True)
 
     phases = {}
-    for name in PHASES:
-        if name not in selected:
-            continue
-        run, report = _PHASE_RUNS[name]
-        t0 = time.perf_counter()
-        phases[name] = rep = run()
-        rep["seconds"] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        report(name, rep, phases, smi)
+    side_names, side = _side_phases(selected), None
+    try:
+        for name in PHASES:
+            if name not in selected:
+                continue
+            if name in side_names:
+                # started where its first phase stands in the order
+                if side is None:
+                    side = _start_side(side_names)
+                continue
+            run, report = _PHASE_RUNS[name]
+            t0 = time.perf_counter()
+            phases[name] = rep = run()
+            rep["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            report(name, rep, phases, smi)
+        if side is not None:
+            side_reports = _finish_side(side, side_names)
+            for name in side_names:
+                phases[name] = side_reports[name]
+                _PHASE_RUNS[name][1](name, phases[name], phases, smi)
+    finally:
+        if side is not None:
+            _kill_group(side)
     print("phase seconds: " + ", ".join(
-        f"{name} {rep['seconds']:.1f}" for name, rep in phases.items()),
+        f"{name} {rep['seconds']:.1f}" for name, rep in phases.items())
+        + (f" ({'+'.join(side_names)} in a side process)" if side_names
+           else "") + f"; smoke wall {time.perf_counter() - T_START:.1f} s",
         flush=True)
 
     def launches(kernel):

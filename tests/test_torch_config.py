@@ -89,6 +89,14 @@ def _assert_same(port_cfg, jax_cfg) -> int:
           "VENEUR_LATENCY_OBSERVATORY": "false",
           "VENEUR_CARDINALITY_SOFT_LIMIT": "5",
           "VENEUR_CARDINALITY_HARD_LIMIT": "9"}),
+    # the device observatory, profiling and crash-reporting keys
+    ("enable_profiling: true\nsentry_dsn: https://k@sentry.invalid/1\n",
+     {"VENEUR_DEVICE_OBSERVATORY": "false",
+      "VENEUR_OVERLOAD_DEVICE_SOFT_BYTES": "100",
+      "VENEUR_OVERLOAD_DEVICE_HARD_BYTES": "200",
+      "VENEUR_PROFILE_SERVER_PORT": "6060",
+      "VENEUR_BLOCK_PROFILE_RATE": "1",
+      "VENEUR_MUTEX_PROFILE_FRACTION": "2"}),
     # the environment under an empty file, and the defaults alone
     ("", {"VENEUR_HOSTNAME": "from-env"}),
     ("", {}),
@@ -98,7 +106,7 @@ def test_env_overlay_matches_jax(tmp_path, text, env):
     path.write_text(text)
     port_cfg = port_config.read_config(str(path), env=env)
     jax_cfg = jax_config.read_config(str(path), env=env)
-    assert _assert_same(port_cfg, jax_cfg) == 106
+    assert _assert_same(port_cfg, jax_cfg) == 114
     assert _assert_same(port_cfg.tpu, jax_cfg.tpu) == 11
 
 
@@ -140,9 +148,11 @@ def test_env_overlay_precedes_the_defaults(tmp_path):
 
 
 @pytest.mark.parametrize("name", [
-    "VENEUR_SENTRY_DSN", "VENEUR_ENABLE_PROFILING", "VENEUR_RESHARD_DEADLINE",
-    "VENEUR_RESHARD_SPOOL_DIR", "VENEUR_JAX_COMPILATION_CACHE_DIR",
-    "VENEUR_OVERLOAD_DEVICE_SOFT_BYTES", "VENEUR_DEVICE_OBSERVATORY",
+    "VENEUR_CHAOS_RESHARD_APPEND_FAULT_NTH", "VENEUR_Reshard_Deadline",
+    "VENEUR_RESHARD_DEADLINE", "VENEUR_RESHARD_SPOOL_DIR",
+    "VENEUR_JAX_COMPILATION_CACHE_DIR",
+    "VENEUR_CHAOS_RESHARD_CUTOVER_DELAY_S",
+    "VENEUR_CHAOS_RESHARD_PREWARM_DELAY_S",
     "VENEUR_TPU_SHARDS", "VENEUR_TPU_SHARD_ROUTING",
     "VENEUR_TPU_PALLAS_TDIGEST_FLUSH"])
 def test_env_naming_a_jax_only_key_raises_by_name(tmp_path, name):

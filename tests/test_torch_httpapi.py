@@ -4,7 +4,8 @@ against the JAX package's (veneur_tpu/core/httpapi.py), on the CPU:
 - standalone (no server behind it), every GET route of the JAX package
   answers the same status and, where neither version strings, configs,
   devices nor thread stacks differ by nature, the same body; the
-  profiling routes answer 501 naming core/profiling.py;
+  profiling routes answer 200 with valid profiles, as the JAX routes
+  answer;
 - a JAX server and a port server started on the same config and fed the
   same packets over UDP: readiness before and after the first flush,
   /query (values and errors), /alerts, /debug/events, /debug/flush,
@@ -61,7 +62,9 @@ def test_route_tables_equal_jax():
 
 # routes whose body differs by nature between the packages
 _BODY_DIFFERS = {"/version", "/config/json", "/config/yaml",
-                 "/debug/memory", "/debug/threads", "/metrics"}
+                 "/debug/memory", "/debug/threads", "/metrics",
+                 # the help text names the port's torch.profiler trace
+                 "/debug/pprof", "/debug/pprof/"}
 _GET_ROUTES = sorted(r for r in _TIMED_ROUTES
                      if r not in _PROFILING_ROUTES)
 
@@ -97,10 +100,26 @@ def test_standalone_post_route_equal_jax(standalone, route):
 
 @pytest.mark.parametrize("route", sorted(_PROFILING_ROUTES))
 def test_profiling_routes_answer_501(standalone, route):
-    _japi, tapi = standalone
-    status, body = _get(tapi.address, route)
-    assert status == 501
-    assert b"core/profiling.py" in body and route.encode() in body
+    """Each profiling route's real answer (core/profiling.py; before it
+    was ported they answered 501): 200 with a valid gzipped pprof, the
+    text CPU profile or the device-trace zip, the status the JAX
+    package's route answers (its device trace is not asked here)."""
+    import gzip
+    import io
+    import zipfile
+    japi, tapi = standalone
+    path = route + "?seconds=0.1"
+    status, body = _get(tapi.address, path)
+    assert status == 200, (route, body)
+    if route == "/debug/profile/device":
+        zf = zipfile.ZipFile(io.BytesIO(body))
+        assert set(zf.namelist()) == {"trace.json", "summary.json"}
+        return
+    assert _get(japi.address, path)[0] == status
+    if route == "/debug/profile/cpu":
+        assert body.startswith(b"cpu profile: ")
+    else:
+        assert body[:2] == b"\x1f\x8b" and gzip.decompress(body)
 
 
 def test_standalone_metrics_and_version(standalone):
@@ -390,10 +409,11 @@ def test_operator_keys_are_accepted(raw):
             assert getattr(cfg, key) == value
 
 
-@pytest.mark.parametrize("key", ["overload_device_soft_bytes",
-                                 "enable_profiling",
-                                 "device_observatory", "sentry_dsn",
-                                 "profile_server_port", "reshard_deadline"])
+@pytest.mark.parametrize("key", ["chaos_reshard_append_fault_nth",
+                                 "chaos_reshard_cutover_delay_s",
+                                 "chaos_reshard_prewarm_delay_s",
+                                 "jax_compilation_cache_dir",
+                                 "reshard_spool_dir", "reshard_deadline"])
 def test_unported_keys_still_raise(key):
     with pytest.raises(ValueError, match=key):
         config_from_dict({key: 1})

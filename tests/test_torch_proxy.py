@@ -884,17 +884,18 @@ def test_server_config_accepts_the_slice_keys(key):
         assert value == _SLICE_KEYS[key]
 
 
-@pytest.mark.parametrize("key", ["overload_device_soft_bytes",
-                                 "overload_device_hard_bytes",
-                                 "device_observatory",
-                                 "mutex_profile_fraction", "sentry_dsn",
-                                 "chaos_reshard_prewarm_delay_s",
-                                 "chaos_reshard_append_fault_nth",
-                                 "chaos_reshard_cutover_delay_s"])
-def test_server_config_still_raises_the_missing_planes(key):
+@pytest.mark.parametrize("key,value", [
+    ("reshard_spool_dir", 1), ("reshard_deadline", 1),
+    ("jax_compilation_cache_dir", 1), ("tpu", {"shards": 2}),
+    ("tpu", {"shard_routing": "digest"}),
+    ("chaos_reshard_prewarm_delay_s", 1),
+    ("chaos_reshard_append_fault_nth", 1),
+    ("chaos_reshard_cutover_delay_s", 1)])
+def test_server_config_still_raises_the_missing_planes(key, value):
     from veneur_tpu_torch.config import config_from_dict
-    with pytest.raises(ValueError, match=key):
-        config_from_dict({key: 1})
+    name = next(iter(value)) if isinstance(value, dict) else key
+    with pytest.raises(ValueError, match=name):
+        config_from_dict({key: value})
 
 
 @pytest.mark.parametrize("key,value", [

@@ -397,9 +397,9 @@ def test_config_accepts_the_resilience_keys():
         assert getattr(tcfg, key) == getattr(jcfg, key), key
 
 
-@pytest.mark.parametrize("key", ["block_profile_rate", "reshard_spool_dir",
+@pytest.mark.parametrize("key", ["reshard_deadline", "reshard_spool_dir",
                                  "chaos_forward_fail_rate",
-                                 "overload_device_hard_bytes"])
+                                 "chaos_reshard_cutover_delay_s"])
 def test_config_still_rejects_what_the_port_lacks(key):
     with pytest.raises(ValueError, match=key):
         config_from_dict({key: 1})

@@ -190,9 +190,9 @@ def test_device_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("block_profile_rate", 5),
+    ("reshard_deadline", 5),
     ("chaos_reshard_prewarm_delay_s", 0.5),
-    ("overload_device_soft_bytes", 1),
+    ("jax_compilation_cache_dir", "/tmp/cache"),
     ("tpu", {"shards": 4}),
 ])
 def test_config_rejects_features_the_port_lacks(key, value):
@@ -212,7 +212,7 @@ def test_cli_validates_config(tmp_path):
     cfg = tmp_path / "c.yaml"
     cfg.write_text("interval: 5s\npercentiles: [0.5]\n")
     bad = tmp_path / "bad.yaml"
-    bad.write_text("sentry_dsn: https://example.invalid/1\n")
+    bad.write_text("reshard_spool_dir: /tmp/reshard\n")
     from veneur_tpu_torch.cmd import veneur
     assert veneur.main(["-f", str(cfg), "-validate-config"]) == 0
     assert veneur.main(["-f", str(bad), "-validate-config"]) == 1
@@ -239,7 +239,8 @@ walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
           "util.crash", "trace.context", "trace.opentracing",
           "trace.store", "core.overload", "util.protowire", "sources",
           "sources.otlp", "sources.openmetrics", "cmd.veneur_prometheus",
-          "core.cardinality", "core.latency", "core.flushexec"}
+          "core.cardinality", "core.latency", "core.flushexec",
+          "core.deviceobs", "core.profiling", "core.restart"}
 missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
 assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))

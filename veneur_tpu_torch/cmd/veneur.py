@@ -1,7 +1,11 @@
 """The port's server CLI: load a YAML config, start the server on the
 card (or on the CPU with `-device cpu`), and run until SIGINT/SIGTERM
 (or POST /quitquitquit with `http_quit`). SIGHUP reloads the `alerts:`
-block from the config file. `VENEUR_<KEY>` and `VENEUR_TPU_<FIELD>`
+block from the config file. SIGUSR2 hands the listeners to a replacement
+process spawned from the same command line, then shuts this one down
+(core/restart.py). ERROR records and thread panics go to the crash
+reporters (util/crash.py), Sentry among them when `sentry_dsn` is set
+and sentry-sdk is installed. `VENEUR_<KEY>` and `VENEUR_TPU_<FIELD>`
 environment variables override the file (config.read_config).
 
 Run: python -m veneur_tpu_torch.cmd.veneur -f config.yaml [-device cpu]
@@ -17,6 +21,25 @@ import threading
 
 import veneur_tpu_torch
 from veneur_tpu_torch.config import read_config
+
+
+def install_crash_reporting(cfg, log) -> None:
+    """ERROR+ records and thread panics route to the registered crash
+    reporters (reference sentry.go + the logrus hook,
+    cmd/veneur/main.go:63-79); with `sentry_dsn`, Sentry is one of them
+    when sentry-sdk is installed, else a warning says crashes log
+    locally only."""
+    from veneur_tpu_torch.util import crash
+    logging.getLogger().addHandler(crash.ReportingHandler())
+    if cfg.sentry_dsn:
+        try:
+            import sentry_sdk
+            sentry_sdk.init(dsn=cfg.sentry_dsn.reveal())
+            crash.register_reporter(
+                lambda exc, tb: sentry_sdk.capture_exception(exc))
+        except ImportError:
+            log.warning("sentry_dsn set but sentry-sdk is unavailable; "
+                        "crashes log locally only")
 
 
 def main(argv=None) -> int:
@@ -50,6 +73,8 @@ def main(argv=None) -> int:
         print("config OK")
         return 0
 
+    install_crash_reporting(cfg, log)
+
     from veneur_tpu_torch.core.server import Server
     server = Server(cfg, device=args.device)
     server.start()
@@ -73,9 +98,14 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, handle_signal)
     signal.signal(signal.SIGTERM, handle_signal)
     signal.signal(signal.SIGHUP, handle_hup)
+    # SIGUSR2: zero-gap graceful restart through the SO_REUSEPORT handoff
+    # (the einhorn equivalent, reference server.go:1404)
+    from veneur_tpu_torch.core import restart
+    restart.install(server.shutdown, cfg.http_address)
     while not stop.wait(0.5):
         if server.shutdown_complete.is_set():
-            return 0  # /quitquitquit shut the server down
+            # /quitquitquit or a SIGUSR2 handoff shut the server down
+            return 0
     server.shutdown()
     return 0
 

@@ -17,7 +17,10 @@ Both config shapes of the JAX CLI are read: the v2 shape
 (`forward_address` as a comma-separated list,
 `consul_refresh_interval`, `consul_forward_service_name`). Where the JAX
 CLI ignores a key it does not read, this one raises with the key's
-name. There is no SIGUSR2 handoff (core/restart.py is not ported).
+name. SIGUSR2 hands off to a replacement spawned from the same command
+line (core/restart.py): the gRPC server and the HTTP API bind with
+SO_REUSEPORT, and the replacement reports ready on `/healthcheck/ready`
+when the HTTP API is configured, else through the ready file.
 """
 
 from __future__ import annotations
@@ -117,6 +120,10 @@ def main(argv=None) -> int:
 
     proxy, stats_loop, http_api = build_from_config(raw, args, log)
 
+    # every listener is bound: report readiness to a parent mid-handoff
+    from veneur_tpu_torch.core import restart
+    restart.mark_ready()
+
     stop = threading.Event()
 
     def handle_signal(signum, frame):
@@ -125,6 +132,12 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, handle_signal)
     signal.signal(signal.SIGTERM, handle_signal)
+    # SIGUSR2 graceful restart: the gRPC server binds with SO_REUSEPORT by
+    # default and the HTTP API sets it, so the replacement binds beside
+    # this process; once it is ready, stopping the main loop stops the
+    # proxy. With an HTTP address the parent polls /healthcheck/ready,
+    # without one it waits for the ready file (mark_ready above).
+    restart.install(stop.set, raw.get("http_address", args.http) or "")
     stop.wait()
     proxy.stop(grace=proxy.shutdown_grace)
     if stats_loop is not None:

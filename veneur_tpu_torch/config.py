@@ -1,12 +1,13 @@
 """Configuration of the port's server: the YAML keys of veneur_tpu's
 config that this port implements, with the same names and defaults.
 
-A key the port does not implement (for example `sentry_dsn`,
-`reshard_spool_dir`, `overload_device_*`, `cardinality_*`,
-`chaos_reshard_*` or `tpu.shards`) raises with the key's name: a
-configuration is never half-applied in silence. Durations accept Go-style strings ("10s",
-"500ms") or numbers of seconds; the private keys (`grpc_tls_key`,
-`forward_tls_key`, `tls_key`) become StringSecrets, redacted in
+A key the port does not implement (`reshard_spool_dir`,
+`reshard_deadline`, `chaos_reshard_*`, `jax_compilation_cache_dir`,
+`tpu.shards`, `tpu.shard_routing`, `tpu.pallas_tdigest_flush`) raises
+with the key's name: a configuration is never half-applied in silence.
+Durations accept Go-style strings ("10s", "500ms") or numbers of
+seconds; the private keys (`grpc_tls_key`, `forward_tls_key`,
+`tls_key`, `sentry_dsn`) become StringSecrets, redacted in
 /config/json.
 
 `read_config` overlays the environment on the file, as the JAX package
@@ -310,6 +311,26 @@ class Config:
     overload_watermark_hard_bytes: int = 0
     overload_watermark_poll: float = 1.0
     overload_watermark_degraded_keep: float = 0.25
+    # the device watermark rung: the same ladder over the device
+    # observatory's HBM-ledger bytes instead of host RSS (0 = off); the
+    # combined state is the severity max of the two rungs
+    overload_device_soft_bytes: int = 0
+    overload_device_hard_bytes: int = 0
+    # the device observatory (core/deviceobs.py): HBM generation ledger
+    # and kernel registry, served at /debug/device
+    device_observatory: bool = True
+    # the profiling plane (core/profiling.py): a continuous all-threads
+    # stack sampler from startup (/debug/profile/cpu), and a port that
+    # serves torch.profiler device-trace captures (`GET ?seconds=N`)
+    enable_profiling: bool = False
+    profile_server_port: int = 0
+    # Go-runtime profiler rates, accepted for config compatibility only
+    # (a warning at start): the /debug/pprof routes are the analog
+    block_profile_rate: int = 0
+    mutex_profile_fraction: int = 0
+    # crash reporting: the CLIs send ERROR records and thread panics to
+    # Sentry when sentry-sdk is installed
+    sentry_dsn: StringSecret = field(default_factory=StringSecret)
     percentiles: List[float] = field(
         default_factory=lambda: [0.5, 0.75, 0.99])
     # launch each family's next capacity rung ahead of need, at startup
@@ -403,7 +424,8 @@ _DURATION_FIELDS = {"interval", "forward_retry_base", "forward_retry_max",
                     "ingest_rate_limit_burst", "overload_watermark_poll",
                     "supervisor_deadline", "supervisor_poll",
                     "supervisor_escalation_deadline"}
-_SECRET_FIELDS = {"grpc_tls_key", "forward_tls_key", "tls_key"}
+_SECRET_FIELDS = {"grpc_tls_key", "forward_tls_key", "tls_key",
+                  "sentry_dsn"}
 
 
 def _known(cls) -> set:
@@ -487,12 +509,9 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
 # the JAX package's keys that the port does not implement: a VENEUR_*
 # variable naming one raises, as the key does in a file
 _JAX_ONLY_KEYS = frozenset({
-    "block_profile_rate", "chaos_reshard_append_fault_nth",
-    "chaos_reshard_cutover_delay_s", "chaos_reshard_prewarm_delay_s",
-    "device_observatory", "enable_profiling", "jax_compilation_cache_dir",
-    "mutex_profile_fraction", "overload_device_hard_bytes",
-    "overload_device_soft_bytes", "profile_server_port",
-    "reshard_deadline", "reshard_spool_dir", "sentry_dsn"})
+    "chaos_reshard_append_fault_nth", "chaos_reshard_cutover_delay_s",
+    "chaos_reshard_prewarm_delay_s", "jax_compilation_cache_dir",
+    "reshard_deadline", "reshard_spool_dir"})
 _JAX_ONLY_TPU_KEYS = frozenset({"pallas_tdigest_flush", "shard_routing",
                                 "shards"})
 

@@ -51,7 +51,8 @@ import torch
 
 from veneur_tpu_torch.device import pick_device
 from veneur_tpu_torch.ops import (
-    batch_hll, batch_llhist, batch_tdigest, hll_ref, llhist_ref, scalars)
+    batch_hll, batch_llhist, batch_tdigest, hll_ref, llhist_ref, scalars,
+    thread_launches)
 from veneur_tpu_torch.samplers import metrics as m
 from veneur_tpu_torch.samplers.metrics import MetricScope, UDPMetric
 
@@ -135,6 +136,10 @@ class _BaseTable:
     # doubling (kind "resize") and by the first batch apply after it
     # (kind "first_apply"), so it may only record or enqueue
     on_resize = None
+    # the device observatory (core/deviceobs.py), set by
+    # ColumnStore.attach_deviceobs: the HBM ledger books this table's
+    # generations, the kernel registry its device calls
+    _deviceobs = None
 
     def __init__(self, device: torch.device, capacity: int = 1024,
                  batch_cap: int = 8192, max_rows: int = 0):
@@ -188,6 +193,12 @@ class _BaseTable:
         self.first_apply_last_seconds = 0.0
         self._first_apply_pending = False
         self._prewarmed_caps = set()
+        # the HBM ledger's tokens of this table's generations through the
+        # double-buffer lifecycle (live -> inflight -> spare -> live ...),
+        # guarded by apply_lock
+        self._devobs_live = None
+        self._devobs_spare = None
+        self._devobs_inflight = None
         self._init_arrays()
 
     # subclasses define _init_arrays / _grow_arrays / _apply_cols_state /
@@ -225,12 +236,27 @@ class _BaseTable:
         self.lock.release()
         try:
             if self._first_apply_pending:
-                self._time_first_apply(lambda: self._apply_cols(cols))
+                self._noted("apply", lambda: self._time_first_apply(
+                    lambda: self._apply_cols(cols)))
             else:
-                self._apply_cols(cols)
+                self._noted("apply", lambda: self._apply_cols(cols))
         finally:
             self.apply_lock.release()
             self.lock.acquire()
+
+    def _noted(self, kind: str, call):
+        """Run `call` and book it in the observatory's kernel registry:
+        the host's dispatch seconds (no synchronisation is added) and the
+        kernel launches it made on this thread."""
+        obs = self._deviceobs
+        if obs is None:
+            return call()
+        t0 = time.perf_counter()
+        n0 = thread_launches()
+        out = call()
+        obs.note_kernel(kind, self.family, time.perf_counter() - t0,
+                        launches=thread_launches() - n0)
+        return out
 
     def _time_first_apply(self, apply) -> None:
         """Run the first batch apply after a capacity doubling to the
@@ -288,6 +314,10 @@ class _BaseTable:
                 self._swap_extras_locked(snap)
                 snap["state"] = self._swap_device_locked()
                 snap["cap"] = self._state_capacity()
+                # the in-flight ledger token rides the snap; recycle()
+                # retags it spare or drops it when the generation dies
+                snap["_devobs"] = self._devobs_inflight
+                self._devobs_inflight = None
         return snap
 
     def _idle_swap_locked(self, snap: dict) -> bool:
@@ -306,11 +336,50 @@ class _BaseTable:
         (caller holds ``apply_lock``)."""
         captured = self.state
         spare, self._spare = self._spare, None
-        if spare is not None and self._spare_cap == self._state_capacity():
+        used_spare = (spare is not None
+                      and self._spare_cap == self._state_capacity())
+        if used_spare:
             self.state = spare
         else:
             self.state = self._fresh_state_at(self._state_capacity())
+        self._devobs_swap_locked(used_spare)
         return captured
+
+    def _devobs_swap_locked(self, used_spare: bool) -> None:
+        """HBM-ledger bookkeeping for a generation swap (caller holds
+        ``apply_lock``; the new live state is already bound): the old
+        live token goes in flight, and the spare token, when its
+        generation was the one installed, becomes the new live token;
+        otherwise the fresh allocation registers anew and a stale spare
+        token (its generation dropped for a capacity mismatch) goes."""
+        obs = self._deviceobs
+        if obs is None:
+            return
+        tok, self._devobs_live = self._devobs_live, None
+        if tok is not None:
+            obs.retag(tok, "inflight")
+            self._devobs_inflight = tok
+        spare_tok, self._devobs_spare = self._devobs_spare, None
+        if used_spare and spare_tok is not None:
+            obs.retag(spare_tok, "live")
+            self._devobs_live = spare_tok
+        else:
+            obs.drop(spare_tok)
+            self._devobs_rebook_live_locked()
+
+    def _devobs_state(self):
+        """The live device generation for the HBM ledger (None for the
+        host-only status table)."""
+        return getattr(self, "state", None)
+
+    def _devobs_rebook_live_locked(self) -> None:
+        """Re-register the live generation after it was re-laid-out at a
+        new size (caller holds ``apply_lock``)."""
+        obs = self._deviceobs
+        if obs is not None:
+            obs.drop(self._devobs_live)
+            self._devobs_live = obs.note_generation(
+                self.family, "live", self._devobs_state())
 
     def _state_capacity(self) -> int:
         """Key-axis capacity the device state is shaped for (the set
@@ -349,16 +418,30 @@ class _BaseTable:
         spare. Call only after snapshot_finish has copied the readout to
         the host: the reset is queued on the same stream after those
         copies. A snap whose generation escaped (the set table's lazy
-        register view) carries no `_recycle` and is left alone."""
+        register view) carries no `_recycle` and is left alone; its
+        ledger token is dropped."""
         cap = snap.pop("cap", -1)
         captured = snap.pop("_recycle", None)
+        tok = snap.pop("_devobs", None)
+        obs = self._deviceobs
         if captured is None:
+            # the generation escaped into its readout: its token goes
+            if obs is not None:
+                obs.drop(tok)
             return
-        self._reset_state_(captured)
+        self._noted("reset", lambda: self._reset_state_(captured))
         with self.apply_lock:
             if cap == self._state_capacity() and self._spare is None:
                 self._spare = captured
                 self._spare_cap = cap
+                if obs is not None:
+                    obs.retag(tok, "spare")
+                    self._devobs_spare = tok
+                    tok = None
+        # resized under the flush, or the spare slot taken: the reset
+        # generation is discarded, and its bytes leave the ledger
+        if obs is not None:
+            obs.drop(tok)
 
     def snapshot_and_reset(self, **kw):
         """The whole flush of one table: swap, readout, host copies,
@@ -620,7 +703,13 @@ class _BaseTable:
             # the spare generation is shaped for the OLD capacity
             self._spare = None
             self._spare_cap = -1
+            obs = self._deviceobs
+            if obs is not None:
+                obs.drop(self._devobs_spare)
+                self._devobs_spare = None
             self._grow_arrays(new_cap)
+            # the live generation was re-laid-out at the new capacity
+            self._devobs_rebook_live_locked()
         logger.info("%s table capacity %d -> %d", self.family,
                     self.capacity, new_cap)
         old_cap, self.capacity = self.capacity, new_cap
@@ -649,15 +738,30 @@ class _BaseTable:
         cols = self._prewarm_cols()
         if cols is None:
             return False
+        obs = self._deviceobs
+        t0 = time.perf_counter()
+        n0 = thread_launches()
         state = self._fresh_state_at(capacity)
-        self._prewarm_apply(state, cols, capacity)
-        snap = {"ps": tuple(percentiles), "need_export": need_export,
-                "touched": np.ones(capacity, bool)}
-        self._prewarm_readout(state, snap)
-        self._reset_state_(state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        # the throwaway rung state is real device memory while it runs:
+        # the ledger books it as a transient `prewarm` generation
+        tok = obs.note_generation(self.family, "prewarm", state) \
+            if obs is not None else None
+        try:
+            self._prewarm_apply(state, cols, capacity)
+            snap = {"ps": tuple(percentiles), "need_export": need_export,
+                    "touched": np.ones(capacity, bool)}
+            self._prewarm_readout(state, snap)
+            self._reset_state_(state)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            if obs is not None:
+                obs.drop(tok)
         self._prewarmed_caps.add(capacity)
+        if obs is not None:
+            obs.note_kernel("prewarm", self.family,
+                            time.perf_counter() - t0,
+                            launches=thread_launches() - n0)
         return True
 
     def _prewarm_cols(self):
@@ -839,9 +943,10 @@ class GaugeTable(_BaseTable):
             rows, ok = self._intern_stubs_locked(stubs)
             self.apply_lock.acquire()
         try:
-            scalars.merge_gauges(
+            self._noted("merge", lambda: scalars.merge_gauges(
                 self.state, _to_device(rows, self.device),
-                _to_device(np.asarray(values, np.float32)[ok], self.device))
+                _to_device(np.asarray(values, np.float32)[ok],
+                           self.device)))
         finally:
             self.apply_lock.release()
 
@@ -926,8 +1031,8 @@ class HistoTable(_BaseTable):
         try:
             cols = [rows] + [np.asarray(c, np.float32)[ok] for c in (
                 in_means, in_weights, in_min, in_max, in_recip)]
-            batch_tdigest.merge_centroid_rows(
-                self.state, *(_to_device(c, self.device) for c in cols))
+            self._noted("merge", lambda: batch_tdigest.merge_centroid_rows(
+                self.state, *(_to_device(c, self.device) for c in cols)))
             # the merge folds the staging of every row with staged weight,
             # so the whole occupancy map resets
             self._staged_counts[:] = 0
@@ -1083,6 +1188,7 @@ class SetTable(_BaseTable):
                 # decoupled from row-capacity doublings
                 self._dev_cap = min(self._dev_cap * 8, self.MAX_DEV_SLOTS)
                 self.state = _pad_cap(self.state, self._dev_cap)
+                self._devobs_rebook_live_locked()
         self._slot_of[row] = self._nslots
         self._slot_row.append(row)
         self._nslots += 1
@@ -1183,9 +1289,9 @@ class SetTable(_BaseTable):
         try:
             if target.size:
                 # a promotion may have grown the bank: read it here
-                batch_hll.merge_rows(self.state,
-                                     _to_device(target, self.device),
-                                     _to_device(regs, self.device))
+                self._noted("merge", lambda: batch_hll.merge_rows(
+                    self.state, _to_device(target, self.device),
+                    _to_device(regs, self.device)))
         finally:
             self.apply_lock.release()
 
@@ -1437,10 +1543,11 @@ class LLHistTable(_BaseTable):
         try:
             # a _grow may have replaced the state: read it under apply_lock
             if self._first_apply_pending:
-                self._time_first_apply(
-                    lambda: batch_llhist.apply_packed(self.state, block))
+                self._noted("apply", lambda: self._time_first_apply(
+                    lambda: batch_llhist.apply_packed(self.state, block)))
             else:
-                batch_llhist.apply_packed(self.state, block)
+                self._noted("apply", lambda: batch_llhist.apply_packed(
+                    self.state, block))
         finally:
             self.apply_lock.release()
             self.lock.acquire()
@@ -1475,9 +1582,9 @@ class LLHistTable(_BaseTable):
             self.apply_lock.acquire()
         try:
             if rows.size:
-                batch_llhist.merge_rows(self.state,
-                                        _to_device(rows, self.device),
-                                        _to_device(padded, self.device))
+                self._noted("merge", lambda: batch_llhist.merge_rows(
+                    self.state, _to_device(rows, self.device),
+                    _to_device(padded, self.device)))
         finally:
             self.apply_lock.release()
 
@@ -1612,6 +1719,7 @@ class ColumnStore:
         self.unknown_rejected = 0
         self._processed_lock = threading.Lock()
         self.ledger = None
+        self.deviceobs = None  # set by attach_deviceobs
 
     def tables(self):
         """(family, table) pairs, every device family plus statuses."""
@@ -1635,6 +1743,24 @@ class ColumnStore:
         every table's interning path."""
         for _family, table in self.tables():
             table.cardinality = accountant
+
+    def attach_deviceobs(self, obs) -> None:
+        """Wire the device observatory (core/deviceobs.py) into every
+        table's generation lifecycle and device calls, and register the
+        current live generations (and any parked spares) in its HBM
+        ledger."""
+        self.deviceobs = obs
+        for family, table in self.tables():
+            table._deviceobs = obs
+            with table.apply_lock:
+                state = table._devobs_state()
+                if state is not None and table._devobs_live is None:
+                    table._devobs_live = obs.note_generation(
+                        family, "live", state)
+                if table._spare is not None \
+                        and table._devobs_spare is None:
+                    table._devobs_spare = obs.note_generation(
+                        family, "spare", table._spare)
 
     def attach_resize_hook(self, hook) -> None:
         """hook(family, old_cap, new_cap, seconds, kind=, prewarmed=) on

@@ -1,0 +1,384 @@
+"""Device capacity observatory (port of veneur_tpu/core/deviceobs.py).
+
+The accounting layer for what the column store keeps on the card, two
+planes wired through the existing registries:
+
+- **HBM ledger** — every `_BaseTable` generation registers its tensors'
+  bytes (`numel() * element_size()`) as a *token* tagged family / table /
+  lifecycle state (``live`` / ``spare`` / ``inflight`` / ``prewarm``).
+  Lifecycle transitions *retag* the token (a recycled spare is the
+  generation it was captured as, reset in place, so its bytes are
+  conserved) and every exit path (a capacity mismatch at recycle, a
+  generation that escaped into its readout, a resize) *drops* it. The
+  invariant the conservation tests pin: ``total_bytes()`` equals the
+  exact sum of the registered generations' bytes at every step of swap,
+  readout, recycle, resize and prewarm. `report()` reconciles the total
+  against `torch.cuda.memory_stats()` of every visible card (the CPU
+  reports nothing, as the JAX CPU backend does), and the total feeds the
+  overload ladder's device watermark rung (`overload_device_soft_bytes`
+  / `_hard_bytes`) beside the RSS rung.
+- **Kernel registry** — the apply / readout / merge / reset / prewarm
+  paths register dispatch counts and seconds into per-(kind, family)
+  LatencyHist rows (`device.kernel.*`). The seconds are the host's
+  dispatch time around the call, as in the JAX package: launches are
+  asynchronous and the registry adds no synchronisation, so a row times
+  the launch, not the kernel. Each row also counts the hand-written
+  kernels (K1 `tdigest_flush`, K2 `hll_estimate`, K3 `llhist_apply`)
+  its calls launched on the card, read from the calling thread's launch
+  tally (`veneur_tpu_torch.ops.thread_launches`). A compile is the
+  first-use nvcc build or library load of a kernel (ops/_cuda.py),
+  booked under the kernel's name: the port compiles nothing per
+  capacity, so a resize or a prewarm rung books none.
+
+The JAX package's shard-balance plane (`shard_balance`, `shard_skew`,
+the reshard plan) needs the sharded tables, which the port does not
+have: `report()` carries no `shard_balance` entry, as the JAX package
+reports for an unsharded store, and no `device.shard.skew` row.
+
+Everything is scrape-time or O(1)-under-a-lock on the hot path, and the
+whole observatory is gated by the `device_observatory` config knob. The
+full ledger and kernel table are served at ``GET /debug/device``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from veneur_tpu_torch.core.latency import LatencyHist
+
+# lifecycle states a generation token may carry (the JAX package's fifth,
+# reshard_capture, belongs to the reshard plane the port lacks)
+STATE_LIVE = "live"
+STATE_SPARE = "spare"
+STATE_INFLIGHT = "inflight"
+STATE_PREWARM = "prewarm"
+
+_STATES = (STATE_LIVE, STATE_SPARE, STATE_INFLIGHT, STATE_PREWARM)
+
+# kernel kinds the registry tracks; each timed kind renders a
+# `device.kernel.<kind>_s` llhist series (p50/p99/max gauges + count
+# counter)
+KERNEL_KINDS = ("apply", "readout", "merge", "reset", "prewarm")
+HIST_ROWS = ("device.kernel.apply_s", "device.kernel.readout_s",
+             "device.kernel.merge_s", "device.kernel.reset_s",
+             "device.kernel.prewarm_s")
+
+# the hand-written kernel each family's device work launches on the card
+FAMILY_KERNELS = {"histogram": "tdigest_flush", "set": "hll_estimate",
+                  "llhist": "llhist_apply"}
+
+
+def nbytes_of(tree: Any) -> int:
+    """Bytes of every tensor leaf of a table state: a tensor, or dicts,
+    lists and tuples of them (numpy arrays count their nbytes); other
+    leaves (ints, None) contribute nothing."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(nbytes_of(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(nbytes_of(v) for v in tree)
+    numel = getattr(tree, "numel", None)
+    if numel is not None and hasattr(tree, "element_size"):
+        return int(numel()) * int(tree.element_size())
+    return int(getattr(tree, "nbytes", 0) or 0)
+
+
+def cuda_memory_stats() -> List[Tuple[int, dict]]:
+    """(index, torch.cuda.memory_stats) of every visible CUDA device; none
+    without CUDA. Imports torch here: the proxy's HTTP API serves
+    /debug/memory from a process without it."""
+    import torch
+    if not torch.cuda.is_available():
+        return []
+    return [(i, torch.cuda.memory_stats(i))
+            for i in range(torch.cuda.device_count())]
+
+
+def backend_memory_stats() -> List[dict]:
+    """Per-device allocator figures under the JAX package's keys, for the
+    ledger's reconciliation: bytes handed out by the caching allocator
+    (`allocated_bytes.all.current`), its peak, the card's total memory
+    (`mem_get_info`), and the bytes the allocator has reserved on the
+    card, which it keeps beyond what it hands out."""
+    import torch
+    rows: List[dict] = []
+    for i, stats in cuda_memory_stats():
+        rows.append({
+            "device": i,
+            "platform": "gpu",
+            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "bytes_limit": int(torch.cuda.mem_get_info(i)[1]),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
+                                               0)),
+            "reserved_bytes": int(stats.get("reserved_bytes.all.current",
+                                            0)),
+        })
+    return rows
+
+
+class _Token:
+    __slots__ = ("family", "state", "nbytes")
+
+    def __init__(self, family: str, state: str, nbytes: int):
+        self.family = family
+        self.state = state
+        self.nbytes = nbytes
+
+
+class DeviceObservatory:
+    """One server's (or standalone store's) device observatory.
+
+    Disabled, every note_* call is a cheap early return and
+    `note_generation` hands back None (retag/drop tolerate None), so the
+    hook sites in the column store cost one attribute read."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._tokens: Dict[int, _Token] = {}
+        self._next_token = 1
+        self._total = 0           # running sum of registered bytes
+        self.peak_bytes = 0       # high-water mark of _total
+        # kernel registry: (kind, family) -> dispatch count / launches /
+        # hist of the dispatch seconds
+        self._dispatch: Dict[Tuple[str, str], int] = {}
+        self._launches: Dict[Tuple[str, str], int] = {}
+        self._kernel_hists: Dict[Tuple[str, str], LatencyHist] = {}
+        # compile counts + last compile seconds per kernel
+        self._compiles: Dict[str, int] = {}
+        self._compile_seconds: Dict[str, float] = {}
+        if enabled:
+            from veneur_tpu_torch.ops import _cuda
+            _cuda.subscribe_loads(self.note_compile)
+
+    # ------------------------------------------------------------------
+    # HBM ledger
+    # ------------------------------------------------------------------
+
+    def note_generation(self, family: str, state: str,
+                        tensors: Any) -> Optional[int]:
+        """Register one device generation; returns an opaque token used
+        to retag/drop it across lifecycle transitions, or None when the
+        observatory is disabled or the state holds no tensors."""
+        if not self.enabled or tensors is None:
+            return None
+        nbytes = nbytes_of(tensors)
+        if nbytes <= 0:
+            return None
+        with self._lock:
+            tok = self._next_token
+            self._next_token += 1
+            self._tokens[tok] = _Token(family, state, nbytes)
+            self._total += nbytes
+            if self._total > self.peak_bytes:
+                self.peak_bytes = self._total
+        return tok
+
+    def retag(self, token: Optional[int], new_state: str) -> None:
+        """Move a registered generation to a new lifecycle state. The
+        bytes stay registered: a retag conserves the ledger total."""
+        if token is None:
+            return
+        with self._lock:
+            t = self._tokens.get(token)
+            if t is not None:
+                t.state = new_state
+
+    def drop(self, token: Optional[int]) -> None:
+        """Unregister a generation (freed, escaped or resized away)."""
+        if token is None:
+            return
+        with self._lock:
+            t = self._tokens.pop(token, None)
+            if t is not None:
+                self._total -= t.nbytes
+
+    def total_bytes(self) -> int:
+        with self._lock:
+            return self._total
+
+    def ledger(self) -> dict:
+        """Full ledger breakdown: per-family per-state bytes, per-table
+        rows (one table per family in the port), totals, peak, and a
+        forecast-to-next-resize row (a grow doubles the live generation,
+        so next-resize demand is live bytes x2 for the growing family;
+        the report forecasts the worst case: every family doubling at
+        once)."""
+        with self._lock:
+            toks = [(t.family, t.state, t.nbytes)
+                    for t in self._tokens.values()]
+            total, peak = self._total, self.peak_bytes
+        by_family: Dict[str, Dict[str, int]] = {}
+        by_table: Dict[str, dict] = {}
+        live_total = 0
+        for family, state, nbytes in toks:
+            fam = by_family.setdefault(family, {s: 0 for s in _STATES})
+            fam[state] += nbytes
+            row = by_table.setdefault(
+                family, {"family": family, "bytes": 0, "states": {}})
+            row["bytes"] += nbytes
+            row["states"][state] = row["states"].get(state, 0) + nbytes
+            if state == STATE_LIVE:
+                live_total += nbytes
+        return {
+            "total_bytes": total,
+            "peak_bytes": peak,
+            "live_bytes": live_total,
+            # worst-case demand at the next capacity rung: every live
+            # generation doubles while the old one is still resident for
+            # the copy
+            "forecast_next_resize_bytes": live_total * 2,
+            "generations": len(toks),
+            "by_family": by_family,
+            "by_table": by_table,
+        }
+
+    # ------------------------------------------------------------------
+    # Kernel registry
+    # ------------------------------------------------------------------
+
+    def note_kernel(self, kind: str, family: str,
+                    seconds: Optional[float] = None, n: int = 1,
+                    launches: int = 0) -> None:
+        """Record `n` dispatches of a device path; `seconds` (the host's
+        dispatch time, when the caller timed it) feeds the
+        `device.kernel.<kind>_s` llhist for that family, and `launches`
+        counts the hand-written kernel launches the dispatch made."""
+        if not self.enabled:
+            return
+        key = (kind, family)
+        hist = None
+        with self._lock:
+            self._dispatch[key] = self._dispatch.get(key, 0) + n
+            if launches:
+                self._launches[key] = self._launches.get(key, 0) + launches
+            if seconds is not None:
+                hist = self._kernel_hists.get(key)
+                if hist is None:
+                    hist = self._kernel_hists[key] = LatencyHist(
+                        f"device.kernel.{kind}_s")
+        if hist is not None:
+            hist.observe(seconds)
+
+    def note_compile(self, kernel: str,
+                     seconds: Optional[float] = None) -> None:
+        """Record one kernel build or library load (ops/_cuda.py) under
+        the kernel's name."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._compiles[kernel] = self._compiles.get(kernel, 0) + 1
+            if seconds is not None:
+                self._compile_seconds[kernel] = float(seconds)
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Launches of each hand-written kernel booked by the registry's
+        dispatches."""
+        with self._lock:
+            launches = dict(self._launches)
+        out: Dict[str, int] = {}
+        for (_kind, family), n in launches.items():
+            kernel = FAMILY_KERNELS.get(family, family)
+            out[kernel] = out.get(kernel, 0) + n
+        return out
+
+    def kernel_report(self) -> dict:
+        with self._lock:
+            dispatch = dict(self._dispatch)
+            launches = dict(self._launches)
+            hists = dict(self._kernel_hists)
+            compiles = dict(self._compiles)
+            compile_s = dict(self._compile_seconds)
+        kernels: List[dict] = []
+        for (kind, family), count in sorted(dispatch.items()):
+            row = {"kind": kind, "family": family, "dispatches": count}
+            if (kind, family) in launches:
+                row["kernel"] = FAMILY_KERNELS.get(family, family)
+                row["launches"] = launches[(kind, family)]
+            hist = hists.get((kind, family))
+            if hist is not None:
+                row["wall"] = hist.snapshot()
+            kernels.append(row)
+        return {
+            "kernels": kernels,
+            "kernel_launches": self.kernel_launches(),
+            "compiles": compiles,
+            "last_compile_seconds": compile_s,
+        }
+
+    # ------------------------------------------------------------------
+    # Export
+    # ------------------------------------------------------------------
+
+    def telemetry_rows(self) -> List[tuple]:
+        if not self.enabled:
+            return []
+        rows: List[tuple] = []
+        led = self.ledger()
+        rows.append(("device.mem.total_bytes", "gauge",
+                     float(led["total_bytes"]), ()))
+        rows.append(("device.mem.peak_bytes", "gauge",
+                     float(led["peak_bytes"]), ()))
+        rows.append(("device.mem.forecast_next_resize_bytes", "gauge",
+                     float(led["forecast_next_resize_bytes"]), ()))
+        rows.append(("device.mem.generations", "gauge",
+                     float(led["generations"]), ()))
+        for family, states in sorted(led["by_family"].items()):
+            for state, nbytes in sorted(states.items()):
+                if nbytes:
+                    rows.append(("device.mem.bytes", "gauge",
+                                 float(nbytes),
+                                 (f"family:{family}", f"state:{state}")))
+        with self._lock:
+            dispatch = dict(self._dispatch)
+            hists = dict(self._kernel_hists)
+            compiles = dict(self._compiles)
+        for (kind, family), count in sorted(dispatch.items()):
+            rows.append(("device.kernel.dispatches", "counter",
+                         float(count),
+                         (f"kind:{kind}", f"family:{family}")))
+        for kernel, count in sorted(self.kernel_launches().items()):
+            rows.append(("device.kernel.launches", "counter", float(count),
+                         (f"kernel:{kernel}",)))
+        for (kind, family), hist in sorted(hists.items()):
+            snap = hist.snapshot()
+            tags = (f"family:{family}",)
+            base = f"device.kernel.{kind}_s"
+            for label in ("p50", "p99", "max"):
+                rows.append((f"{base}.{label}", "gauge", snap[label],
+                             tags))
+            rows.append((f"{base}.count", "counter",
+                         float(snap["count"]), tags))
+        for kernel, count in sorted(compiles.items()):
+            rows.append(("device.compile.count", "counter", float(count),
+                         (f"kernel:{kernel}",)))
+        return rows
+
+    def report(self) -> dict:
+        """The `/debug/device` payload: ledger + allocator reconciliation
+        + kernel table."""
+        led = self.ledger()
+        backend = backend_memory_stats()
+        recon = None
+        if backend:
+            in_use = sum(r["bytes_in_use"] for r in backend)
+            recon = {
+                "backend_bytes_in_use": in_use,
+                "backend_bytes_reserved": sum(r["reserved_bytes"]
+                                              for r in backend),
+                "ledger_bytes": led["total_bytes"],
+                # allocator slack: bytes the ledger doesn't model (readout
+                # outputs, pending-column copies, other servers' tables)
+                "unaccounted_bytes": in_use - led["total_bytes"],
+            }
+        return {
+            "generated_unix": time.time(),
+            "enabled": self.enabled,
+            "ledger": led,
+            "backend_devices": backend,
+            "reconciliation": recon,
+            **self.kernel_report(),
+        }

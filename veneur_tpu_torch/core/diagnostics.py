@@ -65,11 +65,9 @@ def collect(stats: ScopedClient, start_time: float,
     if include_device:
         # imported here: the proxy's loop (include_device=False) runs in
         # a process that imports no torch
-        import torch
-    if include_device and torch.cuda.is_available():
-        for i in range(torch.cuda.device_count()):
-            in_use = torch.cuda.memory_stats(i).get(
-                "allocated_bytes.all.current")
+        from veneur_tpu_torch.core.deviceobs import cuda_memory_stats
+        for i, dev_stats in cuda_memory_stats():
+            in_use = dev_stats.get("allocated_bytes.all.current")
             if in_use is not None:
                 # same tag set as telemetry.device_memory_rows so the
                 # scrape-time collector overwrites this teed value on

@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from veneur_tpu_torch.core.columnstore import ColumnStore, RowMeta
-from veneur_tpu_torch.ops import llhist_ref
+from veneur_tpu_torch.ops import llhist_ref, thread_launches
 from veneur_tpu_torch.samplers.metrics import (
     Aggregate, HistogramAggregates, InterMetric, MetricScope, MetricType,
 )
@@ -246,10 +246,19 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
     global_code = int(MetricScope.GLOBAL_ONLY)
 
     families: Dict[str, dict] = {}
+    deviceobs = store.deviceobs
+    launched = [thread_launches()]
 
     def mark(family: str, start: float) -> float:
         """Close one family's dispatch segment; returns the next start."""
         end = time.perf_counter()
+        if deviceobs is not None and family != "status":
+            # the kernel registry's readout row: the family's dispatch
+            # seconds, and the kernels its readout launched
+            n = thread_launches()
+            deviceobs.note_kernel("readout", family, end - start,
+                                  launches=n - launched[0])
+            launched[0] = n
         families[family] = {"dispatch_s": end - start,
                              "dispatch_start_s": start - t0,
                              "transfer_s": 0.0, "devices": {},

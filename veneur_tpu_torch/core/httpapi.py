@@ -24,17 +24,26 @@ the alert engine are served at:
   GET /debug/latency the latency observatory (core/latency.py)
   GET /debug/cardinality  top names by live rows and mints, tag-key HLL
                      estimates, limits (?top=N, ?name=)
+  GET /debug/device  the device observatory (core/deviceobs.py): the HBM
+                     ledger, the allocator's figures, the kernel registry
+                     and the device watermark rung
+
+The profiling plane (core/profiling.py) answers the pprof routes
+(/debug/pprof/profile?seconds=N, heap, allocs, goroutine, block, mutex,
+threadcreate; 503 while a capture is busy, 429 when the heap profiler's
+arming is throttled), /debug/profile/cpu (the enable_profiling sampler's
+text profile, else a request-scoped one) and /debug/profile/device
+(a torch.profiler capture of ?seconds=N, zipped; 503 naming the reason
+when the card's host records no device activity).
 
 A standalone API (the proxy's, cmd/veneur_proxy.py) passes its own
 telemetry, readiness, ledger, query, cardinality, trace and latency
 sources.
 
-Every route of the JAX package answers. Those whose source the port
-lacks answer what the JAX package answers for a server without one:
-/debug/reshard and /debug/device, 404 with the same body. The
-profiling routes (/debug/pprof/profile, heap, allocs, goroutine, block,
-mutex, threadcreate, /debug/profile/cpu and /debug/profile/device) need
-core/profiling.py, which is not ported yet: they answer 501 naming it.
+Every route of the JAX package answers. /debug/reshard, whose source the
+port lacks, answers what the JAX package answers for a server without
+one: 404 with the same body (as /debug/device does on an API without a
+server).
 """
 
 from __future__ import annotations
@@ -84,10 +93,9 @@ _TIMED_ROUTES = frozenset({
 # the JAX package's answers for a server without the route's source
 _NO_SOURCE = {
     "/debug/reshard": b"no reshard controller\n",
-    "/debug/device": b"no device source\n",
 }
 
-# routes served by core/profiling.py in the JAX package
+# routes served by core/profiling.py
 _PROFILING_ROUTES = frozenset({
     "/debug/profile/cpu", "/debug/profile/device", "/debug/pprof/profile",
     "/debug/pprof/heap", "/debug/pprof/allocs", "/debug/pprof/goroutine",
@@ -105,7 +113,7 @@ _PPROF_INDEX = (
     b"  /debug/pprof/threadcreate       live-thread count\n"
     b"  /debug/pprof/cmdline|symbol     pprof text protocols\n"
     b"  /debug/profile/cpu?seconds=N    text CPU profile\n"
-    b"  /debug/profile/device?seconds=N xprof device trace\n"
+    b"  /debug/profile/device?seconds=N torch.profiler device trace\n"
     b"  /debug/memory                   device memory JSON\n"
     b"  /debug/threads                  all-thread stacks\n"
     b"  /debug/events?n=N               event flight recorder\n"
@@ -293,6 +301,14 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, json.dumps(source(
                 top=top, name=_query_str(self.path, "name")), indent=2,
                 default=str).encode(), "application/json")
+        elif path == "/debug/device":
+            # the device observatory: HBM ledger by family and lifecycle
+            # state against the allocator, kernel registry, device rung
+            source = getattr(api.server, "device_report", None)
+            if source is None:
+                self._send(404, b"no device source\n")
+                return
+            self._send(200, _json(source()), "application/json")
         elif path in _NO_SOURCE:
             self._send(404, _NO_SOURCE[path])
         elif path == "/query":
@@ -306,8 +322,7 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/debug/memory":
             self._send(200, _device_memory_report(), "application/json")
         elif path in _PROFILING_ROUTES:
-            self._send(501, f"{path} needs core/profiling.py, which "
-                            f"veneur_tpu_torch does not port yet\n".encode())
+            self._profile(path)
         elif path == "/debug/pprof/cmdline":
             # NUL-separated argv, the Go pprof cmdline contract
             self._send(200, b"\x00".join(
@@ -332,6 +347,68 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, "".join(parts).encode())
         else:
             self._send(404, b"not found\n")
+
+    def _profile(self, path: str) -> None:
+        """The profiling routes (core/profiling.py), as the JAX package
+        serves them; the device trace is torch.profiler's."""
+        from veneur_tpu_torch.core import profiling
+        api = self.server_ref
+        octet = "application/octet-stream"
+        if path == "/debug/profile/cpu":
+            # the enable_profiling sampler when it runs (reference
+            # server.go:1382-1390), else a request-scoped sample
+            sampler = getattr(api.server, "profiler", None)
+            if sampler is not None and sampler.running:
+                body = sampler.report().encode()
+            else:
+                body = profiling.sample_for(
+                    _query_float(self.path, "seconds", 2.0)).encode()
+            self._send(200, body)
+        elif path == "/debug/pprof/profile":
+            try:
+                body = profiling.pprof_for(_query_float(
+                    self.path, "seconds", 5.0, max_value=120.0))
+            except RuntimeError as e:  # one capture at a time
+                self._send(503, str(e).encode())
+                return
+            self._send(200, body, octet)
+        elif path in ("/debug/pprof/heap", "/debug/pprof/allocs"):
+            keep = bool(getattr(api.config, "enable_profiling", False))
+            try:
+                body, _fresh = profiling.heap_pprof_or_cached(
+                    keep_tracing=keep)
+            except profiling.HeapProfileThrottled as e:
+                self._send(429, str(e).encode())
+                return
+            self._send(200, body, octet)
+        elif path == "/debug/pprof/goroutine":
+            self._send(200, profiling.threads_pprof(), octet)
+        elif path in ("/debug/pprof/block", "/debug/pprof/mutex"):
+            # no CPython contention profiler: a valid empty profile
+            kind = "contentions" if path.endswith("block") else "mutex"
+            self._send(200, profiling.empty_pprof(kind), octet)
+        elif path == "/debug/pprof/threadcreate":
+            self._send(200, profiling.threadcreate_pprof(), octet)
+        else:  # /debug/profile/device
+            try:
+                body = profiling.capture_device_trace(
+                    _query_float(self.path, "seconds", 2.0),
+                    getattr(api.server, "device", None))
+            except RuntimeError as e:
+                # busy, or the card's host recorded no device activity
+                self._send(503, f"{e}\n".encode())
+                return
+            except Exception as e:
+                self._send(500, f"trace failed: {e}\n".encode())
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "application/zip")
+            self.send_header("Content-Disposition",
+                             'attachment; filename="device-trace.zip"')
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("X-Veneur-Pid", str(os.getpid()))
+            self.end_headers()
+            self.wfile.write(body)
 
     def _query(self) -> None:
         """The live query plane (core/query.py) against a consistent
@@ -408,13 +485,9 @@ def _device_memory_report() -> bytes:
     """Per-device memory stats (the JAX package lists
     jax.Device.memory_stats()): torch.cuda.memory_stats() for each
     visible CUDA device, none without CUDA."""
-    import torch  # here: the proxy's API runs in a process without it
-    stats = []
-    if torch.cuda.is_available():
-        for i in range(torch.cuda.device_count()):
-            stats.append({"device": f"cuda:{i}",
-                          "memory_stats": torch.cuda.memory_stats(i)})
-    return _json(stats)
+    from veneur_tpu_torch.core.deviceobs import cuda_memory_stats
+    return _json([{"device": f"cuda:{i}", "memory_stats": stats}
+                  for i, stats in cuda_memory_stats()])
 
 
 class HTTPApi:

@@ -27,6 +27,10 @@ spans (protocol.read_ssf, frames capped at `trace_max_length_bytes`),
 where a framing error closes the connection and an undecodable frame is
 counted and skipped.
 
+Every UDP and TCP listener binds with SO_REUSEPORT, the SSF ones too
+(the JAX package's SSF listeners do not), so a SIGUSR2 replacement
+(core/restart.py) binds beside them; UNIX paths rebind with a gap.
+
 Overload hooks (core/overload.py): every UDP socket (DogStatsD and SSF)
 registers with the server's kernel-drop monitor, and each TCP line takes
 one statsd admission token (an over-limit line keeps only its counter
@@ -65,14 +69,12 @@ _MAX_DGRAM = 65536
 _MAX_BATCH = 512
 
 
-def _new_udp_socket(host: str, port: int, rcvbuf: int,
-                    reuseport: bool = True) -> socket.socket:
+def _new_udp_socket(host: str, port: int, rcvbuf: int) -> socket.socket:
     """SO_REUSEPORT + enlarged receive buffer (socket_linux.go:12-30)."""
     family = socket.AF_INET6 if ":" in host else socket.AF_INET
     sock = socket.socket(family, socket.SOCK_DGRAM)
     sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    if reuseport:
-        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
     if rcvbuf:
         sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, rcvbuf)
     sock.bind((host, port))
@@ -426,8 +428,9 @@ def start_ssf(address: str, server, rcvbuf: int) -> Listener:
 
 
 def _start_ssf_udp(u, server, rcvbuf: int) -> Listener:
-    sock = _new_udp_socket(u.hostname or "127.0.0.1", u.port or 0, rcvbuf,
-                           reuseport=False)
+    # SO_REUSEPORT, unlike the JAX package's SSF listener: a SIGUSR2
+    # replacement (core/restart.py) binds the same port beside this one
+    sock = _new_udp_socket(u.hostname or "127.0.0.1", u.port or 0, rcvbuf)
     listener = Listener([sock])
     _watch_kernel_drops(server, [sock], f"ssf-udp:{listener.address[1]}")
     # the largest datagram read follows trace_max_length_bytes (reference
@@ -478,6 +481,8 @@ def _start_ssf_stream(u, server) -> Listener:
     else:
         sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        # for the SIGUSR2 handoff, as _start_ssf_udp
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         sock.bind((u.hostname or "127.0.0.1", u.port or 0))
         address = sock.getsockname()
     sock.listen(128)

@@ -29,8 +29,10 @@ supervision (port of veneur_tpu/core/overload.py; it imports no torch).
 
 `OverloadManager` holds them all, runs the one monitor thread that
 polls the watermarks and the kernel drops, and exports everything
-through `telemetry_rows`. The device rung (`attach_device_source`) is
-carried, but has no byte source in the port yet, so it stays ok.
+through `telemetry_rows`. The device rung (`attach_device_source`)
+reads the device observatory's HBM-ledger total (core/deviceobs.py)
+against `overload_device_soft_bytes` / `_hard_bytes`; the combined state
+is the severity max of the two rungs.
 """
 
 from __future__ import annotations

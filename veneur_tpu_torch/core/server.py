@@ -100,6 +100,16 @@ every span handed to the channel is extracted and ingested by every
 sink. The uniqueness rolls draw from generators derived from the
 server's `rng`.
 
+The device observatory (core/deviceobs.py, `device_observatory`, on by
+default): the HBM ledger books every table generation through swap,
+readout, recycle, resize and prewarm, the kernel registry every device
+call; `device_report()` is /debug/device, and the ledger's total feeds
+the overload ladder's device rung. The profiling plane
+(core/profiling.py): `enable_profiling` runs the all-threads sampler
+from start() to shutdown(), `profile_server_port` serves device-trace
+captures. start() ends with `restart.mark_ready()`, the SIGUSR2
+handoff's ready-file handshake (core/restart.py).
+
     server = Server(read_config("config.yaml"))   # tables on cuda:0
     server.start()
     ...
@@ -130,8 +140,10 @@ from veneur_tpu_torch import sources as sources_mod
 from veneur_tpu_torch.config import Config, SinkConfig, read_config
 from veneur_tpu_torch.core import telemetry as telemetry_mod
 from veneur_tpu_torch.core.alerts import AlertEngine
+from veneur_tpu_torch.core import restart
 from veneur_tpu_torch.core.cardinality import CardinalityAccountant
 from veneur_tpu_torch.core.columnstore import ColumnStore
+from veneur_tpu_torch.core.deviceobs import DeviceObservatory
 from veneur_tpu_torch.core.diagnostics import DiagnosticsLoop
 from veneur_tpu_torch.core.flushexec import (FlushReadoutExecutor,
                                              ShapeLadderPrewarmer)
@@ -486,6 +498,10 @@ class Server:
         self._flush_executor: Optional[FlushReadoutExecutor] = None
         self._inflight_flushes: List[dict] = []
         self.prewarmer: Optional[ShapeLadderPrewarmer] = None
+        # the profiling plane, started by start(): the enable_profiling
+        # sampler and the profile_server_port endpoint
+        self.profiler = None
+        self.profile_server = None
         self._build_operator_surface()
         self._build_overload_and_trace()
         self.ledger.on_event = self.telemetry.record_event
@@ -626,6 +642,14 @@ class Server:
             on_event=self.telemetry.record_event)
         self.store.attach_cardinality(self.cardinality)
         registry.add_collector(self.cardinality.telemetry_rows)
+        # the device observatory (core/deviceobs.py): HBM generation
+        # ledger and kernel registry, served at /debug/device, feeding
+        # the overload ladder's device watermark rung
+        self.deviceobs = DeviceObservatory(enabled=config.device_observatory)
+        if self.deviceobs.enabled:
+            self.store.attach_deviceobs(self.deviceobs)
+            registry.add_collector(self.deviceobs.telemetry_rows)
+            self.overload.attach_device_source(self.deviceobs.total_bytes)
         self.store.attach_resize_hook(self._store_resize)
         self.trace_plane = SelfTracePlane(
             service="veneur-tpu",
@@ -680,6 +704,22 @@ class Server:
             f"columnstore_{kind}", family=family, old_capacity=old_cap,
             new_capacity=new_cap, duration_s=round(seconds, 6),
             **({"prewarmed": True} if prewarmed else {}))
+
+    def device_report(self) -> dict:
+        """The /debug/device payload: the HBM generation ledger (by family
+        and lifecycle state, with its forecast and the allocator's
+        reconciliation), the kernel registry, and the overload ladder's
+        device watermark rung."""
+        out = self.deviceobs.report()
+        dw = self.overload.device_watermarks
+        out["watermarks"] = {
+            "state": dw.state,
+            "soft_bytes": dw.soft_bytes,
+            "hard_bytes": dw.hard_bytes,
+            "last_bytes": dw.last_rss,
+            "transitions": dw.transitions,
+        }
+        return out
 
     def cardinality_report(self, top: int = 20, name: str = "") -> dict:
         """The /debug/cardinality payload (the JAX server's): with
@@ -1243,6 +1283,21 @@ class Server:
                                     http_quit=cfg.http_quit,
                                     on_quit=self.shutdown)
             self.http_api.start()
+        if cfg.enable_profiling:
+            # the continuous all-threads sampler (reference
+            # server.go:1382-1390), read at /debug/profile/cpu
+            from veneur_tpu_torch.core.profiling import StackSampler
+            self.profiler = StackSampler()
+            self.profiler.start()
+        if cfg.profile_server_port:
+            from veneur_tpu_torch.core.profiling import start_profile_server
+            self.profile_server = start_profile_server(
+                cfg.profile_server_port, self.device)
+        if cfg.block_profile_rate or cfg.mutex_profile_fraction:
+            logger.warning(
+                "block_profile_rate/mutex_profile_fraction are Go-runtime "
+                "knobs with no Python analog; accepted for config compat "
+                "only — use /debug/pprof and enable_profiling instead")
         if self.diagnostics is not None:
             self.diagnostics.start()
         if cfg.prewarm_ladder:
@@ -1275,6 +1330,9 @@ class Server:
                 target=self._flush_watchdog, name="flush-watchdog",
                 daemon=True)
             self._watchdog_thread.start()
+        # the graceful-restart handshake: a parent mid-SIGUSR2 waits for
+        # the ready file, written only now, with every listener bound
+        restart.mark_ready()
         self.telemetry.record_event(
             "startup", pid=os.getpid(),
             mode="local" if cfg.is_local else "global")
@@ -1503,7 +1561,7 @@ class Server:
                     # the first's, under one shared grace
                     self._join_round(dispatched, forwards,
                                      time.perf_counter()
-                                     + max(self.interval, 30.0))
+                                     + self._delivery_grace())
                 n, round_dispatched, forward = self._deliver_round(
                     rec, events if i == 0 else [], timings, i == 0,
                     flush_span, traced)
@@ -1680,6 +1738,18 @@ class Server:
         dispatched = self._dispatch_sinks(batch, events, timings,
                                           rec["span"], rec["traced"])
         return len(batch), dispatched, forward
+
+    def _delivery_grace(self) -> float:
+        """Seconds a delivery that must not be skipped may take: a
+        drain's earlier round, and the sinks' running and last
+        deliveries at shutdown."""
+        return max(self.interval, 30.0)
+
+    def _join_sink_threads(self, deadline: float) -> None:
+        """Wait, until `deadline`, for every sink's running flush
+        thread."""
+        for thread in list(self._sink_flush_threads.values()):
+            thread.join(max(0.0, deadline - time.perf_counter()))
 
     def _join_round(self, dispatched: List[tuple], forwards: List[tuple],
                     deadline: float) -> None:
@@ -2204,10 +2274,11 @@ class Server:
         last flush when `flush_on_shutdown` asks for it (without it, under
         `flush_async`, a pass that delivers the intervals already swapped
         and opens none), stop the readout executor and the prewarmer,
-        then the forward tier and the HTTP API, wait up to one interval
-        for the sink threads, and stop the sinks. Raises afterwards if an ingest
-        chunk failed to apply, a forward thread raised or the last flush
-        failed."""
+        then the forward tier and the HTTP API, and stop the sinks. The
+        sinks' running deliveries are waited for before the last flush,
+        and its own after it, within one grace of max(interval, 30 s).
+        Raises afterwards if an ingest chunk failed to apply, a forward
+        thread raised or the last flush failed."""
         self.telemetry.record_event("shutdown", pid=os.getpid())
         self._shutdown.set()
         # supervision stops first: threads leaving on the shutdown path
@@ -2233,6 +2304,13 @@ class Server:
             self._flush_thread.join(timeout=self.interval + 60.0)
         if self._watchdog_thread is not None:
             self._watchdog_thread.join(timeout=5.0)
+        # the last flush delivers to every sink: a delivery still running
+        # (a slow sink, or one stalled past its flush's deadline) is
+        # waited for first, or the last flush would skip that sink as a
+        # pileup and lose the interval. One grace bounds this wait and
+        # the one for the last delivery below.
+        sinks_deadline = time.perf_counter() + self._delivery_grace()
+        self._join_sink_threads(sinks_deadline)
         final_error: Optional[BaseException] = None
         try:
             if self.config.flush_on_shutdown:
@@ -2262,18 +2340,26 @@ class Server:
         if self.http_api is not None:
             self.http_api.stop()
             self.http_api = None
+        if self.profiler is not None:
+            self.profiler.stop()
+        if self.profile_server is not None:
+            self.profile_server.stop()
+            self.profile_server = None
         if self.diagnostics is not None:
             self.diagnostics.stop()
         # a sink's last delivery ends before the sink stops
-        deadline = time.perf_counter() + self.interval
-        for thread in list(self._sink_flush_threads.values()):
-            thread.join(max(0.0, deadline - time.perf_counter()))
+        self._join_sink_threads(sinks_deadline)
         for sink in self.metric_sinks + self.span_sinks:
             sink.stop()
         self.trace_client.close()
         self.statsd.close()
         if self.chaos is not None and chaos_mod.active() is self.chaos:
             chaos_mod.install(None)
+        stats = self.stats_snapshot()
+        logger.info("shutdown of pid %d complete: %d lines received, %d "
+                    "parsed, %d rejected", os.getpid(),
+                    stats["lines_received"], stats["lines_parsed"],
+                    stats["lines_rejected"])
         self.shutdown_complete.set()
         self._raise_dispatch_error()
         self._raise_forward_error()

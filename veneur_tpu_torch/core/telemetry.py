@@ -440,19 +440,12 @@ class Telemetry:
 def device_memory_rows() -> List[tuple]:
     """Per-device memory gauges for the /metrics collector, one row set
     per visible CUDA device (none without CUDA), under the JAX package's
-    names: bytes in use (torch.cuda.memory_allocated), the limit
-    (torch.cuda.mem_get_info's total) and the peak
-    (torch.cuda.max_memory_allocated)."""
-    import torch
+    names: the caching allocator's bytes in use and their peak, and the
+    card's total memory (deviceobs.backend_memory_stats)."""
+    from veneur_tpu_torch.core.deviceobs import backend_memory_stats
     rows: List[tuple] = []
-    if not torch.cuda.is_available():
-        return rows
-    for i in range(torch.cuda.device_count()):
-        tags = [f"device:{i}", "platform:gpu"]
-        rows.append(("device.bytes_in_use", "gauge",
-                     float(torch.cuda.memory_allocated(i)), tags))
-        rows.append(("device.bytes_limit", "gauge",
-                     float(torch.cuda.mem_get_info(i)[1]), tags))
-        rows.append(("device.peak_bytes_in_use", "gauge",
-                     float(torch.cuda.max_memory_allocated(i)), tags))
+    for dev in backend_memory_stats():
+        tags = [f"device:{dev['device']}", "platform:gpu"]
+        for name in ("bytes_in_use", "bytes_limit", "peak_bytes_in_use"):
+            rows.append((f"device.{name}", "gauge", float(dev[name]), tags))
     return rows

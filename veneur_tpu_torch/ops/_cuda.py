@@ -10,6 +10,11 @@ the flags, under `build/torch_kernels/` beside the package.
 A missing nvcc or a failed build raises with nvcc's output: there is no
 fall back to another implementation.
 
+The first use of a kernel in a process (the build of every missing
+library, then the library's load) is the port's only compile: its
+seconds are kept per kernel in `load_seconds` and handed to every
+subscriber (`subscribe_loads`, the device observatory's note_compile).
+
 `-fmad=false` keeps nvcc from contracting a*b+c into one fused
 multiply-add, so a kernel rounds like its plain PyTorch version, op for
 op. No `--use_fast_math`: the outputs carry ±inf and NaN by contract.
@@ -23,8 +28,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+import weakref
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -40,6 +47,32 @@ _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # kernel name -> nvcc/ptxas output of its build in this process (registers,
 # shared memory and spills per kernel, from -Xptxas -v)
 build_logs: Dict[str, str] = {}
+# kernel name -> seconds of its first use in this process (build + load)
+load_seconds: Dict[str, float] = {}
+# weak references to the bound methods told of each first use
+_load_subscribers: List[weakref.WeakMethod] = []
+
+
+def subscribe_loads(method: Callable[[str, float], None]) -> None:
+    """Call `method(kernel, seconds)` (a bound method, held weakly) for
+    every kernel loaded so far and at every later first use."""
+    with _lock:
+        _load_subscribers.append(weakref.WeakMethod(method))
+        loaded = list(load_seconds.items())
+    for name, seconds in loaded:
+        method(name, seconds)
+
+
+def _notify_load(name: str, seconds: float) -> None:
+    """Tell the live subscribers (caller holds ``_lock``)."""
+    load_seconds[name] = seconds
+    alive = []
+    for ref in _load_subscribers:
+        method = ref()
+        if method is not None:
+            alive.append(ref)
+            method(name, seconds)
+    _load_subscribers[:] = alive
 
 
 def nvcc_path() -> str:
@@ -120,10 +153,12 @@ def kernel(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         if fn is None:
             lib = _libs.get(name)
             if lib is None:
+                t0 = time.perf_counter()
                 paths = build_all()
                 if name not in paths:
                     raise RuntimeError(f"no kernel source csrc/{name}.cu")
                 lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+                _notify_load(name, time.perf_counter() - t0)
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

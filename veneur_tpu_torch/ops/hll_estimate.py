@@ -25,7 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
-from veneur_tpu_torch.ops import _cuda, hll_ref
+from veneur_tpu_torch.ops import _cuda, count_launch, hll_ref
 
 M = hll_ref.M  # 16384 registers per key
 
@@ -97,6 +97,7 @@ def estimate_cuda(regs: torch.Tensor) -> torch.Tensor:
         err = fn(regs.data_ptr(), out.data_ptr(), num_rows, stream)
     _cuda.check_launch("hll_estimate", err)
     launches += 1
+    count_launch()
     return out
 
 

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from veneur_tpu_torch.ops import _cuda
+from veneur_tpu_torch.ops import _cuda, count_launch
 
 BINS_PAD = 4608  # the JAX package's padded width (4501 bins, 128-aligned)
 
@@ -119,6 +119,7 @@ def apply_cuda(regs: torch.Tensor, rows: torch.Tensor, bins: torch.Tensor,
     if err:
         _cuda.check_launch("llhist_apply", err)
     launches += 1
+    count_launch()
     return regs
 
 

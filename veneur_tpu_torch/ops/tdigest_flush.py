@@ -20,7 +20,7 @@ from typing import Sequence
 
 import torch
 
-from veneur_tpu_torch.ops import _cuda
+from veneur_tpu_torch.ops import _cuda, count_launch
 
 # column order of the scalar tail of the packed flush
 FLUSH_SCALARS = ("count", "sum", "min", "max", "hmean",
@@ -146,6 +146,7 @@ def flush_packed_cuda(sm, sw, scal, ps) -> torch.Tensor:
                  stream)
     _cuda.check_launch("tdigest_flush", err)
     launches += 1
+    count_launch()
     return out
 
 

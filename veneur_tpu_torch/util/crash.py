@@ -1,6 +1,6 @@
 """Crash reporting: the ConsumePanic pattern (port of
-veneur_tpu/util/crash.py; `sentry_dsn` itself is not read by the port,
-so the reporters are the ones a caller registers).
+veneur_tpu/util/crash.py; the server CLI registers Sentry as a reporter
+when `sentry_dsn` is set and sentry-sdk is installed).
 
 Behavioral parity with reference sentry.go:22-60: every long-lived
 goroutine (thread here) wraps its body in ConsumePanic, which reports

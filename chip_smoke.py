@@ -6,7 +6,8 @@ card, then runs the port's server end to end on the card.
     python3 chip_smoke.py [--phases S,J]
 
 `--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
-to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P); with neither,
+to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P, M); with
+neither,
 every phase runs. The kernel checks always run, and the last line is
 the same either way.
 
@@ -248,6 +249,24 @@ the package is not beside it). Phases, each fatal on failure:
      the old process exits 0, the counters the two processes delivered
      equal the lines they received (each logs its count at shutdown),
      and sent - received stays within 1 %.
+ 18. phase M, the sharded serving plane (`tpu.shards: 4`), on cuda:0.
+     M1: a 4-shard ColumnStore and a single one take the same decoded
+     columns in-process, in 65 536-sample chunks (phase A's 40 000
+     counter, 20 000 gauge x 2, 30 000 timer x 16 and 10 000 set x 32
+     keys and B's 5 000 `|l` keys x 32), two intervals; each flush runs
+     table by table as a forwarding local's (t-digest export): counters
+     (also against the totals sent), gauges, llhist registers, counts
+     and quantiles, HLL registers and set estimates equal bit for bit,
+     the llhist sums to 1e-6, the t-digest's count, mass, moments, min,
+     max and reciprocal sum within tests/test_sharded_store.py's slack;
+     the shards' routed counts sum to the samples sent; the HBM ledger
+     equals the tensors after every swap, readout and recycle; each
+     family's merge timed (CUDA events), and interval 2's flush of both
+     stores under torch.profiler for the device's busy share. M2: a
+     4-shard local Server on the pump at phase D's local width forwards
+     to a 4-shard global over gRPC, two intervals, checked as phase D
+     checks its local and global; the global's `mesh.peer_shards` reads
+     4. K1, K2 and K3 must each launch on the sharded apply and flush.
 
 Phases I and S run in a side process of their own on the same card,
 started where I stands in the order, beside the main process's J, O and
@@ -258,7 +277,7 @@ its own phases, and its failure is the run's. The last `phase seconds`
 line gives each phase's seconds and the smoke's wall time.
 
 Two spawned worker processes build the selected phases' big corpora
-(A, B, D, F, G, H1, J1, O1, P1) ahead, in phase order, while the kernels
+(A, B, D, F, G, H1, J1, O1, P1, M) ahead, in phase order, while the kernels
 build and the earlier phases run; a phase takes its corpora from them,
 or builds them itself when run alone.
 
@@ -825,6 +844,23 @@ def _member_hashes(members) -> np.ndarray:
     return out
 
 
+def _member_regs(members) -> tuple:
+    """hll_ref.pos_val(hll_ref.hash_member(m)) over many members at once:
+    (register index int64, rho int8)."""
+    from veneur_tpu_torch.ops import hll_ref
+    h = _member_hashes(members)
+    p = np.uint64(hll_ref.P)
+    idx = (h >> np.uint64(64 - hll_ref.P)).astype(np.int64)
+    w = (h << p) | np.uint64(1 << (hll_ref.P - 1))
+    # rho = leading zeros of w + 1, by a binary search over the bits
+    lz = np.zeros(w.size, np.int64)
+    for shift in (32, 16, 8, 4, 2, 1):
+        top = (w >> np.uint64(64 - shift)) == 0
+        lz[top] += shift
+        w[top] <<= np.uint64(shift)
+    return idx, (lz + 1).astype(np.int8)
+
+
 @_prebuildable
 def _set_reference(seed: int, num_keys: int, members: int,
                    more_seeds=(), ids=None) -> np.ndarray:
@@ -836,17 +872,7 @@ def _set_reference(seed: int, num_keys: int, members: int,
     keys = list(range(num_keys) if ids is None else ids)
     names = [f"u{s}-{k}-{j}".encode() for k in keys
              for s in (seed, *more_seeds) for j in range(members)]
-    h = _member_hashes(names)
-    p = np.uint64(hll_ref.P)
-    idx = (h >> np.uint64(64 - hll_ref.P)).astype(np.int64)
-    w = (h << p) | np.uint64(1 << (hll_ref.P - 1))
-    # rho = leading zeros of w + 1, by a binary search over the bits
-    lz = np.zeros(w.size, np.int64)
-    for shift in (32, 16, 8, 4, 2, 1):
-        top = (w >> np.uint64(64 - shift)) == 0
-        lz[top] += shift
-        w[top] <<= np.uint64(shift)
-    rho = (lz + 1).astype(np.int8)
+    idx, rho = _member_regs(names)
     per = members * (1 + len(more_seeds))
     est = np.empty(num_keys)
     regs = np.zeros(hll_ref.M, np.int8)
@@ -6503,6 +6529,472 @@ def _phase_p() -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase M: the sharded serving plane
+# ---------------------------------------------------------------------------
+
+PHASE_M_SHARDS = 4
+PHASE_M_SEEDS = (71, 72)
+PHASE_M_LL_KEYS = PHASE_D_LL_KEYS  # A's widths plus B's `|l` keys x 32
+PHASE_M_CHUNK = 65_536             # samples a decoded chunk (a pump chunk's)
+PHASE_M_CAPS = {"counter_capacity": 65536, "gauge_capacity": 32768,
+                "histo_capacity": 32768, "set_capacity": 16384,
+                "llhist_capacity": 8192}
+# family, its table, its keys' prefix and wire type
+_M_FAMILIES = (("counter", "counters", "m1.c", "c"),
+               ("gauge", "gauges", "m1.g", "g"),
+               ("histogram", "histos", "m1.t", "ms"),
+               ("llhist", "llhists", "m1.l", "l"),
+               ("set", "sets", "m1.s", "s"))
+_M_KERNELS = ("tdigest_flush", "hll_estimate", "llhist_apply")
+
+
+@_prebuildable
+def _m1_interval(seed: int) -> dict:
+    """One interval of M1 as decoded columns per family, rows being key
+    indices and each family's samples shuffled: phase A's counters
+    (rates 1 and 0.5), gauges x 2, timers x 16 and sets x 32, and B's
+    `|l` keys x 32 (rates 1 and 0.5, binned here); with the counters'
+    totals."""
+    from veneur_tpu_torch.ops import batch_llhist
+    keys, rng = PHASE_A_KEYS, np.random.default_rng(seed)
+
+    def spread(n, per):
+        return rng.permutation(np.repeat(np.arange(n, dtype=np.int32), per))
+    nc = keys["counter"]
+    cvals = rng.integers(1, 1000, nc).astype(np.float32)
+    crates = rng.choice(np.float32([1.0, 0.5]), nc)
+    order = rng.permutation(nc).astype(np.int32)
+    out = {"counter": (order, cvals[order], crates[order]),
+           "counter_totals": np.trunc(cvals.astype(np.float64)
+                                      / crates.astype(np.float64))}
+    rows = spread(keys["gauge"], 2)
+    out["gauge"] = (rows, rng.normal(0, 100, rows.size).astype(np.float32))
+    rows = spread(keys["timer"], keys["timer_samples"])
+    out["histogram"] = (rows, rng.gamma(2.0, 25.0, rows.size).astype(
+        np.float32), np.ones(rows.size, np.float32))
+    rows = spread(PHASE_M_LL_KEYS, 32)
+    bins, wts = batch_llhist.bin_batch_host(
+        10.0 ** rng.uniform(-3, 6, rows.size), np.where(rows % 2, 2.0, 1.0))
+    out["llhist"] = (rows, bins, wts)
+    rows = spread(keys["set"], keys["set_members"])
+    member = np.empty(rows.size, np.int64)
+    member[np.argsort(rows, kind="stable")] = np.tile(
+        np.arange(keys["set_members"]), keys["set"])
+    idx, rho = _member_regs([f"u{seed}-{k}-{j}".encode() for k, j in zip(
+        rows.tolist(), member.tolist())])
+    out["set"] = (rows, idx.astype(np.int32), rho.astype(np.int32))
+    return out
+
+
+def _m_store(shards: int):
+    """A ColumnStore at M's widths on cuda:0 (`shards` 0: single tables;
+    set keys promote at 16 samples, the card's auto threshold) with a
+    device observatory attached."""
+    from veneur_tpu_torch.core.columnstore import ColumnStore
+    from veneur_tpu_torch.core.deviceobs import DeviceObservatory
+    store = ColumnStore(batch_cap=8192, set_promote_samples=16,
+                        shard_devices=shards, **PHASE_M_CAPS)
+    obs = DeviceObservatory()
+    store.attach_deviceobs(obs)
+    return store, obs
+
+
+def _m1_intern(stores) -> None:
+    """Intern M1's keys in every store in one order, so that row k of a
+    family is its key k in each."""
+    from veneur_tpu_torch.samplers.parser import Parser
+    parser = Parser()
+    keys = {"counter": PHASE_A_KEYS["counter"],
+            "gauge": PHASE_A_KEYS["gauge"],
+            "histogram": PHASE_A_KEYS["timer"], "llhist": PHASE_M_LL_KEYS,
+            "set": PHASE_A_KEYS["set"]}
+    for family, attr, prefix, kind in _M_FAMILIES:
+        n = keys[family]
+        stubs = []
+        for k in range(n):
+            parser.parse_metric_fast(f"{prefix}{k}:1|{kind}".encode(),
+                                     stubs.append)
+        for store in stores:
+            table = getattr(store, attr)
+            if [table.intern(stub) for stub in stubs] != list(range(n)):
+                raise AssertionError(f"phase M1: {family} rows interned "
+                                     f"out of order")
+
+
+def _m1_feed(store, cols) -> float:
+    """Every family's columns in decoded chunks, the families taking
+    turns chunk by chunk as a pump's chunks carry them; returns the
+    seconds to the device's completion."""
+    t0 = time.perf_counter()
+    adds = {"counter": store.counters.add_batch,
+            "gauge": store.gauges.add_batch,
+            "histogram": store.histos.add_batch,
+            "llhist": store.llhists.add_batch_binned,
+            "set": store.sets.add_batch}
+    longest = max(len(cols[f][0]) for f in adds)
+    for at in range(0, longest, PHASE_M_CHUNK):
+        for family, add in adds.items():
+            chunk = tuple(c[at:at + PHASE_M_CHUNK] for c in cols[family])
+            if len(chunk[0]):
+                add(*chunk)
+    store.apply_all_pending()
+    store.synchronize()
+    return time.perf_counter() - t0
+
+
+def _m_walk(store, held) -> int:
+    """The bytes of the store's live and spare tensors and of the
+    generations the flush holds."""
+    from veneur_tpu_torch.core.deviceobs import nbytes_of
+    return (sum(nbytes_of(t._devobs_state()) + nbytes_of(t._spare)
+                for _family, t in store.tables())
+            + sum(nbytes_of(h) for h in held))
+
+
+def _m_merge_ms(store, snaps) -> dict:
+    """Device ms of each family's merge over the swapped generation (the
+    read-only merge, which leaves it to the readout), CUDA events."""
+    from veneur_tpu_torch.parallel import collectives as coll
+
+    def touched(family):
+        return torch.from_numpy(np.flatnonzero(
+            snaps[family]["touched"])).to(store.device)
+    ll_rows, set_rows = touched("llhist"), touched("set")
+    state = {f: snap["state"] for f, snap in snaps.items()}
+    fns = {"counter": lambda: coll.merge_counters_stacked(state["counter"]),
+           "gauge": lambda: coll.merge_gauges_stacked(state["gauge"]),
+           "histogram": lambda: coll.merge_histo_stacked(
+               state["histogram"]),
+           "llhist": lambda: coll.merge_llhist_stacked(state["llhist"],
+                                                       ll_rows),
+           "set": lambda: coll.merge_hll_stacked(state["set"], set_rows)}
+    return {f: _time_ms(fn, reps=2, runs=3) for f, fn in fns.items()}
+
+
+def _m1_flush(store, obs=None, merge_ms=None) -> tuple:
+    """Flush every family table by table (swap, readout, host copy,
+    recycle) as a forwarding local does (with the t-digest export),
+    holding the HBM ledger `obs` to the tensors after every step;
+    returns the readouts and the ledger checks made."""
+    kw = {"histogram": {"ps": PS, "need_export": True}, "llhist": {"ps": PS}}
+    tables = [(f, getattr(store, attr)) for f, attr, *_ in _M_FAMILIES]
+    snaps, out, checks = {}, {}, [0]
+
+    def check(step):
+        if obs is None:
+            return
+        held = [s.get("state", s.get("_spare", s.get("_recycle")))
+                for s in snaps.values()]
+        if obs.total_bytes() != _m_walk(store, held):
+            raise AssertionError(
+                f"phase M1: after the {step} the ledger holds "
+                f"{obs.total_bytes()} bytes, the tensors "
+                f"{_m_walk(store, held)}")
+        checks[0] += 1
+    for family, table in tables:
+        snaps[family] = table.swap_out(**kw.get(family, {}))
+        check(f"{family} swap")
+    if merge_ms is not None:
+        merge_ms.update(_m_merge_ms(store, snaps))
+    for family, table in tables:
+        table.readout(snaps[family])
+        check(f"{family} readout")
+    store.synchronize()
+    for family, table in tables:
+        out[family] = table.snapshot_finish(snaps[family])
+    for family, table in tables:
+        table.recycle(snaps.pop(family))
+        check(f"{family} recycle")
+    return out, checks[0]
+
+
+def _m_busy(run) -> tuple:
+    """Run `run` under torch.profiler; returns its result and its wall
+    time with the device's busy share of it (the union of the trace's
+    kernel, copy and set intervals), None where the trace holds no
+    device event."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", ())
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and "dur" in e)
+    rec = {"wall_s": wall, "device_events": len(device), "busy_ms": None,
+           "busy_share": None}
+    if device:
+        busy, end = 0.0, device[0][0]
+        for a, b in device:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        rec["busy_ms"] = busy / 1e3
+        rec["busy_share"] = busy / 1e6 / wall
+    return result, rec
+
+
+def _m1_compare(got: dict, want: dict, totals: np.ndarray) -> int:
+    """The sharded store's readouts against the single store's: counters
+    (and the totals sent), gauges, llhist registers, counts and
+    quantiles, HLL registers and estimates bit for bit, the llhist sums
+    to 1e-6; the t-digest's count, mass, moments, min, max and
+    reciprocal sum within tests/test_sharded_store.py's slack, its
+    quantiles within that file's 5 % + 1.5."""
+    checked = 0
+    for family in ("counter", "gauge"):
+        vals, touched, _meta = got[family]
+        wvals, wtouched, _ = want[family]
+        if not (np.array_equal(touched, wtouched)
+                and np.array_equal(vals[touched], wvals[wtouched])):
+            raise AssertionError(f"phase M1: sharded {family} values differ "
+                                 f"from the single store's")
+        checked += int(touched.sum())
+    if not np.array_equal(got["counter"][0][: totals.size], totals):
+        raise AssertionError("phase M1: counter totals differ from what was "
+                             "sent")
+    out, bins, touched, _ = got["llhist"]
+    wout, wbins, wtouched, _ = want["llhist"]
+    if not (np.array_equal(touched, wtouched) and np.array_equal(bins, wbins)
+            and np.array_equal(out["count"], wout["count"])
+            and np.array_equal(out["quantiles"], wout["quantiles"])
+            and np.allclose(out["sum"], wout["sum"], rtol=1e-6, atol=0)):
+        raise AssertionError("phase M1: sharded llhist registers or readout "
+                             "differ from the single store's")
+    checked += int(touched.sum()) * (2 + len(PS))
+    est, regs, touched, _ = got["set"]
+    west, wregs, wtouched, _ = want["set"]
+    rows = np.flatnonzero(touched)
+    if not (np.array_equal(touched, wtouched)
+            and np.array_equal(est[rows], west[rows])):
+        raise AssertionError("phase M1: sharded set estimates differ")
+    bad = [r for r in rows.tolist() if not np.array_equal(regs[r], wregs[r])]
+    if bad:
+        raise AssertionError(f"phase M1: HLL registers of {len(bad)} set "
+                             f"rows differ, e.g. row {bad[0]}")
+    checked += 2 * rows.size
+    (out, exp, touched, _), (wout, wexp, wtouched, _) = (got["histogram"],
+                                                         want["histogram"])
+    rows = np.flatnonzero(touched)
+    m, w, dmin, dmax, recip = (a[rows] for a in exp)
+    wm, ww, wmin, wmax, wrecip = (a[rows] for a in wexp)
+
+    def close(a, b, rtol, atol=0.0):
+        return np.allclose(a, b, rtol=rtol, atol=atol)
+    ok = (np.array_equal(touched, wtouched)
+          and close(w.sum(-1), ww.sum(-1), 1e-5)
+          and close((m * w).sum(-1), (wm * ww).sum(-1), 1e-4)
+          and close(dmin, wmin, 1e-6) and close(dmax, wmax, 1e-6)
+          and close(recip, wrecip, 1e-5)
+          and all(close(out[k][rows], wout[k][rows], 1e-6)
+                  for k in ("count", "min", "max"))
+          and close(out["quantiles"][rows], wout["quantiles"][rows], 0.05,
+                    1.5))
+    if not ok:
+        raise AssertionError("phase M1: the sharded t-digest flush is "
+                             "outside the single store's slack")
+    return checked + 5 * rows.size
+
+
+def _m_delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
+
+
+def _m_require(launches: dict, kernels, what: str) -> None:
+    for kernel in kernels:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"phase {what}: {kernel} was not launched")
+
+
+def _phase_m1() -> dict:
+    """M1: a 4-shard ColumnStore and a single one on cuda:0 take the same
+    decoded columns in-process, two intervals; each flush is compared
+    family by family, the shards' routed counts with what was sent, and
+    the sharded store's HBM ledger with its tensors at every step. The
+    launches are the sharded store's apply and flush alone."""
+    intervals = [_m1_interval(seed) for seed in PHASE_M_SEEDS]
+    sharded, obs = _m_store(PHASE_M_SHARDS)
+    single, _single_obs = _m_store(0)
+    plane = sharded.shard_plane
+    _m1_intern((sharded, single))
+    report = {"intervals": [], "ledger_checks": 0}
+    path = {k: 0 for k in _M_KERNELS}
+    sent = {f: 0 for f, *_ in _M_FAMILIES}
+    _zero_launches()
+    for i, cols in enumerate(intervals):
+        rec = {"merge_ms": {}}
+        start = _read_launches()
+        rec["feed_s"] = _m1_feed(sharded, cols)
+        applied = _read_launches()
+        if i:  # interval 2: the flush under the profiler, both stores
+            (got, checks), rec["busy"] = _m_busy(
+                lambda: _m1_flush(sharded, obs, rec["merge_ms"]))
+        else:
+            t0 = time.perf_counter()
+            got, checks = _m1_flush(sharded, obs, rec["merge_ms"])
+            rec["flush_s"] = time.perf_counter() - t0
+        flushed = _read_launches()
+        rec["launches"] = {"apply": _m_delta(start, applied),
+                           "flush": _m_delta(applied, flushed)}
+        _m_require(rec["launches"]["apply"], ("llhist_apply",),
+                   "M1 sharded apply")
+        _m_require(rec["launches"]["flush"], ("tdigest_flush",
+                                              "hll_estimate"),
+                   "M1 sharded flush")
+        for k in path:
+            path[k] += flushed[k] - start[k]
+        report["ledger_checks"] += checks
+        rec["single_feed_s"] = _m1_feed(single, cols)
+        if i:
+            (want, _), rec["single_busy"] = _m_busy(
+                lambda: _m1_flush(single))
+        else:
+            want, _ = _m1_flush(single)
+        rec["series_checked"] = _m1_compare(got, want,
+                                            cols["counter_totals"])
+        for family, *_ in _M_FAMILIES:
+            sent[family] += len(cols[family][0])
+        routed = {f: int(a.sum()) for f, a in plane._samples.items()}
+        if routed != sent:
+            raise AssertionError(f"phase M1: the shards routed {routed}, "
+                                 f"{sent} were sent")
+        rec["routed_per_shard"] = {f: a.tolist()
+                                   for f, a in plane._samples.items()}
+        report["intervals"].append(rec)
+    report["ledger_bytes"] = obs.total_bytes()
+    balance = obs.shard_balance()
+    report["rows_per_shard"] = balance["rows_per_shard"]
+    report["skew"] = balance["skew"]
+    report["launches"] = path
+    del sharded, single
+    return report
+
+
+@_prebuildable
+def _m2_interval(seed: int):
+    """One interval of M2's local: phase D's local corpus (A's key set,
+    half the counters and gauges global-only, and 5 000 `|l` keys x 32)
+    and the set reference over its 32 members."""
+    part = _phase_d_corpus(seed, 0, PHASE_A_KEYS, PHASE_M_LL_KEYS)
+    return part, _set_reference(seed, PHASE_A_KEYS["set"],
+                                PHASE_A_KEYS["set_members"])
+
+
+def _phase_m2() -> dict:
+    """M2: a 4-shard local Server on the native pump, at phase D's local
+    width, forwards to a 4-shard global Server over gRPC on 127.0.0.1,
+    both on cuda:0, two intervals. The local's own series and the
+    global's are checked as phase D checks them, and the global's
+    `mesh.peer_shards` reads the local's 4 shards."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    intervals = [_m2_interval(seed) for seed in PHASE_M_SEEDS]
+    keys = PHASE_A_KEYS
+    forwarded = (keys["counter"] // 2 + keys["gauge"] // 2 + keys["timer"]
+                 + keys["set"] + PHASE_M_LL_KEYS)
+    shards = {"shards": PHASE_M_SHARDS}
+    gserver = _server({"grpc_address": "127.0.0.1:0",
+                       "statsd_listen_addresses": []},
+                      {**PHASE_M_CAPS, "counter_capacity": 32768, **shards},
+                      ChannelMetricSink())
+    _zero_launches()
+    gserver.start()
+    local = None
+    report = {"intervals": []}
+    path = {k: 0 for k in _M_KERNELS}
+    try:
+        imp = gserver.import_server
+        local = _server({"forward_address": imp.address},
+                        {**PHASE_M_CAPS, **shards}, ChannelMetricSink())
+        local.start()
+        window, base = _pump_window(local), 0
+        for part, set_ref in intervals:
+            rec = {"lines": len(part[0])}
+            start = _read_launches()
+            rec["ingest_s"] = _send(local, local.listen_addresses[0],
+                                    part[0], base, window)
+            base += len(part[0])
+            stats = local.stats_snapshot()
+            if (stats["lines_received"] != base or stats["lost_lines"]
+                    or stats["ingest_dispatch_errors"]):
+                raise AssertionError(f"phase M2 local: {stats}")
+            applied = _read_launches()
+            local.flush()
+            flushed = _read_launches()
+            rec["local_flush"] = dict(local.last_flush_timings)
+            if local.stats_snapshot()["forward_errors"]:
+                raise AssertionError(f"phase M2 local forward errors: "
+                                     f"{local.stats_snapshot()}")
+            if local.forward_client.last_flow != {
+                    "received": forwarded, "merged": forwarded,
+                    "duplicate": False}:
+                raise AssertionError(f"phase M2: FlowCounts "
+                                     f"{local.forward_client.last_flow}")
+            gserver.flush()
+            done = _read_launches()
+            rec["global_flush"] = dict(gserver.last_flush_timings)
+            rec["launches"] = {"local_apply": _m_delta(start, applied),
+                               "local_flush": _m_delta(applied, flushed),
+                               "global": _m_delta(flushed, done)}
+            # the samples still pending at the flush are applied by its
+            # readout: K3 counts over the apply and the flush
+            _m_require(_m_delta(start, flushed), ("llhist_apply",),
+                       "M2 sharded local apply")
+            _m_require(rec["launches"]["local_flush"], (
+                "tdigest_flush", "hll_estimate"), "M2 sharded local flush")
+            _m_require(rec["launches"]["global"], (
+                "tdigest_flush", "hll_estimate"), "M2 sharded global flush")
+            for k in path:
+                path[k] += done[k] - start[k]
+            checked = _check_local(local, part, "phase M2 local")
+            got, buckets = _collect(gserver.metric_sinks[0])
+            rec.update(_check_global(got, buckets, part[2], part[3],
+                                     part[4], part[5], set_ref,
+                                     PHASE_A_KEYS["set_members"],
+                                     "phase M2"))
+            rec["series_checked"] += checked
+            rec["peer_shards"] = imp.peer_shards
+            rows = dict((r[0], r[2]) for r in imp.telemetry_rows())
+            if imp.peer_shards != PHASE_M_SHARDS \
+                    or rows["mesh.peer_shards"] != PHASE_M_SHARDS:
+                raise AssertionError(f"phase M2: the global's "
+                                     f"mesh.peer_shards reads "
+                                     f"{rows['mesh.peer_shards']}")
+            report["intervals"].append(rec)
+        report["startup_mesh"] = [
+            e.get("mesh") for s in (local, gserver)
+            for e in s.telemetry.events.snapshot(kind="startup")]
+        report["global_merge_rounds"] = gserver.store.shard_plane.merge_rounds
+    finally:
+        if local is not None:
+            local.shutdown()
+        gserver.shutdown()
+    report["launches"] = path
+    return report
+
+
+def _phase_m() -> dict:
+    """Phase M: M1, the sharded store against a single one, and M2, a
+    sharded local forwarding to a sharded global."""
+    t0 = time.perf_counter()
+    m1 = _phase_m1()
+    torch.cuda.empty_cache()
+    m1["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m2 = _phase_m2()
+    m2["seconds"] = time.perf_counter() - t0
+    return {"M1": m1, "M2": m2, "launches": {
+        k: m1["launches"][k] + m2["launches"][k] for k in _M_KERNELS}}
+
+
 def _prebuild_plan() -> dict:
     """Per phase, the corpora it builds first, called exactly as the
     phase calls them (the key is the arguments' repr)."""
@@ -6522,6 +7014,8 @@ def _prebuild_plan() -> dict:
         "J": [(_corpus, (seed, a, PHASE_J_LL_KEYS)) for seed in (41, 42)],
         "O": with_sets((31, 32), PHASE_O_LL_KEYS),
         "P": with_sets(PHASE_P_SEEDS, PHASE_P_LL_KEYS),
+        "M": [item for seed in PHASE_M_SEEDS for item in (
+            (_m1_interval, (seed,)), (_m2_interval, (seed,)))],
     }
 
 
@@ -6544,7 +7038,7 @@ def _start_prebuild(selected, side=()):
 
 
 PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O",
-          "P")
+          "P", "M")
 # phases run in a process of their own, on the same card, beside the
 # main process's later phases (J, O and P) when the run has others: each
 # spends most of its time on one interpreter lock (the SSF reader, the
@@ -7074,6 +7568,42 @@ def _report_p(name: str, rep: dict, phases: dict, smi: str) -> None:
           f"{p3['seconds']:.1f} s", flush=True)
 
 
+def _report_m(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase M: the sharded store against a single one, and the
+    sharded local and global."""
+    m1, m2 = rep["M1"], rep["M2"]
+    for i, rec in enumerate(m1["intervals"]):
+        timing = (f"flush {rec['flush_s']:.3f} s" if "flush_s" in rec else
+                  "flush under the profiler: sharded " + ", ".join(
+                      f"{k} {rec['busy'][k]}" for k in rec["busy"])
+                  + "; single " + ", ".join(
+                      f"{k} {rec['single_busy'][k]}"
+                      for k in rec["single_busy"]))
+        print(f"phase M1 interval {i + 1} ({smi}): sharded feed "
+              f"{rec['feed_s']:.3f} s, single feed "
+              f"{rec['single_feed_s']:.3f} s; {timing}; merge ms per family "
+              + ", ".join(f"{f} {ms:.4f}" for f, ms in
+                          rec["merge_ms"].items())
+              + f"; launches {rec['launches']}; {rec['series_checked']} "
+              f"series equal; routed per shard {rec['routed_per_shard']}",
+              flush=True)
+    print(f"phase M1: {m1['ledger_checks']} ledger checks equal to the "
+          f"tensors, ledger {m1['ledger_bytes']} bytes; rows per shard "
+          f"{m1['rows_per_shard']}, skew {m1['skew']}; sharded path "
+          f"launches {m1['launches']}; {m1['seconds']:.1f} s", flush=True)
+    for i, rec in enumerate(m2["intervals"]):
+        print(f"phase M2 interval {i + 1} ({smi}): {rec['lines']} lines at "
+              f"{rec['lines'] / rec['ingest_s']:.0f} lines/s, local flush "
+              f"{rec['local_flush']['total_s']:.3f} s, global flush "
+              f"{rec['global_flush']['total_s']:.3f} s; launches "
+              f"{rec['launches']}; global mesh.peer_shards "
+              f"{rec['peer_shards']}; {rec['series_checked']} series "
+              f"checked", flush=True)
+    print(f"phase M2: startup mesh {m2['startup_mesh']}, global merge "
+          f"rounds {m2['global_merge_rounds']}; sharded path launches "
+          f"{m2['launches']}; {m2['seconds']:.1f} s", flush=True)
+
+
 # each phase's run and the report it prints
 _PHASE_RUNS = {
     "A": (_phase_a, _report_abc),
@@ -7090,6 +7620,7 @@ _PHASE_RUNS = {
     "S": (_phase_s, _report_s),
     "O": (_phase_o, _report_o),
     "P": (_phase_p, _report_p),
+    "M": (_phase_m, _report_m),
 }
 
 

@@ -5,8 +5,8 @@ JAX package's (veneur_tpu/core/alerts.py), on the CPU:
   jnp.select in the JAX package, on random values, op codes and
   thresholds with NaN and ±inf among them;
 - rule validation: the same rule tables are refused with the same
-  messages (the port also refuses `shard_skew`, whose device
-  observatory it lacks);
+  messages; a `shard_skew` rule parses to the JAX rule and walks idle ->
+  pending -> firing on the same skew over sharded stores;
 - the pending -> firing -> resolved lifecycle with a `for:` hold-down,
   the flight-recorder trail, the transition log's rate limit and the
   hot reload, mirrored from tests/test_query.py, and the server's
@@ -95,8 +95,66 @@ def test_rule_parse_equal_jax(rule):
 
 
 def test_shard_skew_is_refused_by_name():
-    with pytest.raises(QueryError, match="shard_skew"):
-        AlertRule.parse({"id": "s", "kind": "shard_skew", "threshold": 1})
+    """The `shard_skew` kind (the device observatory's max/mean live
+    rows over the shards) against the JAX package's: the same parse, a
+    malformed rule refused with the same message, and on a port and a
+    JAX server of two shards fed the same skewed key space the same
+    value and the same idle -> pending -> firing walk."""
+    from veneur_tpu.core.server import Server as JServer
+    from veneur_tpu.parallel.collectives import home_shards
+    from veneur_tpu.sinks.channel import ChannelMetricSink as JSink
+    from veneur_tpu_torch.samplers.parser import Parser
+    from test_deviceobs import mk_server as jmk_server
+
+    rule = {"id": "skew", "kind": "shard_skew", "op": ">",
+            "threshold": 1.5, "for": "0.2s"}
+    want, got = JAlertRule.parse(rule), AlertRule.parse(rule)
+    for field in ("id", "metric", "kind", "op", "threshold", "for_s",
+                  "spec", "tags"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.metric == "device.shard.skew"
+    bad = {"id": "s", "kind": "shard_skew", "op": "~", "threshold": 1}
+    with pytest.raises(JQueryError) as jerr:
+        JAlertRule.parse(bad)
+    with pytest.raises(QueryError, match="~") as perr:
+        AlertRule.parse(bad)
+    assert str(perr.value) == str(jerr.value)
+
+    names, i = [], 0
+    parser = Parser()
+    while len(names) < 36:
+        line = b"skew.%d:1|c" % i
+        stubs = []
+        parser.parse_metric_fast(line, stubs.append)
+        home = int(home_shards(stubs[0].digest64, 2))
+        if (home == 0) == (len(names) < 30):
+            names.append(line)
+        i += 1
+    server, _obs = mk_server(tpu={"shards": 2})
+    jserver, _jobs = jmk_server(**{"tpu.shards": 2})
+    try:
+        _feed(server, names)
+        for line in names:
+            jserver.handle_metric_packet(line)
+        jserver.store.apply_all_pending()
+        skew = server.deviceobs.shard_skew()
+        assert skew == jserver.deviceobs.shard_skew() == 30 / 18
+        now = time.time()
+        walks = []
+        for srv in (server, jserver):
+            srv.alerts.configure([rule])
+            walks.append([
+                [(t["from_state"], t["to_state"], t["value"])
+                 for t in srv.alerts.evaluate_once(now=now + dt)]
+                for dt in (0.0, 0.1, 0.3)])
+        assert walks[0] == walks[1]
+        assert [[w[:2] for w in step] for step in walks[0]] == [
+            [("idle", "pending")], [], [("pending", "firing")]]
+        assert walks[0][0][0][2] == pytest.approx(skew)
+    finally:
+        for srv in (server, jserver):
+            srv.config.flush_on_shutdown = False
+            srv.shutdown()
 
 
 def test_lifecycle_pending_firing_resolved():

@@ -107,7 +107,7 @@ def test_env_overlay_matches_jax(tmp_path, text, env):
     port_cfg = port_config.read_config(str(path), env=env)
     jax_cfg = jax_config.read_config(str(path), env=env)
     assert _assert_same(port_cfg, jax_cfg) == 114
-    assert _assert_same(port_cfg.tpu, jax_cfg.tpu) == 11
+    assert _assert_same(port_cfg.tpu, jax_cfg.tpu) == 13
 
 
 def test_the_yaml_and_env_case_field_values(tmp_path):
@@ -156,13 +156,18 @@ def test_env_overlay_precedes_the_defaults(tmp_path):
     "VENEUR_TPU_SHARDS", "VENEUR_TPU_SHARD_ROUTING",
     "VENEUR_TPU_PALLAS_TDIGEST_FLUSH"])
 def test_env_naming_a_jax_only_key_raises_by_name(tmp_path, name):
+    """A JAX key the port lacks raises by name from the environment;
+    `tpu.shards` and `tpu.shard_routing`, ported since, raise by name on
+    a value out of their range."""
     path = tmp_path / "cfg.yaml"
     path.write_text("interval: 5s\n")
     key = name[len("VENEUR_"):].lower()
     if key.startswith("tpu_"):
         key = key[len("tpu_"):]
+    value = {"VENEUR_TPU_SHARDS": "129",
+             "VENEUR_TPU_SHARD_ROUTING": "modulo"}.get(name, "1")
     with pytest.raises(ValueError, match=key):
-        port_config.read_config(str(path), env={name: "1"})
+        port_config.read_config(str(path), env={name: value})
 
 
 @pytest.mark.parametrize("name", ["VENEUR_METRIC_SINKS", "VENEUR_SOURCES",

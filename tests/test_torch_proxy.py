@@ -886,8 +886,8 @@ def test_server_config_accepts_the_slice_keys(key):
 
 @pytest.mark.parametrize("key,value", [
     ("reshard_spool_dir", 1), ("reshard_deadline", 1),
-    ("jax_compilation_cache_dir", 1), ("tpu", {"shards": 2}),
-    ("tpu", {"shard_routing": "digest"}),
+    ("jax_compilation_cache_dir", 1), ("tpu", {"pallas_tdigest_flush": True}),
+    ("tpu", {"shard_routing": "modulo"}),
     ("chaos_reshard_prewarm_delay_s", 1),
     ("chaos_reshard_append_fault_nth", 1),
     ("chaos_reshard_cutover_delay_s", 1)])

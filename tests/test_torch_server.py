@@ -193,10 +193,11 @@ def test_device_defaults_to_cuda_and_never_falls_back():
     ("reshard_deadline", 5),
     ("chaos_reshard_prewarm_delay_s", 0.5),
     ("jax_compilation_cache_dir", "/tmp/cache"),
-    ("tpu", {"shards": 4}),
+    ("tpu", {"pallas_tdigest_flush": True}),
 ])
 def test_config_rejects_features_the_port_lacks(key, value):
-    with pytest.raises(ValueError, match=key if key != "tpu" else "shards"):
+    with pytest.raises(ValueError, match=key if key != "tpu"
+                       else "pallas_tdigest_flush"):
         config_from_dict({key: value})
 
 
@@ -240,7 +241,9 @@ walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
           "trace.store", "core.overload", "util.protowire", "sources",
           "sources.otlp", "sources.openmetrics", "cmd.veneur_prometheus",
           "core.cardinality", "core.latency", "core.flushexec",
-          "core.deviceobs", "core.profiling", "core.restart"}
+          "core.deviceobs", "core.profiling", "core.restart", "parallel",
+          "parallel.collectives", "parallel.sharded_server",
+          "core.sharded_tables"}
 missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
 assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))

@@ -3,8 +3,8 @@ config that this port implements, with the same names and defaults.
 
 A key the port does not implement (`reshard_spool_dir`,
 `reshard_deadline`, `chaos_reshard_*`, `jax_compilation_cache_dir`,
-`tpu.shards`, `tpu.shard_routing`, `tpu.pallas_tdigest_flush`) raises
-with the key's name: a configuration is never half-applied in silence.
+`tpu.pallas_tdigest_flush`) raises with the key's name: a configuration
+is never half-applied in silence.
 Durations accept Go-style strings ("10s", "500ms") or numbers of
 seconds; the private keys (`grpc_tls_key`, `forward_tls_key`,
 `tls_key`, `sentry_dsn`) become StringSecrets, redacted in
@@ -129,6 +129,16 @@ class TpuConfig:
     # log-linear histogram rows (each is 18 KB of int32 bins on the
     # device); size to the llhist-keyed cardinality, not total keys
     llhist_capacity: int = 1024
+    # shards of the column store: every family's interval state
+    # partitions into this many shards, all on the store's device
+    # (core/sharded_tables.py, parallel/collectives.py); 0/1 = one table
+    # per family, at most 128
+    shards: int = 1
+    # "digest": a key's 64-bit digest picks its home shard at mint time,
+    # all five families shard and the merged flush equals a one-table
+    # store's; "roundrobin": batches rotate over the shards, and only the
+    # histogram and set families shard
+    shard_routing: str = "digest"
     # take the numpy columnar decoder instead of the native C++ parser
     # and pump (the native library builds with g++ at first use, and a
     # failed build raises rather than falling back)
@@ -416,6 +426,13 @@ class Config:
                 4096, 8 * self.span_channel_capacity)
         if self.trace_max_length_bytes <= 0:
             self.trace_max_length_bytes = 16 * 1024 * 1024
+        if self.tpu.shard_routing not in ("digest", "roundrobin"):
+            raise ValueError(
+                f"config key 'tpu.shard_routing' must be digest or "
+                f"roundrobin, got {self.tpu.shard_routing!r}")
+        if not 0 <= self.tpu.shards <= 128:
+            raise ValueError(f"config key 'tpu.shards' must be 0..128, got "
+                             f"{self.tpu.shards}")
         return self
 
 
@@ -512,8 +529,7 @@ _JAX_ONLY_KEYS = frozenset({
     "chaos_reshard_append_fault_nth", "chaos_reshard_cutover_delay_s",
     "chaos_reshard_prewarm_delay_s", "jax_compilation_cache_dir",
     "reshard_deadline", "reshard_spool_dir"})
-_JAX_ONLY_TPU_KEYS = frozenset({"pallas_tdigest_flush", "shard_routing",
-                                "shards"})
+_JAX_ONLY_TPU_KEYS = frozenset({"pallas_tdigest_flush"})
 
 
 def _env_value(raw: str, current: Any, key: str) -> Any:

@@ -23,8 +23,9 @@ are never suppressed. Rules hot-reload via SIGHUP
 (`Server.reload_alerts`), preserving in-flight state for rule ids that
 survive the reload.
 
-The `shard_skew` kind reads the device observatory, which is not ported
-yet: parsing such a rule raises QueryError.
+The `shard_skew` kind reads no query: its value each tick is the device
+observatory's `shard_skew()` (max/mean live rows over the store's
+shards), and a rule set of such rules alone captures nothing.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ def _pad_len(n: int) -> int:
 
 @dataclass(frozen=True)
 class AlertRule:
-    """One validated rule; `spec` is its query-plane lookup."""
+    """One validated rule; `spec` is its query-plane lookup (None for a
+    `shard_skew` rule)."""
 
     id: str
     metric: str
@@ -92,7 +94,7 @@ class AlertRule:
     op: str
     threshold: float
     for_s: float
-    spec: QuerySpec
+    spec: Optional[QuerySpec]
     q: Optional[float] = None
     tags: Tuple[str, ...] = ()
     lo: Optional[float] = None
@@ -116,9 +118,13 @@ class AlertRule:
         if isinstance(tags, str):
             tags = parse_tags(tags)
         if str(d.get("kind", "quantile")) == "shard_skew":
-            raise QueryError(
-                f"rule {rid!r}: kind 'shard_skew' reads the device "
-                f"observatory, which veneur_tpu_torch does not port yet")
+            # the device observatory's shard_skew() each tick, no lookup
+            return cls(id=rid,
+                       metric=str(d.get("metric") or "device.shard.skew"),
+                       kind="shard_skew", op=op,
+                       threshold=float(d["threshold"]),
+                       for_s=_duration_s(d.get("for", 0.0)), spec=None,
+                       tags=tuple(tags))
         spec = QuerySpec.build(
             metric=str(d.get("metric") or ""),
             kind=str(d.get("kind", "quantile")),
@@ -229,7 +235,7 @@ class AlertEngine:
             return []
         t0 = time.perf_counter()
         self.evals_total += 1
-        specs = [r.spec for r in rules]
+        specs = [r.spec for r in rules if r.spec is not None]
         families: List[str] = []
         for s in specs:
             for fam in _KIND_FAMILIES[s.kind]:
@@ -237,9 +243,18 @@ class AlertEngine:
                     families.append(fam)
         ps = self._plane.ps_for(specs)
         need_bins = any(s.kind == "bin_occupancy" for s in specs)
-        bundle = self._plane.capture(families, ps=ps, need_bins=need_bins)
+        bundle = None
+        if specs:  # a rule set of shard_skew rules alone reads no table
+            bundle = self._plane.capture(families, ps=ps,
+                                         need_bins=need_bins)
         values = np.full(len(rules), np.nan, np.float32)
         for i, rule in enumerate(rules):
+            if rule.kind == "shard_skew":
+                obs = getattr(self._server, "deviceobs", None)
+                skew = obs.shard_skew() if obs is not None else None
+                if skew is not None and not np.isnan(skew):
+                    values[i] = np.float32(skew)
+                continue
             try:
                 res = self._plane.evaluate(bundle, rule.spec, ps)
             except Exception:

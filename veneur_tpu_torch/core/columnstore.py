@@ -9,6 +9,10 @@ Five device-resident tables, each on the store's `device`:
   llhists   (K, 4608) int32 log-linear histogram registers
   sets      (D, 16k)  HLL registers of the promoted set keys
 
+With `shard_devices` > 1 each family's table is its sharded subclass
+(core/sharded_tables.py): the same rows, the interval state split into
+shards on the same device, merged at each flush.
+
 A host dictionary interns MetricKey (by 64-bit fnv1a digest) to a row id;
 names/tags/scopes never leave the host. Samples append into numpy batch
 buffers and are applied to the device tensors in fixed-size padded
@@ -368,9 +372,13 @@ class _BaseTable:
             self._devobs_rebook_live_locked()
 
     def _devobs_state(self):
-        """The live device generation for the HBM ledger (None for the
-        host-only status table)."""
-        return getattr(self, "state", None)
+        """The live device generation for the HBM ledger: `state`, or
+        the per-shard `states` list of a sharded histogram or set table
+        (None for the host-only status table)."""
+        state = getattr(self, "state", None)
+        if state is None:
+            state = getattr(self, "states", None)
+        return state
 
     def _devobs_rebook_live_locked(self) -> None:
         """Re-register the live generation after it was re-laid-out at a
@@ -417,19 +425,24 @@ class _BaseTable:
         """Reset the drained generation in place and park it as the next
         spare. Call only after snapshot_finish has copied the readout to
         the host: the reset is queued on the same stream after those
-        copies. A snap whose generation escaped (the set table's lazy
-        register view) carries no `_recycle` and is left alone; its
-        ledger token is dropped."""
+        copies. A stacked sharded table's merge already zeroed its
+        generation after the merged copy (`_spare`), which is parked as
+        it is. A snap whose generation escaped (the set table's lazy
+        register view) carries neither and is left alone; its ledger
+        token is dropped."""
         cap = snap.pop("cap", -1)
-        captured = snap.pop("_recycle", None)
+        captured = snap.pop("_spare", None)
+        recycle = snap.pop("_recycle", None)
         tok = snap.pop("_devobs", None)
         obs = self._deviceobs
         if captured is None:
-            # the generation escaped into its readout: its token goes
-            if obs is not None:
-                obs.drop(tok)
-            return
-        self._noted("reset", lambda: self._reset_state_(captured))
+            captured = recycle
+            if captured is None:
+                # the generation escaped into its readout: its token goes
+                if obs is not None:
+                    obs.drop(tok)
+                return
+            self._noted("reset", lambda: self._reset_state_(captured))
         with self.apply_lock:
             if cap == self._state_capacity() and self._spare is None:
                 self._spare = captured
@@ -491,12 +504,18 @@ class _BaseTable:
                 snap["touched"] = self.touched.copy()
                 snap["meta"] = list(self.meta)
                 self._capture_extras_locked(snap)
-                self._query_readout_device(self.state, snap)
+                self._query_readout_device(self._capture_device_locked(),
+                                           snap)
                 if self.device.type == "cuda":
                     ready = torch.cuda.Event()
                     ready.record(torch.cuda.current_stream(self.device))
                     snap["_ready"] = ready
         return snap
+
+    def _capture_device_locked(self):
+        """The live generation a query reads (caller holds
+        ``apply_lock``): `state`, or a sharded table's per-shard list."""
+        return self.state
 
     def _capture_extras_locked(self, snap: dict) -> None:
         """Read-only counterpart of _swap_extras_locked: COPY the
@@ -572,12 +591,18 @@ class _BaseTable:
             self._last_touched[row] = self._generation
             self._has_meta[row] = True
             self.scope_code[row] = int(metric.scope)
+            self._note_minted(row, metric)
             self.rows[dict_key] = row
             self.name_rows.setdefault(metric.key.name, []).append(row)
             self.minted_total += 1
             if card is not None:
                 card.note_mint(self.family, metric.key.name)
         return row
+
+    def _note_minted(self, row: int, metric: UDPMetric) -> None:
+        """Mint hook, fired once per fresh or recycled row assignment
+        under ``lock``: the sharded tables (core/sharded_tables.py) stamp
+        the row's home shard here; a single table does nothing."""
 
     def _note_generation_locked(self) -> None:
         """Advance the flush generation and stamp the rows touched this
@@ -842,7 +867,7 @@ class _BaseTable:
 
 class CounterTable(_BaseTable):
     def _init_arrays(self):
-        self.state = scalars.init_counters(self.capacity, self.device)
+        self.state = self._fresh_state_at(self.capacity)
         self._prow = np.full(self.batch_cap, PAD_ROW, np.int32)
         self._pval = np.zeros(self.batch_cap, np.float32)
         self._prate = np.ones(self.batch_cap, np.float32)
@@ -915,7 +940,7 @@ class CounterTable(_BaseTable):
 
 class GaugeTable(_BaseTable):
     def _init_arrays(self):
-        self.state = scalars.init_gauges(self.capacity, self.device)
+        self.state = self._fresh_state_at(self.capacity)
         self._prow = np.full(self.batch_cap, PAD_ROW, np.int32)
         self._pval = np.zeros(self.batch_cap, np.float32)
         self._pcols = (self._prow, self._pval)
@@ -1445,7 +1470,7 @@ class LLHistTable(_BaseTable):
         self._pwt = np.zeros(self.batch_cap, np.int32)
         self._pcols = (self._prow, self._pbin, self._pwt)
         self._n = 0
-        self.state = batch_llhist.init_state(self.capacity, self.device)
+        self.state = self._fresh_state_at(self.capacity)
         # monotonic sample/clamp accounting (mutated under `lock`)
         self.samples_total = 0
         self.clamped_total = 0
@@ -1544,9 +1569,9 @@ class LLHistTable(_BaseTable):
             # a _grow may have replaced the state: read it under apply_lock
             if self._first_apply_pending:
                 self._noted("apply", lambda: self._time_first_apply(
-                    lambda: batch_llhist.apply_packed(self.state, block)))
+                    lambda: self._apply_block(self.state, block)))
             else:
-                self._noted("apply", lambda: batch_llhist.apply_packed(
+                self._noted("apply", lambda: self._apply_block(
                     self.state, block))
         finally:
             self.apply_lock.release()
@@ -1563,7 +1588,12 @@ class LLHistTable(_BaseTable):
         return cols
 
     def _apply_cols_state(self, state, cols):
-        batch_llhist.apply_packed(state, batch_llhist.pack([cols]))
+        self._apply_block(state, batch_llhist.pack([cols]))
+
+    def _apply_block(self, state, block: np.ndarray) -> None:
+        """Apply a private pack()ed block to `state`: one copy, one
+        launch of K3."""
+        batch_llhist.apply_packed(state, block)
 
     def _fresh_state_at(self, capacity: int):
         return batch_llhist.init_state(capacity, self.device)
@@ -1688,27 +1718,60 @@ class ColumnStore:
     `histogram_encoding` chooses the family DogStatsD histogram/timer
     samples aggregate in: "tdigest" (reference parity, approximate
     merges) or "circllhist" (log-linear bins, exact merges). Explicit
-    `|l` samples always land in the llhist family."""
+    `|l` samples always land in the llhist family.
+
+    With `shard_devices` > 1 the store is partitioned into that many
+    shards (core/sharded_tables.py), all on the store's device: each
+    key's home shard is fixed at mint time from its digest and each
+    flush merges the shards (parallel/collectives.py). Digest routing
+    shards all five families; `shard_routing="roundrobin"` shards only
+    the histogram and set families (rotated batches would break the
+    per-key order the scalar families need)."""
 
     def __init__(self, counter_capacity=1024, gauge_capacity=1024,
                  histo_capacity=1024, set_capacity=256, batch_cap=8192,
                  set_promote_samples=0, set_max_dev_slots=0,
                  llhist_capacity=1024, histogram_encoding="tdigest",
-                 max_rows=0, device=None):
+                 max_rows=0, device=None, shard_devices=0,
+                 shard_routing="digest"):
         if histogram_encoding not in ("tdigest", "circllhist"):
             raise ValueError(
                 f"unknown histogram_encoding: {histogram_encoding!r}")
         self.histogram_encoding = histogram_encoding
         self.device = dev = pick_device(device)
-        self.counters = CounterTable(dev, counter_capacity, batch_cap,
+        from veneur_tpu_torch.parallel.sharded_server import build_plane
+        self.shard_plane = plane = build_plane(shard_devices, dev,
+                                               shard_routing)
+        if plane is not None and plane.routing == "digest":
+            from veneur_tpu_torch.core.sharded_tables import (
+                ShardedCounterTable, ShardedGaugeTable, ShardedLLHistTable)
+            self.counters = ShardedCounterTable(
+                dev, counter_capacity, batch_cap, max_rows, plane=plane)
+            self.gauges = ShardedGaugeTable(
+                dev, gauge_capacity, batch_cap, max_rows, plane=plane)
+            self.llhists = ShardedLLHistTable(
+                dev, llhist_capacity, batch_cap, max_rows, plane=plane)
+        else:
+            self.counters = CounterTable(dev, counter_capacity, batch_cap,
+                                         max_rows)
+            self.gauges = GaugeTable(dev, gauge_capacity, batch_cap,
                                      max_rows)
-        self.gauges = GaugeTable(dev, gauge_capacity, batch_cap, max_rows)
-        self.histos = HistoTable(dev, histo_capacity, batch_cap, max_rows)
-        self.llhists = LLHistTable(dev, llhist_capacity, batch_cap, max_rows)
-        self.sets = SetTable(dev, set_capacity, batch_cap,
-                             promote_samples=set_promote_samples,
-                             max_dev_slots=set_max_dev_slots,
-                             max_rows=max_rows)
+            self.llhists = LLHistTable(dev, llhist_capacity, batch_cap,
+                                       max_rows)
+        if plane is not None:
+            from veneur_tpu_torch.core.sharded_tables import (
+                ShardedHistoTable, ShardedSetTable)
+            self.histos = ShardedHistoTable(
+                dev, histo_capacity, batch_cap, max_rows, plane=plane)
+            self.sets = ShardedSetTable(
+                dev, set_capacity, batch_cap, max_rows, plane=plane)
+        else:
+            self.histos = HistoTable(dev, histo_capacity, batch_cap,
+                                     max_rows)
+            self.sets = SetTable(dev, set_capacity, batch_cap,
+                                 promote_samples=set_promote_samples,
+                                 max_dev_slots=set_max_dev_slots,
+                                 max_rows=max_rows)
         self.statuses = StatusTable(dev, batch_cap=batch_cap,
                                     max_rows=max_rows)
         for family, table in self.tables():
@@ -1746,10 +1809,11 @@ class ColumnStore:
 
     def attach_deviceobs(self, obs) -> None:
         """Wire the device observatory (core/deviceobs.py) into every
-        table's generation lifecycle and device calls, and register the
+        table's generation lifecycle and device calls, register the
         current live generations (and any parked spares) in its HBM
-        ledger."""
+        ledger, and hand it the store for the shard-balance scrapes."""
         self.deviceobs = obs
+        obs.attach_store(self)
         for family, table in self.tables():
             table._deviceobs = obs
             with table.apply_lock:
@@ -1885,12 +1949,18 @@ class ColumnStore:
                              float(t.batch_cap), tags))
                 rows.append(("columnstore.pending_samples", "gauge",
                              float(pending), tags))
-        rows.append(("columnstore.set_dev_slots", "gauge",
-                     float(self.sets._nslots), ["family:set"]))
+        nslots = getattr(self.sets, "_nslots", None)
+        if nslots is not None:  # the two-tier set table's promoted rows
+            rows.append(("columnstore.set_dev_slots", "gauge",
+                         float(nslots), ["family:set"]))
         rows.append(("llhist.samples_total", "counter",
                      float(self.llhists.samples_total), ()))
         rows.append(("llhist.clamped_total", "counter",
                      float(self.llhists.clamped_total), ()))
+        # the sharded serving plane: topology and per-shard routed
+        # volume (parallel/sharded_server.py), absent on a single store
+        if self.shard_plane is not None:
+            rows.extend(self.shard_plane.telemetry_rows())
         return rows
 
     def synchronize(self) -> None:

@@ -30,10 +30,14 @@ planes wired through the existing registries:
   booked under the kernel's name: the port compiles nothing per
   capacity, so a resize or a prewarm rung books none.
 
-The JAX package's shard-balance plane (`shard_balance`, `shard_skew`,
-the reshard plan) needs the sharded tables, which the port does not
-have: `report()` carries no `shard_balance` entry, as the JAX package
-reports for an unsharded store, and no `device.shard.skew` row.
+- **Shard balance** — for a sharded store (core/sharded_tables.py),
+  the live rows per shard (in all and per family), the samples the
+  plane routed to each, the occupancy of the digest space in 16 bins,
+  the skew (max/mean live rows) and the hot shards (> 2x the mean), read
+  from the host-side routing arrays only. `shard_skew()` feeds the
+  `device.shard.skew` gauge and the `shard_skew` alert rule kind. The
+  JAX package also prices a reshard (`reshard_plan`), which needs the
+  elastic reshard the port does not have.
 
 Everything is scrape-time or O(1)-under-a-lock on the hot path, and the
 whole observatory is gated by the `device_observatory` config knob. The
@@ -45,6 +49,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from veneur_tpu_torch.core.latency import LatencyHist
 
@@ -64,6 +70,11 @@ KERNEL_KINDS = ("apply", "readout", "merge", "reset", "prewarm")
 HIST_ROWS = ("device.kernel.apply_s", "device.kernel.readout_s",
              "device.kernel.merge_s", "device.kernel.reset_s",
              "device.kernel.prewarm_s")
+
+# a shard holding more than this multiple of the mean live rows is hot
+HOT_SHARD_FACTOR = 2.0
+# digest-space occupancy histogram bins (a power of two: the top bits)
+DIGEST_BINS = 16
 
 # the hand-written kernel each family's device work launches on the card
 FAMILY_KERNELS = {"histogram": "tdigest_flush", "set": "hll_estimate",
@@ -150,6 +161,8 @@ class DeviceObservatory:
         # compile counts + last compile seconds per kernel
         self._compiles: Dict[str, int] = {}
         self._compile_seconds: Dict[str, float] = {}
+        # the store the shard-balance plane reads at scrape time
+        self._store = None
         if enabled:
             from veneur_tpu_torch.ops import _cuda
             _cuda.subscribe_loads(self.note_compile)
@@ -310,6 +323,93 @@ class DeviceObservatory:
         }
 
     # ------------------------------------------------------------------
+    # Shard balance
+    # ------------------------------------------------------------------
+
+    def attach_store(self, store) -> None:
+        self._store = store
+
+    def _sharded_tables(self) -> List[Tuple[str, Any]]:
+        store = self._store
+        if store is None:
+            return []
+        return [(family, table) for family, table in store.tables()
+                if getattr(table, "_shard_of", None) is not None
+                and getattr(table, "_n_shards", 0) > 1]
+
+    @staticmethod
+    def _live_homes(table):
+        """(home shard of every live row, their 64-bit digests), read
+        under the table's buffer lock."""
+        with table.lock:
+            n = len(table.meta)
+            shard_of = np.asarray(table._shard_of[:n])
+            live = np.asarray(table._has_meta[:n], bool)
+            # dict keys are (digest64 << 2) | scope
+            digests = [(dk >> 2) & 0xFFFFFFFFFFFFFFFF
+                       for row, dk in enumerate(table._dict_key_of)
+                       if row < n and live[row]]
+        return shard_of[live].astype(np.int64), digests
+
+    def shard_balance(self) -> Optional[dict]:
+        """Per-shard live rows, samples routed and digest occupancy of
+        the attached store's sharded tables; None when the store is not
+        sharded. Host-side arrays only, no device sync."""
+        tables = self._sharded_tables()
+        if not tables:
+            return None
+        n_shards = tables[0][1]._n_shards
+        rows = np.zeros(n_shards, np.int64)
+        digest_hist = np.zeros(DIGEST_BINS, np.int64)
+        per_family: Dict[str, list] = {}
+        shift = np.uint64(64 - (DIGEST_BINS.bit_length() - 1))
+        for family, table in tables:
+            homes, dig_list = self._live_homes(table)
+            fam_rows = np.bincount(homes, minlength=n_shards)[:n_shards]
+            rows += fam_rows
+            per_family[family] = [int(x) for x in fam_rows]
+            if dig_list:
+                digests = np.asarray(dig_list, np.uint64)
+                digest_hist += np.bincount(
+                    (digests >> shift).astype(np.int64),
+                    minlength=DIGEST_BINS)[:DIGEST_BINS]
+        mean = float(rows.mean()) if rows.size else 0.0
+        skew = float(rows.max() / mean) if mean > 0 else None
+        hot = [int(i) for i in np.nonzero(
+            rows > HOT_SHARD_FACTOR * mean)[0]] if mean > 0 else []
+        plane = getattr(self._store, "shard_plane", None)
+        samples: Dict[str, list] = {}
+        if plane is not None:
+            for family, acc in list(plane._samples.items()):
+                samples[family] = [int(x) for x in acc]
+        return {
+            "n_shards": int(n_shards),
+            "rows_per_shard": [int(x) for x in rows],
+            "rows_per_shard_by_family": per_family,
+            "samples_routed": samples,
+            "digest_occupancy": [int(x) for x in digest_hist],
+            "skew": skew,
+            "hot_shards": hot,
+        }
+
+    def shard_skew(self) -> Optional[float]:
+        """max/mean live rows over the shards; None when the store is not
+        sharded or holds no rows. The `shard_skew` alert rule's and the
+        `device.shard.skew` gauge's source."""
+        tables = self._sharded_tables()
+        if not tables:
+            return None
+        n_shards = tables[0][1]._n_shards
+        rows = np.zeros(n_shards, np.int64)
+        for _family, table in tables:
+            homes, _digests = self._live_homes(table)
+            rows += np.bincount(homes, minlength=n_shards)[:n_shards]
+        mean = float(rows.mean()) if rows.size else 0.0
+        if mean <= 0:
+            return None
+        return float(rows.max() / mean)
+
+    # ------------------------------------------------------------------
     # Export
     # ------------------------------------------------------------------
 
@@ -355,11 +455,14 @@ class DeviceObservatory:
         for kernel, count in sorted(compiles.items()):
             rows.append(("device.compile.count", "counter", float(count),
                          (f"kernel:{kernel}",)))
+        skew = self.shard_skew()
+        if skew is not None:
+            rows.append(("device.shard.skew", "gauge", skew, ()))
         return rows
 
     def report(self) -> dict:
         """The `/debug/device` payload: ledger + allocator reconciliation
-        + kernel table."""
+        + kernel table + shard balance (a sharded store only)."""
         led = self.ledger()
         backend = backend_memory_stats()
         recon = None
@@ -374,7 +477,7 @@ class DeviceObservatory:
                 # outputs, pending-column copies, other servers' tables)
                 "unaccounted_bytes": in_use - led["total_bytes"],
             }
-        return {
+        out = {
             "generated_unix": time.time(),
             "enabled": self.enabled,
             "ledger": led,
@@ -382,3 +485,7 @@ class DeviceObservatory:
             "reconciliation": recon,
             **self.kernel_report(),
         }
+        balance = self.shard_balance()
+        if balance is not None:
+            out["shard_balance"] = balance
+        return out

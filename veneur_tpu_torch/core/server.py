@@ -332,7 +332,9 @@ class Server:
             llhist_capacity=tpu.llhist_capacity,
             histogram_encoding=config.histogram_encoding,
             max_rows=tpu.max_rows_per_family,
-            device=self.device)
+            device=self.device,
+            shard_devices=tpu.shards,
+            shard_routing=tpu.shard_routing)
         self._build_ledger()
         # the latency observatory (core/latency.py): per-plane sample age
         # from socket read to sink ack, and the dwell and depth of every
@@ -1333,9 +1335,13 @@ class Server:
         # the graceful-restart handshake: a parent mid-SIGUSR2 waits for
         # the ready file, written only now, with every listener bound
         restart.mark_ready()
-        self.telemetry.record_event(
-            "startup", pid=os.getpid(),
-            mode="local" if cfg.is_local else "global")
+        startup = {"pid": os.getpid(),
+                   "mode": "local" if cfg.is_local else "global"}
+        if self.store.shard_plane is not None:
+            # the shard topology in the flight recorder: how many shards,
+            # on which device, under which routing
+            startup["mesh"] = self.store.shard_plane.describe()
+        self.telemetry.record_event("startup", **startup)
 
     def _start_span_plane(self) -> None:
         """Start the span sinks, one isolation buffer and thread each, and
@@ -1406,7 +1412,9 @@ class Server:
             spool=spool, wal=cfg.forward_wal,
             replay_limiter=replay_limiter,
             replay_stale_after=cfg.wal_stale_after_intervals * self.interval,
-            trace_plane=self.trace_plane)
+            trace_plane=self.trace_plane,
+            shards=(self.store.shard_plane.n
+                    if self.store.shard_plane is not None else 0))
 
     @property
     def listen_addresses(self) -> List[tuple]:

@@ -1,0 +1,645 @@
+"""The column store partitioned into shards (torch port of
+veneur_tpu/core/sharded_tables.py).
+
+One host intern table, and the interval state of every device family
+split into N shards, all on the store's device:
+
+  counters    (N, K) Kahan pairs      merge = sum over shards (selection)
+  gauges      (N, K) LWW + set mask   merge = masked sum + any
+  llhists     (N, K, BINS) int32      merge = register add (exact)
+  histograms  N per-shard digests     merge = concat + recompress
+  sets        N per-shard HLL banks   merge = register max
+
+Routing is digest-home by default: a key's 64-bit fnv1a digest picks its
+home shard at mint time (parallel/sharded_server.py), and every sample,
+batch and import merge for that key lands there. Gauges keep
+last-write-wins order (a key's writes all go to one shard), and counter
+pairs and llhist and HLL registers merge by selection, so the flush
+equals a single table's over the same stream. `shard_routing:
+roundrobin` rotates whole batches over the shards for the histogram and
+set families; the scalar and llhist families then stay single tables.
+
+A stacked family applies each batch with its single-table op on the
+flat (N*K, ...) view (parallel/collectives.py): the llhist apply is
+kernel K3 on rows `home * K + row`, in one launch per pack()ed block.
+The per-shard families apply each shard's samples to its own state.
+Each flush readout merges the shards; the stacked merges zero the
+drained generation in place after the merged copy (the JAX package's
+fused donated merge + reset), and the merged t-digest and HLL states
+feed K1 and K2. A live query merges without zeroing.
+
+The JAX package's elastic reshard (`reshard_swap`, the topology epoch,
+the per-family capture hooks) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from veneur_tpu_torch.core.columnstore import (
+    PAD_ROW, CounterTable, GaugeTable, HistoTable, LLHistTable, SetTable,
+    _BaseTable, _pad_cap, _SetRegisters, _to_device)
+from veneur_tpu_torch.ops import batch_hll, batch_llhist, batch_tdigest, \
+    hll_ref, scalars
+from veneur_tpu_torch.parallel import collectives
+from veneur_tpu_torch.parallel.sharded_server import (ROUTING_DIGEST,
+                                                      ShardedServingPlane)
+
+__all__ = [
+    "ShardedCounterTable", "ShardedGaugeTable", "ShardedHistoTable",
+    "ShardedLLHistTable", "ShardedSetTable",
+]
+
+
+class _DigestRouted:
+    """Mixin: per-row home-shard assignment, shared by every sharded
+    family table. Initialised BEFORE _BaseTable.__init__ (whose
+    _init_arrays builds the shards' state)."""
+
+    def _routing_init(self, device, capacity: int,
+                      plane: ShardedServingPlane) -> None:
+        device = torch.device(device)
+        if plane.device != device:
+            raise ValueError(f"the shards live on {plane.device}, the "
+                             f"table on {device}")
+        self._plane = plane
+        self._n_shards = plane.n
+        # row -> home shard, stamped at mint time (_note_minted)
+        self._shard_of = np.zeros(capacity, np.int8)
+        self._rr_next = 0  # roundrobin mode's rotation cursor
+
+    @property
+    def _digest_routed(self) -> bool:
+        return self._plane.routing == ROUTING_DIGEST
+
+    def _note_minted(self, row: int, metric) -> None:
+        if row < self._shard_of.shape[0]:
+            self._shard_of[row] = self._plane.home(metric.digest64)
+
+    def _grow_shard_of(self, new_cap: int) -> None:
+        grown = np.zeros(new_cap, np.int8)
+        grown[: self._shard_of.shape[0]] = self._shard_of
+        self._shard_of = grown
+
+    def _home_of(self, rows: np.ndarray) -> np.ndarray:
+        """(batch,) rows -> home shard per sample, -1 for a row outside
+        the table (padding)."""
+        rows = np.asarray(rows, np.int64)
+        shard_of = self._shard_of
+        ok = (rows >= 0) & (rows < shard_of.shape[0])
+        return np.where(ok, shard_of[np.where(ok, rows, 0)],
+                        -1).astype(np.int32)
+
+    def _shard_counts_of(self, home: np.ndarray) -> np.ndarray:
+        return np.bincount(home[home >= 0],
+                           minlength=self._n_shards).astype(np.int64)
+
+    def _merge_noted(self, merge):
+        """Run one collective merge of a flush readout, booked as a
+        `merge` row of the kernel registry, and count the merge round."""
+        out = self._noted("merge", merge)
+        self._plane.note_merge_round()
+        return out
+
+    def _flat_cols(self, state_rows: int, rows, note: bool = True):
+        """A batch's rows as int32 rows of the stacked state's flat view
+        (`state_rows` rows a shard); the per-shard sample counts fold into
+        the plane unless `note` is off (a prewarm rung's all-padding
+        batch)."""
+        home = self._home_of(rows)
+        if note:
+            self._plane.note_routed(self.family,
+                                    self._shard_counts_of(home))
+        return collectives.flat_rows(home, rows, state_rows)
+
+
+# ---------------------------------------------------------------------------
+# Stacked families: one (N, K, ...) state, the single-table op on its flat
+# view per dispatch, a sum over shards at flush.
+# ---------------------------------------------------------------------------
+
+
+class ShardedCounterTable(_DigestRouted, CounterTable):
+    """CounterTable partitioned into shards: each key's deltas accumulate
+    in its home shard's Kahan pair; the flush merge is a sum over shards,
+    pure selection under digest routing, so the f64 host readout equals a
+    single table's."""
+
+    def __init__(self, device, capacity: int = 1024, batch_cap: int = 8192,
+                 max_rows: int = 0, *, plane: ShardedServingPlane):
+        self._routing_init(device, capacity, plane)
+        super().__init__(device, capacity, batch_cap, max_rows)
+
+    def _fresh_state_at(self, capacity: int):
+        return collectives.init_stacked(scalars.init_counters,
+                                        self._n_shards, capacity,
+                                        self.device)
+
+    def _grow_arrays(self, new_cap):
+        self._grow_shard_of(new_cap)
+        self.state = collectives.grow_stacked(self.state, new_cap)
+
+    def _apply_cols_state(self, state, cols, note: bool = True):
+        rows, vals, rates = cols
+        flat = self._flat_cols(state["sum"].shape[1], rows, note)
+        collectives.apply_counters_sharded(
+            state, *(_to_device(c, self.device) for c in (flat, vals,
+                                                          rates)))
+
+    def _prewarm_apply(self, state, cols, capacity: int) -> None:
+        self._apply_cols_state(state, cols, note=False)
+
+    def _readout_device(self, state, snap: dict) -> None:
+        """The merged pair, and the drained generation zeroed in place
+        after it as the next interval's spare."""
+        snap["dev"] = self._merge_noted(
+            lambda: collectives.merge_counters_stacked_reset(state))
+        snap["_spare"] = state
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        # the same sum over the LIVE generation, without zeroing it; its
+        # outputs are fresh tensors no apply writes
+        snap["dev"] = collectives.merge_counters_stacked(state)
+        self._plane.note_merge_round()
+
+    def _prewarm_readout(self, state, snap: dict) -> None:
+        collectives.merge_counters_stacked_reset(state)
+
+
+class ShardedGaugeTable(_DigestRouted, GaugeTable):
+    """GaugeTable partitioned into shards. Digest-home routing keeps
+    last-write-wins: every write of a key goes to its home shard, in
+    buffer order."""
+
+    def __init__(self, device, capacity: int = 1024, batch_cap: int = 8192,
+                 max_rows: int = 0, *, plane: ShardedServingPlane):
+        self._routing_init(device, capacity, plane)
+        super().__init__(device, capacity, batch_cap, max_rows)
+
+    def _fresh_state_at(self, capacity: int):
+        return collectives.init_stacked(scalars.init_gauges,
+                                        self._n_shards, capacity,
+                                        self.device)
+
+    def _grow_arrays(self, new_cap):
+        self._grow_shard_of(new_cap)
+        self.state = collectives.grow_stacked(self.state, new_cap)
+
+    def _apply_cols_state(self, state, cols, note: bool = True):
+        rows, vals = cols
+        flat = self._flat_cols(state["value"].shape[1], rows, note)
+        collectives.apply_gauges_sharded(
+            state, *(_to_device(c, self.device) for c in (flat, vals)))
+
+    def _prewarm_apply(self, state, cols, capacity: int) -> None:
+        self._apply_cols_state(state, cols, note=False)
+
+    def merge_batch(self, stubs, values) -> None:
+        """Import-path overwrite, each stub on its home shard's row; the
+        state update takes ``apply_lock`` before ``lock`` is released,
+        as in GaugeTable."""
+        with self.lock:
+            rows, ok = self._intern_stubs_locked(stubs)
+            self.apply_lock.acquire()
+        try:
+            if rows.size:
+                flat = collectives.flat_rows(self._home_of(rows), rows,
+                                             self.state["value"].shape[1])
+                vals = np.asarray(values, np.float32)[ok]
+                self._noted("merge", lambda: collectives.merge_gauges_sharded(
+                    self.state, _to_device(flat, self.device),
+                    _to_device(vals, self.device)))
+        finally:
+            self.apply_lock.release()
+
+    def _readout_device(self, state, snap: dict) -> None:
+        snap["dev"], _set = self._merge_noted(
+            lambda: collectives.merge_gauges_stacked_reset(state))
+        snap["_spare"] = state
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        snap["dev"], _set = collectives.merge_gauges_stacked(state)
+        self._plane.note_merge_round()
+
+    def _prewarm_readout(self, state, snap: dict) -> None:
+        collectives.merge_gauges_stacked_reset(state)
+
+
+class ShardedLLHistTable(_DigestRouted, LLHistTable):
+    """LLHistTable partitioned into shards: an (N, K, BINS_PAD) int32
+    register bank. Each pack()ed block's rows become rows of the flat
+    (N*K, BINS_PAD) view, `home * K + row`, and the block is applied with
+    one copy and one launch of K3, padding (row -1) still dropped. The
+    flush merges the touched rows with one register add over shards:
+    integer addition, so registers, percentiles, counts, sums and
+    buckets equal a single table's."""
+
+    def __init__(self, device, capacity: int = 1024, batch_cap: int = 8192,
+                 max_rows: int = 0, *, plane: ShardedServingPlane):
+        self._routing_init(device, capacity, plane)
+        super().__init__(device, capacity, batch_cap, max_rows)
+
+    def _fresh_state_at(self, capacity: int):
+        return collectives.init_stacked(batch_llhist.init_state,
+                                        self._n_shards, capacity,
+                                        self.device)
+
+    def _grow_arrays(self, new_cap):
+        self._grow_shard_of(new_cap)
+        self.state = collectives.grow_stacked(self.state, new_cap)
+
+    def _apply_block(self, state, block: np.ndarray,
+                     note: bool = True) -> None:
+        # the block is private (pack): its row column becomes flat rows
+        block[0] = self._flat_cols(state.shape[1], block[0], note)
+        collectives.apply_llhist_block_sharded(state, block)
+
+    def _prewarm_apply(self, state, cols, capacity: int) -> None:
+        self._apply_block(state, batch_llhist.pack([cols]), note=False)
+
+    def merge_batch(self, stubs, in_bins) -> None:
+        """Import-path register add, each incoming row on its home
+        shard."""
+        with self.lock:
+            rows, ok = self._intern_stubs_locked(stubs)
+            padded = batch_llhist.pad_rows_to_device(np.asarray(in_bins)[ok])
+            self.samples_total += int(padded.sum(dtype=np.int64))
+            home = self._home_of(rows)
+            self.apply_lock.acquire()
+        try:
+            if rows.size:
+                self._noted("merge", lambda: collectives.merge_llhist_rows_at(
+                    self.state, _to_device(home, self.device),
+                    _to_device(rows, self.device),
+                    _to_device(padded, self.device)))
+        finally:
+            self.apply_lock.release()
+
+    def _touched_rows(self, snap: dict) -> torch.Tensor:
+        return torch.from_numpy(np.flatnonzero(snap["touched"])).to(
+            self.device)
+
+    def _readout_device(self, state, snap: dict) -> None:
+        """Merge the touched rows over shards (the drained bank zeroed in
+        place after), then flush_packed on the merged block."""
+        rows = self._touched_rows(snap)
+        merged = self._merge_noted(
+            lambda: collectives.merge_llhist_stacked_reset(state, rows))
+        snap["packed"] = batch_llhist.flush_packed(merged, snap["ps"])
+        snap["bins_dev"] = merged  # the flusher's buckets, sum and count
+        snap["_spare"] = state
+
+    def _query_readout_device(self, state, snap: dict) -> None:
+        merged = collectives.merge_llhist_stacked(state,
+                                                  self._touched_rows(snap))
+        self._plane.note_merge_round()
+        snap["packed"] = batch_llhist.flush_packed(merged, snap["ps"])
+        snap["bins_dev"] = merged if snap.get("need_bins") else None
+
+    def _prewarm_readout(self, state, snap: dict) -> None:
+        merged = collectives.merge_llhist_stacked_reset(
+            state, self._touched_rows(snap))
+        batch_llhist.flush_packed(merged, snap["ps"])
+
+
+# ---------------------------------------------------------------------------
+# Per-shard families (histograms, sets): a list of N states, each shard's
+# samples applied to its own, merged at flush.
+# ---------------------------------------------------------------------------
+
+
+class _PerShardStates:
+    """Generation swap over the per-shard `states` list (`self.state`
+    stays None)."""
+
+    def _swap_device_locked(self):
+        captured = self.states
+        spare, self._spare = self._spare, None
+        used_spare = (spare is not None
+                      and self._spare_cap == self._state_capacity())
+        self.states = spare if used_spare else self._fresh_state_at(
+            self._state_capacity())
+        self._devobs_swap_locked(used_spare)
+        return captured
+
+    def _capture_device_locked(self):
+        # a shallow copy under apply_lock: a consistent set of per-shard
+        # state refs
+        return list(self.states)
+
+    def _rr_shard(self) -> int:
+        """The next shard of roundrobin routing (caller holds a lock)."""
+        i = self._rr_next
+        self._rr_next = (i + 1) % self._n_shards
+        return i
+
+
+class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
+    """HistoTable whose interval state is N per-shard digest tables:
+    ingest applies each key's samples to its home shard (digest) or each
+    whole batch to the next shard (roundrobin), with staging occupancy
+    tracked per shard; the flush merges the shards by concat +
+    recompress and runs K1 on the merged state."""
+
+    def __init__(self, device, capacity: int = 1024, batch_cap: int = 8192,
+                 max_rows: int = 0, *, plane: ShardedServingPlane):
+        self._routing_init(device, capacity, plane)
+        super().__init__(device, capacity, batch_cap, max_rows)
+
+    def _init_arrays(self):
+        self._prow = np.full(self.batch_cap, PAD_ROW, np.int32)
+        self._pval = np.zeros(self.batch_cap, np.float32)
+        self._pwt = np.zeros(self.batch_cap, np.float32)
+        self._pcols = (self._prow, self._pval, self._pwt)
+        self._n = 0
+        self.state = None  # the shards' state lives in .states
+        self.states = self._fresh_state_at(self.capacity)
+        self._shard_counts = self._fresh_counts(self.capacity)
+
+    def _fresh_counts(self, capacity: int) -> List[np.ndarray]:
+        return [np.zeros(capacity, np.int32) for _ in range(self._n_shards)]
+
+    def _fresh_state_at(self, capacity: int):
+        return [batch_tdigest.init_state(capacity, self.device)
+                for _ in range(self._n_shards)]
+
+    def _grow_arrays(self, new_cap):
+        self._grow_shard_of(new_cap)
+        grown = []
+        for st in self.states:
+            new = batch_tdigest.init_state(new_cap, self.device)
+            for k, v in st.items():
+                new[k][: v.shape[0]] = v
+            grown.append(new)
+        self.states = grown
+        extended = self._fresh_counts(new_cap)
+        for e, counts in zip(extended, self._shard_counts):
+            e[: counts.shape[0]] = counts
+        self._shard_counts = extended
+
+    def _apply_to_shard(self, states, shard_counts, i: int, rows, vals,
+                        wts) -> None:
+        """One shard's samples into an explicit (states, staging
+        occupancy) generation: the live path passes the table's own, the
+        flush readout the captured one; compacts the shard first when a
+        key's staging would overflow."""
+        slots, overflow = batch_tdigest.host_slots(rows, vals, wts,
+                                                   shard_counts[i])
+        if overflow:
+            batch_tdigest.compact(states[i])
+            shard_counts[i][:] = 0
+            slots, _ = batch_tdigest.host_slots(rows, vals, wts,
+                                                shard_counts[i])
+        batch_tdigest.apply_batch(
+            states[i], *(_to_device(np.ascontiguousarray(c), self.device)
+                         for c in (rows, vals, wts, slots)))
+
+    def _apply_cols_states(self, states, shard_counts, cols,
+                           note: bool = True) -> None:
+        rows, vals, wts = cols
+        if not self._digest_routed:
+            # roundrobin: the whole batch to the next shard
+            self._apply_to_shard(states, shard_counts, self._rr_shard(),
+                                 rows, vals, wts)
+            return
+        home = self._home_of(rows)
+        counts = self._shard_counts_of(home)
+        for i in np.flatnonzero(counts).tolist():
+            sel = home == i
+            self._apply_to_shard(states, shard_counts, i, rows[sel],
+                                 vals[sel], wts[sel])
+        if note:
+            self._plane.note_routed(self.family, counts)
+
+    def _apply_cols(self, cols):
+        self._apply_cols_states(self.states, self._shard_counts, cols)
+
+    def merge_batch(self, stubs, in_means, in_weights, in_min, in_max,
+                    in_recip) -> None:
+        """Import-path digest merge, each digest on its home shard
+        (digest routing) or all on the next shard (roundrobin)."""
+        with self.lock:
+            rows, ok = self._intern_stubs_locked(stubs)
+            home = (self._home_of(rows) if self._digest_routed
+                    else np.full(rows.shape, self._rr_shard(), np.int32))
+            self.apply_lock.acquire()
+        try:
+            cols = [np.asarray(c, np.float32)[ok] for c in (
+                in_means, in_weights, in_min, in_max, in_recip)]
+
+            def merge():
+                for i in np.unique(home[home >= 0]).tolist():
+                    sel = home == i
+                    batch_tdigest.merge_centroid_rows(
+                        self.states[i], *(_to_device(
+                            np.ascontiguousarray(c[sel]), self.device)
+                            for c in [rows] + cols))
+                    # the merge folds every staged row of this shard
+                    self._shard_counts[i][:] = 0
+            self._noted("merge", merge)
+        finally:
+            self.apply_lock.release()
+
+    def _swap_extras_locked(self, snap: dict) -> None:
+        snap["staged"] = self._shard_counts
+        self._shard_counts = self._fresh_counts(self.capacity)
+
+    def _readout_apply(self, states, cols, snap: dict) -> None:
+        self._apply_cols_states(states, snap.pop("staged"), cols)
+
+    def _flush_merged(self, merged, snap: dict) -> None:
+        """K1 on the merged state: the forwarding flush (export too) or
+        the plain one; the merged staging is empty, so it is not
+        folded."""
+        ps = snap["ps"]
+        if snap.pop("need_export", False):
+            snap["packed"], snap["export"] = \
+                batch_tdigest.flush_export_packed(merged, ps)
+        else:
+            snap["packed"] = batch_tdigest.flush_quantiles_packed(
+                merged, ps, fold_staging=False)
+            snap["export"] = None
+
+    def _readout_device(self, states, snap: dict) -> None:
+        merged = self._merge_noted(
+            lambda: collectives.merge_histo_stacked(states))
+        self._flush_merged(merged, snap)
+        snap["_recycle"] = states
+
+    def _prewarm_apply(self, states, cols, capacity: int) -> None:
+        counts = self._fresh_counts(capacity)
+        rows, vals, wts = cols
+        for i in range(self._n_shards):
+            self._apply_to_shard(states, counts, i, rows, vals, wts)
+
+    def _prewarm_readout(self, states, snap: dict) -> None:
+        self._flush_merged(collectives.merge_histo_stacked(states), snap)
+
+    def _reset_state_(self, captured) -> None:
+        for st in captured:
+            batch_tdigest.reset_state_(st)
+
+
+class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
+    """SetTable whose registers are N per-shard dense (K, 16384) banks,
+    one row per key (no host tier: the merge needs uniform dense rows,
+    as in the JAX package). Each key's members go to its home shard
+    (digest) or each batch to the next shard (roundrobin); the flush
+    merges the touched rows with a register max over shards and runs K2
+    on them."""
+
+    def __init__(self, device, capacity: int = 256, batch_cap: int = 8192,
+                 max_rows: int = 0, *, plane: ShardedServingPlane):
+        self._routing_init(device, capacity, plane)
+        super().__init__(device, capacity, batch_cap, max_rows=max_rows)
+
+    def _init_arrays(self):
+        self._prow = np.full(self.batch_cap, PAD_ROW, np.int32)
+        self._pidx = np.zeros(self.batch_cap, np.int32)
+        self._prho = np.zeros(self.batch_cap, np.int32)
+        self._pcols = (self._prow, self._pidx, self._prho)
+        self._n = 0
+        self.state = None  # the shards' banks live in .states
+        self.states = self._fresh_state_at(self.capacity)
+
+    def _fresh_state_at(self, capacity: int):
+        return [batch_hll.init_state(capacity, self.device)
+                for _ in range(self._n_shards)]
+
+    def _grow_arrays(self, new_cap):
+        self._grow_shard_of(new_cap)
+        self.states = [_pad_cap(st, new_cap) for st in self.states]
+
+    def _state_capacity(self) -> int:
+        # dense per-shard banks track the row capacity
+        return self.capacity
+
+    def add(self, metric) -> bool:
+        member = metric.value if isinstance(metric.value, bytes) else str(
+            metric.value).encode()
+        idx, rho = hll_ref.pos_val(hll_ref.hash_member(member))
+        with self.lock:
+            row = self.row_for(metric)
+            if row >= 0:
+                self._add_row_locked(row, idx, rho)
+        return row >= 0
+
+    def add_batch(self, rows, reg_idx, rho) -> None:
+        """Members already hashed to (idx, rho) for interned rows."""
+        with self.lock:
+            self._append_batch((np.asarray(rows, np.int32),
+                                np.asarray(reg_idx, np.int32),
+                                np.asarray(rho, np.int32)))
+        self._note_applied(int(len(rows)))
+
+    def _apply_to_shard(self, states, i: int, rows, idxs, rhos) -> None:
+        batch_hll.apply_batch(states[i], *(
+            _to_device(np.ascontiguousarray(c), self.device)
+            for c in (rows, idxs, rhos)))
+
+    def _apply_cols_states(self, states, cols, note: bool = True) -> None:
+        rows, idxs, rhos = cols
+        if not self._digest_routed:
+            self._apply_to_shard(states, self._rr_shard(), rows, idxs, rhos)
+            return
+        home = self._home_of(rows)
+        counts = self._shard_counts_of(home)
+        for i in np.flatnonzero(counts).tolist():
+            sel = home == i
+            self._apply_to_shard(states, i, rows[sel], idxs[sel], rhos[sel])
+        if note:
+            self._plane.note_routed(self.family, counts)
+
+    def _apply_cols(self, cols):
+        self._apply_cols_states(self.states, cols)
+
+    def _readout_apply(self, states, cols, snap: dict) -> None:
+        self._apply_cols_states(states, cols)
+
+    def merge_batch(self, stubs, in_regs) -> None:
+        """Import-path register max, each row on its home shard (digest
+        routing) or all on the next shard (roundrobin)."""
+        with self.lock:
+            rows, ok = self._intern_stubs_locked(stubs)
+            home = (self._home_of(rows) if self._digest_routed
+                    else np.full(rows.shape, self._rr_shard(), np.int32))
+            self.apply_lock.acquire()
+        try:
+            regs = np.asarray(in_regs, np.int8)[ok]
+
+            def merge():
+                for i in np.unique(home[home >= 0]).tolist():
+                    sel = home == i
+                    batch_hll.merge_rows(
+                        self.states[i],
+                        _to_device(np.ascontiguousarray(rows[sel]),
+                                   self.device),
+                        _to_device(np.ascontiguousarray(regs[sel]),
+                                   self.device))
+            self._noted("merge", merge)
+        finally:
+            self.apply_lock.release()
+
+    def _swap_extras_locked(self, snap: dict) -> None:
+        """No host tier to capture."""
+
+    def _capture_extras_locked(self, snap: dict) -> None:
+        """No host tier to copy."""
+
+    def _estimate_merged(self, states, snap: dict, note: bool):
+        """Merge the touched rows over shards (register max), launch K2
+        on them (its output stays on the device until snapshot_finish)
+        and return the merged (touched, M) bank."""
+        rows = np.flatnonzero(snap["touched"])
+        rows_t = torch.from_numpy(rows).to(self.device)
+        if note:
+            merged = self._merge_noted(
+                lambda: collectives.merge_hll_stacked(states, rows_t))
+        else:
+            merged = collectives.merge_hll_stacked(states, rows_t)
+        snap["estimates"] = np.zeros(self.capacity, np.float32)
+        snap["dev_est"] = None
+        if rows.size:
+            snap["dev_est"] = batch_hll.estimate(merged)  # K2 on the card
+            snap["dev_rows"] = rows.astype(np.int64)
+        return rows, merged
+
+    def _readout_device(self, states, snap: dict) -> None:
+        """Estimates and a register view of the merged touched rows; the
+        view holds the merged bank, so the drained per-shard banks are
+        recycled."""
+        rows, merged = self._estimate_merged(states, snap, note=True)
+        slot_of = np.full(self.capacity, -1, np.int32)
+        slot_of[rows] = np.arange(rows.size, dtype=np.int32)
+        empty = np.zeros(0, np.int32)
+        snap["registers"] = _SetRegisters(merged, slot_of, empty, empty,
+                                          empty)
+        snap["_recycle"] = states
+
+    def _query_readout_device(self, states, snap: dict) -> None:
+        # estimates only; the merge writes nothing into the live banks
+        self._estimate_merged(states, snap, note=False)
+        self._plane.note_merge_round()
+        snap["registers"] = None
+
+    def prewarm_rung(self, capacity: int, percentiles=(),
+                     need_export: bool = True) -> bool:
+        """Unlike the two-tier table's bank, the dense per-shard banks
+        track the row capacity, so a rung is prewarmed."""
+        return _BaseTable.prewarm_rung(self, capacity, percentiles,
+                                       need_export)
+
+    def _prewarm_apply(self, states, cols, capacity: int) -> None:
+        rows, idxs, rhos = cols
+        for i in range(self._n_shards):
+            self._apply_to_shard(states, i, rows, idxs, rhos)
+
+    def _prewarm_readout(self, states, snap: dict) -> None:
+        self._estimate_merged(states, snap, note=False)
+
+    def _reset_state_(self, captured) -> None:
+        for st in captured:
+            st.zero_()

@@ -39,7 +39,9 @@ flusher.go:516-591), hardened with the resilience layer
   span's lineage and `x-veneur-exemplars-bin` with the server's
   exemplars (`trace_plane`).
 
-Shard metadata is not ported yet.
+* the shard metadata: a client built with `shards` > 1 (the owning
+  server's shard count) stamps `x-veneur-shards` on every send, so the
+  receiving tier can export how wide the stores feeding it are.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from veneur_tpu_torch.core.flusher import ForwardableState
 from veneur_tpu_torch.forward.convert import forwardable_to_wire
 from veneur_tpu_torch.forward.wire import (_serialize_metric,
                                            combine_metadata,
+                                           shards_metadata,
                                            decode_flow_counts,
                                            interval_metadata, send_batch,
                                            stamp_interval_wire,
@@ -121,9 +124,12 @@ class ForwardClient:
                  replay_stale_after: float = 0.0,
                  tls: Optional[GrpcTLS] = None,
                  chaos: Optional[chaos_mod.Chaos] = None, ledger=None,
-                 authority: str = "", trace_plane=None):
+                 authority: str = "", trace_plane=None, shards: int = 0):
         self.address = address
         self.deadline = deadline
+        # the owning server's shard count, stamped as x-veneur-shards on
+        # every attempt
+        self.shards = max(0, int(shards))
         self.retry = retry or RetryPolicy()
         self.breaker = breaker or CircuitBreaker(name=f"forward:{address}")
         self.carryover = carryover or Carryover()
@@ -202,13 +208,15 @@ class ForwardClient:
             c.inject("forward_send")
 
     def _trace_sidecar(self):
-        """Trace and exemplar metadata for this send: the ambient span's
-        lineage (None on unsampled intervals and for a standalone
-        client) and the plane's exemplar blob."""
+        """Shard, trace and exemplar metadata for this send: the shard
+        count (unsharded: none), the ambient span's lineage (None on
+        unsampled intervals and for a standalone client) and the plane's
+        exemplar blob."""
+        parts = [shards_metadata(self.shards)]
         parent = trace_ctx.current_span()
         if parent is None:
-            return None
-        parts = [trace_metadata(parent.trace_id, parent.id)]
+            return combine_metadata(*parts)
+        parts.append(trace_metadata(parent.trace_id, parent.id))
         if self.trace_plane is not None:
             blob = self.trace_plane.exemplar_wire()
             if blob:

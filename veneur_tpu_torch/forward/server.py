@@ -37,7 +37,11 @@ plane, latest-wins; the `import.merge` span, parented on the sender's
 span, is recorded in the plane's store; a successful merge makes the
 owning server's next flush parent under it. All of this runs only after
 the token dedupe, so a hedged or retried duplicate opens no second tree.
-The peer-shard gauge is not ported yet.
+
+Every import notes its sender's shard count (`x-veneur-shards`) in a
+rolling two-window max, exported as the `mesh.peer_shards` gauge: a
+local that falls back to single tables keeps sending without the header,
+and the gauge decays to 0 within two windows.
 """
 
 from __future__ import annotations
@@ -59,8 +63,8 @@ from veneur_tpu_torch.forward.convert import (_SCOPE_FROM_PB,
                                               metric_key_of_proto)
 from veneur_tpu_torch.forward.protos import forward_pb2, metric_pb2
 from veneur_tpu_torch.forward.wire import (TokenDeduper, encode_flow_counts,
-                                           extract_interval, extract_trace,
-                                           metadata_value)
+                                           extract_interval, extract_shards,
+                                           extract_trace, metadata_value)
 from veneur_tpu_torch.ops import batch_tdigest, hll_ref
 from veneur_tpu_torch.samplers.metrics import (MetricKey, MetricScope,
                                                UDPMetric, update_tags)
@@ -133,6 +137,12 @@ class ImportServer:
         # keys every interval, so update_tags/fnv run once per key
         self._stub_cache: dict = {}
         self._deduper = TokenDeduper()
+        # widest sender shard count seen, as a rolling two-window max so
+        # the gauge decays when a sender narrows
+        self.PEER_SHARDS_WINDOW_S = 60.0
+        self._peer_shards_cur = 0
+        self._peer_shards_prev = 0
+        self._peer_shards_t0 = time.monotonic()
 
     @property
     def address(self) -> str:
@@ -142,12 +152,30 @@ class ImportServer:
     def duplicates_dropped_total(self) -> int:
         return self._deduper.duplicates_dropped_total
 
+    @property
+    def peer_shards(self) -> int:
+        return max(self._peer_shards_cur, self._peer_shards_prev)
+
+    def _note_peer_shards(self, ctx) -> None:
+        n = extract_shards(ctx)
+        now = time.monotonic()
+        elapsed = now - self._peer_shards_t0
+        if elapsed >= self.PEER_SHARDS_WINDOW_S:
+            # roll; a gap longer than two windows clears both slots
+            self._peer_shards_prev = (
+                self._peer_shards_cur
+                if elapsed < 2 * self.PEER_SHARDS_WINDOW_S else 0)
+            self._peer_shards_cur = 0
+            self._peer_shards_t0 = now
+        if n > self._peer_shards_cur:
+            self._peer_shards_cur = n
+
     def telemetry_rows(self) -> List[tuple]:
         """Scrape-time rows for the owning server's /metrics registry
-        (the JAX package's, less the peer-shard gauge, plus the RPC
-        handlers' lifetime totals)."""
+        (the JAX package's, plus the RPC handlers' lifetime totals)."""
         return [("forward.hedge.duplicates_dropped", "counter",
                  float(self.duplicates_dropped_total), ()),
+                ("mesh.peer_shards", "gauge", float(self.peer_shards), ()),
                 *self.rpc_stats.telemetry_rows(prefix="import.rpc")]
 
     def start(self) -> None:
@@ -178,6 +206,7 @@ class ImportServer:
         try:
             tspan = self._trace_begin(ctx)
             self._note_arrival()
+            self._note_peer_shards(ctx)
             received, merged = merge()
             ok = True
         except Exception as e:

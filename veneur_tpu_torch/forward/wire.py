@@ -2,8 +2,8 @@
 (the part of veneur_tpu/forward/wire.py the port uses): metricpb frame
 assembly, the FlowCounts response codec, the idempotency token, the
 interval stamp of replayed segments, the `x-veneur-trace` lineage
-sidecar and the V1-then-V2 transport policy. Free of torch: nothing here
-aggregates. The shard metadata is not ported yet.
+sidecar, the `x-veneur-shards` shard metadata and the V1-then-V2
+transport policy. Free of torch: nothing here aggregates.
 """
 
 from __future__ import annotations
@@ -271,6 +271,33 @@ class TokenDeduper:
                 self._done[token] = None
                 while len(self._done) > self.cache_max:
                     self._done.popitem(last=False)
+
+
+# gRPC metadata key carrying the sender's shard count: informational, it
+# lets a receiving tier export how wide the stores feeding it are
+# (mesh.peer_shards) and an operator spot a local that fell back to
+# single tables. Absent from unsharded senders; extraction gives 0.
+SHARDS_KEY = "x-veneur-shards"
+
+
+def shards_metadata(n_shards: int):
+    """Metadata tuple carrying the sender's shard count; None when the
+    sender is unsharded."""
+    if not n_shards or n_shards <= 1:
+        return None
+    return ((SHARDS_KEY, str(int(n_shards))),)
+
+
+def extract_shards(ctx) -> int:
+    """Sender shard count from a gRPC ServicerContext's invocation
+    metadata; 0 when absent or undecodable."""
+    value = metadata_value(ctx, SHARDS_KEY)
+    if not value:
+        return 0
+    try:
+        return max(0, int(value))
+    except (TypeError, ValueError):
+        return 0
 
 
 def send_batch(send_v1, send_v2, batch, timeout, v1_ok: bool,

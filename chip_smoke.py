@@ -261,8 +261,9 @@ the package is not beside it). Phases, each fatal on failure:
      max and reciprocal sum within tests/test_sharded_store.py's slack;
      the shards' routed counts sum to the samples sent; the HBM ledger
      equals the tensors after every swap, readout and recycle; each
-     family's merge timed (CUDA events), and interval 2's flush of both
-     stores under torch.profiler for the device's busy share. M2: a
+     family's merge timed in interval 1 (CUDA events), and interval 2's
+     flush of both stores alone under torch.profiler for the device's
+     busy share and its top device operations. M2: a
      4-shard local Server on the pump at phase D's local width forwards
      to a 4-shard global over gRPC, two intervals, checked as phase D
      checks its local and global; the global's `mesh.peer_shards` reads
@@ -6712,8 +6713,8 @@ def _m1_flush(store, obs=None, merge_ms=None) -> tuple:
 def _m_busy(run) -> tuple:
     """Run `run` under torch.profiler; returns its result and its wall
     time with the device's busy share of it (the union of the trace's
-    kernel, copy and set intervals), None where the trace holds no
-    device event."""
+    kernel, copy and set intervals) and the five device operations that
+    took longest in all, None where the trace holds no device event."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -6727,11 +6728,16 @@ def _m_busy(run) -> tuple:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", ())
-    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                    and "dur" in e)
+    ops = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in ops)
+    per_op: dict = {}
+    for e in ops:
+        per_op[e["name"][:60]] = per_op.get(e["name"][:60], 0.0) + e["dur"]
     rec = {"wall_s": wall, "device_events": len(device), "busy_ms": None,
-           "busy_share": None}
+           "busy_share": None, "top5_ms": [
+               (name, us / 1e3) for name, us in sorted(
+                   per_op.items(), key=lambda kv: -kv[1])[:5]]}
     if device:
         busy, end = 0.0, device[0][0]
         for a, b in device:
@@ -6831,17 +6837,16 @@ def _phase_m1() -> dict:
     sent = {f: 0 for f, *_ in _M_FAMILIES}
     _zero_launches()
     for i, cols in enumerate(intervals):
-        rec = {"merge_ms": {}}
+        rec = {}
         start = _read_launches()
         rec["feed_s"] = _m1_feed(sharded, cols)
         applied = _read_launches()
-        if i:  # interval 2: the flush under the profiler, both stores
+        if i:  # interval 2: the flush alone under the profiler, both stores
             (got, checks), rec["busy"] = _m_busy(
-                lambda: _m1_flush(sharded, obs, rec["merge_ms"]))
-        else:
-            t0 = time.perf_counter()
+                lambda: _m1_flush(sharded, obs))
+        else:  # interval 1: each family's merge timed inside the flush
+            rec["merge_ms"] = {}
             got, checks = _m1_flush(sharded, obs, rec["merge_ms"])
-            rec["flush_s"] = time.perf_counter() - t0
         flushed = _read_launches()
         rec["launches"] = {"apply": _m_delta(start, applied),
                            "flush": _m_delta(applied, flushed)}
@@ -7573,17 +7578,16 @@ def _report_m(name: str, rep: dict, phases: dict, smi: str) -> None:
     sharded local and global."""
     m1, m2 = rep["M1"], rep["M2"]
     for i, rec in enumerate(m1["intervals"]):
-        timing = (f"flush {rec['flush_s']:.3f} s" if "flush_s" in rec else
-                  "flush under the profiler: sharded " + ", ".join(
-                      f"{k} {rec['busy'][k]}" for k in rec["busy"])
-                  + "; single " + ", ".join(
-                      f"{k} {rec['single_busy'][k]}"
-                      for k in rec["single_busy"]))
+        timing = ("merge ms per family " + ", ".join(
+            f"{f} {ms:.4f}" for f, ms in rec["merge_ms"].items())
+            if "merge_ms" in rec else
+            "flush under the profiler: sharded " + ", ".join(
+                f"{k} {rec['busy'][k]}" for k in rec["busy"])
+            + "; single " + ", ".join(
+                f"{k} {rec['single_busy'][k]}" for k in rec["single_busy"]))
         print(f"phase M1 interval {i + 1} ({smi}): sharded feed "
               f"{rec['feed_s']:.3f} s, single feed "
-              f"{rec['single_feed_s']:.3f} s; {timing}; merge ms per family "
-              + ", ".join(f"{f} {ms:.4f}" for f, ms in
-                          rec["merge_ms"].items())
+              f"{rec['single_feed_s']:.3f} s; {timing}"
               + f"; launches {rec['launches']}; {rec['series_checked']} "
               f"series equal; routed per shard {rec['routed_per_shard']}",
               flush=True)

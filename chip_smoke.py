@@ -6,8 +6,8 @@ card, then runs the port's server end to end on the card.
     python3 chip_smoke.py [--phases S,J]
 
 `--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
-to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P, M); with
-neither,
+to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P, M, R);
+with neither,
 every phase runs. The kernel checks always run, and the last line is
 the same either way.
 
@@ -268,6 +268,30 @@ the package is not beside it). Phases, each fatal on failure:
      to a 4-shard global over gRPC, two intervals, checked as phase D
      checks its local and global; the global's `mesh.peer_shards` reads
      4. K1, K2 and K3 must each launch on the sharded apply and flush.
+ 19. phase R, the elastic reshard (BASELINE.md config 10), on cuda:0,
+     every server with `ledger_strict`. R1: two 2-shard servers without
+     listeners take M1's decoded columns; the first is resharded 2 -> 3
+     halfway through interval 1 (`server.reshard.begin(shards=3,
+     block=True)`, WAL in a temporary `reshard_spool_dir`) and holds
+     interval 2 on the new plane, the second is the control: every
+     flushed series equal to the control's (t-digest percentile rows
+     within rtol 1e-6, llhist sums within 1e-12, the rest exact), the
+     counters equal to the totals sent, the HBM ledger equal to the
+     tensors after the cutover with no `reshard_capture` bytes left, the
+     cutover's flush-lock hold split into capture, encode, WAL append,
+     decode and merge-back, and the rows moved per family; then a
+     cutover whose merge-back is killed after its segments are durable,
+     and a fresh 2-shard server on that spool whose recover() replays
+     every segment once (a second replays none) and whose flush equals
+     the control's. R2: a 2-shard server on the pump at phase A's widths
+     with `interval: 5s` on its own flush loop and the HTTP API, fed
+     phase A's corpus paced at A's steady rate; after three flushes
+     `POST /reshard {"shards": 3}` while the load flows, then two more
+     flushes and the last interval at shutdown: every counter's total
+     over the flushes equal to what was sent, every strict ledger
+     interval balanced, `GET /debug/reshard` idle at epoch 1 with 3
+     shards, the `reshard.*` rows on `/metrics`; each flush's seconds
+     before, during and after the cutover and its flush-lock hold.
 
 Phases I and S run in a side process of their own on the same card,
 started where I stands in the order, beside the main process's J, O and
@@ -278,7 +302,7 @@ its own phases, and its failure is the run's. The last `phase seconds`
 line gives each phase's seconds and the smoke's wall time.
 
 Two spawned worker processes build the selected phases' big corpora
-(A, B, D, F, G, H1, J1, O1, P1, M) ahead, in phase order, while the kernels
+(A, B, D, F, G, H1, J1, O1, P1, M, R) ahead, in phase order, while the kernels
 build and the earlier phases run; a phase takes its corpora from them,
 or builds them itself when run alone.
 
@@ -7000,6 +7024,443 @@ def _phase_m() -> dict:
         k: m1["launches"][k] + m2["launches"][k] for k in _M_KERNELS}}
 
 
+# ---------------------------------------------------------------------------
+# phase R: the elastic reshard
+# ---------------------------------------------------------------------------
+
+PHASE_R_SHARDS = (2, 3)             # N -> M (BASELINE.md config 10)
+PHASE_R1_SEEDS = (81, 82)           # M1's decoded columns
+PHASE_R2_SEEDS = (91, 92)           # phase A's corpus, sent in turns
+PHASE_R2_RATE = 183_640             # phase A's steady rate, lines/s
+PHASE_R2_INTERVALS = (3, 2)         # flushes before and after the cutover
+_R_FAMILIES = ("counter", "gauge", "histogram", "llhist", "set")
+
+
+class _TimedLock:
+    """A server's flush lock, each hold timed by the holding thread's
+    name."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.holds = []
+        self._t = 0.0
+
+    def __enter__(self):
+        self._lock.acquire()
+        self._t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.holds.append((threading.current_thread().name,
+                           time.perf_counter() - self._t))
+        self._lock.release()
+
+
+def _r_server(extra: dict, tpu: dict):
+    """A 2-shard Server on cuda:0 with a strict ledger and a channel
+    sink; its flush lock timed."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    server = _server({"ledger_strict": True, **extra},
+                     {**tpu, "shards": PHASE_R_SHARDS[0]},
+                     ChannelMetricSink())
+    server._flush_lock = _TimedLock(server._flush_lock)
+    return server
+
+
+def _r_instrument(server) -> dict:
+    """Time the cutover's parts on this server's controller: the capture
+    (each family's reshard_swap, with the rows it moved), the encode,
+    each WAL append, each segment's decode and merge-back."""
+    from veneur_tpu_torch.forward import rangewire
+    ctl = server.reshard
+    split = {"capture_s": 0.0, "encode_s": 0.0, "wal_append_s": 0.0,
+             "decode_s": 0.0, "merge_s": 0.0, "rows_moved": {},
+             "segments_merged": 0}
+
+    def timed(key, fn, after=None):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[key] += time.perf_counter() - t0
+            if after is not None:
+                after(out)
+            return out
+        return run
+
+    for family, table in server.store.tables():
+        if hasattr(table, "reshard_swap"):
+            table.reshard_swap = timed(
+                "capture_s", table.reshard_swap,
+                lambda snap, f=family: split["rows_moved"].__setitem__(
+                    f, int(snap["touched"].sum()) if "touched" in snap
+                    else 0))
+    ctl._encode_cells = timed("encode_s", ctl._encode_cells)
+    spool = ctl._spool()
+    if spool is not None:
+        spool.append = timed("wal_append_s", spool.append)
+    ctl._merge_decoded = timed(
+        "merge_s", ctl._merge_decoded,
+        lambda _n: split.__setitem__("segments_merged",
+                                     split["segments_merged"] + 1))
+    split["_decode"] = rangewire.decode_segment
+    rangewire.decode_segment = timed("decode_s", rangewire.decode_segment)
+    return split
+
+
+def _r_uninstrument(split: dict) -> None:
+    from veneur_tpu_torch.forward import rangewire
+    rangewire.decode_segment = split.pop("_decode")
+
+
+def _r_feed(server, cols) -> float:
+    """M1's decoded columns into a server's store, the ingest identity's
+    admitted side stamped as the ingesters stamp it."""
+    seconds = _m1_feed(server.store, cols)
+    server.ledger.note("ingest.admitted",
+                       sum(len(cols[f][0]) for f in _R_FAMILIES),
+                       key="smoke")
+    return seconds
+
+
+def _r_half(cols: dict, first: bool) -> dict:
+    out = {}
+    for family in _R_FAMILIES:
+        n = len(cols[family][0]) // 2
+        out[family] = tuple(c[:n] if first else c[n:] for c in cols[family])
+    return out
+
+
+def _r_flush(server) -> tuple:
+    server.flush()
+    got, buckets = _collect(server.metric_sinks[0])
+    return got, buckets, server.last_flush_timings["total_s"]
+
+
+def _r_compare(got: tuple, want: tuple, what: str) -> int:
+    """tests/test_reshard.py's rule: every series equal to the control's,
+    the t-digest percentile rows within rtol 1e-6."""
+    (g, gb), (w, wb) = got[:2], want[:2]
+    if set(g) != set(w) or gb != wb:
+        raise AssertionError(
+            f"phase {what}: series or buckets differ from the control: "
+            f"{sorted(set(g) ^ set(w))[:5]}")
+    def equal(k, v):
+        if k.endswith("percentile"):
+            return math.isclose(g[k], v, rel_tol=1e-6, abs_tol=0.0)
+        if k.startswith("m1.l") and k.endswith(".sum"):
+            # a dot product whose last bit follows the readout's rows
+            return math.isclose(g[k], v, rel_tol=1e-12, abs_tol=0.0)
+        return g[k] == v
+    bad = [k for k, v in w.items() if not equal(k, v)]
+    if bad:
+        raise AssertionError(f"phase {what}: {len(bad)} series differ from "
+                             f"the control, e.g. {bad[0]}: {g[bad[0]]} "
+                             f"against {w[bad[0]]}")
+    return len(w) + sum(len(v) for v in wb.values())
+
+
+def _r_ledgers(*servers) -> int:
+    """Every closed interval of each strict ledger balanced."""
+    closed = 0
+    for server in servers:
+        for interval in server.ledger.history_imbalances():
+            if any(v != 0.0 for v in interval.values()):
+                raise AssertionError(f"phase R: ledger imbalance {interval}")
+            closed += 1
+        if any(v != 0.0 for v in server.ledger.imbalance_net.values()):
+            raise AssertionError(f"phase R: ledger imbalance "
+                                 f"{server.ledger.imbalance_net}")
+    return closed
+
+
+def _r_hbm(server, what: str) -> int:
+    """The HBM ledger equal to the store's tensors, no capture left."""
+    obs = server.deviceobs
+    held = _m_walk(server.store, [])
+    capture = sum(states.get("reshard_capture", 0)
+                  for states in obs.ledger()["by_family"].values())
+    if obs.total_bytes() != held or capture:
+        raise AssertionError(f"phase {what}: the HBM ledger holds "
+                             f"{obs.total_bytes()} bytes ({capture} of "
+                             f"reshard_capture), the tensors {held}")
+    return held
+
+
+def _r_close(*servers) -> None:
+    for server in servers:
+        server.config.flush_on_shutdown = False
+        server.shutdown()
+
+
+def _phase_r1(workdir: str) -> dict:
+    """R1: two 2-shard servers without listeners take M1's decoded
+    columns; the first is resharded 2 -> 3 halfway through interval 1
+    and holds interval 2 on the new plane, the second is the control;
+    then a cutover killed after its segments are durable replays into a
+    fresh 2-shard server."""
+    from veneur_tpu_torch.parallel.reshard import ReshardError
+    intervals = [_m1_interval(seed) for seed in PHASE_R1_SEEDS]
+    caps = dict(PHASE_M_CAPS)
+    server = _r_server({"statsd_listen_addresses": [],
+                        "reshard_spool_dir": os.path.join(workdir, "wal")},
+                       caps)
+    control = _r_server({"statsd_listen_addresses": []}, caps)
+    crashed = recovered = None
+    report = {"intervals": []}
+    try:
+        _m1_intern((server.store, control.store))
+        split = _r_instrument(server)
+        try:
+            _zero_launches()
+            start = _read_launches()
+            for i, cols in enumerate(intervals):
+                rec = {}
+                if i == 0:
+                    rec["feed_s"] = _r_feed(server, _r_half(cols, True))
+                    t0 = time.perf_counter()
+                    server.reshard.begin(shards=PHASE_R_SHARDS[1],
+                                         block=True)
+                    rec["begin_s"] = time.perf_counter() - t0
+                    rec["feed_s"] += _r_feed(server, _r_half(cols, False))
+                    report["hbm_after_cutover"] = _r_hbm(server, "R1")
+                else:
+                    rec["feed_s"] = _r_feed(server, cols)
+                applied = _read_launches()
+                got = _r_flush(server)
+                flushed = _read_launches()
+                # interval 1's apply window holds the cutover's prewarm
+                rec["launches"] = {
+                    "apply" if i else "apply_and_cutover":
+                    _m_delta(start, applied),
+                    "flush": _m_delta(applied, flushed)}
+                _m_require(_m_delta(start, flushed), _M_KERNELS,
+                           f"R1 interval {i + 1}")
+                start = flushed
+                _r_feed(control, cols)
+                want = _r_flush(control)
+                rec["flush_s"], rec["control_flush_s"] = got[2], want[2]
+                rec["series_equal"] = _r_compare(got, want, "R1")
+                totals = cols["counter_totals"]
+                if [got[0][f"m1.c{k}"] for k in range(totals.size)] \
+                        != totals.tolist():
+                    raise AssertionError("phase R1: counters differ from "
+                                         "the totals sent")
+                report["intervals"].append(rec)
+            report["launches"] = {k: sum(
+                part[k] for rec in report["intervals"]
+                for part in rec["launches"].values()) for k in _M_KERNELS}
+        finally:
+            _r_uninstrument(split)
+        ctl = server.reshard.describe()
+        if (ctl["epoch"], ctl["shards"], ctl["inflight_metrics"]) != (
+                1, PHASE_R_SHARDS[1], 0) or not ctl["segments_written"]:
+            raise AssertionError(f"phase R1: controller {ctl}")
+        report["controller"] = ctl
+        report["split"] = split
+        report["flush_lock_holds"] = [
+            (name, s) for name, s in server._flush_lock.holds
+            if name == "reshard-plan"]
+        report["hbm_bytes"] = _r_hbm(server, "R1")
+        report["plane"] = server.store.shard_plane.describe()
+        _r_close(server)
+        server = None
+        torch.cuda.empty_cache()
+
+        # the crash: every segment durable, the merge-back dies
+        crash_dir = os.path.join(workdir, "crash")
+        crashed = _r_server({"statsd_listen_addresses": [],
+                             "reshard_spool_dir": crash_dir}, caps)
+        _m1_intern((crashed.store,))
+        _r_feed(crashed, intervals[0])
+
+        def die(batch):
+            raise RuntimeError("the merge-back killed after the WAL append")
+        crashed.reshard._merge_decoded = die
+        try:
+            crashed.reshard.begin(shards=PHASE_R_SHARDS[1], block=True)
+            raise AssertionError("phase R1: the killed cutover succeeded")
+        except ReshardError:
+            pass
+        written = crashed.reshard.segments_written
+        _r_close(crashed)
+        crashed = None
+        torch.cuda.empty_cache()
+        recovered = _r_server({"statsd_listen_addresses": [],
+                               "reshard_spool_dir": crash_dir}, caps)
+        t0 = time.perf_counter()
+        replayed = recovered.reshard.recover()
+        replay_s = time.perf_counter() - t0
+        again = recovered.reshard.recover()
+        if not written or replayed != written or again != 0:
+            raise AssertionError(f"phase R1 crash: {written} segments "
+                                 f"written, {replayed} replayed, then "
+                                 f"{again}")
+        got = _r_flush(recovered)
+        _r_feed(control, intervals[0])
+        want = _r_flush(control)
+        report["crash"] = {"segments_written": written,
+                           "replayed": replayed, "replayed_again": again,
+                           "replay_s": replay_s,
+                           "series_equal": _r_compare(got, want,
+                                                      "R1 crash replay")}
+        report["ledger_intervals"] = _r_ledgers(control, recovered)
+    finally:
+        _r_close(*(s for s in (server, control, crashed, recovered)
+                   if s is not None))
+    return report
+
+
+def _phase_r2(workdir: str) -> dict:
+    """R2: a 2-shard server on the pump at phase A's widths, `interval:
+    5s` on its own flush loop, fed paced UDP at phase A's steady rate;
+    after three flushes `POST /reshard {"shards": 3}` while the load
+    keeps flowing, then two more flushes; every counter's total over
+    every interval equal to what was sent."""
+    import urllib.request
+    corpora = [_corpus(seed, PHASE_A_KEYS) for seed in PHASE_R2_SEEDS]
+    server = _r_server({"interval": "5s", "flush_on_shutdown": True,
+                        "http_address": "127.0.0.1:0",
+                        "reshard_spool_dir": os.path.join(workdir, "r2")},
+                       {"counter_capacity": 65536, "gauge_capacity": 32768,
+                        "histo_capacity": 32768, "set_capacity": 16384})
+    sink = server.metric_sinks[0]
+    _zero_launches()
+    server.start()
+    report = {"rounds": 0}
+    stop = threading.Event()
+    sent_rounds, errors = [], []
+    try:
+        addr = server.listen_addresses[0]
+        host, port = server.http_api.address
+        base_url = f"http://{host}:{port}"
+        window = _pump_window(server)
+
+        def sender():
+            base = 0
+            try:
+                while not stop.is_set():
+                    lines = corpora[len(sent_rounds) % len(corpora)][0]
+                    _send_at_rate(server, addr, lines, base, window,
+                                  PHASE_R2_RATE)
+                    base += len(lines)
+                    sent_rounds.append(len(sent_rounds) % len(corpora))
+            except Exception as e:  # reported by the main thread
+                errors.append(e)
+        thread = threading.Thread(target=sender, name="r2-sender",
+                                  daemon=True)
+        t_start = time.time()
+        thread.start()
+
+        def flushed():
+            return len(server.telemetry.flushes.snapshot())
+
+        def wait_flushes(n, what):
+            deadline = time.monotonic() + 120.0
+            while flushed() < n:
+                if errors or time.monotonic() > deadline:
+                    raise AssertionError(f"phase R2: {what}: {errors}")
+                time.sleep(0.05)
+        wait_flushes(PHASE_R2_INTERVALS[0], "no third flush")
+        t_post = time.time()
+        req = urllib.request.Request(
+            base_url + "/reshard", data=json.dumps(
+                {"shards": PHASE_R_SHARDS[1]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            if r.status != 202:
+                raise AssertionError(f"phase R2: POST /reshard {r.status}")
+        deadline = time.monotonic() + 120.0
+        while True:
+            with urllib.request.urlopen(base_url + "/debug/reshard",
+                                        timeout=30) as r:
+                state = json.loads(r.read())
+            if state["state"] == "idle" and state["epoch"] == 1:
+                break
+            if state["last_error"] or time.monotonic() > deadline:
+                raise AssertionError(f"phase R2: reshard {state}")
+            time.sleep(0.05)
+        t_done = time.time()
+        if state["shards"] != PHASE_R_SHARDS[1]:
+            raise AssertionError(f"phase R2: /debug/reshard {state}")
+        wait_flushes(flushed() + PHASE_R2_INTERVALS[1],
+                     "no flush after the cutover")
+        stop.set()
+        thread.join(timeout=120.0)
+        if errors or thread.is_alive():
+            raise AssertionError(f"phase R2: the sender failed: {errors}")
+        report["rounds"] = len(sent_rounds)
+        report["lines"] = sum(len(corpora[i][0]) for i in sent_rounds)
+        report["send_s"] = time.time() - t_start
+        stats = server.stats_snapshot()
+        if (stats["lines_received"] != report["lines"]
+                or stats["ingest_dispatch_errors"]):
+            raise AssertionError(f"phase R2: sent {report['lines']}, "
+                                 f"{stats}")
+        with urllib.request.urlopen(base_url + "/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        report["reshard_rows"] = sorted({
+            line.split("{")[0].split(" ")[0] for line in text.splitlines()
+            if line.startswith("veneur_reshard_")})
+        if len(report["reshard_rows"]) < 10:
+            raise AssertionError(f"phase R2: /metrics reshard rows "
+                                 f"{report['reshard_rows']}")
+        report["debug_reshard"] = state
+    finally:
+        stop.set()
+        server.shutdown()  # flush_on_shutdown: the last interval too
+    report["launches"] = _read_launches()
+    _m_require(report["launches"], ("tdigest_flush", "hll_estimate"),
+               "R2 resharded server")
+    totals: dict = {}
+    for m in sink.drain():
+        if m.name.startswith("smoke.c"):
+            totals[m.name] = totals.get(m.name, 0.0) + m.value
+    want: dict = {}
+    for i in sent_rounds:
+        for name, value in corpora[i][1].items():
+            if name.startswith("smoke.c"):
+                want[name] = want.get(name, 0.0) + value
+    if totals != want:
+        bad = sorted(k for k in want if totals.get(k) != want[k])
+        raise AssertionError(f"phase R2: {len(bad)} counter totals differ "
+                             f"from what was sent, e.g. {bad[:1]}")
+    report["counters_checked"] = len(want)
+    report["ledger_intervals"] = _r_ledgers(server)
+    flushes = server.telemetry.flushes.snapshot()
+    report["flushes"] = [
+        ("before" if f["start_unix"] + f["duration_s"] < t_post else
+         "after" if f["start_unix"] > t_done else "during",
+         f["flush"], f["duration_s"]) for f in flushes]
+    report["cutover"] = {
+        "post_to_idle_s": t_done - t_post,
+        "lock_hold_s": [s for name, s in server._flush_lock.holds
+                        if name == "reshard-plan"],
+        "last_cutover_seconds": server.reshard.last_cutover_seconds,
+        "segments_written": server.reshard.segments_written}
+    return report
+
+
+def _phase_r() -> dict:
+    """Phase R: R1, the in-process reshard against a control and the
+    crash replay, and R2, a live reshard through POST /reshard."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="smoke-r-")
+    try:
+        t0 = time.perf_counter()
+        r1 = _phase_r1(workdir)
+        torch.cuda.empty_cache()
+        r1["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r2 = _phase_r2(workdir)
+        r2["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"R1": r1, "R2": r2, "launches": {
+        k: r1["launches"][k] + r2["launches"][k] for k in _M_KERNELS}}
+
+
 def _prebuild_plan() -> dict:
     """Per phase, the corpora it builds first, called exactly as the
     phase calls them (the key is the arguments' repr)."""
@@ -7021,6 +7482,8 @@ def _prebuild_plan() -> dict:
         "P": with_sets(PHASE_P_SEEDS, PHASE_P_LL_KEYS),
         "M": [item for seed in PHASE_M_SEEDS for item in (
             (_m1_interval, (seed,)), (_m2_interval, (seed,)))],
+        "R": [(_m1_interval, (seed,)) for seed in PHASE_R1_SEEDS]
+        + [(_corpus, (seed, a)) for seed in PHASE_R2_SEEDS],
     }
 
 
@@ -7043,7 +7506,7 @@ def _start_prebuild(selected, side=()):
 
 
 PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O",
-          "P", "M")
+          "P", "M", "R")
 # phases run in a process of their own, on the same card, beside the
 # main process's later phases (J, O and P) when the run has others: each
 # spends most of its time on one interpreter lock (the SSF reader, the
@@ -7608,6 +8071,51 @@ def _report_m(name: str, rep: dict, phases: dict, smi: str) -> None:
           f"{m2['launches']}; {m2['seconds']:.1f} s", flush=True)
 
 
+def _report_r(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase R: the in-process reshard and its crash replay, and
+    the live reshard through POST /reshard."""
+    r1, r2 = rep["R1"], rep["R2"]
+    split = {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in r1["split"].items()}
+    ctl = r1["controller"]
+    print(f"phase R1 ({smi}): 2 -> 3 shards halfway through interval 1: "
+          f"begin {r1['intervals'][0]['begin_s']:.3f} s, last_cutover_"
+          f"seconds {ctl['last_cutover_seconds']:.4f}, flush lock held "
+          f"{[round(s, 4) for _n, s in r1['flush_lock_holds']]} s; split "
+          f"{split}; segments written {ctl['segments_written']}; HBM "
+          f"ledger equal to the tensors after the cutover "
+          f"({r1['hbm_after_cutover']} bytes, no reshard_capture); plane "
+          f"{r1['plane']}", flush=True)
+    for i, rec in enumerate(r1["intervals"]):
+        print(f"phase R1 interval {i + 1}: feed {rec['feed_s']:.3f} s, "
+              f"flush {rec['flush_s']:.3f} s (control "
+              f"{rec['control_flush_s']:.3f} s); {rec['series_equal']} "
+              f"series equal to the never-resharded control; launches "
+              f"{rec['launches']}", flush=True)
+    crash = r1["crash"]
+    print(f"phase R1 crash replay: {crash['segments_written']} segments "
+          f"durable, recover() replayed {crash['replayed']} in "
+          f"{crash['replay_s']:.3f} s, then {crash['replayed_again']}; "
+          f"{crash['series_equal']} series equal to the control; "
+          f"{r1['ledger_intervals']} strict ledger intervals balanced; "
+          f"R1 launches {r1['launches']}; {r1['seconds']:.1f} s",
+          flush=True)
+    cut = r2["cutover"]
+    state = {k: r2["debug_reshard"][k] for k in ("state", "epoch", "shards")}
+    print(f"phase R2 ({smi}): {r2['lines']} lines in {r2['rounds']} rounds "
+          f"at up to {PHASE_R2_RATE} lines/s over {r2['send_s']:.1f} s; "
+          f"flushes (when, flush, s) {r2['flushes']}; POST /reshard to "
+          f"idle {cut['post_to_idle_s']:.3f} s, flush lock held "
+          f"{[round(s, 4) for s in cut['lock_hold_s']]} s, "
+          f"last_cutover_seconds {cut['last_cutover_seconds']:.4f}, "
+          f"segments {cut['segments_written']}; /debug/reshard "
+          f"{state}; "
+          f"{r2['counters_checked']} counter totals equal to what was "
+          f"sent; {r2['ledger_intervals']} strict ledger intervals "
+          f"balanced; /metrics rows {r2['reshard_rows']}; launches "
+          f"{r2['launches']}; {r2['seconds']:.1f} s", flush=True)
+
+
 # each phase's run and the report it prints
 _PHASE_RUNS = {
     "A": (_phase_a, _report_abc),
@@ -7625,6 +8133,7 @@ _PHASE_RUNS = {
     "O": (_phase_o, _report_o),
     "P": (_phase_p, _report_p),
     "M": (_phase_m, _report_m),
+    "R": (_phase_r, _report_r),
 }
 
 

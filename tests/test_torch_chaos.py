@@ -91,11 +91,19 @@ def test_chaos_keys_build_the_jax_plan():
     assert Chaos.from_config(config_from_dict({})) is None
     with pytest.raises(ValueError, match="unknown chaos seam"):
         Chaos(seams=("ingest",))
-    for key in ("chaos_reshard_prewarm_delay_s",
-                "chaos_reshard_cutover_delay_s",
-                "chaos_reshard_append_fault_nth"):
-        with pytest.raises(ValueError, match=key):
-            config_from_dict({key: 1})
+    # the reshard seams' keys are read, into the JAX plan's fields
+    reshard = {"chaos_reshard_prewarm_delay_s": 0.5,
+               "chaos_reshard_cutover_delay_s": 1.5,
+               "chaos_reshard_append_fault_nth": 2}
+    t = Chaos.from_config(config_from_dict(dict(raw, **reshard)))
+    for k, v in reshard.items():
+        setattr(jcfg, k, v)
+    j = JChaos.from_config(jcfg)
+    for attr in ("reshard_prewarm_delay_s", "reshard_cutover_delay_s",
+                 "reshard_append_fault_nth"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    for k in reshard:
+        setattr(jcfg, k, 0)
     # the ingest seams' keys are read, into the JAX plan's fields
     raw.update(chaos_ingest_drop_rate=0.1, chaos_ingest_truncate_rate=0.2,
                chaos_ingest_duplicate_rate=0.3, chaos_ingest_rss_bytes=7,
@@ -169,6 +177,9 @@ def test_sink_flush_seam_spills_for_one_retry():
                             "chaos_seams": ["sink_flush"]})
     sink = _Sink()
     server = Server(cfg, device="cpu", extra_metric_sinks=[sink])
+    # the server's own flush spans reach its span extraction, whose 1 in
+    # 100 ssf.names_unique roll can add a row to the batch: off
+    server.metric_extraction.uniqueness_rate = 0.0
     server.start()
     try:
         server.handle_packet_batch([b"sf:1|c"])

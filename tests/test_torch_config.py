@@ -74,6 +74,10 @@ def _assert_same(port_cfg, jax_cfg) -> int:
                        "VENEUR_COUNT_UNIQUE_TIMESERIES": "1",
                        "VENEUR_TPU_IDLE_KEY_INTERVALS": "2",
                        "VENEUR_TPU_MAX_ROWS_PER_FAMILY": "1000",
+                       "VENEUR_RESHARD_DEADLINE": "45s",
+                       "VENEUR_RESHARD_SPOOL_DIR": "/var/spool/reshard",
+                       "VENEUR_CHAOS_RESHARD_APPEND_FAULT_NTH": "3",
+                       "VENEUR_CHAOS_RESHARD_CUTOVER_DELAY_S": "0.5",
                        "VENEUR_NOT_A_KEY": "ignored",
                        "PATH": "/bin"}),
     # the observatory and overlapped-flush keys, from the file and from
@@ -106,7 +110,7 @@ def test_env_overlay_matches_jax(tmp_path, text, env):
     path.write_text(text)
     port_cfg = port_config.read_config(str(path), env=env)
     jax_cfg = jax_config.read_config(str(path), env=env)
-    assert _assert_same(port_cfg, jax_cfg) == 114
+    assert _assert_same(port_cfg, jax_cfg) == 119
     assert _assert_same(port_cfg.tpu, jax_cfg.tpu) == 13
 
 
@@ -158,10 +162,20 @@ def test_env_overlay_precedes_the_defaults(tmp_path):
 def test_env_naming_a_jax_only_key_raises_by_name(tmp_path, name):
     """A JAX key the port lacks raises by name from the environment;
     `tpu.shards` and `tpu.shard_routing`, ported since, raise by name on
-    a value out of their range."""
+    a value out of their range; the reshard keys, ported with the
+    elastic reshard, are read from it as the JAX package reads them."""
     path = tmp_path / "cfg.yaml"
     path.write_text("interval: 5s\n")
     key = name[len("VENEUR_"):].lower()
+    if "reshard" in key:
+        value = "45s" if "deadline" in key else "2"
+        # the port's overlay matches a name in any case, the JAX
+        # package's the upper-case name only
+        assert getattr(port_config.read_config(
+            str(path), env={name: value}), key) == getattr(
+            jax_config.read_config(str(path),
+                                   env={name.upper(): value}), key)
+        return
     if key.startswith("tpu_"):
         key = key[len("tpu_"):]
     value = {"VENEUR_TPU_SHARDS": "129",

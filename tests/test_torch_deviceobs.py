@@ -14,8 +14,10 @@ JAX ledger keeps the old size), and it books a compile only for a
 kernel's first-use build or load, none for a resize or a prewarm rung.
 The kernel registry's dispatch rows equal the JAX registry's, and its
 launch counts equal the kernel wrappers' own counts. The shard-balance
-plane is held to the JAX package's in tests/test_torch_sharded.py; the
-reshard case waits for the port's elastic reshard."""
+plane is held to the JAX package's in tests/test_torch_sharded.py; here,
+a live 2 -> 3 reshard's ledger (the captured generations booked
+`reshard_capture` through the merge-back, then dropped) and the
+`reshard_plan` entry, each against the JAX package's."""
 
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from veneur_tpu_torch.sinks.channel import ChannelMetricSink
 
 from test_deviceobs import (AGGS as JAGGS, PCTS, _feed as jfeed_server,
                             _feed_store as jfeed, _mk_store as jmk_store,
-                            corpus, mk_server as jmk_server)
+                            _skewed_names, corpus, mk_server as jmk_server)
 
 AGGS = HistogramAggregates.from_names(
     ["min", "max", "median", "avg", "count", "sum"])
@@ -93,8 +95,7 @@ def token_counts(obs) -> dict:
 
 
 def family_bytes(obs) -> dict:
-    """Per family, per state, the nonzero bytes (the JAX ledger also
-    lists a reshard_capture state, always 0 here)."""
+    """Per family, per state, the nonzero bytes."""
     return {family: {s: n for s, n in states.items() if n}
             for family, states in obs.ledger()["by_family"].items()}
 
@@ -388,6 +389,101 @@ def test_debug_device_http_surface():
         assert body["watermarks"] == want["watermarks"] == {
             "state": "ok", "soft_bytes": 0, "hard_bytes": 0,
             "last_bytes": 0, "transitions": 0}
+    finally:
+        for srv in (server, jserver):
+            srv.config.flush_on_shutdown = False
+            srv.shutdown()
+
+
+def _pserver(**kw):
+    from test_torch_reshard import mk_server
+    return mk_server(**kw)[0]
+
+
+def test_live_reshard_2_to_3_conserves(tmp_path):
+    """tests/test_deviceobs.py's live reshard on both packages: the
+    captured generations ride `reshard_capture` through the WAL'd
+    merge-back and are dropped at the cutover, the 3-shard generations
+    register fresh; the ledger equals the tensors at every quiescent
+    point, and its tokens and bytes equal the JAX ledger's, mid-cutover
+    too."""
+    server = _pserver(**{"tpu.shards": 2},
+                      reshard_spool_dir=str(tmp_path / "wal"))
+    jserver, _ = jmk_server(**{"tpu.shards": 2},
+                            reshard_spool_dir=str(tmp_path / "jwal"))
+    mid = {}
+
+    def spy(srv, key):
+        inner = srv.reshard._wal_and_merge
+
+        def wal_and_merge(cells, chaos):
+            mid[key] = (token_counts(srv.deviceobs),
+                        family_bytes(srv.deviceobs))
+            return inner(cells, chaos)
+        srv.reshard._wal_and_merge = wal_and_merge
+
+    try:
+        obs, jobs = server.deviceobs, jserver.deviceobs
+        for srv in (server, jserver):
+            jfeed_server(srv, corpus())
+        assert obs.total_bytes() == walk(server.store)
+        for srv in (server, jserver):
+            srv.flush()
+        assert obs.total_bytes() == walk(server.store)
+        assert family_bytes(obs) == family_bytes(jobs)
+        spy(server, "port")
+        spy(jserver, "jax")
+        for srv in (server, jserver):
+            jfeed_server(srv, corpus(round_no=1))
+            srv.reshard.begin(shards=3, block=True)
+        # mid-cutover: every family's capture booked reshard_capture
+        assert mid["port"] == mid["jax"]
+        assert {f for f, st in mid["port"][1].items()
+                if st.get("reshard_capture")} == {
+            "counter", "gauge", "histogram", "llhist", "set"}
+        led = obs.ledger()
+        assert all(st.get("reshard_capture", 0) == 0
+                   and st.get("inflight", 0) == 0
+                   for st in led["by_family"].values())
+        assert obs.total_bytes() == walk(server.store) > 0
+        assert token_counts(obs) == token_counts(jobs)
+        assert family_bytes(obs) == family_bytes(jobs)
+        for srv in (server, jserver):
+            jfeed_server(srv, corpus(round_no=3))
+            srv.flush()
+        assert obs.total_bytes() == walk(server.store)
+        assert family_bytes(obs) == family_bytes(jobs)
+        bal = obs.shard_balance()
+        assert bal is not None and bal["n_shards"] == 3
+    finally:
+        for srv in (server, jserver):
+            srv.config.flush_on_shutdown = False
+            srv.shutdown()
+
+
+def test_hot_shard_detection_and_reshard_plan():
+    """All rows on one of four shards: skew 4.0, shard 0 hot, and the
+    reshard plan equal to the JAX planner's over the same candidate
+    range (the JAX package's device count)."""
+    import jax
+    server = _pserver(**{"tpu.shards": 4})
+    jserver, _ = jmk_server(**{"tpu.shards": 4})
+    try:
+        server.deviceobs.reshard_plan_max_shards = len(jax.devices())
+        names = _skewed_names(4, 0, 24)
+        for srv in (server, jserver):
+            jfeed_server(srv, names)
+        bal = server.deviceobs.shard_balance()
+        assert bal["rows_per_shard"] == [24, 0, 0, 0]
+        assert bal["skew"] == pytest.approx(4.0)
+        assert bal["hot_shards"] == [0]
+        plan = bal["reshard_plan"]
+        assert plan == jserver.deviceobs.shard_balance()["reshard_plan"]
+        assert plan["from_shards"] == 4 and plan["to_shards"] != 4
+        assert plan["migration_cells"] >= 1
+        # the server's default range is the port's own setting
+        server.deviceobs.reshard_plan_max_shards = 1
+        assert "reshard_plan" not in server.deviceobs.shard_balance()
     finally:
         for srv in (server, jserver):
             srv.config.flush_on_shutdown = False

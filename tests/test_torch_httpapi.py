@@ -163,14 +163,21 @@ def _jax_server(**extra):
     cfg.alerts.interval = 3600.0
     for key, value in extra.items():
         setattr(cfg, key, value)
-    return JServer(cfg.apply_defaults(), extra_metric_sinks=[JChannel()])
+    server = JServer(cfg.apply_defaults(), extra_metric_sinks=[JChannel()])
+    # a server's own spans reach its span extraction, whose 1 in 100
+    # ssf.names_unique roll can add a flushed row: off on both servers
+    server.metric_extraction._uniqueness_rate = 0.0
+    return server
 
 
 def _port_server(**extra):
     cfg = config_from_dict({
         "interval": "1h", "hostname": "test", "tpu": SIZES,
         "alerts": {"interval": "1h", "rules": RULES}, **extra})
-    return Server(cfg, device="cpu", extra_metric_sinks=[ChannelMetricSink()])
+    server = Server(cfg, device="cpu",
+                    extra_metric_sinks=[ChannelMetricSink()])
+    server.metric_extraction.uniqueness_rate = 0.0
+    return server
 
 
 def _received(server):
@@ -415,8 +422,19 @@ def test_operator_keys_are_accepted(raw):
                                  "jax_compilation_cache_dir",
                                  "reshard_spool_dir", "reshard_deadline"])
 def test_unported_keys_still_raise(key):
-    with pytest.raises(ValueError, match=key):
-        config_from_dict({key: 1})
+    """jax_compilation_cache_dir has no torch meaning and raises by name;
+    the reshard keys, ported with the elastic reshard, read like the JAX
+    package's Config."""
+    if key == "jax_compilation_cache_dir":
+        with pytest.raises(ValueError, match=key):
+            config_from_dict({key: 1})
+        return
+    from veneur_tpu.config import Config as JConfig
+    from veneur_tpu.config import read_config as jread_config
+    value = "45s" if key == "reshard_deadline" else 1
+    assert getattr(config_from_dict({}), key) == getattr(JConfig(), key)
+    assert getattr(config_from_dict({key: value}), key) == \
+        getattr(jread_config(overrides={key: value}), key)
 
 
 @pytest.mark.parametrize("key,value", [("ingest_rate_limit_spans", 250.0),

@@ -166,6 +166,56 @@ def test_ingest_over_udp_through_the_pump_balances():
         server.shutdown()
 
 
+@pytest.mark.parametrize("decoder", ["native", "numpy"])
+def test_flush_racing_a_chunk_in_transit_balances(decoder, monkeypatch):
+    """A flush whose interval close lands while a chunk is between its
+    admitted stamp and its table's applied stamp (the histogram apply
+    held here until the flush is well under way): the close waits for
+    the chunk, so the strict ledger books both sides in one interval.
+    Without the wait it books the admitted samples alone and raises."""
+    import threading
+    tpu = {"disable_native_parser": decoder == "numpy"}
+    server, _sink = _tserver(ledger_strict=True, tpu={
+        "counter_capacity": 8, "gauge_capacity": 8, "histo_capacity": 8,
+        "set_capacity": 8, "llhist_capacity": 4, "batch_cap": 64, **tpu})
+    try:
+        server.handle_packet_batch(_LINES)  # interns every key
+        server.flush()
+        held, release = threading.Event(), threading.Event()
+        add_batch = server.store.histos.add_batch
+
+        def slow_add_batch(*cols):
+            held.set()
+            release.wait(10)
+            add_batch(*cols)
+        monkeypatch.setattr(server.store.histos, "add_batch", slow_add_batch)
+        ingest = threading.Thread(target=server.handle_packet_batch,
+                                  args=(_LINES,))
+        ingest.start()
+        assert held.wait(10)
+        errors = []
+
+        def flush():
+            try:
+                server.flush()
+            except Exception as e:
+                errors.append(e)
+        flusher = threading.Thread(target=flush)
+        flusher.start()
+        time.sleep(0.5)  # the flush reaches its interval close
+        release.set()
+        ingest.join(10)
+        flusher.join(20)
+        assert not errors, errors
+        server.flush()
+        assert all(not any(i.values())
+                   for i in server.ledger.history_imbalances())
+        assert _stage(server, "ingest.admitted") == \
+            _stage(server, "agg.applied")
+    finally:
+        server.shutdown()
+
+
 def test_unaccounted_drop_is_caught(monkeypatch):
     server, _sink = _tserver(ledger_strict=True)
     try:

@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import logging
 import os
+import random
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import types
 import urllib.request
@@ -33,10 +35,32 @@ from veneur_tpu_torch.util import crash
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _ephemeral_low() -> int:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port(kind=socket.SOCK_STREAM) -> int:
-    with socket.socket(socket.AF_INET, kind) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free 127.0.0.1 port below the kernel's ephemeral range. The
+    kernel hands no such port to a bind to port 0 or to an outgoing
+    connection, so no other test can take it between this check and the
+    server's own bind (a port 0 pick, closed and bound again later, can
+    be taken in that gap, and the servers under test bind with
+    SO_REUSEPORT, so they would share it with the taker)."""
+    rng = random.Random(os.getpid() ^ time.time_ns())
+    for _ in range(500):
+        port = rng.randrange(10000, _ephemeral_low())
+        try:
+            for k in (socket.SOCK_STREAM, socket.SOCK_DGRAM):
+                with socket.socket(socket.AF_INET, k) as s:
+                    s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def ready_pid(port: int):
@@ -117,6 +141,59 @@ class TestInstallContract:
             f.write("9999")
         assert restart._wait_ready("", LiveChild(), timeout=0.5,
                                    ready_file=rf) is False
+
+    def test_http_handoff_waits_for_the_replacements_own_pid(self):
+        """Another process that shares the readiness port through
+        SO_REUSEPORT answers ready with its own pid: that answer never
+        wins the handoff, only the replacement's own does."""
+        import http.server
+
+        def answering(pid):
+            class Ready(http.server.BaseHTTPRequestHandler):
+                def do_GET(self):
+                    self.send_response(200)
+                    self.send_header("X-Veneur-Pid", str(pid))
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+
+                def log_message(self, *args):
+                    pass
+            return Ready
+
+        class LiveChild:
+            pid = 424242
+
+            def poll(self):
+                return None
+
+        port = free_port()
+        servers = []
+        try:
+            for pid in (31337, LiveChild.pid):
+                server = http.server.HTTPServer(
+                    ("127.0.0.1", port), answering(pid),
+                    bind_and_activate=False)
+                server.socket.setsockopt(socket.SOL_SOCKET,
+                                         socket.SO_REUSEPORT, 1)
+                server.server_bind()
+                server.server_activate()
+                threading.Thread(target=server.serve_forever,
+                                 kwargs={"poll_interval": 0.05},
+                                 daemon=True).start()
+                servers.append(server)
+                if len(servers) == 1:
+                    # a stranger alone on the port: never ready
+                    assert restart._wait_ready(f"127.0.0.1:{port}",
+                                               LiveChild(),
+                                               timeout=1.5) is False
+            # the replacement beside the stranger: ready once its own
+            # answer comes back
+            assert restart._wait_ready(f"127.0.0.1:{port}", LiveChild(),
+                                       timeout=30.0) is True
+        finally:
+            for server in servers:
+                server.shutdown()
+                server.server_close()
 
     def test_restart_ready_file_wedged_child_loses(self, monkeypatch):
         spawned = {}

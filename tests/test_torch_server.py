@@ -196,6 +196,14 @@ def test_device_defaults_to_cuda_and_never_falls_back():
     ("tpu", {"pallas_tdigest_flush": True}),
 ])
 def test_config_rejects_features_the_port_lacks(key, value):
+    """What has no torch meaning raises by name; the reshard keys,
+    ported with the elastic reshard, read like the JAX package's
+    Config."""
+    if "reshard" in key:
+        from veneur_tpu.config import read_config as jread_config
+        assert getattr(config_from_dict({key: value}), key) == \
+            getattr(jread_config(overrides={key: value}), key) == value
+        return
     with pytest.raises(ValueError, match=key if key != "tpu"
                        else "pallas_tdigest_flush"):
         config_from_dict({key: value})
@@ -213,7 +221,7 @@ def test_cli_validates_config(tmp_path):
     cfg = tmp_path / "c.yaml"
     cfg.write_text("interval: 5s\npercentiles: [0.5]\n")
     bad = tmp_path / "bad.yaml"
-    bad.write_text("reshard_spool_dir: /tmp/reshard\n")
+    bad.write_text("jax_compilation_cache_dir: /tmp/cache\n")
     from veneur_tpu_torch.cmd import veneur
     assert veneur.main(["-f", str(cfg), "-validate-config"]) == 0
     assert veneur.main(["-f", str(bad), "-validate-config"]) == 1

@@ -20,6 +20,7 @@ apply, the HBM ledger and the query and lifecycle paths."""
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -622,21 +623,22 @@ def _skewed_packets(n_shards, shard, count, salt):
 
 
 def test_shard_balance_equals_jax():
-    """shard_balance() on every key the JAX package reports but its
-    reshard plan, and shard_skew(), on a skewed key space."""
+    """shard_balance() on every key the JAX package reports, its reshard
+    plan included (the port's candidate range set to the JAX package's
+    device count), and shard_skew(), on a skewed key space."""
     pkts = (_skewed_packets(4, 0, 120, "hot") + _skewed_packets(4, 2, 6, "cold")
             + _mixed(9, keys=20, rounds=40))
     caps = dict(counter_capacity=64, gauge_capacity=64, histo_capacity=64,
                 set_capacity=32, llhist_capacity=64, batch_cap=64)
     store, jst = pstore(4, **caps), jstore(4, **caps)
     obs, jobs = DeviceObservatory(), JObs()
+    obs.reshard_plan_max_shards = len(jax.devices())
     store.attach_deviceobs(obs)
     jst.attach_deviceobs(jobs)
     feed(store, pkts)
     feed(jst, pkts)
     got, want = obs.shard_balance(), jobs.shard_balance()
-    want.pop("reshard_plan", None)
-    assert "reshard_plan" not in got
+    assert got["reshard_plan"]["from_shards"] == 4
     assert got == want
     assert got["hot_shards"] == [0]
     assert obs.shard_skew() == jobs.shard_skew() == got["skew"]

@@ -12,7 +12,6 @@ import json
 import os
 import re
 import shutil
-import socket
 import time
 from types import SimpleNamespace
 
@@ -70,9 +69,13 @@ DEAD = "127.0.0.1:1"  # nothing listens: every send fails UNAVAILABLE
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port below the ephemeral range: the outage test's global
+    unbinds its gRPC port for an interval and binds it again, and a port
+    the kernel hands out for port 0 could be taken in that gap by another
+    test's gRPC server (which binds with SO_REUSEPORT, so the two would
+    share it)."""
+    from test_torch_restart import free_port
+    return free_port()
 
 
 def _wait_for(pred, timeout=20.0):

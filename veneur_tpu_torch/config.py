@@ -1,8 +1,7 @@
 """Configuration of the port's server: the YAML keys of veneur_tpu's
 config that this port implements, with the same names and defaults.
 
-A key the port does not implement (`reshard_spool_dir`,
-`reshard_deadline`, `chaos_reshard_*`, `jax_compilation_cache_dir`,
+A key the port does not implement (`jax_compilation_cache_dir`,
 `tpu.pallas_tdigest_flush`) raises with the key's name: a configuration
 is never half-applied in silence.
 Durations accept Go-style strings ("10s", "500ms") or numbers of
@@ -206,6 +205,12 @@ class Config:
     chaos_ingest_duplicate_rate: float = 0.0
     chaos_ingest_rss_bytes: int = 0
     chaos_ledger_leak: int = 0
+    # reshard crossings (deterministic, util/chaos.py): the plan
+    # thread's prewarm delay, every Nth range-segment append faulted,
+    # and a delay between the durable segments and their merge-back
+    chaos_reshard_prewarm_delay_s: float = 0.0
+    chaos_reshard_append_fault_nth: int = 0
+    chaos_reshard_cutover_delay_s: float = 0.0
     # the forward's circuit breaker: consecutive failures to open, and
     # how long it stays open before its one half-open probe (duration)
     circuit_breaker_failure_threshold: int = 3
@@ -243,6 +248,14 @@ class Config:
     # the spool (fsync'd, stamped with its interval start) before it is
     # sent; the spool's drain is the only send path
     forward_wal: bool = False
+    # the elastic reshard's range-segment WAL (parallel/reshard.py):
+    # every migrating range cell is appended here before it merges into
+    # the new topology, so a crash mid-cutover replays it at the next
+    # start. Empty falls back to <carryover_spool_dir>/reshard; with
+    # neither, a cutover merges from memory without crash cover.
+    reshard_spool_dir: str = ""
+    # a plan + cutover not done this long after begin() fails readiness
+    reshard_deadline: float = 30.0  # duration
     # mTLS of the forward client (inline PEM or file paths); the
     # authority verifies the global, a certificate and key present it
     forward_tls_certificate: str = ""
@@ -440,7 +453,7 @@ _DURATION_FIELDS = {"interval", "forward_retry_base", "forward_retry_max",
                     "circuit_breaker_recovery", "chaos_delay",
                     "ingest_rate_limit_burst", "overload_watermark_poll",
                     "supervisor_deadline", "supervisor_poll",
-                    "supervisor_escalation_deadline"}
+                    "supervisor_escalation_deadline", "reshard_deadline"}
 _SECRET_FIELDS = {"grpc_tls_key", "forward_tls_key", "tls_key",
                   "sentry_dsn"}
 
@@ -525,10 +538,7 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
 
 # the JAX package's keys that the port does not implement: a VENEUR_*
 # variable naming one raises, as the key does in a file
-_JAX_ONLY_KEYS = frozenset({
-    "chaos_reshard_append_fault_nth", "chaos_reshard_cutover_delay_s",
-    "chaos_reshard_prewarm_delay_s", "jax_compilation_cache_dir",
-    "reshard_deadline", "reshard_spool_dir"})
+_JAX_ONLY_KEYS = frozenset({"jax_compilation_cache_dir"})
 _JAX_ONLY_TPU_KEYS = frozenset({"pallas_tdigest_flush"})
 
 

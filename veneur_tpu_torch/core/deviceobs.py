@@ -5,7 +5,9 @@ planes wired through the existing registries:
 
 - **HBM ledger** — every `_BaseTable` generation registers its tensors'
   bytes (`numel() * element_size()`) as a *token* tagged family / table /
-  lifecycle state (``live`` / ``spare`` / ``inflight`` / ``prewarm``).
+  lifecycle state (``live`` / ``spare`` / ``inflight`` / ``prewarm`` /
+  ``reshard_capture``, the old topology's generation a reshard cutover
+  holds until its rows have merged into the new one).
   Lifecycle transitions *retag* the token (a recycled spare is the
   generation it was captured as, reset in place, so its bytes are
   conserved) and every exit path (a capacity mismatch at recycle, a
@@ -36,8 +38,11 @@ planes wired through the existing registries:
   the skew (max/mean live rows) and the hot shards (> 2x the mean), read
   from the host-side routing arrays only. `shard_skew()` feeds the
   `device.shard.skew` gauge and the `shard_skew` alert rule kind. The
-  JAX package also prices a reshard (`reshard_plan`), which needs the
-  elastic reshard the port does not have.
+  `reshard_plan` entry projects the live digests onto every candidate
+  shard count from 2 to `reshard_plan_max_shards` and prices the best
+  one: its projected skew, the rows it would move and its migration
+  cells (parallel/reshard.py). The JAX package's range is its device
+  count; one card holds any count, so the port's bound is a setting.
 
 Everything is scrape-time or O(1)-under-a-lock on the hot path, and the
 whole observatory is gated by the `device_observatory` config knob. The
@@ -54,14 +59,15 @@ import numpy as np
 
 from veneur_tpu_torch.core.latency import LatencyHist
 
-# lifecycle states a generation token may carry (the JAX package's fifth,
-# reshard_capture, belongs to the reshard plane the port lacks)
+# lifecycle states a generation token may carry
 STATE_LIVE = "live"
 STATE_SPARE = "spare"
 STATE_INFLIGHT = "inflight"
 STATE_PREWARM = "prewarm"
+STATE_RESHARD = "reshard_capture"
 
-_STATES = (STATE_LIVE, STATE_SPARE, STATE_INFLIGHT, STATE_PREWARM)
+_STATES = (STATE_LIVE, STATE_SPARE, STATE_INFLIGHT, STATE_PREWARM,
+           STATE_RESHARD)
 
 # kernel kinds the registry tracks; each timed kind renders a
 # `device.kernel.<kind>_s` llhist series (p50/p99/max gauges + count
@@ -145,6 +151,10 @@ class DeviceObservatory:
     Disabled, every note_* call is a cheap early return and
     `note_generation` hands back None (retag/drop tolerate None), so the
     hook sites in the column store cost one attribute read."""
+
+    # the largest shard count shard_balance()'s reshard plan prices (the
+    # JAX package's bound is its device count; one card holds any count)
+    reshard_plan_max_shards = 8
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
@@ -362,6 +372,7 @@ class DeviceObservatory:
         rows = np.zeros(n_shards, np.int64)
         digest_hist = np.zeros(DIGEST_BINS, np.int64)
         per_family: Dict[str, list] = {}
+        digests_all: List[np.ndarray] = []
         shift = np.uint64(64 - (DIGEST_BINS.bit_length() - 1))
         for family, table in tables:
             homes, dig_list = self._live_homes(table)
@@ -370,6 +381,7 @@ class DeviceObservatory:
             per_family[family] = [int(x) for x in fam_rows]
             if dig_list:
                 digests = np.asarray(dig_list, np.uint64)
+                digests_all.append(digests)
                 digest_hist += np.bincount(
                     (digests >> shift).astype(np.int64),
                     minlength=DIGEST_BINS)[:DIGEST_BINS]
@@ -382,7 +394,7 @@ class DeviceObservatory:
         if plane is not None:
             for family, acc in list(plane._samples.items()):
                 samples[family] = [int(x) for x in acc]
-        return {
+        out = {
             "n_shards": int(n_shards),
             "rows_per_shard": [int(x) for x in rows],
             "rows_per_shard_by_family": per_family,
@@ -390,6 +402,51 @@ class DeviceObservatory:
             "digest_occupancy": [int(x) for x in digest_hist],
             "skew": skew,
             "hot_shards": hot,
+        }
+        plan = self._reshard_plan(digests_all, int(n_shards),
+                                  self.reshard_plan_max_shards)
+        if plan is not None:
+            out["reshard_plan"] = plan
+        return out
+
+    @staticmethod
+    def _reshard_plan(digests_all: List[np.ndarray], n_old: int,
+                      max_m: int) -> Optional[dict]:
+        """Project the live digests onto every shard count in 2..max_m
+        but n_old and price the best: the lowest projected skew (max/mean
+        rows), then the fewest rows moved, then the fewest shards; with
+        the count of its migration cells. A recommendation only: the
+        reshard controller cuts over."""
+        if not digests_all:
+            return None
+        digests = np.concatenate(digests_all)
+        if digests.size == 0 or max_m < 2:
+            return None
+        from veneur_tpu_torch.parallel.collectives import home_shards
+        old_home = home_shards(digests, n_old)
+        best = None
+        for m in range(2, max_m + 1):
+            if m == n_old:
+                continue
+            new_home = home_shards(digests, m)
+            proj = np.bincount(new_home, minlength=m)[:m]
+            mean = float(proj.mean())
+            if mean <= 0:
+                continue
+            cand = (float(proj.max() / mean),
+                    int(np.count_nonzero(old_home != new_home)), m)
+            if best is None or cand < best:
+                best = cand
+        if best is None:
+            return None
+        proj_skew, moved, m = best
+        from veneur_tpu_torch.parallel.reshard import migration_cells
+        return {
+            "from_shards": n_old,
+            "to_shards": m,
+            "projected_skew": proj_skew,
+            "rows_moved": moved,
+            "migration_cells": len(migration_cells(n_old, m)),
         }
 
     def shard_skew(self) -> Optional[float]:

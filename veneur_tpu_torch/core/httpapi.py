@@ -40,10 +40,11 @@ A standalone API (the proxy's, cmd/veneur_proxy.py) passes its own
 telemetry, readiness, ledger, query, cardinality, trace and latency
 sources.
 
-Every route of the JAX package answers. /debug/reshard, whose source the
-port lacks, answers what the JAX package answers for a server without
-one: 404 with the same body (as /debug/device does on an API without a
-server).
+Every route of the JAX package answers. `POST /reshard {"shards": M}`
+starts an elastic reshard (parallel/reshard.py: 202 and the controller's
+state, 400 on a malformed body, 409 when the controller refuses), and
+`GET /debug/reshard` reads its state machine; an API without a server
+answers both 404 "no reshard controller", as the JAX package does.
 """
 
 from __future__ import annotations
@@ -89,11 +90,6 @@ _TIMED_ROUTES = frozenset({
     "/debug/pprof/threadcreate", "/debug/pprof/cmdline",
     "/debug/pprof/symbol", "/debug/pprof/trace",
 })
-
-# the JAX package's answers for a server without the route's source
-_NO_SOURCE = {
-    "/debug/reshard": b"no reshard controller\n",
-}
 
 # routes served by core/profiling.py
 _PROFILING_ROUTES = frozenset({
@@ -309,8 +305,16 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send(404, b"no device source\n")
                 return
             self._send(200, _json(source()), "application/json")
-        elif path in _NO_SOURCE:
-            self._send(404, _NO_SOURCE[path])
+        elif path == "/debug/reshard":
+            # the elastic reshard's state machine: phase, epoch,
+            # deadline, WAL segment counters (parallel/reshard.py)
+            controller = getattr(api.server, "reshard", None)
+            if controller is None:
+                self._send(404, b"no reshard controller\n")
+                return
+            self._send(200, json.dumps(controller.describe(),
+                                       indent=2).encode() + b"\n",
+                       "application/json")
         elif path == "/query":
             self._query()
         elif path == "/alerts":
@@ -460,9 +464,38 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, b"bye\n")
             threading.Thread(target=api.quit, daemon=True).start()
         elif path == "/reshard":
-            self._send(404, b"no reshard controller\n")
+            self._reshard()
         else:
             self._send(404, b"not found\n")
+
+
+    def _reshard(self) -> None:
+        """POST /reshard {"shards": M}: plan and prewarm in the
+        background, cut over at the next flush boundary; GET
+        /debug/reshard reads the state."""
+        controller = getattr(self.server_ref.server, "reshard", None)
+        if controller is None:
+            self._send(404, b"no reshard controller\n")
+            return
+        try:
+            n = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(n) or b"{}")
+            shards = int(body["shards"])
+        except (ValueError, KeyError, TypeError) as e:
+            self._send(400, json.dumps(
+                {"error": f"bad request: {e}"}).encode() + b"\n",
+                "application/json")
+            return
+        from veneur_tpu_torch.parallel.reshard import ReshardError
+        try:
+            state = controller.begin(shards,
+                                     deadline_s=body.get("deadline_s"))
+        except ReshardError as e:
+            self._send(409, json.dumps({"error": str(e)}).encode()
+                       + b"\n", "application/json")
+            return
+        self._send(202, json.dumps(state, indent=2).encode() + b"\n",
+                   "application/json")
 
 
 def _query_str(path: str, key: str, default: str = "") -> str:

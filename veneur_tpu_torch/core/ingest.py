@@ -127,7 +127,13 @@ class _ColumnarIngesterBase:
         sample count plus its deferred lines; an over-limit batch still
         takes the columnar path, in essential-only mode: its counter and
         gauge columns land, its histogram, llhist and set columns are
-        shed with exact per-class counts (`_add_histo_set`)."""
+        shed with exact per-class counts (`_add_histo_set`). The whole
+        apply is one ledger transit, so an interval close never books
+        its admitted samples without their applied ones."""
+        with self.server.ledger.transit():
+            return self._ingest_columns(res, shed_nonessential)
+
+    def _ingest_columns(self, res, shed_nonessential: bool) -> int:
         store = self.store
         server = self.server
         overload = server.overload
@@ -358,7 +364,12 @@ class BatchIngester(_ColumnarIngesterBase):
         defers replay through the Python SSF converter, which registers
         their canonical keys; the uniqueness and indicator metrics owed
         by the flags derive in Python. Returns the per-packet decoded
-        mask (the caller counts the packets and hands the spans on)."""
+        mask (the caller counts the packets and hands the spans on). One
+        ledger transit, as `_ingest`."""
+        with self.server.ledger.transit():
+            return self._ingest_ssf(buf, offs, lens)
+
+    def _ingest_ssf(self, buf: bytes, offs, lens) -> np.ndarray:
         server = self.server
         store = self.store
         cfg = server.config

@@ -1,5 +1,6 @@
 """End-to-end sample flow ledger: conservation accounting from socket
-to sink ack (a copy of veneur_tpu/core/ledger.py, plus `note_all`).
+to sink ack (a copy of veneur_tpu/core/ledger.py, plus `note_all` and
+`transit`).
 
 veneur's value proposition is lossless-by-construction aggregation, and
 the last several PRs each added an independent loss-or-defer mechanism
@@ -60,12 +61,22 @@ Locking: the ledger lock is a leaf — ``note`` takes only it, and
 components may note from inside their own locks without ordering
 hazards.
 
+Transits (a port addition): an ingest chunk stamps ``ingest.admitted``
+before it applies its columns and the tables stamp ``agg.applied`` as
+they take them, so a close that lands between the two books one side
+in this interval and the other in the next, and a strict ledger raises
+for samples that were never lost. A caller wraps such a pair in
+``with ledger.transit():``; ``close_interval`` waits for the open
+transits (at most ``TRANSIT_WAIT_S``) and holds new ones back while it
+reads the books.
+
 stdlib-only; no torch, no grpc (the proxy imports this without
 dragging in the device stack).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -86,6 +97,10 @@ LEDGER_ROWS = (
 # floats only enter via probe callables; counts are integers, so any
 # residual beyond this is a real imbalance, not float noise
 _EPS = 1e-6
+
+# the longest an interval close waits for the open transits before it
+# reads the books anyway
+TRANSIT_WAIT_S = 10.0
 
 
 class LedgerImbalance(RuntimeError):
@@ -139,6 +154,10 @@ class FlowLedger:
         self.imbalance_last: Dict[str, float] = {}
         self.imbalance_net: Dict[str, float] = {}
         self.unexplained_total: Dict[str, float] = {}
+        # open transits, and whether a close holds new ones back
+        self._transit_cv = threading.Condition(threading.Lock())
+        self._open_transits = 0
+        self._closing = False
 
     # -- declaration -----------------------------------------------------
 
@@ -183,6 +202,42 @@ class FlowLedger:
                 if per_key is None:
                     per_key = self._counts[stage] = {}
                 per_key[key] = per_key.get(key, 0.0) + n
+
+    @contextlib.contextmanager
+    def transit(self):
+        """Stamp an inflow and its outflows (an ingest chunk's admitted
+        and applied samples) inside this block: no interval close reads
+        the books while it is open (module note)."""
+        if not self.enabled:
+            yield
+            return
+        with self._transit_cv:
+            while self._closing:
+                self._transit_cv.wait()
+            self._open_transits += 1
+        try:
+            yield
+        finally:
+            with self._transit_cv:
+                self._open_transits -= 1
+                if not self._open_transits:
+                    self._transit_cv.notify_all()
+
+    def _quiesce(self) -> None:
+        """Hold new transits back and wait for the open ones to end."""
+        deadline = time.monotonic() + TRANSIT_WAIT_S
+        with self._transit_cv:
+            self._closing = True
+            while self._open_transits:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._transit_cv.wait(left)
+
+    def _release_transits(self) -> None:
+        with self._transit_cv:
+            self._closing = False
+            self._transit_cv.notify_all()
 
     def probe(self, stage: str, fn: Callable[[], float],
               key: str = "") -> None:
@@ -239,6 +294,13 @@ class FlowLedger:
         any identity is off."""
         if not self.enabled:
             return {}
+        self._quiesce()
+        try:
+            return self._close_quiesced()
+        finally:
+            self._release_transits()
+
+    def _close_quiesced(self) -> dict:
         with self._lock:
             probes = list(self._probes)
             probe_maps = list(self._probe_maps)

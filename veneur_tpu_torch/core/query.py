@@ -70,8 +70,8 @@ class QueryError(ValueError):
 class ReshardRetry(QueryError):
     """A reshard cutover is swapping the serving topology under this
     capture — retry once it settles (surfaced as HTTP 503 + retry:
-    true, never a shape error). The port has no elastic reshard yet, so
-    nothing raises it; `/query` keeps the JAX package's answer for it."""
+    true, never a shape error). A QueryError, so the alert loop's
+    per-tick catch covers it."""
 
 
 def parse_tags(raw: Optional[str]) -> Tuple[str, ...]:
@@ -173,6 +173,12 @@ class LiveQueryPlane:
         takes longer than the plane's timeout."""
         if self._server._shutdown.is_set():
             raise QueryError("server is shutting down")
+        reshard = getattr(self._server, "reshard", None)
+        if reshard is not None and reshard.state == "cutover":
+            # the topology swap is in flight: captures taken now could
+            # straddle two topologies, or read a new plane whose rows
+            # have not merged back yet
+            raise ReshardRetry("reshard cutover in progress")
         deadline = time.monotonic() + self._timeout_s
         tables = self._tables()
         bundle: dict = {"as_of_unix": time.time()}
@@ -194,10 +200,18 @@ class LiveQueryPlane:
                 snaps[family] = snap
         finally:
             lock.release()
+        epochs = {snap["topo_epoch"] for snap in snaps.values()
+                  if "topo_epoch" in snap}
         for family, snap in snaps.items():
             table = tables[family]
             table.query_readout(snap, deadline)
             bundle[family] = self._finish(family, table, snap)
+        if len(epochs) > 1 or (reshard is not None
+                               and reshard.state == "cutover"):
+            # a cutover began mid-capture: the bundle mixes topology
+            # generations (each sharded capture stamps its table's
+            # topology epoch)
+            raise ReshardRetry("reshard cutover landed mid-capture")
         return bundle
 
     @staticmethod

@@ -182,11 +182,13 @@ def _wait_ready(addr: str, child, timeout: float = READY_TIMEOUT_S,
             return False
         try:
             with urllib.request.urlopen(url, timeout=2) as resp:
-                # the kernel load-balances REUSEPORT connections, so
-                # this poll can reach our OWN listener: only a ready
-                # answer from another pid counts
+                # the kernel load-balances REUSEPORT connections over
+                # every listener on the port: ours, and any other
+                # process's that bound it too. Only the replacement's
+                # own ready answer counts (the JAX package takes any
+                # pid but ours, and so hands off to a stranger)
                 pid = resp.headers.get("X-Veneur-Pid", "")
-                if resp.status == 200 and pid not in ("", str(os.getpid())):
+                if resp.status == 200 and pid == str(child.pid):
                     return True
         except Exception:
             pass

@@ -523,9 +523,13 @@ class Server:
         self.ledger = ledger = FlowLedger(
             enabled=config.ledger_enabled, strict=config.ledger_strict,
             history=config.ledger_history)
-        # ingested = aggregated + rejected
+        # ingested = aggregated + rejected; the migrating rows of a
+        # reshard cutover, captured out of the old topology and not yet
+        # merged into the new one, are a stock (0 at every close: the
+        # cutover holds the flush lock)
         ledger.declare("ingest", inputs=("ingest.admitted",),
-                       outputs=("agg.applied", "agg.rejected"))
+                       outputs=("agg.applied", "agg.rejected"),
+                       stocks=("reshard_inflight",))
         # snapshotted = acked + merged-away + shed, with the carryover,
         # the durable spool and the in-flight send as inventory stocks
         ledger.declare(
@@ -605,6 +609,12 @@ class Server:
             logger.exception("invalid alerts.rules; starting with an "
                              "empty rule table")
         registry.add_collector(self.alerts.telemetry_rows)
+        # the elastic reshard (parallel/reshard.py): built here, not in
+        # start(), so in-process callers can begin() and recover()
+        from veneur_tpu_torch.parallel.reshard import ReshardController
+        self.reshard = ReshardController(self)
+        self.ledger.stock("reshard_inflight", self.reshard.inflight_metrics)
+        registry.add_collector(self.reshard.telemetry_rows)
         self.http_api: Optional[HTTPApi] = None
         self._watchdog_thread: Optional[threading.Thread] = None
         self.flush_count = 0
@@ -880,12 +890,18 @@ class Server:
 
     def ready_state(self):
         """(ready, reason) for /healthcheck/ready: not ready while the
-        overload ladder is shedding, or while the flush watchdog's budget
-        is blown (a wedged flush loop means this instance is about to
-        abort)."""
+        overload ladder is shedding, while a reshard is past its
+        deadline, or while the flush watchdog's budget is blown (a wedged
+        flush loop means this instance is about to abort)."""
         if self.overload.state == overload_mod.SHEDDING:
             return False, (f"overload state {overload_mod.SHEDDING} "
                            f"(rss {self.overload.watermarks.last_rss} bytes)")
+        if self.reshard.past_deadline():
+            # a reshard past its deadline is a wedged topology swap: stop
+            # routing here until it completes or is abandoned
+            return False, (f"reshard past deadline: state "
+                           f"{self.reshard.state}, deadline "
+                           f"{self.reshard.deadline_unix:.0f}")
         if self.config.flush_watchdog_missed_flushes > 0:
             allowed = self.config.flush_watchdog_missed_flushes * self.interval
             since = time.time() - self.last_flush_unix
@@ -1302,6 +1318,14 @@ class Server:
                 "only — use /debug/pprof and enable_profiling instead")
         if self.diagnostics is not None:
             self.diagnostics.start()
+        # replay the range segments an interrupted reshard cutover left,
+        # before the flush loop starts, so the rows land in the first
+        # interval and the ledger books them there
+        try:
+            self.reshard.recover()
+        except Exception:
+            logger.exception("reshard recovery failed; the segments stay "
+                             "for the next start")
         if cfg.prewarm_ladder:
             # each family's next capacity rung launched ahead of need, at
             # startup and after every resize (core/flushexec.py)

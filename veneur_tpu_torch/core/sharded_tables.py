@@ -28,8 +28,15 @@ drained generation in place after the merged copy (the JAX package's
 fused donated merge + reset), and the merged t-digest and HLL states
 feed K1 and K2. A live query merges without zeroing.
 
-The JAX package's elastic reshard (`reshard_swap`, the topology epoch,
-the per-family capture hooks) is not ported.
+The elastic reshard (parallel/reshard.py) swaps each family out with
+`reshard_swap`: the interval's generation is swapped and its final
+pending columns folded on the old topology, the shards are merged into
+one copy that is not reset (the query-path merges, over the touched rows
+for the llhist and set banks), and the table is rebound to the new
+plane with every row's home recomputed and fresh state. Each rebinding
+bumps the table's topology epoch, which swap_out and capture_readonly
+stamp: a readout swapped out before a cutover recycles nothing into the
+new plane, and a query that straddles one retries.
 """
 
 from __future__ import annotations
@@ -70,6 +77,9 @@ class _DigestRouted:
         # row -> home shard, stamped at mint time (_note_minted)
         self._shard_of = np.zeros(capacity, np.int8)
         self._rr_next = 0  # roundrobin mode's rotation cursor
+        # bumped by every reshard cutover (_retopo_locked): snaps carry
+        # the epoch they were taken under
+        self._topo_epoch = 0
 
     @property
     def _digest_routed(self) -> bool:
@@ -114,6 +124,130 @@ class _DigestRouted:
             self._plane.note_routed(self.family,
                                     self._shard_counts_of(home))
         return collectives.flat_rows(home, rows, state_rows)
+
+    # -- elastic reshard (parallel/reshard.py) ---------------------------
+
+    def swap_out(self, **kw) -> dict:
+        snap = super().swap_out(**kw)
+        snap["_topo_epoch"] = self._topo_epoch
+        return snap
+
+    def capture_readonly(self, **kw) -> dict:
+        snap = super().capture_readonly(**kw)
+        snap["topo_epoch"] = self._topo_epoch
+        return snap
+
+    def recycle(self, snap: dict) -> None:
+        if snap.pop("_topo_epoch", self._topo_epoch) != self._topo_epoch:
+            # swapped out under the old topology, read out after a
+            # cutover rebound this table: its (N_old, ...) generation
+            # must never become a spare of the new plane
+            for key in ("cap", "_spare", "_recycle"):
+                snap.pop(key, None)
+            obs = self._deviceobs
+            if obs is not None:
+                obs.drop(snap.pop("_devobs", None))
+            return
+        super().recycle(snap)
+
+    def _row_digests(self) -> np.ndarray:
+        """Every row's 64-bit key digest (rows-dict keys are
+        (digest64 << 2) | scope), sized like `touched` (caller holds
+        ``lock``)."""
+        keys = self._dict_key_of[: self.touched.shape[0]]
+        digests = np.zeros(self.touched.shape[0], np.uint64)
+        digests[: len(keys)] = np.fromiter(
+            ((k >> 2) & 0xFFFFFFFFFFFFFFFF for k in keys), np.uint64,
+            len(keys))
+        return digests
+
+    def reshard_swap(self, new_plane: ShardedServingPlane, **kw) -> dict:
+        """The per-family cutover step, in one hold of ``lock`` then
+        ``apply_lock``: swap the interval's generation out as a flush
+        does (its final pending columns folded on the old topology),
+        merge its shards into one copy that is not reset
+        (`_reshard_capture_device`: the query-path merges, so the values
+        are those a flush would emit), and rebind the table to
+        `new_plane` (`_retopo_locked`). Ingest after the locks release
+        lands on the new plane; everything before is in the returned
+        snap, which the controller writes to the WAL and merges back
+        through the family's merge_batch."""
+        snap = dict(kw)
+        with self.lock:
+            idle = self._idle_swap_locked(snap)
+            if not idle:
+                snap["cols"] = self._swap_locked()
+            with self.apply_lock:
+                if not idle:
+                    self._note_generation_locked()
+                    snap["touched"] = self.touched.copy()
+                    snap["meta"] = list(self.meta)
+                    snap["digest64"] = self._row_digests()
+                    self.touched[:] = False
+                    self._swap_extras_locked(snap)
+                    state = self._swap_device_locked()
+                    cols = snap.pop("cols", None)
+                    if cols is not None:
+                        self._readout_apply(state, cols, snap)
+                    snap.pop("staged", None)
+                    self._reshard_capture_device(state, snap)
+                    # the old topology's generation stays booked until
+                    # the controller's merge-back is done
+                    obs = self._deviceobs
+                    if obs is not None:
+                        tok = self._devobs_inflight
+                        self._devobs_inflight = None
+                        obs.retag(tok, "reshard_capture")
+                        snap["_devobs"] = tok
+                self._retopo_locked(new_plane)
+        snap["_topo_epoch"] = self._topo_epoch
+        return snap
+
+    def _reshard_capture_device(self, state, snap: dict) -> None:
+        """Family hook: the captured generation's shards merged into one
+        copy that is not reset (caller holds both locks)."""
+        raise NotImplementedError
+
+    def _retopo_locked(self, plane: ShardedServingPlane) -> None:
+        """Rebind this table to `plane` (caller holds ``lock`` and
+        ``apply_lock``): every live row's home under the new range
+        partition, fresh state, and the old topology's spare and
+        prewarmed rungs forgotten."""
+        if plane.device != self.device:
+            raise ValueError(f"the shards live on {plane.device}, the "
+                             f"table on {self.device}")
+        self._plane = plane
+        self._n_shards = plane.n
+        self._rr_next = 0
+        shard_of = np.zeros(self._shard_of.shape[0], np.int8)
+        if self.rows:
+            digests = np.fromiter(
+                ((k >> 2) & 0xFFFFFFFFFFFFFFFF for k in self.rows),
+                np.uint64, len(self.rows))
+            rows = np.fromiter(self.rows.values(), np.int64, len(self.rows))
+            ok = rows < shard_of.shape[0]
+            shard_of[rows[ok]] = plane.homes(digests[ok])
+        self._shard_of = shard_of
+        self._spare = None
+        self._spare_cap = -1
+        obs = self._deviceobs
+        if obs is not None:
+            # the parked spare dies with the old topology, and so does
+            # the live generation an idle cutover never swapped
+            obs.drop(self._devobs_spare)
+            self._devobs_spare = None
+            obs.drop(self._devobs_live)
+            self._devobs_live = None
+        self._prewarmed_caps = set()
+        self._topo_epoch += 1
+        self._retopo_device_locked()
+        if obs is not None:
+            self._devobs_live = obs.note_generation(
+                self.family, "live", self._devobs_state())
+
+    def _retopo_device_locked(self) -> None:
+        # stacked families: a fresh (M, K, ...) generation
+        self.state = self._fresh_state_at(self._state_capacity())
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +301,12 @@ class ShardedCounterTable(_DigestRouted, CounterTable):
 
     def _prewarm_readout(self, state, snap: dict) -> None:
         collectives.merge_counters_stacked_reset(state)
+
+    def _reshard_capture_device(self, state, snap: dict) -> None:
+        # the (sum, comp) pair a flush differences; counter totals are
+        # integral, so the f64 total crosses the int64 wire exactly
+        snap["dev"] = collectives.merge_counters_stacked(state)
+        self._plane.note_merge_round()
 
 
 class ShardedGaugeTable(_DigestRouted, GaugeTable):
@@ -226,6 +366,11 @@ class ShardedGaugeTable(_DigestRouted, GaugeTable):
 
     def _prewarm_readout(self, state, snap: dict) -> None:
         collectives.merge_gauges_stacked_reset(state)
+
+    def _reshard_capture_device(self, state, snap: dict) -> None:
+        # the home shard's last write; the set mask rides along
+        snap["dev"], snap["set"] = collectives.merge_gauges_stacked(state)
+        self._plane.note_merge_round()
 
 
 class ShardedLLHistTable(_DigestRouted, LLHistTable):
@@ -304,6 +449,14 @@ class ShardedLLHistTable(_DigestRouted, LLHistTable):
             state, self._touched_rows(snap))
         batch_llhist.flush_packed(merged, snap["ps"])
 
+    def _reshard_capture_device(self, state, snap: dict) -> None:
+        # register add over the touched rows (the JAX package merges the
+        # whole bank; integer addition gives the same rows)
+        snap["bins"] = collectives.merge_llhist_stacked(
+            state, self._touched_rows(snap))
+        snap["bins_rows"] = np.flatnonzero(snap["touched"])
+        self._plane.note_merge_round()
+
 
 # ---------------------------------------------------------------------------
 # Per-shard families (histograms, sets): a list of N states, each shard's
@@ -329,6 +482,10 @@ class _PerShardStates:
         # a shallow copy under apply_lock: a consistent set of per-shard
         # state refs
         return list(self.states)
+
+    def _retopo_device_locked(self) -> None:
+        self.states = self._fresh_state_at(self._state_capacity())
+        self.state = None
 
     def _rr_shard(self) -> int:
         """The next shard of roundrobin routing (caller holds a lock)."""
@@ -481,6 +638,49 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
     def _reset_state_(self, captured) -> None:
         for st in captured:
             batch_tdigest.reset_state_(st)
+
+    def _retopo_device_locked(self) -> None:
+        super()._retopo_device_locked()
+        self._shard_counts = self._fresh_counts(self.capacity)
+
+    def _reshard_capture_device(self, states, snap: dict) -> None:
+        # concat + recompress over the shards (staging already folded);
+        # the merged state holds the digest's d* stats, which the wire
+        # carries, and the local l* stats, which ride the sidecar
+        snap["hstate"] = collectives.merge_histo_stacked(states)
+        self._plane.note_merge_round()
+
+    def merge_local_stats(self, stubs, lmin, lmax, lsum, lweight,
+                          lrecip) -> None:
+        """Re-attach migrated local sample stats to the rows' home
+        shards. The import merge (merge_batch) carries the digest side
+        only: a forwarded digest has no local samples. A reshard replay
+        is the one caller whose l* stats are local history, so the
+        controller calls this right after the centroid merge of the same
+        stubs (already interned and booked: no agg.applied here)."""
+        with self.lock:
+            rows = np.fromiter((self.row_for(s) for s in stubs), np.int32,
+                               len(stubs))
+            ok = rows >= 0
+            rows = rows[ok]
+            home = self._home_of(rows)
+            self.apply_lock.acquire()
+        try:
+            arrs = [np.asarray(a, np.float32)[ok]
+                    for a in (lmin, lmax, lsum, lweight, lrecip)]
+            for i in np.unique(home[home >= 0]).tolist():
+                sel = home == i
+                st = self.states[i]
+                idx = _to_device(rows[sel].astype(np.int64), self.device)
+                vals = [_to_device(np.ascontiguousarray(a[sel]),
+                                   self.device) for a in arrs]
+                st["lmin"].scatter_reduce_(0, idx, vals[0], "amin")
+                st["lmax"].scatter_reduce_(0, idx, vals[1], "amax")
+                st["lsum"].index_add_(0, idx, vals[2])
+                st["lweight"].index_add_(0, idx, vals[3])
+                st["lrecip"].index_add_(0, idx, vals[4])
+        finally:
+            self.apply_lock.release()
 
 
 class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
@@ -643,3 +843,11 @@ class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
     def _reset_state_(self, captured) -> None:
         for st in captured:
             st.zero_()
+
+    def _reshard_capture_device(self, states, snap: dict) -> None:
+        # register max over the touched rows
+        rows = np.flatnonzero(snap["touched"])
+        snap["regs"] = collectives.merge_hll_stacked(
+            states, torch.from_numpy(rows).to(self.device))
+        snap["regs_rows"] = rows
+        self._plane.note_merge_round()

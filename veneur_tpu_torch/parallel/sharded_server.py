@@ -14,7 +14,9 @@ them over the local devices, falls back to a virtual CPU mesh on a
 smaller host, and builds no plane (single-device tables) when fewer than
 two devices remain; the port does none of that: a store asked for N > 1
 shards always gets N shards on its device, and N > 128 raises (a row's
-home is stored as int8).
+home is stored as int8). A plane of one shard exists only as an elastic
+reshard's target (parallel/reshard.py), as in the JAX package, whose
+reshard takes any device list.
 
 The plane is also the shards' self-telemetry root: `mesh.*` rows
 describe the topology, `shard.*` rows the per-shard routing volume, so
@@ -46,8 +48,8 @@ class ShardedServingPlane:
                  routing: str = ROUTING_DIGEST):
         if routing not in (ROUTING_DIGEST, ROUTING_ROUNDROBIN):
             raise ValueError(f"unknown shard routing {routing!r}")
-        if not 2 <= n_shards <= MAX_SHARDS:
-            raise ValueError(f"a sharded plane takes 2..{MAX_SHARDS} "
+        if not 1 <= n_shards <= MAX_SHARDS:
+            raise ValueError(f"a sharded plane takes 1..{MAX_SHARDS} "
                              f"shards, got {n_shards}")
         self.device = torch.device(device)
         self.n = int(n_shards)

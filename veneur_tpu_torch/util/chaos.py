@@ -1,5 +1,5 @@
-"""Config-driven fault injection at the egress and ingest seams (port of
-veneur_tpu/util/chaos.py; its reshard seams wait for the reshard plane).
+"""Config-driven fault injection at the egress, ingest and reshard seams
+(port of veneur_tpu/util/chaos.py).
 
 Every resilience behavior (retry, breaker trip/recover, carryover,
 spill, ring ejection) must be testable deterministically, without a
@@ -25,6 +25,13 @@ The ingest seams ride the same plan and the same seeded generator:
 - `simulated_rss_bytes()`: extra bytes (`chaos_ingest_rss_bytes`,
   settable at run time with `set_simulated_rss`) the overload watermark
   monitor adds to real RSS.
+
+The reshard seams (parallel/reshard.py) are deterministic, with no roll:
+`reshard_prewarm_delay()` sleeps in the plan thread
+(`chaos_reshard_prewarm_delay_s`), `reshard_append_seam()` faults every
+Nth range-segment append (`chaos_reshard_append_fault_nth`), and
+`reshard_cutover_delay()` sleeps between the durable segments and their
+merge-back (`chaos_reshard_cutover_delay_s`), the widest crash window.
 
 Two ways to turn it on:
 
@@ -75,6 +82,9 @@ class Chaos:
                  ingest_duplicate_rate: float = 0.0,
                  ingest_rss_bytes: int = 0,
                  ledger_leak: int = 0,
+                 reshard_prewarm_delay_s: float = 0.0,
+                 reshard_append_fault_nth: int = 0,
+                 reshard_cutover_delay_s: float = 0.0,
                  sleep=time.sleep):
         self.enabled = bool(enabled)
         self.error_rate = min(1.0, max(0.0, float(error_rate)))
@@ -103,6 +113,14 @@ class Chaos:
         self.ledger_leak = max(0, int(ledger_leak))
         self._leak_roll = 0
         self.leaked_samples = 0
+        # the reshard seams: no roll, so a crash drill hits the same
+        # crossing every run
+        self.reshard_prewarm_delay_s = max(0.0, float(reshard_prewarm_delay_s))
+        self.reshard_append_fault_nth = max(0, int(reshard_append_fault_nth))
+        self.reshard_cutover_delay_s = max(0.0, float(reshard_cutover_delay_s))
+        self._reshard_append_roll = 0
+        self.reshard_faulted_appends = 0
+        self.reshard_injected_delays = 0
         self._rng = random.Random(seed)
         self._sleep = sleep
         self._lock = threading.Lock()
@@ -127,7 +145,11 @@ class Chaos:
                    ingest_truncate_rate=config.chaos_ingest_truncate_rate,
                    ingest_duplicate_rate=config.chaos_ingest_duplicate_rate,
                    ingest_rss_bytes=config.chaos_ingest_rss_bytes,
-                   ledger_leak=config.chaos_ledger_leak)
+                   ledger_leak=config.chaos_ledger_leak,
+                   reshard_prewarm_delay_s=config.chaos_reshard_prewarm_delay_s,
+                   reshard_append_fault_nth=(
+                       config.chaos_reshard_append_fault_nth),
+                   reshard_cutover_delay_s=config.chaos_reshard_cutover_delay_s)
 
     def inject(self, seam: str) -> None:
         """Run the seam: maybe sleep, maybe raise ChaosError. Called on
@@ -221,6 +243,37 @@ class Chaos:
                 return True
         return False
 
+    # -- reshard seams -----------------------------------------------------
+
+    def reshard_prewarm_delay(self) -> None:
+        """Plan-thread crossing: a fixed sleep before the prewarm."""
+        if not self.enabled or self.reshard_prewarm_delay_s <= 0:
+            return
+        with self._lock:
+            self.reshard_injected_delays += 1
+        self._sleep(self.reshard_prewarm_delay_s)
+
+    def reshard_append_seam(self) -> None:
+        """Cutover crossing: every `reshard_append_fault_nth`-th range
+        segment append raises."""
+        if not self.enabled or self.reshard_append_fault_nth <= 0:
+            return
+        with self._lock:
+            self._reshard_append_roll += 1
+            if self._reshard_append_roll >= self.reshard_append_fault_nth:
+                self._reshard_append_roll = 0
+                self.reshard_faulted_appends += 1
+                raise ChaosError("reshard_append")
+
+    def reshard_cutover_delay(self) -> None:
+        """Handoff crossing: a fixed sleep after the range segments are
+        durable, before any of them merges back."""
+        if not self.enabled or self.reshard_cutover_delay_s <= 0:
+            return
+        with self._lock:
+            self.reshard_injected_delays += 1
+        self._sleep(self.reshard_cutover_delay_s)
+
     def simulated_rss_bytes(self) -> int:
         """Extra bytes the watermark monitor adds to real RSS."""
         if not self.enabled:
@@ -248,6 +301,14 @@ class Chaos:
             if self.leaked_samples:
                 rows.append(("chaos.ledger_leaked", "counter",
                              float(self.leaked_samples), ()))
+            if self.reshard_faulted_appends:
+                rows.append(("chaos.injected_errors", "counter",
+                             float(self.reshard_faulted_appends),
+                             ["seam:reshard_append"]))
+            if self.reshard_injected_delays:
+                rows.append(("chaos.injected_delays", "counter",
+                             float(self.reshard_injected_delays),
+                             ["seam:reshard"]))
         return rows
 
 

@@ -6,10 +6,13 @@ card, then runs the port's server end to end on the card.
     python3 chip_smoke.py [--phases S,J]
 
 `--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
-to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P, M, R);
-with neither,
-every phase runs. The kernel checks always run, and the last line is
-the same either way.
+to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P, M, R, X,
+W, Y); with neither, every phase but Y runs. Y needs four cards and runs
+only when named:
+
+    python3 chip_smoke.py --phases Y      # on a host with four cards
+
+The kernel checks always run, and the last line is the same either way.
 
 Needs one CUDA card and g++ (it exits non-zero without either, and when
 the package is not beside it). Phases, each fatal on failure:
@@ -49,8 +52,8 @@ the package is not beside it). Phases, each fatal on failure:
      with the checks of phases A and B;
   7. phase D, the forward tier: two local Servers on the native pump
      forward to one global Server over gRPC (127.0.0.1), all on cuda:0.
-     Each local takes phase A's key set and 5 000 `|l` keys x 32 in each
-     of two intervals, half of the counter and gauge keys global-only
+     Each local takes phase A's key set and 5 000 `|l` keys x 32 in one
+     interval, half of the counter and gauge keys global-only
      (each global-only gauge sent by one local), set members overlapping
      by half. Per interval both locals flush (the export flush, K1; the
      forward send) and the global, which merged their state, flushes.
@@ -81,8 +84,8 @@ the package is not beside it). Phases, each fatal on failure:
      replay, replays again and is dropped as a duplicate.
   9. phase F, the sink plane: phase A's corpus plus 5 000 `|l` keys x
      32 into the channel, datadog, cortex and prometheus sinks (the
-     datadog and cortex ones at capturing fakes on 127.0.0.1), two
-     intervals; each fake's series equal to the sink's own rendering;
+     datadog and cortex ones at capturing fakes on 127.0.0.1), one
+     interval; each fake's series equal to the sink's own rendering;
  10. phase F2, the thread plane: `interval: 5s`, four intervals on the
      server's flush loop, a blocking and a failing sink beside datadog:
      the deadline join, the skips, the breaker and the spill;
@@ -165,7 +168,7 @@ the package is not beside it). Phases, each fatal on failure:
      at 1: one trace per local across /debug/traces of every tier, the
      self-spans at the channel span sinks, the `|l` exemplars on the
      global's bucket lines once per family. J5 phase A's corpus flushed
-     at sample rates 1, 0, 1, 0: each flush's total_s.
+     at sample rates 1 and 0: each flush's total_s.
 
  15. phase S, the pull sources and the table lifecycle, each part on
      cuda:0: S1 OTLP/HTTP at phase A's key widths (40 000 cumulative
@@ -265,7 +268,7 @@ the package is not beside it). Phases, each fatal on failure:
      flush of both stores alone under torch.profiler for the device's
      busy share and its top device operations. M2: a
      4-shard local Server on the pump at phase D's local width forwards
-     to a 4-shard global over gRPC, two intervals, checked as phase D
+     to a 4-shard global over gRPC, one interval, checked as phase D
      checks its local and global; the global's `mesh.peer_shards` reads
      4. K1, K2 and K3 must each launch on the sharded apply and flush.
  19. phase R, the elastic reshard (BASELINE.md config 10), on cuda:0,
@@ -292,8 +295,35 @@ the package is not beside it). Phases, each fatal on failure:
      interval balanced, `GET /debug/reshard` idle at epoch 1 with 3
      shards, the `reshard.*` rows on `/metrics`; each flush's seconds
      before, during and after the cutover and its flush-lock hold.
+ 20. phase X, shards over several cards on one card. X1: a 4-shard
+     store in four placement groups on cuda:0 (`shard_groups`: the
+     per-group applies, the partial merges and the copies of the
+     multi-card path), the 4-shard store of one group and a single store
+     take M1's decoded columns, two intervals: every series of the
+     grouped store equal to the one-group store's (the t-digest rows
+     within rtol 1e-6) and within M1's rules of the single store's, K3
+     called once per block and group, the HBM ledger equal to the
+     tensors per device, each store's flush seconds and merges timed.
+     X2: `parallel.mesh.full_step` with 4 slots on cuda:0 at 100 000
+     keys and 8192 samples a slot, held to a single-device oracle as
+     the JAX package's dryrun is: counters and HLL registers exact,
+     gauges by the last slot that set them, quantiles within the
+     dryrun's slack; K1 and K2 on the merged state.
+ 21. phase W, one round of the SIGKILL reshard soak
+     (`veneur_tpu_torch.cmd.reshard_soak`) on cuda:0: a sharded child
+     killed with its range segments durable, restarted at the old shard
+     count, its replayed flush equal to a never-resharded control's.
+ 22. phase Y (named only; four cards): Y1, the 4-shard store with each
+     shard on its own card against the same store on card 0, M1's
+     columns, two intervals: every series equal, K3 launched on each
+     card, the HBM ledger equal to the tensors on each card, the flush
+     seconds and the bytes the merges copied between cards. Y2: two
+     4-shard servers over the cards; the first loses shard 3's card
+     halfway through interval 1 (`reshard.device_loss(3)`, 4 -> 3 shards
+     over cards 0-2), the second is the control: every series equal,
+     the strict ledgers balanced, nothing booked on the lost card.
 
-Phases I and S run in a side process of their own on the same card,
+Phases I, S and W run in a side process of their own on the same card,
 started where I stands in the order, beside the main process's J, O and
 P (each of them spends most of its time on one interpreter lock, so the
 two processes share the host's cores); the side process prints its
@@ -302,7 +332,7 @@ its own phases, and its failure is the run's. The last `phase seconds`
 line gives each phase's seconds and the smoke's wall time.
 
 Two spawned worker processes build the selected phases' big corpora
-(A, B, D, F, G, H1, J1, O1, P1, M, R) ahead, in phase order, while the kernels
+(A, B, D, F, G, H1, J1, O1, P1, M, R, X, Y) ahead, in phase order, while the kernels
 build and the earlier phases run; a phase takes its corpora from them,
 or builds them itself when run alone.
 
@@ -1251,6 +1281,9 @@ def _phase_c() -> dict:
 
 
 PHASE_D_LL_KEYS = 5_000
+# one interval: the second, steady-state one was cut for the smoke's
+# time limit
+PHASE_D_SEEDS = (7,)
 # per local and interval: the global-only counter and gauge halves, every
 # timer, set and llhist key
 PHASE_D_FORWARDED = (PHASE_A_KEYS["counter"] // 2 + PHASE_A_KEYS["gauge"] // 2
@@ -1379,7 +1412,7 @@ def _phase_d() -> dict:
     from veneur_tpu_torch.forward import convert
     from veneur_tpu_torch.sinks.channel import ChannelMetricSink
     keys = PHASE_A_KEYS
-    intervals = [_phase_d_interval(seed) for seed in (7, 8)]
+    intervals = [_phase_d_interval(seed) for seed in PHASE_D_SEEDS]
     gserver = _server({"grpc_address": "127.0.0.1:0",
                        "statsd_listen_addresses": []},
                       {"counter_capacity": 32768, "gauge_capacity": 32768,
@@ -1465,10 +1498,11 @@ def _phase_d() -> dict:
     report["stats"] = {"locals": [s.stats_snapshot() for s in locals_],
                        "global": gserver.stats_snapshot()}
     for i, stats in enumerate(report["stats"]["locals"]):
-        if stats["forwarded_total"] != 2 * PHASE_D_FORWARDED:
+        if stats["forwarded_total"] != len(PHASE_D_SEEDS) * PHASE_D_FORWARDED:
             raise AssertionError(f"phase D local {i} forwarded "
                                  f"{stats['forwarded_total']}")
-    if report["stats"]["global"]["imported_total"] != 4 * PHASE_D_FORWARDED:
+    if report["stats"]["global"]["imported_total"] \
+            != 2 * len(PHASE_D_SEEDS) * PHASE_D_FORWARDED:
         raise AssertionError(f"phase D: the global imported "
                              f"{report['stats']['global']}")
     report["proto_fallback_rows"] = \
@@ -1775,6 +1809,7 @@ def _phase_e() -> dict:
 # -- phase F: the sink plane at full width ----------------------------------
 
 PHASE_F_LL_KEYS = 5_000
+PHASE_F_SEEDS = (21,)  # one interval, as D's (the time limit)
 
 
 class _Fake:
@@ -1928,7 +1963,7 @@ def _phase_f() -> dict:
     dd_fake, cx_fake = _Fake(), _Fake()
     corpora = [_corpus(seed, PHASE_A_KEYS, PHASE_F_LL_KEYS) + (
         _set_reference(seed, PHASE_A_KEYS["set"],
-                       PHASE_A_KEYS["set_members"]),) for seed in (21, 22)]
+                       PHASE_A_KEYS["set_members"]),) for seed in PHASE_F_SEEDS]
     server = _server({"metric_sinks": [
         {"kind": "datadog", "name": "datadog",
          "config": {"datadog_api_key": "smoke",
@@ -3918,6 +3953,9 @@ def _phase_i() -> dict:
 # -- phase J: the overload plane and the self-trace plane --------------------
 
 PHASE_J_LL_KEYS = 5_000
+# one traced flush and one untraced (four, 1 0 1 0, before the smoke's
+# time limit asked for the depth)
+PHASE_J5_RATES = (1.0, 0.0)
 PHASE_J_RATE = 100_000        # ingest_rate_limit_statsd, samples/s
 PHASE_J_SEND_RATE = 200_000   # J1's senders, lines/s: twice the limit
 PHASE_J_SPANS = 2_000         # SSF spans per J2 interval
@@ -4605,7 +4643,7 @@ def _phase_j4() -> dict:
 
 def _phase_j5() -> dict:
     """J5: the cost of self-tracing at full width: phase A's corpus
-    flushed by one server four times, trace_self_sample_rate 1, 0, 1, 0.
+    flushed by one server twice, trace_self_sample_rate 1 then 0.
     Each flush's total_s is reported; no bound is asserted."""
     from veneur_tpu_torch.sinks.channel import ChannelMetricSink
     server = _j_server({}, _J_CAPS, [ChannelMetricSink()])
@@ -4616,7 +4654,7 @@ def _phase_j5() -> dict:
     try:
         window = _pump_window(server)
         base = 0
-        for rate in (1.0, 0.0, 1.0, 0.0):
+        for rate in PHASE_J5_RATES:
             plane = server.trace_plane
             plane.sample_rate = rate
             plane.roll()  # the next interval's gate under this rate
@@ -4631,7 +4669,7 @@ def _phase_j5() -> dict:
                             "total_s": server.last_flush_timings["total_s"]})
     finally:
         server.shutdown()
-    if [f["traced"] for f in flushes] != [True, False, True, False]:
+    if [f["traced"] for f in flushes] != [bool(r) for r in PHASE_J5_RATES]:
         raise AssertionError(f"phase J5: sampled {flushes}")
     return {"flushes": flushes, "launches": _read_launches()}
 
@@ -6560,6 +6598,9 @@ def _phase_p() -> dict:
 
 PHASE_M_SHARDS = 4
 PHASE_M_SEEDS = (71, 72)
+# M2 runs one interval (its second, steady-state one cut for the time
+# limit, as D's and F's were)
+PHASE_M2_SEEDS = PHASE_M_SEEDS[:1]
 PHASE_M_LL_KEYS = PHASE_D_LL_KEYS  # A's widths plus B's `|l` keys x 32
 PHASE_M_CHUNK = 65_536             # samples a decoded chunk (a pump chunk's)
 PHASE_M_CAPS = {"counter_capacity": 65536, "gauge_capacity": 32768,
@@ -6612,14 +6653,16 @@ def _m1_interval(seed: int) -> dict:
     return out
 
 
-def _m_store(shards: int):
+def _m_store(shards: int, groups=None):
     """A ColumnStore at M's widths on cuda:0 (`shards` 0: single tables;
-    set keys promote at 16 samples, the card's auto threshold) with a
-    device observatory attached."""
+    set keys promote at 16 samples, the card's auto threshold; the shards
+    over `groups`, default the first min(shards, C) cards) with a device
+    observatory attached."""
     from veneur_tpu_torch.core.columnstore import ColumnStore
     from veneur_tpu_torch.core.deviceobs import DeviceObservatory
     store = ColumnStore(batch_cap=8192, set_promote_samples=16,
-                        shard_devices=shards, **PHASE_M_CAPS)
+                        shard_devices=shards, shard_groups=groups,
+                        **PHASE_M_CAPS)
     obs = DeviceObservatory()
     store.attach_deviceobs(obs)
     return store, obs
@@ -6687,13 +6730,16 @@ def _m_merge_ms(store, snaps) -> dict:
             snaps[family]["touched"])).to(store.device)
     ll_rows, set_rows = touched("llhist"), touched("set")
     state = {f: snap["state"] for f, snap in snaps.items()}
-    fns = {"counter": lambda: coll.merge_counters_stacked(state["counter"]),
-           "gauge": lambda: coll.merge_gauges_stacked(state["gauge"]),
+    dev, plane = store.device, store.shard_plane
+    fns = {"counter": lambda: coll.merge_counters_stacked(state["counter"],
+                                                          dev),
+           "gauge": lambda: coll.merge_gauges_stacked(state["gauge"], dev),
            "histogram": lambda: coll.merge_histo_stacked(
-               state["histogram"]),
-           "llhist": lambda: coll.merge_llhist_stacked(state["llhist"],
+               state["histogram"], dev),
+           "llhist": lambda: coll.merge_llhist_stacked(state["llhist"], dev,
                                                        ll_rows),
-           "set": lambda: coll.merge_hll_stacked(state["set"], set_rows)}
+           "set": lambda: coll.merge_hll_stacked(state["set"], plane,
+                                                 set_rows)}
     return {f: _time_ms(fn, reps=2, runs=3) for f, fn in fns.items()}
 
 
@@ -6925,7 +6971,7 @@ def _phase_m2() -> dict:
     global's are checked as phase D checks them, and the global's
     `mesh.peer_shards` reads the local's 4 shards."""
     from veneur_tpu_torch.sinks.channel import ChannelMetricSink
-    intervals = [_m2_interval(seed) for seed in PHASE_M_SEEDS]
+    intervals = [_m2_interval(seed) for seed in PHASE_M2_SEEDS]
     keys = PHASE_A_KEYS
     forwarded = (keys["counter"] // 2 + keys["gauge"] // 2 + keys["timer"]
                  + keys["set"] + PHASE_M_LL_KEYS)
@@ -7461,6 +7507,468 @@ def _phase_r() -> dict:
         k: r1["launches"][k] + r2["launches"][k] for k in _M_KERNELS}}
 
 
+# ---------------------------------------------------------------------------
+# phases X, Y and W: shards over several cards, and the SIGKILL soak
+# ---------------------------------------------------------------------------
+
+PHASE_X_SEEDS = PHASE_M_SEEDS      # M1's decoded columns, two intervals
+PHASE_X_SLOTS = 4                  # mesh.full_step's slots
+PHASE_X_KEYS = 100_000
+PHASE_X_BATCH = 8192               # samples a slot
+PHASE_X_SEED = 5
+PHASE_Y_CARDS = 4
+PHASE_Y_LOST = 3                   # the shard whose card device_loss drops
+
+
+def _card0():
+    return torch.device("cuda", 0)
+
+
+def _all_cards() -> list:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _sync_cards() -> None:
+    for dev in _all_cards():
+        torch.cuda.synchronize(dev)
+
+
+def _k3_counts(store) -> tuple:
+    """Count the llhist table's K3 calls per placement group, and K3's
+    launches per card, while the returned undo is not called: the
+    wrappers count and call through (each kernel still counts its own
+    launches)."""
+    from veneur_tpu_torch.ops import llhist_apply
+    from veneur_tpu_torch.parallel import collectives as coll
+    table = store.llhists
+    per_group: dict = {}
+    per_card: dict = {}
+    real_block, real_apply = coll.apply_llhist_block_sharded, \
+        llhist_apply.apply
+
+    def block(regs, blk):
+        ids = {id(t): g for g, t in enumerate(coll.groups_of(table.state))}
+        g = ids.get(id(regs), -1)
+        per_group[g] = per_group.get(g, 0) + 1
+        return real_block(regs, blk)
+
+    def apply(regs, rows, bins, wts):
+        if regs.is_cuda:
+            key = f"cuda:{regs.device.index}"
+            per_card[key] = per_card.get(key, 0) + 1
+        return real_apply(regs, rows, bins, wts)
+
+    coll.apply_llhist_block_sharded = block
+    llhist_apply.apply = apply
+
+    def undo():
+        coll.apply_llhist_block_sharded = real_block
+        llhist_apply.apply = real_apply
+    return per_group, per_card, undo
+
+
+def _copied_bytes() -> tuple:
+    """Count the bytes the merges copy from one card to another (the
+    partials and grids `_gathered` moves) until undo() is called."""
+    from veneur_tpu_torch.parallel import collectives as coll
+    real = coll._gathered
+    moved = [0]
+
+    def gathered(parts, device):
+        device = torch.device(device)
+        moved[0] += sum(p.numel() * p.element_size() for p in parts
+                        if p.device != device)
+        return real(parts, device)
+    coll._gathered = gathered
+
+    def undo():
+        coll._gathered = real
+    return moved, undo
+
+
+def _x_compare(got: dict, want: dict, what: str) -> int:
+    """A sharded store's flush against another sharded store's: counters,
+    gauges, llhist registers and readouts (sums included: the same
+    registers), HLL registers and estimates bit for bit; the t-digest
+    readout and export within rtol 1e-6."""
+    checked = 0
+    for family in ("counter", "gauge"):
+        vals, touched, _ = got[family]
+        wvals, wtouched, _ = want[family]
+        if not (np.array_equal(touched, wtouched)
+                and np.array_equal(vals[touched], wvals[wtouched])):
+            raise AssertionError(f"phase {what}: {family} values differ")
+        checked += int(touched.sum())
+    out, bins, touched, _ = got["llhist"]
+    wout, wbins, wtouched, _ = want["llhist"]
+    if not (np.array_equal(touched, wtouched) and np.array_equal(bins, wbins)
+            and all(np.array_equal(out[k], wout[k]) for k in wout)):
+        raise AssertionError(f"phase {what}: llhist registers or readout "
+                             f"differ")
+    checked += int(touched.sum()) * (2 + len(PS))
+    est, regs, touched, _ = got["set"]
+    west, wregs, wtouched, _ = want["set"]
+    rows = np.flatnonzero(touched)
+    if not (np.array_equal(touched, wtouched)
+            and np.array_equal(est[rows], west[rows])
+            and all(np.array_equal(regs[r], wregs[r]) for r in rows)):
+        raise AssertionError(f"phase {what}: HLL registers or estimates "
+                             f"differ")
+    checked += 2 * rows.size
+    (out, exp, touched, _), (wout, wexp, wtouched, _) = (got["histogram"],
+                                                         want["histogram"])
+    rows = np.flatnonzero(touched)
+    if not (np.array_equal(touched, wtouched)
+            and all(np.allclose(out[k][rows], wout[k][rows], rtol=1e-6,
+                                atol=0.0) for k in wout)
+            and all(np.allclose(a[rows], b[rows], rtol=1e-6, atol=0.0)
+                    for a, b in zip(exp, wexp))):
+        raise AssertionError(f"phase {what}: t-digest rows beyond rtol "
+                             f"1e-6")
+    return checked + len(wout) * rows.size
+
+
+def _x_ledger_by_card(store, obs, what: str) -> dict:
+    """The HBM ledger's bytes per device equal to the store's tensors on
+    each device (live and spare generations, nothing in flight)."""
+    from veneur_tpu_torch.core.deviceobs import bytes_by_device
+    walk: dict = {}
+    for _family, t in store.tables():
+        for tree in (t._devobs_state(), t._spare):
+            for dev, n in bytes_by_device(tree).items():
+                walk[dev] = walk.get(dev, 0) + n
+    booked = obs.ledger()["by_device"]
+    if booked != walk:
+        raise AssertionError(f"phase {what}: the ledger books {booked} "
+                             f"per device, the tensors are {walk}")
+    return booked
+
+
+def _x_run(stores: dict, intervals, label: str, timed_merge: bool) -> dict:
+    """Feed and flush named stores (interned alike) through M1's
+    intervals; per interval the first store's flush against each other's
+    (`_x_compare`, and the single store's slack for a store of single
+    tables), its K3 calls per group and launches per card, each store's
+    flush seconds and the bytes its merges copied between cards."""
+    names = list(stores)
+    first, (store0, obs0) = names[0], stores[names[0]]
+    report = {"intervals": []}
+    path = {k: 0 for k in _M_KERNELS}
+    _zero_launches()
+    for i, cols in enumerate(intervals):
+        rec = {"feed_s": {}, "flush_s": {}, "copied_bytes": {}}
+        outs = {}
+        for name in names:
+            store, obs = stores[name]
+            start = _read_launches()
+            if name == first:
+                groups, cards, undo = _k3_counts(store)
+            try:
+                rec["feed_s"][name] = _m1_feed(store, cols)
+            finally:
+                if name == first:
+                    undo()
+            applied = _read_launches()
+            if name == first:
+                rec["k3_per_group"] = dict(sorted(groups.items()))
+                rec["k3_per_card"] = dict(sorted(cards.items()))
+                rec["launches"] = {"apply": _m_delta(start, applied)}
+            merge_ms = {} if timed_merge and i == 0 \
+                and store.shard_plane is not None else None
+            moved, undo = _copied_bytes()
+            try:
+                t0 = time.perf_counter()
+                # the single store's set readout lets its generation
+                # escape into the register view, which no walk follows:
+                # its ledger is not held to the tensors (as in M1)
+                outs[name], _checks = _m1_flush(
+                    store, obs if store.shard_plane is not None else None,
+                    merge_ms)
+                _sync_cards()
+                rec["flush_s"][name] = time.perf_counter() - t0
+            finally:
+                undo()
+            rec["copied_bytes"][name] = moved[0]
+            if merge_ms is not None:
+                rec.setdefault("merge_ms", {})[name] = merge_ms
+            if name == first:
+                flushed = _read_launches()
+                rec["launches"]["flush"] = _m_delta(applied, flushed)
+                _m_require(rec["launches"]["apply"], ("llhist_apply",),
+                           f"{label} apply")
+                _m_require(rec["launches"]["flush"], ("tdigest_flush",
+                                                      "hll_estimate"),
+                           f"{label} flush")
+                for k in path:
+                    path[k] += flushed[k] - start[k]
+                if obs is not None:
+                    rec["ledger_by_device"] = _x_ledger_by_card(store, obs,
+                                                                label)
+        rec["series_equal"] = {}
+        for name in names[1:]:
+            other = stores[name][0]
+            if other.shard_plane is None:
+                rec["series_equal"][name] = _m1_compare(
+                    outs[first], outs[name], cols["counter_totals"])
+            else:
+                rec["series_equal"][name] = _x_compare(
+                    outs[first], outs[name], f"{label} against {name}")
+        report["intervals"].append(rec)
+    report["launches"] = path
+    report["plane"] = store0.shard_plane.describe()
+    return report
+
+
+def _phase_x1() -> dict:
+    """X1: a 4-shard store in four placement groups on cuda:0 (the
+    multi-card path on one card: per-group applies, partial merges and
+    copies), the 4-shard store of one group and a single store take M1's
+    decoded columns, two intervals; every series of the grouped store
+    equals the one-group store's and the single store's, and K3 is
+    called once per block and group."""
+    intervals = [_m1_interval(seed) for seed in PHASE_X_SEEDS]
+    card0 = _card0()
+    stores = {"four_groups": _m_store(PHASE_M_SHARDS, [card0] * 4),
+              "one_group": _m_store(PHASE_M_SHARDS, [card0]),
+              "single": _m_store(0)}
+    _m1_intern([s for s, _obs in stores.values()])
+    report = _x_run(stores, intervals, "X1", timed_merge=True)
+    for rec in report["intervals"]:
+        calls = rec["k3_per_group"]
+        if sorted(calls) != list(range(PHASE_M_SHARDS)) \
+                or len(set(calls.values())) != 1:
+            raise AssertionError(f"phase X1: K3 calls per group {calls}")
+    del stores
+    return report
+
+
+def _phase_x2() -> dict:
+    """X2: mesh.full_step with 4 slots on cuda:0 at 100 000 keys and 8192
+    samples a slot, held to a single-device oracle as the JAX package's
+    dryrun holds its step (__graft_entry__.py:64-177): counters and HLL
+    registers exact, gauges by the last slot that set them, quantiles
+    within the dryrun's slack; K1 and K2 run on the merged state."""
+    from veneur_tpu_torch.ops import batch_hll, batch_tdigest
+    from veneur_tpu_torch.parallel import mesh as pmesh
+    card0 = _card0()
+    n, num_keys = PHASE_X_SLOTS, PHASE_X_KEYS
+    mesh = pmesh.make_mesh(n, devices=[card0])
+    batches = pmesh.make_shard_batches(n, num_keys, PHASE_X_BATCH,
+                                       seed=PHASE_X_SEED)
+    state = pmesh.init_sharded_state(mesh, num_keys)
+    _zero_launches()
+    t0 = time.perf_counter()
+    state, merged = pmesh.full_step(mesh, state, batches)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    ps = (0.5, 0.99)
+    t0 = time.perf_counter()
+    packed = batch_tdigest.flush_quantiles_packed(merged["histos"], ps,
+                                                  fold_staging=False)
+    est = batch_hll.estimate(merged["sets"])
+    torch.cuda.synchronize()
+    readout_s = time.perf_counter() - t0
+    # the step's and its readout's launches; the oracle's below are not
+    # the path's
+    launches = _read_launches()
+    _m_require(launches, ("tdigest_flush", "hll_estimate"), "X2")
+    # counters: the exact sum of every slot's samples
+    want = np.zeros(num_keys, np.float32)
+    contrib = np.trunc(batches["c_vals"] / batches["c_rates"])
+    np.add.at(want, batches["c_rows"].reshape(-1), contrib.reshape(-1))
+    if not np.array_equal(merged["counters"].cpu().numpy(), want):
+        raise AssertionError("phase X2: merged counters differ")
+    # gauges: each slot's last write, the highest slot winning
+    want_g = np.zeros(num_keys, np.float32)
+    want_set = np.zeros(num_keys, bool)
+    for slot in range(n):
+        want_g[batches["g_rows"][slot]] = batches["g_vals"][slot]
+        want_set[batches["g_rows"][slot]] = True
+    got_set = merged["gauges"]["set"].cpu().numpy()
+    got_g = merged["gauges"]["value"].cpu().numpy()
+    if not (np.array_equal(got_set, want_set)
+            and np.array_equal(got_g[want_set], want_g[want_set])):
+        raise AssertionError("phase X2: merged gauges differ")
+    # sets: the merged registers equal one apply of every slot's samples
+    single = batch_hll.init_state(num_keys, card0)
+    batch_hll.apply_batch(single, *(
+        torch.from_numpy(batches[k].reshape(-1)).to(card0)
+        for k in ("s_rows", "s_idx", "s_rho")))
+    if not torch.equal(merged["sets"], single):
+        raise AssertionError("phase X2: merged HLL registers differ")
+    if not torch.equal(est, batch_hll.estimate(single)):
+        raise AssertionError("phase X2: K2 on the merged registers differs")
+    del single
+    # histograms: quantiles against a single digest fed the whole stream
+    single_td = batch_tdigest.init_state(num_keys, card0)
+    h = {k: batches[k].reshape(-1) for k in ("h_rows", "h_vals", "h_wts")}
+    batch_tdigest.apply_batch(single_td, *(
+        torch.from_numpy(h[k]).to(card0) for k in ("h_rows", "h_vals",
+                                                    "h_wts")))
+    got_q = batch_tdigest.unpack_flush(packed.cpu().numpy(), len(ps))
+    want_q = batch_tdigest.unpack_flush(batch_tdigest.flush_quantiles_packed(
+        single_td, ps).cpu().numpy(), len(ps))
+    touched = np.unique(h["h_rows"])
+    gq, wq = got_q["quantiles"][touched], want_q["quantiles"][touched]
+    # normal(100, 15) samples: twice the documented one-k-unit slack
+    slack = 2 * 0.02 * 15 * 5
+    if not (np.isfinite(gq).all() and np.abs(gq - wq).max() <= slack):
+        raise AssertionError(f"phase X2: quantiles {np.abs(gq - wq).max()} "
+                             f"from the oracle's, slack {slack}")
+    if not np.array_equal(got_q["count"][touched],
+                          want_q["count"][touched]):
+        raise AssertionError("phase X2: digest counts differ")
+    report = {"slots": n, "keys": num_keys, "batch": PHASE_X_BATCH,
+              "step_s": step_s, "readout_s": readout_s,
+              "max_quantile_diff": float(np.abs(gq - wq).max()),
+              "touched": int(touched.size), "launches": launches}
+    del state, merged, single_td
+    return report
+
+
+def _phase_x() -> dict:
+    """Phase X: the multi-card path on one card (X1), and the multi-card
+    dryrun (X2)."""
+    t0 = time.perf_counter()
+    x1 = _phase_x1()
+    torch.cuda.empty_cache()
+    x1["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x2 = _phase_x2()
+    torch.cuda.empty_cache()
+    x2["seconds"] = time.perf_counter() - t0
+    return {"X1": x1, "X2": x2, "launches": {
+        k: x1["launches"][k] + x2["launches"][k] for k in _M_KERNELS}}
+
+
+def _phase_y1() -> dict:
+    """Y1: the 4-shard store with each shard on its own card against the
+    same store on card 0, M1's columns, two intervals: every series
+    equal, K3 launched on every card, the HBM ledger equal to the tensors
+    on every card."""
+    intervals = [_m1_interval(seed) for seed in PHASE_X_SEEDS]
+    cards = _all_cards()[:PHASE_Y_CARDS]
+    stores = {"four_cards": _m_store(PHASE_M_SHARDS),
+              "one_card": _m_store(PHASE_M_SHARDS, [cards[0]])}
+    plane = stores["four_cards"][0].shard_plane
+    if plane.devices != cards:
+        raise AssertionError(f"phase Y1: shards placed on {plane.devices}")
+    _m1_intern([s for s, _obs in stores.values()])
+    report = _x_run(stores, intervals, "Y1", timed_merge=False)
+    for rec in report["intervals"]:
+        if sorted(rec["k3_per_card"]) != [f"cuda:{i}" for i in
+                                          range(PHASE_Y_CARDS)]:
+            raise AssertionError(f"phase Y1: K3 launched on "
+                                 f"{rec['k3_per_card']}")
+        if sorted(rec["ledger_by_device"]) != [f"cuda:{i}" for i in
+                                               range(PHASE_Y_CARDS)]:
+            raise AssertionError(f"phase Y1: ledger by card "
+                                 f"{rec['ledger_by_device']}")
+    del stores
+    return report
+
+
+def _phase_y2(workdir: str) -> dict:
+    """Y2: two 4-shard servers over the four cards take M1's columns; the
+    first loses shard 3's card halfway through interval 1
+    (`device_loss(3)`: 4 -> 3 shards over cards 0-2) and holds interval
+    2 on them, the second is the control that was never resharded."""
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    intervals = [_m1_interval(seed) for seed in PHASE_X_SEEDS]
+    tpu = {**PHASE_M_CAPS, "shards": PHASE_M_SHARDS}
+    server = _server({"statsd_listen_addresses": [], "ledger_strict": True,
+                      "reshard_spool_dir": os.path.join(workdir, "wal")},
+                     tpu, ChannelMetricSink())
+    control = _server({"statsd_listen_addresses": [],
+                       "ledger_strict": True}, tpu, ChannelMetricSink())
+    report = {"intervals": []}
+    try:
+        _m1_intern((server.store, control.store))
+        _zero_launches()
+        start = _read_launches()
+        for i, cols in enumerate(intervals):
+            rec = {}
+            if i == 0:
+                rec["feed_s"] = _r_feed(server, _r_half(cols, True))
+                t0 = time.perf_counter()
+                server.reshard.device_loss(PHASE_Y_LOST, block=True)
+                rec["device_loss_s"] = time.perf_counter() - t0
+                rec["feed_s"] += _r_feed(server, _r_half(cols, False))
+            else:
+                rec["feed_s"] = _r_feed(server, cols)
+            got = _r_flush(server)
+            flushed = _read_launches()
+            rec["launches"] = _m_delta(start, flushed)
+            _m_require(rec["launches"], _M_KERNELS, f"Y2 interval {i + 1}")
+            start = flushed
+            _r_feed(control, cols)
+            want = _r_flush(control)
+            start = _read_launches()
+            rec["flush_s"], rec["control_flush_s"] = got[2], want[2]
+            rec["series_equal"] = _r_compare(got, want, "Y2")
+            rec["ledger_by_device"] = _x_ledger_by_card(
+                server.store, server.deviceobs, "Y2")
+            report["intervals"].append(rec)
+        plane = server.store.shard_plane
+        if plane.devices != _all_cards()[:PHASE_Y_CARDS - 1]:
+            raise AssertionError(f"phase Y2: after device_loss the shards "
+                                 f"are on {plane.devices}")
+        if sorted(report["intervals"][-1]["ledger_by_device"]) != [
+                f"cuda:{i}" for i in range(PHASE_Y_CARDS - 1)]:
+            raise AssertionError("phase Y2: the lost card still holds "
+                                 "booked bytes")
+        report["controller"] = server.reshard.describe()
+        report["plane"] = plane.describe()
+        report["ledger_intervals"] = _r_ledgers(server, control)
+        report["launches"] = {k: sum(r["launches"][k]
+                                     for r in report["intervals"])
+                              for k in _M_KERNELS}
+    finally:
+        _r_close(server, control)
+    return report
+
+
+def _phase_y() -> dict:
+    """Phase Y (named only, four cards): Y1, the store spread over the
+    cards against the one-card store, and Y2, device_loss onto the cards
+    that survive against a control."""
+    import shutil
+    import tempfile
+    have = torch.cuda.device_count()
+    if have < PHASE_Y_CARDS:
+        raise AssertionError(f"phase Y needs {PHASE_Y_CARDS} cards, "
+                             f"{have} visible")
+    workdir = tempfile.mkdtemp(prefix="smoke-y-")
+    try:
+        t0 = time.perf_counter()
+        y1 = _phase_y1()
+        torch.cuda.empty_cache()
+        y1["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y2 = _phase_y2(workdir)
+        y2["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"Y1": y1, "Y2": y2, "launches": {
+        k: y1["launches"][k] + y2["launches"][k] for k in _M_KERNELS}}
+
+
+def _phase_w() -> dict:
+    """Phase W: one round of the SIGKILL reshard soak on cuda:0
+    (veneur_tpu_torch/cmd/reshard_soak.py): a sharded child killed with
+    its range segments durable, restarted at the old shard count, its
+    replayed flush diffed against a never-resharded control. The
+    children launch the kernels in their own processes, so this process
+    counts none."""
+    from veneur_tpu_torch.cmd import reshard_soak
+    report = reshard_soak.run_soak(kills=1, device="cuda:0")
+    if (report["kills"], report["restarts"]) != (1, 1) or not all(
+            r["rows"] and r["segments"] for r in report["rounds"]):
+        raise AssertionError(f"phase W: soak report {report}")
+    report["launches"] = {k: 0 for k in _M_KERNELS}
+    return report
+
+
 def _prebuild_plan() -> dict:
     """Per phase, the corpora it builds first, called exactly as the
     phase calls them (the key is the arguments' repr)."""
@@ -7472,18 +7980,20 @@ def _prebuild_plan() -> dict:
     return {
         "A": with_sets((1, 2)),
         "B": [(_phase_b_corpus, (seed,)) for seed in (3, 4)],
-        "D": [(_phase_d_interval, (seed,)) for seed in (7, 8)],
-        "F": with_sets((21, 22), PHASE_F_LL_KEYS),
+        "D": [(_phase_d_interval, (seed,)) for seed in PHASE_D_SEEDS],
+        "F": with_sets(PHASE_F_SEEDS, PHASE_F_LL_KEYS),
         "G": with_sets((31, 32), PHASE_F_LL_KEYS),
         "H": [(_phase_d_interval, (seed,)) for seed in PHASE_H1_SEEDS],
         "I": [(_i1_corpus, (seed,)) for seed in PHASE_I1_SEEDS],
         "J": [(_corpus, (seed, a, PHASE_J_LL_KEYS)) for seed in (41, 42)],
         "O": with_sets((31, 32), PHASE_O_LL_KEYS),
         "P": with_sets(PHASE_P_SEEDS, PHASE_P_LL_KEYS),
-        "M": [item for seed in PHASE_M_SEEDS for item in (
-            (_m1_interval, (seed,)), (_m2_interval, (seed,)))],
+        "M": [(_m1_interval, (seed,)) for seed in PHASE_M_SEEDS]
+        + [(_m2_interval, (seed,)) for seed in PHASE_M2_SEEDS],
         "R": [(_m1_interval, (seed,)) for seed in PHASE_R1_SEEDS]
         + [(_corpus, (seed, a)) for seed in PHASE_R2_SEEDS],
+        "X": [(_m1_interval, (seed,)) for seed in PHASE_X_SEEDS],
+        "Y": [(_m1_interval, (seed,)) for seed in PHASE_X_SEEDS],
     }
 
 
@@ -7506,13 +8016,15 @@ def _start_prebuild(selected, side=()):
 
 
 PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O",
-          "P", "M", "R")
+          "P", "M", "R", "X", "W", "Y")
+# phases run only when named: Y needs four cards
+NAMED_ONLY = ("Y",)
 # phases run in a process of their own, on the same card, beside the
 # main process's later phases (J, O and P) when the run has others: each
 # spends most of its time on one interpreter lock (the SSF reader, the
 # OTLP and churn slow paths), so the two processes share the host's
 # cores instead of taking turns
-SIDE_PHASES = ("I", "S")
+SIDE_PHASES = ("I", "S", "W")
 
 _SIDE = r"""
 import json, sys, time
@@ -7576,8 +8088,8 @@ def _finish_side(proc, names, timeout: float = 1100.0) -> dict:
 
 def _selected_phases(argv) -> tuple:
     """The server phases to run: `--phases S,J` or the CHIP_SMOKE_PHASES
-    variable; every phase when neither is given. The kernel checks always
-    run."""
+    variable; every phase but the named-only ones (Y, four cards) when
+    neither is given. The kernel checks always run."""
     import argparse
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--phases", default=os.environ.get(
@@ -7589,7 +8101,7 @@ def _selected_phases(argv) -> tuple:
     unknown = sorted(set(chosen) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}")
-    return chosen or PHASES
+    return chosen or tuple(p for p in PHASES if p not in NAMED_ONLY)
 
 
 def _report_abc(name: str, rep: dict, phases: dict, smi: str) -> None:
@@ -7711,7 +8223,8 @@ def _report_g(name: str, rep: dict, phases: dict, smi: str) -> None:
     for i, rec in enumerate(rep["intervals"]):
         g_flush = rec["flush"]
         beside_f = ""
-        if "F" in phases:  # phase F's corpus, four sinks
+        if "F" in phases and i < len(phases["F"]["intervals"]):
+            # phase F's corpus, four sinks
             f_rec = phases["F"]["intervals"][i]
             f_flush = f_rec["flush"]
             beside_f = (
@@ -8116,6 +8629,75 @@ def _report_r(name: str, rep: dict, phases: dict, smi: str) -> None:
           f"{r2['launches']}; {r2['seconds']:.1f} s", flush=True)
 
 
+def _report_x(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase X: the multi-card path on one card and the dryrun."""
+    x1, x2 = rep["X1"], rep["X2"]
+    for i, rec in enumerate(x1["intervals"]):
+        merge = ("; merge ms per family " + "; ".join(
+            f"{store} " + ", ".join(f"{f} {ms:.4f}" for f, ms in m.items())
+            for store, m in rec["merge_ms"].items())
+            if "merge_ms" in rec else "")
+        print(f"phase X1 interval {i + 1} ({smi}): feed s "
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec["feed_s"].items())
+              + "; flush s " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         rec["flush_s"].items())
+              + f"{merge}; K3 calls per group {rec['k3_per_group']}, "
+              f"launches per card {rec['k3_per_card']}; series equal "
+              f"{rec['series_equal']}; launches {rec['launches']}",
+              flush=True)
+    print(f"phase X1: plane {x1['plane']}; launches {x1['launches']}; "
+          f"{x1['seconds']:.1f} s", flush=True)
+    print(f"phase X2 ({smi}): mesh.full_step {x2['slots']} slots x "
+          f"{x2['batch']} samples at {x2['keys']} keys in "
+          f"{x2['step_s']:.3f} s, K1 + K2 on the merged state "
+          f"{x2['readout_s']:.3f} s; counters, gauges and HLL registers "
+          f"equal to the oracle, quantiles within "
+          f"{x2['max_quantile_diff']:.4f} over {x2['touched']} keys; "
+          f"launches {x2['launches']}; {x2['seconds']:.1f} s", flush=True)
+
+
+def _report_y(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase Y: the store over four cards, and device_loss."""
+    y1, y2 = rep["Y1"], rep["Y2"]
+    for i, rec in enumerate(y1["intervals"]):
+        print(f"phase Y1 interval {i + 1} ({smi}): feed s "
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec["feed_s"].items())
+              + "; flush s " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         rec["flush_s"].items())
+              + "; bytes copied between cards " + ", ".join(
+                  f"{k} {v}" for k, v in rec["copied_bytes"].items())
+              + f"; K3 launches per card {rec['k3_per_card']}; ledger by "
+              f"card {rec['ledger_by_device']}; series equal "
+              f"{rec['series_equal']}", flush=True)
+    print(f"phase Y1: plane {y1['plane']}; launches {y1['launches']}; "
+          f"{y1['seconds']:.1f} s", flush=True)
+    for i, rec in enumerate(y2["intervals"]):
+        loss = (f"device_loss({PHASE_Y_LOST}) {rec['device_loss_s']:.3f} s, "
+                if "device_loss_s" in rec else "")
+        print(f"phase Y2 interval {i + 1} ({smi}): {loss}feed "
+              f"{rec['feed_s']:.3f} s, flush {rec['flush_s']:.3f} s "
+              f"(control {rec['control_flush_s']:.3f} s); "
+              f"{rec['series_equal']} series equal to the control; ledger "
+              f"by card {rec['ledger_by_device']}; launches "
+              f"{rec['launches']}", flush=True)
+    ctl = y2["controller"]
+    print(f"phase Y2: plane {y2['plane']}; controller epoch "
+          f"{ctl['epoch']}, device_losses {ctl['device_losses']}, "
+          f"last_cutover_seconds {ctl['last_cutover_seconds']:.4f}; "
+          f"{y2['ledger_intervals']} strict ledger intervals balanced; "
+          f"{y2['seconds']:.1f} s", flush=True)
+
+
+def _report_w(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase W, the SIGKILL reshard soak."""
+    print(f"phase W ({smi}): {rep['kills']} kill, {rep['restarts']} "
+          f"restart on {rep['device']}; rounds (rows equal, segments "
+          f"replayed, s) " + ", ".join(
+              f"({r['rows']}, {r['segments']}, {r['seconds']:.2f})"
+              for r in rep["rounds"]) + f"; soak {rep['seconds']:.1f} s",
+          flush=True)
+
+
 # each phase's run and the report it prints
 _PHASE_RUNS = {
     "A": (_phase_a, _report_abc),
@@ -8134,6 +8716,9 @@ _PHASE_RUNS = {
     "P": (_phase_p, _report_p),
     "M": (_phase_m, _report_m),
     "R": (_phase_r, _report_r),
+    "X": (_phase_x, _report_x),
+    "W": (_phase_w, _report_w),
+    "Y": (_phase_y, _report_y),
 }
 
 

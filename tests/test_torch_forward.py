@@ -647,3 +647,43 @@ def test_config_accepts_the_forward_addresses():
                             "grpc_address": "127.0.0.1:0"})
     assert cfg.is_local and cfg.grpc_address == "127.0.0.1:0"
     assert not config_from_dict({}).is_local
+
+
+def test_forward_package_re_exports_lazily():
+    """`veneur_tpu_torch.forward` re-exports the JAX package's four names
+    from the port's own modules, lazily: importing forward.wire (the
+    proxy tier's path) imports neither the client nor the server."""
+    code = r"""
+import sys
+import veneur_tpu_torch.forward.wire
+loaded = sorted(n for n in sys.modules
+                if n in ("veneur_tpu_torch.forward.client",
+                         "veneur_tpu_torch.forward.server",
+                         "veneur_tpu_torch.forward.convert"))
+assert not loaded, loaded
+import veneur_tpu_torch.forward as fwd
+from veneur_tpu_torch.forward import client, convert, server
+assert fwd.ForwardClient is client.ForwardClient
+assert fwd.ImportServer is server.ImportServer
+assert fwd.forwardable_to_protos is convert.forwardable_to_protos
+assert fwd.metric_key_of_proto is convert.metric_key_of_proto
+assert sorted(fwd.__all__) == sorted(["forwardable_to_protos",
+                                      "metric_key_of_proto",
+                                      "ForwardClient", "ImportServer"])
+try:
+    fwd.NoSuchName
+except AttributeError:
+    pass
+else:
+    raise AssertionError("an unknown name resolved")
+import veneur_tpu.forward as jfwd
+assert sorted(jfwd.__all__) == sorted(fwd.__all__)
+print("ok")
+"""
+    import os
+    import subprocess
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -312,11 +312,16 @@ def _run_trio(package: str):
         for (server, _), (lines, _n) in zip(locals_, corpus):
             for line in lines:
                 server.handle_metric_packet(line)
-        for server, _sink in locals_:
+        # one local's forward at a time: a global's digest merge depends
+        # on whether the proxy batched both locals' digests of a key into
+        # one import (test_trio_rows_do_not_depend_on_the_proxy_s_batching)
+        expected = 0
+        for (server, _sink), (_lines, n) in zip(locals_, corpus):
             server.flush()
-        expected = sum(n for _lines, n in corpus)
-        assert _wait_for(lambda: sum(
-            g.import_server.imported_total for g, _ in globals_) == expected)
+            expected += n
+            assert _wait_for(lambda: sum(
+                g.import_server.imported_total
+                for g, _ in globals_) == expected)
         per_global = []
         for g, sink in globals_:
             g.flush()
@@ -365,6 +370,33 @@ def test_locals_proxy_two_globals_flush_like_the_jax_trio():
     # both globals took a share; counters summed over both locals
     assert all(tper) and all(jper)
     assert ("fc0", (), "COUNTER") in tseries
+
+
+def test_trio_rows_do_not_depend_on_the_proxy_s_batching(monkeypatch):
+    """A global merges the digests of one import batch that share a key
+    slot by slot before one recompress, and two imports with a recompress
+    each (both packages: `merge_centroid_rows`), so a key's quantiles
+    follow how the proxy's sender batched the two locals' forwards. The
+    trio sends one local's forward only once the globals have imported
+    the other's, so no batch holds both; here the port proxy's senders
+    wait before each drain, which would put both locals' digests in one
+    batch if the second local flushed early, and the rows must still be
+    the JAX trio's."""
+    drain = Destination._drain_batch
+
+    def late_drain(self):
+        # hold the first metric's batch open for a second
+        deadline = time.monotonic() + self._flush_interval
+        while self._queue.empty() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        if not self._queue.empty():
+            time.sleep(1.0)
+        return drain(self)
+
+    jseries, _jper = _run_trio("jax")
+    monkeypatch.setattr(Destination, "_drain_batch", late_drain)
+    tseries, _tper = _run_trio("torch")
+    _agree_across_placements(tseries, jseries)
 
 
 def test_jax_local_through_the_port_proxy():
@@ -1043,6 +1075,44 @@ def test_a_dead_destination_s_drops_are_counted_and_balance():
     finally:
         proxy.stop()
         alive.stop()
+
+
+def test_bookings_after_the_retirement_fold_land_in_the_pool_s_rows(
+        monkeypatch):
+    """The window behind a dead destination's lost drop: once the pool
+    has folded a closed destination into its retired counters, what the
+    destination books afterwards (a route that raced its close, its
+    sender's leftover batch) must land in the pool's rows, and the
+    in-flight stock it held at the fold must stay in the flow totals
+    until it is booked. The sender thread is stubbed out so the test
+    takes the queue's items itself."""
+    monkeypatch.setattr(Destination, "_run", lambda self: None)
+    dests = Destinations(flush_interval=0.05)
+    dests.set_destinations(["127.0.0.1:1"])
+    dest = dests._pool["127.0.0.1:1"]
+    try:
+        for i in range(3):
+            assert dest.send(_mkmetric(f"rf.{i}"))
+        dest._queue.get_nowait()  # two taken by the "sender", one queued
+        dest._queue.get_nowait()
+        dest.close(notify=True)  # drains the queued one, then retires
+        assert "127.0.0.1:1" not in dests._pool
+        totals = dests.flow_totals()
+        assert totals["enqueued"] == (totals["sent"]
+                                      + totals["dropped_enqueued"]
+                                      + totals["queued"]), totals
+        dest._book(dropped=2)  # the sender's leftover, after the fold
+        assert not dest.send(_mkmetric("rf.late"))  # a route that raced
+        totals = dests.flow_totals()
+        assert totals == {"enqueued": 3.0, "sent": 0.0,
+                          "dropped_enqueued": 3.0, "queued": 0.0}
+        rows = {r[0]: r[2] for r in dests.telemetry_rows() if not r[3]}
+        assert rows["proxy.dest.retired_dropped"] == 4.0
+        assert rows["proxy.dest.retired_dropped_enqueued"] == 3.0
+        with pytest.raises(Exception):
+            dest._queue.put_nowait((_mkmetric("rf.sealed"), 0.0))
+    finally:
+        dests.clear()
 
 
 # -- discovery and the HTTP probe ---------------------------------------------

@@ -37,6 +37,7 @@ from veneur_tpu_torch.core.httpapi import HTTPApi
 from veneur_tpu_torch.core.query import (QueryError, QuerySpec,
                                          ReshardRetry, parse_tags)
 from veneur_tpu_torch.core.server import Server
+from veneur_tpu_torch.parallel import collectives
 from veneur_tpu_torch.parallel.reshard import (ReshardError,
                                                migration_cells)
 from veneur_tpu_torch.parallel.sharded_server import ShardedServingPlane
@@ -50,8 +51,9 @@ _FULL = 1 << 64
 K1_TOL = dict(rtol=2e-5, atol=1e-4)
 
 
-def mk_server(**kw):
-    """The port's server with tests/test_reshard.py's mk_server config."""
+def mk_server(shard_groups=None, **kw):
+    """The port's server with tests/test_reshard.py's mk_server config
+    (its shards over `shard_groups` when given)."""
     raw = {"interval": "3600s", "hostname": "test",
            "statsd_listen_addresses": [], "ledger_strict": True,
            "tpu": {"counter_capacity": 128, "gauge_capacity": 128,
@@ -64,7 +66,7 @@ def mk_server(**kw):
             raw[k] = v
     sink = ChannelMetricSink()
     return Server(config_from_dict(raw), device="cpu",
-                  extra_metric_sinks=[sink]), sink
+                  extra_metric_sinks=[sink], shard_groups=shard_groups), sink
 
 
 def _assert_like_jax(got: dict, want: dict):
@@ -303,6 +305,45 @@ class TestElasticCutover:
             _assert_ledger_clean(server)
         finally:
             _close(server, jserver, control)
+
+    @pytest.mark.parametrize("how", ["devices", "device_loss", "shards"])
+    def test_four_groups_reshard_like_a_control(self, tmp_path, how):
+        """A 4-shard store over four placement groups (all the CPU, so
+        the per-group applies, partial merges and copies run here)
+        reshards onto an explicit device list, loses shard 3's device, or
+        takes five shards over its own four groups: each flushes like a
+        one-group control that was never resharded, and the strict
+        ledger balances."""
+        groups = [torch.device("cpu")] * 4
+        server, obs = mk_server(shard_groups=groups, **{"tpu.shards": 4},
+                                reshard_spool_dir=str(tmp_path / "wal"))
+        control, cobs = mk_server(**{"tpu.shards": 4})
+        try:
+            assert server.store.shard_plane.n_groups == 4
+            for s in (server, control):
+                _feed(s, corpus(0))
+            ctl = server.reshard
+            if how == "devices":
+                ctl.begin(devices=groups[:3], block=True)
+            elif how == "device_loss":
+                ctl.device_loss(3, block=True)
+            else:
+                ctl.begin(shards=5, block=True)
+            plane = server.store.shard_plane
+            want_n, want_groups = (5, 4) if how == "shards" else (3, 3)
+            assert (plane.n, plane.n_groups) == (want_n, want_groups)
+            assert plane.describe()["devices"] == ["cpu:0"] * want_n
+            assert len(collectives.groups_of(
+                server.store.counters.state)) == want_groups
+            assert ctl.device_losses == (how == "device_loss")
+            for s in (server, control):
+                _feed(s, corpus(1))
+                s.flush()
+            _assert_bit_identical(_flushed(obs.drain()),
+                                  _flushed(cobs.drain()))
+            _assert_ledger_clean(server)
+        finally:
+            _close(server, control)
 
     def test_readout_across_a_cutover_recycles_nothing(self):
         """A generation swapped out before a cutover and read out after
@@ -565,3 +606,34 @@ class TestReadyAndQuerySemantics:
             assert server.reshard.describe()["durable"] is True
         finally:
             _shutdown(server)
+
+
+# ---------------------------------------------------------------------------
+# the SIGKILL soak (veneur_tpu_torch/cmd/reshard_soak.py)
+# ---------------------------------------------------------------------------
+
+
+def _run_port_soak(kills: int) -> dict:
+    from veneur_tpu_torch.cmd import reshard_soak
+    report = reshard_soak.run_soak(kills=kills, device="cpu")
+    assert report["kills"] == kills and report["restarts"] == kills
+    # nonempty, every round killed with range segments on disk, and
+    # already diffed against the control inside run_soak
+    assert all(r["rows"] > 0 and r["segments"] > 0
+               for r in report["rounds"])
+    return report
+
+
+def test_sigkill_mid_cutover_one_round():
+    """One round of the port's soak on the CPU: a sharded child SIGKILLed
+    with its range segments durable and the merge held open in the chaos
+    seam, restarted at the old shard count, replays; its flush equals
+    the never-resharded control's under strict ledgers."""
+    _run_port_soak(kills=1)
+
+
+@pytest.mark.slow
+class TestReshardSoak:
+    def test_sigkill_mid_cutover_soak(self):
+        """The multi-round soak, as tests/test_reshard.py's."""
+        _run_port_soak(kills=3)

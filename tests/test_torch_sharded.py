@@ -2,8 +2,10 @@
 parallel/collectives.py, parallel/sharded_server.py) against the JAX
 package's, on the CPU.
 
-The port's shards all live on the store's device (here the CPU, 8
-shards); the JAX package's run on the 8 virtual CPU devices that
+The port's shards live on the store's device (here the CPU, 8 shards)
+unless the store is given placement groups (four groups, all the CPU,
+run the multi-card path: per-group applies, partial merges, copies);
+the JAX package's run on the 8 virtual CPU devices that
 tests/conftest.py sets up. The same numpy-seeded packets go through a
 JAX sharded store, a port sharded store and a port single store.
 Tolerances: counters, gauges, llhist registers and quantiles, HLL
@@ -35,7 +37,7 @@ from veneur_tpu_torch.core.deviceobs import DeviceObservatory, nbytes_of
 from veneur_tpu_torch.core.sharded_tables import (
     ShardedCounterTable, ShardedGaugeTable, ShardedHistoTable,
     ShardedLLHistTable, ShardedSetTable)
-from veneur_tpu_torch.ops import llhist_apply, llhist_ref
+from veneur_tpu_torch.ops import batch_tdigest, llhist_apply, llhist_ref
 from veneur_tpu_torch.parallel import collectives
 from veneur_tpu_torch.parallel.sharded_server import (ShardedServingPlane,
                                                       build_plane)
@@ -732,3 +734,248 @@ def test_row_cap_and_reclamation_on_sharded_tables():
         stub = stubs_of([b"%s:1|c" % meta[row].name.encode()])[0]
         assert store.counters._shard_of[row] == \
             store.shard_plane.home(stub.digest64)
+
+
+# -------------------------------------------------------------------------
+# shards over several devices: placement groups (four groups, all the CPU,
+# run the per-group applies, the partial merges and the copies here)
+# -------------------------------------------------------------------------
+
+GROUPS = [torch.device("cpu")] * 4
+
+
+def gstore(shards=4, groups=GROUPS, **kw):
+    return ColumnStore(device="cpu", shard_devices=shards,
+                       shard_groups=groups, **kw)
+
+
+def _group_corpus(seed):
+    """Mixed traffic with enough keys to grow every table past its
+    capacity."""
+    return _mixed(seed, keys=24, rounds=150)
+
+
+def _imports(store, seed):
+    """One import merge of every family, each stub's row on its home
+    shard."""
+    rng = np.random.default_rng(seed)
+    c = stubs_of([b"gi.c.%d:1|c" % i for i in range(9)])
+    store.counters.merge_batch(c, [float(i + 1) for i in range(9)])
+    g = stubs_of([b"gi.g.%d:1|g" % i for i in range(9)])
+    store.gauges.merge_batch(g, [float(i) * 1.5 for i in range(9)])
+    ll = stubs_of([b"gi.l.%d:1|l" % i for i in range(9)])
+    bins = np.zeros((len(ll), llhist_ref.BINS), np.int64)
+    bins[:, llhist_ref.bin_index(np.full(len(ll), 7.0))] = 3
+    store.llhists.merge_batch(ll, bins)
+    s = stubs_of([b"gi.s.%d:1|s" % i for i in range(5)])
+    regs = rng.integers(0, 6, (len(s), 16384)).astype(np.int8)
+    store.sets.merge_batch(s, regs)
+    h = stubs_of([b"gi.h.%d:1|ms" % i for i in range(5)])
+    means = [np.sort(rng.normal(50, 9, 12)) for _ in h]
+    pm, pw = batch_tdigest.pack_centroids_many(
+        means, [np.ones(12) for _ in h])
+    store.histos.merge_batch(h, pm, pw, [float(m.min()) for m in means],
+                             [float(m.max()) for m in means],
+                             [float((1 / m).sum()) for m in means])
+
+
+_FAMILY_TABLE = {"counter": "counters", "gauge": "gauges",
+                 "histogram": "histos", "llhist": "llhists", "set": "sets"}
+PS = (0.5, 0.99)
+
+
+def _flush(table, family):
+    if family in ("histogram", "llhist"):
+        return table.snapshot_and_reset(ps=PS)
+    return table.snapshot_and_reset()
+
+
+def _assert_family_equal(family, got, want, exact=True):
+    """One family's flush (or capture) of two stores, keyed by metric
+    name (row numbers may differ between stores that grew apart)."""
+    def by_name(out):
+        meta = out[-1]
+        touched = out[-2]
+        return {meta[r].name + "|" + ",".join(meta[r].tags): r
+                for r in np.flatnonzero(touched)}
+    ga, wa = by_name(got), by_name(want)
+    assert set(ga) == set(wa)
+    order_g = [ga[k] for k in sorted(ga)]
+    order_w = [wa[k] for k in sorted(wa)]
+    if family in ("counter", "gauge"):
+        np.testing.assert_array_equal(got[0][order_g], want[0][order_w])
+    elif family == "set":
+        np.testing.assert_array_equal(got[0][order_g], want[0][order_w])
+        if got[1] is not None and want[1] is not None:  # a flush's
+            for rg, rw in zip(order_g, order_w):
+                np.testing.assert_array_equal(got[1][rg], want[1][rw])
+    elif family == "llhist":
+        # compact readouts: index by the position among touched rows
+        pos_g = {r: i for i, r in enumerate(np.flatnonzero(got[2]))}
+        pos_w = {r: i for i, r in enumerate(np.flatnonzero(want[2]))}
+        ig = [pos_g[r] for r in order_g]
+        iw = [pos_w[r] for r in order_w]
+        np.testing.assert_array_equal(got[1][ig], want[1][iw])
+        for key in ("count", "quantiles"):
+            np.testing.assert_array_equal(got[0][key][ig],
+                                          want[0][key][iw])
+    else:
+        for key in ("quantiles", "count", "sum", "min", "max"):
+            if exact:
+                np.testing.assert_allclose(got[0][key][order_g],
+                                           want[0][key][order_w],
+                                           rtol=1e-6, err_msg=key)
+            else:
+                np.testing.assert_allclose(
+                    got[0][key][order_g], want[0][key][order_w],
+                    rtol=0.05, atol=1.5, err_msg=key)
+
+
+@pytest.mark.parametrize("family", ["counter", "gauge", "histogram",
+                                    "llhist", "set"])
+def test_four_groups_equal_one_group_and_a_single_store(family):
+    """A 4-shard store over four placement groups, a 4-shard store on
+    one device and a single store take the same traffic and import
+    merges over two intervals, growing past their capacities: the live
+    query's capture and both flushes agree, counters, gauges, llhist
+    and HLL registers bit for bit, the t-digest rows of the two sharded
+    stores within rtol 1e-6 (the single store's within the sharded
+    slack)."""
+    caps = dict(counter_capacity=16, gauge_capacity=16, histo_capacity=16,
+                set_capacity=8, llhist_capacity=16, batch_cap=64)
+    stores = (gstore(**caps), pstore(4, **caps),
+              ColumnStore(device="cpu", **caps))
+    attr = _FAMILY_TABLE[family]
+    for interval in range(2):
+        for store in stores:
+            feed(store, _group_corpus(interval), apply=False)
+            _imports(store, interval)
+        kw = {"ps": PS} if family in ("histogram", "llhist") else {}
+        if family == "histogram":
+            kw["need_export"] = False
+        if family == "llhist":
+            kw["need_bins"] = True
+        caps_ = [getattr(s, attr).snapshot_finish(
+            getattr(s, attr).capture_readonly(**kw)) for s in stores]
+        flushed = [_flush(getattr(s, attr), family) for s in stores]
+        for outs in (caps_, flushed):
+            _assert_family_equal(family, outs[0], outs[1])
+            _assert_family_equal(family, outs[0], outs[2],
+                                 exact=family != "histogram")
+    # the traffic grew the grouped table past its first capacity
+    start = caps["histo_capacity" if family == "histogram"
+                 else f"{family}_capacity"]
+    assert getattr(stores[0], attr).capacity > start
+
+
+def test_groups_place_the_shards_and_keep_recycled_spares_in_place():
+    """Shard i lives in group i mod G: a stacked family holds one
+    (n_j, K, ...) state per group on the group's device, a per-shard
+    family each shard's state on its shard's device, and the spare a
+    flush recycles keeps that placement round after round (the JAX
+    pin tests/test_mesh_plane.py:267-306)."""
+    groups = [torch.device("cpu")] * 3
+    store = gstore(shards=7, groups=groups, counter_capacity=16,
+                   gauge_capacity=16, histo_capacity=16, set_capacity=8,
+                   llhist_capacity=16, batch_cap=32)
+    plane = store.shard_plane
+    assert plane.group_shards == [[0, 3, 6], [1, 4], [2, 5]]
+    assert plane.describe()["devices"] == ["cpu:0"] * 7
+
+    def check():
+        for table in (store.counters, store.gauges, store.llhists):
+            states = collectives.groups_of(table.state)
+            assert len(states) == 3
+            for st, shards, dev in zip(states, plane.group_shards, groups):
+                leaves = st.values() if isinstance(st, dict) else [st]
+                for leaf in leaves:
+                    assert leaf.shape[:2] == (len(shards), table.capacity)
+                    assert leaf.device == dev
+        for table in (store.histos, store.sets):
+            for gen in (table.states, table._spare):
+                if gen is None:
+                    continue
+                assert len(gen) == 7
+                for st, dev in zip(gen, plane.devices):
+                    leaf = st["wv"] if isinstance(st, dict) else st
+                    assert leaf.device == dev
+
+    for rnd in range(4):
+        feed(store, _mixed(rnd, keys=6, rounds=20))
+        for family, attr in _FAMILY_TABLE.items():
+            _flush(getattr(store, attr), family)
+        check()
+    # the recycled generations are parked, placed like the live ones
+    assert len(collectives.groups_of(store.counters._spare)) == 3
+    assert store.histos._spare is not None
+    check()
+
+
+def test_k3_is_called_once_per_block_per_group(monkeypatch):
+    """The grouped llhist apply cuts each pack()ed block by group: one
+    K3 call per block and group, on that group's (n_j*K, BINS_PAD) flat
+    view, and the registers equal the one-group store's."""
+    calls = []
+    real = llhist_apply.apply
+
+    def counting(regs, rows, bins, wts):
+        calls.append((tuple(regs.shape), int((rows >= 0).sum())))
+        return real(regs, rows, bins, wts)
+
+    monkeypatch.setattr(llhist_apply, "apply", counting)
+    cap, batch_cap = 64, 256
+    stores = (gstore(llhist_capacity=cap, batch_cap=batch_cap),
+              pstore(4, llhist_capacity=cap, batch_cap=batch_cap))
+    rng = np.random.default_rng(3)
+    pkts = [b"k3.%d:%.3f|l" % (i % 50, v)
+            for i, v in enumerate(rng.lognormal(2, 1.5, 1000))]
+    vals = np.asarray([float(p.split(b":")[1].split(b"|")[0])
+                       for p in pkts], np.float32)
+    for store in stores:
+        rows = [store.llhists.intern(s) for s in stubs_of(pkts)]
+        store.llhists.add_batch(np.asarray(rows, np.int32), vals,
+                                np.ones(len(rows), np.float32))
+    # one whole-chunk block of 768: four calls on the groups' (1*K)
+    # views, then one on the one-group store's (4*K) view
+    assert [c[0] for c in calls] == [(cap, llhist_apply.BINS_PAD)] * 4 \
+        + [(4 * cap, llhist_apply.BINS_PAD)]
+    assert sum(c[1] for c in calls[:4]) == calls[4][1] == 768
+    del calls[:]
+    for store in stores:
+        store.apply_all_pending()
+    assert len(calls) == 5
+    grouped = torch.cat(collectives.groups_of(stores[0].llhists.state))
+    # group j holds shard j: the groups' concatenation is the stack
+    np.testing.assert_array_equal(grouped.numpy(),
+                                  stores[1].llhists.state.numpy())
+
+
+def test_ledger_books_each_group_s_bytes_on_its_device():
+    """The HBM ledger books a grouped store through swap, readout,
+    recycle and growth: its total and its per-device split equal the
+    tensors' walk, and equal the one-group store's."""
+    from veneur_tpu_torch.core.deviceobs import bytes_by_device
+    caps = dict(counter_capacity=16, gauge_capacity=16, histo_capacity=16,
+                set_capacity=16, llhist_capacity=16, batch_cap=64)
+    stores = (gstore(**caps), pstore(4, **caps))
+    obses = (DeviceObservatory(), DeviceObservatory())
+    for store, obs in zip(stores, obses):
+        store.attach_deviceobs(obs)
+
+    def walk_by_device(store):
+        out = {}
+        for _family, t in store.tables():
+            for tree in (t._devobs_state(), t._spare):
+                for dev, n in bytes_by_device(tree).items():
+                    out[dev] = out.get(dev, 0) + n
+        return out
+
+    for rnd in range(3):
+        for store, obs in zip(stores, obses):
+            feed(store, _mixed(rnd, keys=12 + 10 * rnd, rounds=60))
+            for family, attr in _FAMILY_TABLE.items():
+                _flush(getattr(store, attr), family)
+            assert obs.total_bytes() == _walk(store)
+            assert obs.ledger()["by_device"] == walk_by_device(store)
+        assert obses[0].total_bytes() == obses[1].total_bytes()
+    assert set(obses[0].ledger()["by_device"]) == {"cpu:0"}

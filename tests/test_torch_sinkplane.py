@@ -83,11 +83,19 @@ def _server(package, sinks=(), **extra):
         cfg = _jax_config(**extra)
         for key, value in features.items():
             setattr(cfg.features, key, value)
-        return JServer(cfg, extra_metric_sinks=list(sinks))
+        server = JServer(cfg, extra_metric_sinks=list(sinks))
+        # a started server's own flush spans reach its extraction, whose
+        # 1-in-100 ssf.names_unique roll would add a row to the next
+        # flush (the shutdown's among them): off, so the series compared
+        # are the traffic's alone
+        server.metric_extraction._uniqueness_rate = 0.0
+        return server
     cfg = config_from_dict({"hostname": "test", "percentiles": [0.5, 0.99],
                             "aggregates": ["min", "max", "count"],
                             "tpu": SIZES, **extra})
-    return Server(cfg, device="cpu", extra_metric_sinks=list(sinks))
+    server = Server(cfg, device="cpu", extra_metric_sinks=list(sinks))
+    server.metric_extraction.uniqueness_rate = 0.0  # see above
+    return server
 
 
 def _wait_for(pred, timeout=20.0):

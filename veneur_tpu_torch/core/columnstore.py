@@ -11,7 +11,8 @@ Five device-resident tables, each on the store's `device`:
 
 With `shard_devices` > 1 each family's table is its sharded subclass
 (core/sharded_tables.py): the same rows, the interval state split into
-shards on the same device, merged at each flush.
+shards over the local cards (or the caller's placement groups), merged
+at each flush on the store's device.
 
 A host dictionary interns MetricKey (by 64-bit fnv1a digest) to a row id;
 names/tags/scopes never leave the host. Samples append into numpy batch
@@ -271,8 +272,7 @@ class _BaseTable:
         self._first_apply_pending = False
         t0 = time.perf_counter()
         apply()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync_devices()
         elapsed = time.perf_counter() - t0
         self.first_apply_last_seconds = elapsed
         hook = self.on_resize
@@ -287,6 +287,11 @@ class _BaseTable:
     def apply_pending(self):
         with self.lock:
             self._dispatch_pending_locked()
+
+    def _sync_devices(self) -> None:
+        """Wait for the device work queued on this table's devices."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- two-phase flush: critical-path swap / readout --------------------
     #
@@ -777,8 +782,7 @@ class _BaseTable:
                     "touched": np.ones(capacity, bool)}
             self._prewarm_readout(state, snap)
             self._reset_state_(state)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync_devices()
         finally:
             if obs is not None:
                 obs.drop(tok)
@@ -1721,9 +1725,13 @@ class ColumnStore:
     `|l` samples always land in the llhist family.
 
     With `shard_devices` > 1 the store is partitioned into that many
-    shards (core/sharded_tables.py), all on the store's device: each
-    key's home shard is fixed at mint time from its digest and each
-    flush merges the shards (parallel/collectives.py). Digest routing
+    shards (core/sharded_tables.py), shard i on the first min(N, C)
+    cards' card i mod min(N, C) (one card: every shard on the store's
+    device), or over the `shard_groups` devices the caller names, shard i
+    in group i mod G: each key's home shard is fixed at mint time from
+    its digest and each flush merges the shards, each group on its
+    device and the partials on the store's (parallel/collectives.py).
+    Digest routing
     shards all five families; `shard_routing="roundrobin"` shards only
     the histogram and set families (rotated batches would break the
     per-key order the scalar families need)."""
@@ -1733,15 +1741,19 @@ class ColumnStore:
                  set_promote_samples=0, set_max_dev_slots=0,
                  llhist_capacity=1024, histogram_encoding="tdigest",
                  max_rows=0, device=None, shard_devices=0,
-                 shard_routing="digest"):
+                 shard_routing="digest", shard_groups=None):
         if histogram_encoding not in ("tdigest", "circllhist"):
             raise ValueError(
                 f"unknown histogram_encoding: {histogram_encoding!r}")
         self.histogram_encoding = histogram_encoding
         self.device = dev = pick_device(device)
         from veneur_tpu_torch.parallel.sharded_server import build_plane
+        # the caller's placement groups, which a reshard keeps
+        self.shard_groups = (None if shard_groups is None
+                             else [torch.device(d) for d in shard_groups])
         self.shard_plane = plane = build_plane(shard_devices, dev,
-                                               shard_routing)
+                                               shard_routing,
+                                               groups=self.shard_groups)
         if plane is not None and plane.routing == "digest":
             from veneur_tpu_torch.core.sharded_tables import (
                 ShardedCounterTable, ShardedGaugeTable, ShardedLLHistTable)
@@ -1964,6 +1976,11 @@ class ColumnStore:
         return rows
 
     def synchronize(self) -> None:
-        """Wait for every queued device op of this store's device."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every queued device op of this store's devices (its
+        own, and every card its shards are placed on)."""
+        devices = {self.device}
+        if self.shard_plane is not None:
+            devices.update(self.shard_plane.groups)
+        for device in devices:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)

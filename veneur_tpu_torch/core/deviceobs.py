@@ -7,7 +7,9 @@ planes wired through the existing registries:
   bytes (`numel() * element_size()`) as a *token* tagged family / table /
   lifecycle state (``live`` / ``spare`` / ``inflight`` / ``prewarm`` /
   ``reshard_capture``, the old topology's generation a reshard cutover
-  holds until its rows have merged into the new one).
+  holds until its rows have merged into the new one), split by the
+  device each tensor lives on, so a store sharded over several cards
+  books each shard on its own card (`ledger()["by_device"]`).
   Lifecycle transitions *retag* the token (a recycled spare is the
   generation it was captured as, reset in place, so its bytes are
   conserved) and every exit path (a capacity mismatch at recycle, a
@@ -103,6 +105,36 @@ def nbytes_of(tree: Any) -> int:
     return int(getattr(tree, "nbytes", 0) or 0)
 
 
+def device_name(device) -> str:
+    """`type:index` of a torch device (`cpu:0` for the CPU)."""
+    return f"{device.type}:{0 if device.index is None else device.index}"
+
+
+def bytes_by_device(tree: Any) -> Dict[str, int]:
+    """nbytes_of split by the device each tensor leaf lives on
+    (`device_name`); numpy leaves count as the host's `cpu:0`."""
+    out: Dict[str, int] = {}
+
+    def walk(t):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            n = nbytes_of(t)
+            if n:
+                dev = getattr(t, "device", None)
+                key = device_name(dev) if dev is not None and not \
+                    isinstance(dev, str) else "cpu:0"
+                out[key] = out.get(key, 0) + n
+    walk(tree)
+    return out
+
+
 def cuda_memory_stats() -> List[Tuple[int, dict]]:
     """(index, torch.cuda.memory_stats) of every visible CUDA device; none
     without CUDA. Imports torch here: the proxy's HTTP API serves
@@ -137,12 +169,14 @@ def backend_memory_stats() -> List[dict]:
 
 
 class _Token:
-    __slots__ = ("family", "state", "nbytes")
+    __slots__ = ("family", "state", "nbytes", "by_device")
 
-    def __init__(self, family: str, state: str, nbytes: int):
+    def __init__(self, family: str, state: str, nbytes: int,
+                 by_device: Dict[str, int]):
         self.family = family
         self.state = state
         self.nbytes = nbytes
+        self.by_device = by_device
 
 
 class DeviceObservatory:
@@ -188,13 +222,14 @@ class DeviceObservatory:
         observatory is disabled or the state holds no tensors."""
         if not self.enabled or tensors is None:
             return None
-        nbytes = nbytes_of(tensors)
+        by_device = bytes_by_device(tensors)
+        nbytes = sum(by_device.values())
         if nbytes <= 0:
             return None
         with self._lock:
             tok = self._next_token
             self._next_token += 1
-            self._tokens[tok] = _Token(family, state, nbytes)
+            self._tokens[tok] = _Token(family, state, nbytes, by_device)
             self._total += nbytes
             if self._total > self.peak_bytes:
                 self.peak_bytes = self._total
@@ -233,7 +268,12 @@ class DeviceObservatory:
         with self._lock:
             toks = [(t.family, t.state, t.nbytes)
                     for t in self._tokens.values()]
+            per_device = [t.by_device for t in self._tokens.values()]
             total, peak = self._total, self.peak_bytes
+        by_device: Dict[str, int] = {}
+        for split in per_device:
+            for dev, nbytes in split.items():
+                by_device[dev] = by_device.get(dev, 0) + nbytes
         by_family: Dict[str, Dict[str, int]] = {}
         by_table: Dict[str, dict] = {}
         live_total = 0
@@ -257,6 +297,9 @@ class DeviceObservatory:
             "generations": len(toks),
             "by_family": by_family,
             "by_table": by_table,
+            # each device's share: a sharded store's shards are booked
+            # on their own cards
+            "by_device": by_device,
         }
 
     # ------------------------------------------------------------------

@@ -306,7 +306,11 @@ class Server:
     def __init__(self, config: Config, device=None,
                  extra_metric_sinks: Optional[List] = None,
                  extra_span_sinks: Optional[List] = None,
-                 rng: Optional[random.Random] = None):
+                 rng: Optional[random.Random] = None, shard_groups=None):
+        """`shard_groups` places a sharded store's shards over these
+        devices, shard i in group i mod G (default: the first
+        min(shards, cards) cards); tests and the smoke pass it to run
+        the multi-card path on one device."""
         self.config = config
         self.device = pick_device(device)
         # the uniqueness rolls of the span plane draw from generators
@@ -334,7 +338,8 @@ class Server:
             max_rows=tpu.max_rows_per_family,
             device=self.device,
             shard_devices=tpu.shards,
-            shard_routing=tpu.shard_routing)
+            shard_routing=tpu.shard_routing,
+            shard_groups=shard_groups)
         self._build_ledger()
         # the latency observatory (core/latency.py): per-plane sample age
         # from socket read to sink ack, and the dwell and depth of every

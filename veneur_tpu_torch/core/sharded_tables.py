@@ -2,7 +2,8 @@
 veneur_tpu/core/sharded_tables.py).
 
 One host intern table, and the interval state of every device family
-split into N shards, all on the store's device:
+split into N shards over the plane's placement groups (shard i in group
+i mod G, on that group's device; parallel/sharded_server.py):
 
   counters    (N, K) Kahan pairs      merge = sum over shards (selection)
   gauges      (N, K) LWW + set mask   merge = masked sum + any
@@ -19,14 +20,18 @@ equals a single table's over the same stream. `shard_routing:
 roundrobin` rotates whole batches over the shards for the histogram and
 set families; the scalar and llhist families then stay single tables.
 
-A stacked family applies each batch with its single-table op on the
-flat (N*K, ...) view (parallel/collectives.py): the llhist apply is
-kernel K3 on rows `home * K + row`, in one launch per pack()ed block.
-The per-shard families apply each shard's samples to its own state.
-Each flush readout merges the shards; the stacked merges zero the
-drained generation in place after the merged copy (the JAX package's
-fused donated merge + reset), and the merged t-digest and HLL states
-feed K1 and K2. A live query merges without zeroing.
+A stacked family keeps one (n_j, K, ...) state per group (the state
+itself with one group, the list of them with several) and applies each
+batch's samples of a group with its single-table op on the group's flat
+view (parallel/collectives.py): the llhist apply is kernel K3 on rows
+`local * K + row`, one launch per pack()ed block and group, on the
+group's device. The per-shard families apply each shard's samples to
+its own state, created on its shard's device. Each flush readout merges
+the shards, each group on its device and the partials on the store's;
+the stacked merges zero the drained generation in place after the
+merged copy (the JAX package's fused donated merge + reset), and the
+merged t-digest and HLL states feed K1 and K2 on the store's device. A
+live query merges without zeroing.
 
 The elastic reshard (parallel/reshard.py) swaps each family out with
 `reshard_swap`: the interval's generation is swapped and its final
@@ -70,8 +75,8 @@ class _DigestRouted:
                       plane: ShardedServingPlane) -> None:
         device = torch.device(device)
         if plane.device != device:
-            raise ValueError(f"the shards live on {plane.device}, the "
-                             f"table on {device}")
+            raise ValueError(f"the shards merge on {plane.device}, the "
+                             f"table lives on {device}")
         self._plane = plane
         self._n_shards = plane.n
         # row -> home shard, stamped at mint time (_note_minted)
@@ -114,16 +119,30 @@ class _DigestRouted:
         self._plane.note_merge_round()
         return out
 
-    def _flat_cols(self, state_rows: int, rows, note: bool = True):
-        """A batch's rows as int32 rows of the stacked state's flat view
-        (`state_rows` rows a shard); the per-shard sample counts fold into
-        the plane unless `note` is off (a prewarm rung's all-padding
-        batch)."""
+    def _group_cols(self, state, rows, note: bool = True):
+        """A batch's samples cut by placement group: (group state, its
+        device, int32 rows of the group's flat view, the mask selecting
+        the group's samples or None for all) for each group with a
+        sample. The per-shard sample counts fold into the plane unless
+        `note` is off (a prewarm rung's all-padding batch)."""
         home = self._home_of(rows)
         if note:
             self._plane.note_routed(self.family,
                                     self._shard_counts_of(home))
-        return collectives.flat_rows(home, rows, state_rows)
+        states = collectives.groups_of(state)
+        state_rows = _key_rows(states[0])
+        out = []
+        for g, local, sel in self._plane.split(home):
+            out.append((states[g], self._plane.groups[g],
+                        collectives.flat_rows(
+                            local, rows if sel is None else rows[sel],
+                            state_rows), sel))
+        return out
+
+    def _sync_devices(self) -> None:
+        for device in {self.device, *self._plane.groups}:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     # -- elastic reshard (parallel/reshard.py) ---------------------------
 
@@ -211,11 +230,11 @@ class _DigestRouted:
     def _retopo_locked(self, plane: ShardedServingPlane) -> None:
         """Rebind this table to `plane` (caller holds ``lock`` and
         ``apply_lock``): every live row's home under the new range
-        partition, fresh state, and the old topology's spare and
-        prewarmed rungs forgotten."""
+        partition, fresh state on the new placement groups, and the old
+        topology's spare and prewarmed rungs forgotten."""
         if plane.device != self.device:
-            raise ValueError(f"the shards live on {plane.device}, the "
-                             f"table on {self.device}")
+            raise ValueError(f"the shards merge on {plane.device}, the "
+                             f"table lives on {self.device}")
         self._plane = plane
         self._n_shards = plane.n
         self._rr_next = 0
@@ -250,13 +269,31 @@ class _DigestRouted:
         self.state = self._fresh_state_at(self._state_capacity())
 
 
+def _key_rows(group_state) -> int:
+    """The key axis of a group's stacked state (a tensor or a dict)."""
+    if isinstance(group_state, dict):
+        group_state = next(iter(group_state.values()))
+    return group_state.shape[1]
+
+
+def _take(col: np.ndarray, sel):
+    return col if sel is None else col[sel]
+
+
+class _Stacked:
+    """The stacked families' drained-generation reset over the groups."""
+
+    def _reset_state_(self, captured) -> None:
+        collectives.zero_(captured)
+
+
 # ---------------------------------------------------------------------------
 # Stacked families: one (N, K, ...) state, the single-table op on its flat
 # view per dispatch, a sum over shards at flush.
 # ---------------------------------------------------------------------------
 
 
-class ShardedCounterTable(_DigestRouted, CounterTable):
+class ShardedCounterTable(_Stacked, _DigestRouted, CounterTable):
     """CounterTable partitioned into shards: each key's deltas accumulate
     in its home shard's Kahan pair; the flush merge is a sum over shards,
     pure selection under digest routing, so the f64 host readout equals a
@@ -268,9 +305,8 @@ class ShardedCounterTable(_DigestRouted, CounterTable):
         super().__init__(device, capacity, batch_cap, max_rows)
 
     def _fresh_state_at(self, capacity: int):
-        return collectives.init_stacked(scalars.init_counters,
-                                        self._n_shards, capacity,
-                                        self.device)
+        return collectives.init_stacked(scalars.init_counters, self._plane,
+                                        capacity)
 
     def _grow_arrays(self, new_cap):
         self._grow_shard_of(new_cap)
@@ -278,10 +314,11 @@ class ShardedCounterTable(_DigestRouted, CounterTable):
 
     def _apply_cols_state(self, state, cols, note: bool = True):
         rows, vals, rates = cols
-        flat = self._flat_cols(state["sum"].shape[1], rows, note)
-        collectives.apply_counters_sharded(
-            state, *(_to_device(c, self.device) for c in (flat, vals,
-                                                          rates)))
+        for gstate, device, flat, sel in self._group_cols(state, rows,
+                                                          note):
+            collectives.apply_counters_sharded(gstate, *(
+                _to_device(c, device)
+                for c in (flat, _take(vals, sel), _take(rates, sel))))
 
     def _prewarm_apply(self, state, cols, capacity: int) -> None:
         self._apply_cols_state(state, cols, note=False)
@@ -290,26 +327,27 @@ class ShardedCounterTable(_DigestRouted, CounterTable):
         """The merged pair, and the drained generation zeroed in place
         after it as the next interval's spare."""
         snap["dev"] = self._merge_noted(
-            lambda: collectives.merge_counters_stacked_reset(state))
+            lambda: collectives.merge_counters_stacked_reset(state,
+                                                             self.device))
         snap["_spare"] = state
 
     def _query_readout_device(self, state, snap: dict) -> None:
         # the same sum over the LIVE generation, without zeroing it; its
         # outputs are fresh tensors no apply writes
-        snap["dev"] = collectives.merge_counters_stacked(state)
+        snap["dev"] = collectives.merge_counters_stacked(state, self.device)
         self._plane.note_merge_round()
 
     def _prewarm_readout(self, state, snap: dict) -> None:
-        collectives.merge_counters_stacked_reset(state)
+        collectives.merge_counters_stacked_reset(state, self.device)
 
     def _reshard_capture_device(self, state, snap: dict) -> None:
         # the (sum, comp) pair a flush differences; counter totals are
         # integral, so the f64 total crosses the int64 wire exactly
-        snap["dev"] = collectives.merge_counters_stacked(state)
+        snap["dev"] = collectives.merge_counters_stacked(state, self.device)
         self._plane.note_merge_round()
 
 
-class ShardedGaugeTable(_DigestRouted, GaugeTable):
+class ShardedGaugeTable(_Stacked, _DigestRouted, GaugeTable):
     """GaugeTable partitioned into shards. Digest-home routing keeps
     last-write-wins: every write of a key goes to its home shard, in
     buffer order."""
@@ -320,9 +358,8 @@ class ShardedGaugeTable(_DigestRouted, GaugeTable):
         super().__init__(device, capacity, batch_cap, max_rows)
 
     def _fresh_state_at(self, capacity: int):
-        return collectives.init_stacked(scalars.init_gauges,
-                                        self._n_shards, capacity,
-                                        self.device)
+        return collectives.init_stacked(scalars.init_gauges, self._plane,
+                                        capacity)
 
     def _grow_arrays(self, new_cap):
         self._grow_shard_of(new_cap)
@@ -330,9 +367,10 @@ class ShardedGaugeTable(_DigestRouted, GaugeTable):
 
     def _apply_cols_state(self, state, cols, note: bool = True):
         rows, vals = cols
-        flat = self._flat_cols(state["value"].shape[1], rows, note)
-        collectives.apply_gauges_sharded(
-            state, *(_to_device(c, self.device) for c in (flat, vals)))
+        for gstate, device, flat, sel in self._group_cols(state, rows,
+                                                          note):
+            collectives.apply_gauges_sharded(gstate, *(
+                _to_device(c, device) for c in (flat, _take(vals, sel))))
 
     def _prewarm_apply(self, state, cols, capacity: int) -> None:
         self._apply_cols_state(state, cols, note=False)
@@ -346,41 +384,48 @@ class ShardedGaugeTable(_DigestRouted, GaugeTable):
             self.apply_lock.acquire()
         try:
             if rows.size:
-                flat = collectives.flat_rows(self._home_of(rows), rows,
-                                             self.state["value"].shape[1])
                 vals = np.asarray(values, np.float32)[ok]
-                self._noted("merge", lambda: collectives.merge_gauges_sharded(
-                    self.state, _to_device(flat, self.device),
-                    _to_device(vals, self.device)))
+
+                def merge():
+                    for gstate, device, flat, sel in self._group_cols(
+                            self.state, rows, note=False):
+                        collectives.merge_gauges_sharded(
+                            gstate, _to_device(flat, device),
+                            _to_device(_take(vals, sel), device))
+                self._noted("merge", merge)
         finally:
             self.apply_lock.release()
 
     def _readout_device(self, state, snap: dict) -> None:
         snap["dev"], _set = self._merge_noted(
-            lambda: collectives.merge_gauges_stacked_reset(state))
+            lambda: collectives.merge_gauges_stacked_reset(state,
+                                                           self.device))
         snap["_spare"] = state
 
     def _query_readout_device(self, state, snap: dict) -> None:
-        snap["dev"], _set = collectives.merge_gauges_stacked(state)
+        snap["dev"], _set = collectives.merge_gauges_stacked(state,
+                                                             self.device)
         self._plane.note_merge_round()
 
     def _prewarm_readout(self, state, snap: dict) -> None:
-        collectives.merge_gauges_stacked_reset(state)
+        collectives.merge_gauges_stacked_reset(state, self.device)
 
     def _reshard_capture_device(self, state, snap: dict) -> None:
         # the home shard's last write; the set mask rides along
-        snap["dev"], snap["set"] = collectives.merge_gauges_stacked(state)
+        snap["dev"], snap["set"] = collectives.merge_gauges_stacked(
+            state, self.device)
         self._plane.note_merge_round()
 
 
-class ShardedLLHistTable(_DigestRouted, LLHistTable):
-    """LLHistTable partitioned into shards: an (N, K, BINS_PAD) int32
-    register bank. Each pack()ed block's rows become rows of the flat
-    (N*K, BINS_PAD) view, `home * K + row`, and the block is applied with
-    one copy and one launch of K3, padding (row -1) still dropped. The
-    flush merges the touched rows with one register add over shards:
-    integer addition, so registers, percentiles, counts, sums and
-    buckets equal a single table's."""
+class ShardedLLHistTable(_Stacked, _DigestRouted, LLHistTable):
+    """LLHistTable partitioned into shards: an (n_j, K, BINS_PAD) int32
+    register bank per placement group. Each pack()ed block's rows become
+    rows of a group's flat (n_j*K, BINS_PAD) view, `local * K + row`, and
+    each group's samples are applied with one copy and one launch of K3
+    on its device, padding (row -1) still dropped; with one group that is
+    the whole block in one launch. The flush merges the touched rows with
+    a register add over shards: integer addition, so registers,
+    percentiles, counts, sums and buckets equal a single table's."""
 
     def __init__(self, device, capacity: int = 1024, batch_cap: int = 8192,
                  max_rows: int = 0, *, plane: ShardedServingPlane):
@@ -389,8 +434,7 @@ class ShardedLLHistTable(_DigestRouted, LLHistTable):
 
     def _fresh_state_at(self, capacity: int):
         return collectives.init_stacked(batch_llhist.init_state,
-                                        self._n_shards, capacity,
-                                        self.device)
+                                        self._plane, capacity)
 
     def _grow_arrays(self, new_cap):
         self._grow_shard_of(new_cap)
@@ -398,9 +442,17 @@ class ShardedLLHistTable(_DigestRouted, LLHistTable):
 
     def _apply_block(self, state, block: np.ndarray,
                      note: bool = True) -> None:
-        # the block is private (pack): its row column becomes flat rows
-        block[0] = self._flat_cols(state.shape[1], block[0], note)
-        collectives.apply_llhist_block_sharded(state, block)
+        groups = self._group_cols(state, block[0], note)
+        if len(groups) == 1 and groups[0][3] is None:
+            # one group: the block is private (pack), its row column
+            # becomes the flat rows and it goes over in one copy
+            gstate, _device, flat, _sel = groups[0]
+            block[0] = flat
+            collectives.apply_llhist_block_sharded(gstate, block)
+            return
+        for gstate, _device, flat, sel in groups:
+            collectives.apply_llhist_block_sharded(gstate, batch_llhist.pack(
+                [(flat, block[1][sel], block[2][sel])]))
 
     def _prewarm_apply(self, state, cols, capacity: int) -> None:
         self._apply_block(state, batch_llhist.pack([cols]), note=False)
@@ -416,10 +468,15 @@ class ShardedLLHistTable(_DigestRouted, LLHistTable):
             self.apply_lock.acquire()
         try:
             if rows.size:
-                self._noted("merge", lambda: collectives.merge_llhist_rows_at(
-                    self.state, _to_device(home, self.device),
-                    _to_device(rows, self.device),
-                    _to_device(padded, self.device)))
+                def merge():
+                    states = collectives.groups_of(self.state)
+                    for g, local, sel in self._plane.split(home):
+                        device = self._plane.groups[g]
+                        collectives.merge_llhist_rows_at(
+                            states[g], _to_device(local, device),
+                            _to_device(_take(rows, sel), device),
+                            _to_device(_take(padded, sel), device))
+                self._noted("merge", merge)
         finally:
             self.apply_lock.release()
 
@@ -432,13 +489,14 @@ class ShardedLLHistTable(_DigestRouted, LLHistTable):
         place after), then flush_packed on the merged block."""
         rows = self._touched_rows(snap)
         merged = self._merge_noted(
-            lambda: collectives.merge_llhist_stacked_reset(state, rows))
+            lambda: collectives.merge_llhist_stacked_reset(
+                state, self.device, rows))
         snap["packed"] = batch_llhist.flush_packed(merged, snap["ps"])
         snap["bins_dev"] = merged  # the flusher's buckets, sum and count
         snap["_spare"] = state
 
     def _query_readout_device(self, state, snap: dict) -> None:
-        merged = collectives.merge_llhist_stacked(state,
+        merged = collectives.merge_llhist_stacked(state, self.device,
                                                   self._touched_rows(snap))
         self._plane.note_merge_round()
         snap["packed"] = batch_llhist.flush_packed(merged, snap["ps"])
@@ -446,14 +504,14 @@ class ShardedLLHistTable(_DigestRouted, LLHistTable):
 
     def _prewarm_readout(self, state, snap: dict) -> None:
         merged = collectives.merge_llhist_stacked_reset(
-            state, self._touched_rows(snap))
+            state, self.device, self._touched_rows(snap))
         batch_llhist.flush_packed(merged, snap["ps"])
 
     def _reshard_capture_device(self, state, snap: dict) -> None:
         # register add over the touched rows (the JAX package merges the
         # whole bank; integer addition gives the same rows)
         snap["bins"] = collectives.merge_llhist_stacked(
-            state, self._touched_rows(snap))
+            state, self.device, self._touched_rows(snap))
         snap["bins_rows"] = np.flatnonzero(snap["touched"])
         self._plane.note_merge_round()
 
@@ -520,14 +578,14 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
         return [np.zeros(capacity, np.int32) for _ in range(self._n_shards)]
 
     def _fresh_state_at(self, capacity: int):
-        return [batch_tdigest.init_state(capacity, self.device)
-                for _ in range(self._n_shards)]
+        return [batch_tdigest.init_state(capacity, device)
+                for device in self._plane.devices]
 
     def _grow_arrays(self, new_cap):
         self._grow_shard_of(new_cap)
         grown = []
-        for st in self.states:
-            new = batch_tdigest.init_state(new_cap, self.device)
+        for st, device in zip(self.states, self._plane.devices):
+            new = batch_tdigest.init_state(new_cap, device)
             for k, v in st.items():
                 new[k][: v.shape[0]] = v
             grown.append(new)
@@ -550,8 +608,9 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
             shard_counts[i][:] = 0
             slots, _ = batch_tdigest.host_slots(rows, vals, wts,
                                                 shard_counts[i])
+        device = self._plane.devices[i]
         batch_tdigest.apply_batch(
-            states[i], *(_to_device(np.ascontiguousarray(c), self.device)
+            states[i], *(_to_device(np.ascontiguousarray(c), device)
                          for c in (rows, vals, wts, slots)))
 
     def _apply_cols_states(self, states, shard_counts, cols,
@@ -590,9 +649,10 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
             def merge():
                 for i in np.unique(home[home >= 0]).tolist():
                     sel = home == i
+                    device = self._plane.devices[i]
                     batch_tdigest.merge_centroid_rows(
                         self.states[i], *(_to_device(
-                            np.ascontiguousarray(c[sel]), self.device)
+                            np.ascontiguousarray(c[sel]), device)
                             for c in [rows] + cols))
                     # the merge folds every staged row of this shard
                     self._shard_counts[i][:] = 0
@@ -622,7 +682,7 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
 
     def _readout_device(self, states, snap: dict) -> None:
         merged = self._merge_noted(
-            lambda: collectives.merge_histo_stacked(states))
+            lambda: collectives.merge_histo_stacked(states, self.device))
         self._flush_merged(merged, snap)
         snap["_recycle"] = states
 
@@ -633,7 +693,9 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
             self._apply_to_shard(states, counts, i, rows, vals, wts)
 
     def _prewarm_readout(self, states, snap: dict) -> None:
-        self._flush_merged(collectives.merge_histo_stacked(states), snap)
+        self._flush_merged(collectives.merge_histo_stacked(states,
+                                                           self.device),
+                           snap)
 
     def _reset_state_(self, captured) -> None:
         for st in captured:
@@ -647,7 +709,8 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
         # concat + recompress over the shards (staging already folded);
         # the merged state holds the digest's d* stats, which the wire
         # carries, and the local l* stats, which ride the sidecar
-        snap["hstate"] = collectives.merge_histo_stacked(states)
+        snap["hstate"] = collectives.merge_histo_stacked(states,
+                                                         self.device)
         self._plane.note_merge_round()
 
     def merge_local_stats(self, stubs, lmin, lmax, lsum, lweight,
@@ -671,9 +734,10 @@ class ShardedHistoTable(_PerShardStates, _DigestRouted, HistoTable):
             for i in np.unique(home[home >= 0]).tolist():
                 sel = home == i
                 st = self.states[i]
-                idx = _to_device(rows[sel].astype(np.int64), self.device)
-                vals = [_to_device(np.ascontiguousarray(a[sel]),
-                                   self.device) for a in arrs]
+                device = self._plane.devices[i]
+                idx = _to_device(rows[sel].astype(np.int64), device)
+                vals = [_to_device(np.ascontiguousarray(a[sel]), device)
+                        for a in arrs]
                 st["lmin"].scatter_reduce_(0, idx, vals[0], "amin")
                 st["lmax"].scatter_reduce_(0, idx, vals[1], "amax")
                 st["lsum"].index_add_(0, idx, vals[2])
@@ -706,8 +770,8 @@ class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
         self.states = self._fresh_state_at(self.capacity)
 
     def _fresh_state_at(self, capacity: int):
-        return [batch_hll.init_state(capacity, self.device)
-                for _ in range(self._n_shards)]
+        return [batch_hll.init_state(capacity, device)
+                for device in self._plane.devices]
 
     def _grow_arrays(self, new_cap):
         self._grow_shard_of(new_cap)
@@ -736,8 +800,9 @@ class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
         self._note_applied(int(len(rows)))
 
     def _apply_to_shard(self, states, i: int, rows, idxs, rhos) -> None:
+        device = self._plane.devices[i]
         batch_hll.apply_batch(states[i], *(
-            _to_device(np.ascontiguousarray(c), self.device)
+            _to_device(np.ascontiguousarray(c), device)
             for c in (rows, idxs, rhos)))
 
     def _apply_cols_states(self, states, cols, note: bool = True) -> None:
@@ -773,12 +838,11 @@ class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
             def merge():
                 for i in np.unique(home[home >= 0]).tolist():
                     sel = home == i
+                    device = self._plane.devices[i]
                     batch_hll.merge_rows(
                         self.states[i],
-                        _to_device(np.ascontiguousarray(rows[sel]),
-                                   self.device),
-                        _to_device(np.ascontiguousarray(regs[sel]),
-                                   self.device))
+                        _to_device(np.ascontiguousarray(rows[sel]), device),
+                        _to_device(np.ascontiguousarray(regs[sel]), device))
             self._noted("merge", merge)
         finally:
             self.apply_lock.release()
@@ -797,9 +861,11 @@ class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
         rows_t = torch.from_numpy(rows).to(self.device)
         if note:
             merged = self._merge_noted(
-                lambda: collectives.merge_hll_stacked(states, rows_t))
+                lambda: collectives.merge_hll_stacked(states, self._plane,
+                                                      rows_t))
         else:
-            merged = collectives.merge_hll_stacked(states, rows_t)
+            merged = collectives.merge_hll_stacked(states, self._plane,
+                                                   rows_t)
         snap["estimates"] = np.zeros(self.capacity, np.float32)
         snap["dev_est"] = None
         if rows.size:
@@ -848,6 +914,6 @@ class ShardedSetTable(_PerShardStates, _DigestRouted, SetTable):
         # register max over the touched rows
         rows = np.flatnonzero(snap["touched"])
         snap["regs"] = collectives.merge_hll_stacked(
-            states, torch.from_numpy(rows).to(self.device))
+            states, self._plane, torch.from_numpy(rows).to(self.device))
         snap["regs_rows"] = rows
         self._plane.note_merge_round()

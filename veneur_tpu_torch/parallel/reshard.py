@@ -50,11 +50,13 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from veneur_tpu_torch.core.columnstore import _host
 from veneur_tpu_torch.forward import rangewire
 from veneur_tpu_torch.parallel import collectives
-from veneur_tpu_torch.parallel.sharded_server import ShardedServingPlane
+from veneur_tpu_torch.parallel.sharded_server import (ShardedServingPlane,
+                                                      local_shard_devices)
 from veneur_tpu_torch.util import chaos as chaos_mod
 from veneur_tpu_torch.util.spool import CarryoverSpool
 
@@ -163,19 +165,32 @@ class ReshardController:
 
     # -- public API ------------------------------------------------------
 
-    def begin(self, shards: Optional[int] = None,
+    def begin(self, shards: Optional[int] = None, devices=None,
               deadline_s: Optional[float] = None,
               block: bool = False) -> dict:
-        """Start an elastic reshard to `shards` shards on the store's
-        device: plan and prewarm on a background thread, then cut over
-        at the next flush boundary it can take. `block=True` joins, and
-        raises the failure."""
+        """Start an elastic reshard to `shards` shards, or onto an
+        explicit device list (the placement groups, one shard each
+        unless `shards` says more): plan and prewarm on a background
+        thread, then cut over at the next flush boundary it can take.
+        Without `devices` the target keeps the store's placement: its
+        own groups when the caller named them, else the first
+        min(shards, C) cards. `block=True` joins, and raises the
+        failure."""
         store = self._server.store
         if store.shard_plane is None:
             raise ReshardError("store is not sharded (no serving plane)")
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            if not devices:
+                raise ReshardError("no devices available for target plane")
+            if shards is None:
+                shards = len(devices)
         if shards is None or int(shards) < 1:
             raise ReshardError("target shards must be >= 1")
         n = int(shards)
+        if devices is None:
+            devices = (store.shard_groups if store.shard_groups
+                       else local_shard_devices(n, store.device))
         with self._lock:
             if self.state != "idle":
                 raise ReshardError(
@@ -188,8 +203,8 @@ class ReshardController:
             self.deadline_unix = time.time() + dl
         from veneur_tpu_torch.util.crash import guarded
         self._thread = threading.Thread(
-            target=guarded(self._run), args=(n,), name="reshard-plan",
-            daemon=True)
+            target=guarded(self._run), args=(n, devices),
+            name="reshard-plan", daemon=True)
         self._thread.start()
         if block:
             self._thread.join()
@@ -201,19 +216,30 @@ class ReshardController:
                     deadline_s: Optional[float] = None,
                     block: bool = False) -> dict:
         """A forced scale-down after losing one shard's device: a reshard
-        onto the N - 1 others through the plan and cutover. Every shard
-        of the port shares the store's device, so the capture still reads
-        the lost shard's state."""
+        to N - 1 shards over the placement groups other than the lost
+        shard's (over the one group itself when every shard shares it),
+        through the plan and cutover.
+
+        The capture still reads the lost shard's state: on a host whose
+        card was really lost, reading it would raise before the cutover
+        and the reshard would fail, so the drill saves every shard; the
+        JAX package's drill on its CPU mesh reads it too."""
         plane = self._server.store.shard_plane
         if plane is None:
             raise ReshardError("store is not sharded (no serving plane)")
-        survivors = plane.n - (1 if 0 <= int(shard_index) < plane.n else 0)
+        index = int(shard_index)
+        survivors = plane.n - (1 if 0 <= index < plane.n else 0)
         if survivors < 1:
             raise ReshardError("no surviving devices")
+        groups = list(plane.groups)
+        if 0 <= index < plane.n and len(groups) > 1:
+            del groups[index % len(groups)]
         self.device_losses += 1
         logger.error("device loss on shard %d/%d: forcing scale-down to %d "
-                     "shards", shard_index, plane.n, survivors)
-        return self.begin(survivors, deadline_s=deadline_s, block=block)
+                     "shards on %d devices", index, plane.n, survivors,
+                     len(groups))
+        return self.begin(survivors, devices=groups, deadline_s=deadline_s,
+                          block=block)
 
     def past_deadline(self) -> bool:
         return (self.state != "idle" and self.deadline_unix > 0
@@ -265,12 +291,13 @@ class ReshardController:
 
     # -- plan ------------------------------------------------------------
 
-    def _run(self, n: int) -> None:
+    def _run(self, n: int, devices) -> None:
         try:
             chaos = self._server.chaos
             if chaos is not None:
                 chaos.reshard_prewarm_delay()
-            plane = ShardedServingPlane(n, self._server.store.device)
+            plane = ShardedServingPlane(n, self._server.store.device,
+                                        groups=devices)
             self._prewarm(plane)
             with self._lock:
                 self.state = "ready"

@@ -49,6 +49,10 @@ logger = logging.getLogger("veneur_tpu_torch.proxy.destinations")
 _EMPTY_DESERIALIZER = lambda _: b""  # noqa: E731
 
 
+class _Sealed(Exception):
+    """A put into a closed destination's queue."""
+
+
 class _SendQueue(queue.Queue):
     """A destination's bounded send queue that counts, under the queue's
     own lock, the metrics put into it (`enqueued`) and those a drain took
@@ -70,8 +74,14 @@ class _SendQueue(queue.Queue):
         super()._init(maxsize)
         self.enqueued = 0
         self.taken = 0
+        # set under the lock by the destination's close(): a put after
+        # the close's final drain raises _Sealed instead of leaving a
+        # metric in a queue no sender reads
+        self.sealed = False
 
     def _put(self, item):
+        if self.sealed:
+            raise _Sealed()
         super()._put(item)
         self.enqueued += 1
         if self._dwell is not None:
@@ -142,6 +152,9 @@ class Destination:
             failure_threshold=max_consecutive_failures,
             name=f"proxy-dest:{address}")
         self.closed = threading.Event()
+        # the pool this destination's totals were folded into when it
+        # left the ring (retire); None while it is live
+        self._retired_into: Optional["Destinations"] = None
         # sent_total is written by this sender's thread AND (on a hedge
         # win) by a hedging peer's thread; += is not atomic, and the
         # soaks pin exact accounting. The queue's own lock: outcomes
@@ -204,11 +217,42 @@ class Destination:
 
     def _book(self, sent: int = 0, dropped: int = 0) -> None:
         """Book drained metrics as sent or dropped (after enqueue)."""
+        self._count(sent=sent, dropped=dropped, dropped_enqueued=dropped,
+                    taken=sent + dropped)
+
+    def _count(self, sent: int = 0, dropped: int = 0,
+               dropped_enqueued: int = 0, shed_open: int = 0,
+               taken: int = 0) -> None:
+        """Book outcomes into this destination's counters, or, once the
+        pool has folded them into its retired counters (`retire`), into
+        the pool's: every outcome lands in exactly one row, whichever
+        side of the fold it is booked on. `taken` leaves the in-flight
+        stock."""
         with self._counter_lock:
-            self.sent_total += sent
-            self.dropped_total += dropped
-            self.dropped_enqueued_total += dropped
-            self._queue.taken -= sent + dropped
+            pool = self._retired_into
+            if pool is None:
+                self.sent_total += sent
+                self.dropped_total += dropped
+                self.dropped_enqueued_total += dropped_enqueued
+                self.shed_open_total += shed_open
+                self._queue.taken -= taken
+                return
+        pool._count_retired(sent=sent, dropped=dropped,
+                            dropped_enqueued=dropped_enqueued,
+                            shed_open=shed_open, inflight=-taken)
+
+    def retire(self, pool: "Destinations") -> dict:
+        """Hand this destination's totals to `pool` (which folds them
+        under its own lock) and route every later booking there."""
+        with self._counter_lock:
+            self._retired_into = pool
+            return {"sent": self.sent_total, "dropped": self.dropped_total,
+                    "shed_open": self.shed_open_total,
+                    "enqueued": self._queue.enqueued,
+                    "dropped_enqueued": self.dropped_enqueued_total,
+                    "inflight": self._queue.taken + self._queue._qsize(),
+                    "hedge_fired": self.hedge_fired_total,
+                    "hedge_wins": self.hedge_wins_total}
 
     def note_key(self, key_hash: int) -> None:
         """Record one routed metric key (pre-hashed 64-bit). Lock-free
@@ -243,13 +287,10 @@ class Destination:
         metric that hashed here, for the whole window between the first
         failure and the breaker tripping."""
         if self.closed.is_set():
-            with self._counter_lock:
-                self.dropped_total += 1
+            self._count(dropped=1)
             return False
         if not self.breaker.is_dispatchable:
-            with self._counter_lock:
-                self.dropped_total += 1
-                self.shed_open_total += 1
+            self._count(dropped=1, shed_open=1)
             return False
         entry = (metric, float(interval))
         try:
@@ -257,20 +298,20 @@ class Destination:
             return True
         except queue.Full:
             pass
+        except _Sealed:
+            self._count(dropped=1)
+            return False
         if self.breaker.consecutive_failures > 0:
             # failing-but-not-yet-open: the queue is full because the
             # sender can't drain it — blocking would stall the handler
             # without ever creating room
-            with self._counter_lock:
-                self.dropped_total += 1
-                self.shed_open_total += 1
+            self._count(dropped=1, shed_open=1)
             return False
         try:
             self._queue.put(entry, timeout=self._flush_interval)
             return True
-        except queue.Full:
-            with self._counter_lock:
-                self.dropped_total += 1
+        except (queue.Full, _Sealed):
+            self._count(dropped=1)
             return False
 
     def _drain_batch(self) -> List[tuple]:
@@ -375,8 +416,7 @@ class Destination:
                 # paying hedge_after + a doubled RPC forever. No
                 # close() here: probes/half-open own recovery.
                 self.breaker.record_failure()
-                with self._counter_lock:
-                    self._queue.taken -= len(batch)
+                self._count(taken=len(batch))
             else:
                 # credit + in-flight clear under ONE lock hold so a
                 # concurrent flow_totals() never sees the batch as
@@ -397,11 +437,11 @@ class Destination:
                 self.close(notify=True)
                 return False
         finally:
+            if not booked:
+                # an unexpected error loses the batch: clearing it from
+                # the stock shows the loss as an imbalance
+                self._count(taken=len(batch))
             with self._counter_lock:
-                if not booked:
-                    # an unexpected error loses the batch: clearing it
-                    # from the stock shows the loss as an imbalance
-                    self._queue.taken -= len(batch)
                 self.send_seconds_total += time.perf_counter() - t0
             if send_span is not None:
                 send_span.finish()
@@ -516,8 +556,7 @@ class Destination:
             return False
         self.hedge_wins_total += 1
         # delivery is credited to the node that actually absorbed it
-        with peer._counter_lock:
-            peer.sent_total += len(batch)
+        peer._count(sent=len(batch))
         fut.cancel()
         return True
 
@@ -525,6 +564,8 @@ class Destination:
         if self.closed.is_set():
             return
         self.closed.set()
+        with self._counter_lock:
+            self._queue.sealed = True
         # final drain: items still queued at shutdown will never send —
         # they count as drops instead of vanishing from the accounting
         drained = 0
@@ -617,6 +658,9 @@ class Destinations:
         self.retired_dropped_enqueued_total = 0
         self.retired_hedge_fired_total = 0
         self.retired_hedge_wins_total = 0
+        # metrics retired destinations had drained and not yet booked:
+        # their senders book them here after the fold (Destination._count)
+        self.retired_inflight = 0
 
     def set_destinations(self, addresses: List[str]) -> None:
         """Reconcile the pool with a fresh discovery result. With shard
@@ -693,13 +737,29 @@ class Destinations:
         return self._active_trace
 
     def _retire_locked(self, dest: Destination) -> None:
-        self.retired_sent_total += dest.sent_total
-        self.retired_dropped_total += dest.dropped_total
-        self.retired_shed_open_total += dest.shed_open_total
-        self.retired_enqueued_total += dest.enqueued_total
-        self.retired_dropped_enqueued_total += dest.dropped_enqueued_total
-        self.retired_hedge_fired_total += dest.hedge_fired_total
-        self.retired_hedge_wins_total += dest.hedge_wins_total
+        """Fold a departing destination's totals into the retired
+        counters; what it books afterwards (a route that raced its
+        close, its sender's leftover, a hedge credited to it) comes
+        here through _count_retired."""
+        t = dest.retire(self)
+        self.retired_sent_total += t["sent"]
+        self.retired_dropped_total += t["dropped"]
+        self.retired_shed_open_total += t["shed_open"]
+        self.retired_enqueued_total += t["enqueued"]
+        self.retired_dropped_enqueued_total += t["dropped_enqueued"]
+        self.retired_inflight += t["inflight"]
+        self.retired_hedge_fired_total += t["hedge_fired"]
+        self.retired_hedge_wins_total += t["hedge_wins"]
+
+    def _count_retired(self, sent: int = 0, dropped: int = 0,
+                       dropped_enqueued: int = 0, shed_open: int = 0,
+                       inflight: int = 0) -> None:
+        with self._lock:
+            self.retired_sent_total += sent
+            self.retired_dropped_total += dropped
+            self.retired_dropped_enqueued_total += dropped_enqueued
+            self.retired_shed_open_total += shed_open
+            self.retired_inflight += inflight
 
     def _remove_locked(self, address: str) -> None:
         dest = self._pool.pop(address, None)
@@ -871,7 +931,7 @@ class Destinations:
                 "sent": float(self.retired_sent_total),
                 "dropped_enqueued":
                     float(self.retired_dropped_enqueued_total),
-                "queued": 0.0,
+                "queued": float(self.retired_inflight),
             }
         for dest in pool:
             # one lock hold per destination: the sender clears its

@@ -7,7 +7,7 @@ card, then runs the port's server end to end on the card.
 
 `--phases` (or the CHIP_SMOKE_PHASES variable) picks the server phases
 to run, by letter (A, B, C, D, E, F, F2, G, H, I, J, S, O, P, M, R, X,
-W, Y); with neither, every phase but Y runs. Y needs four cards and runs
+W, U, Z, T, N, Y); with neither, every phase but Y runs. Y needs four cards and runs
 only when named:
 
     python3 chip_smoke.py --phases Y      # on a host with four cards
@@ -322,19 +322,50 @@ the package is not beside it). Phases, each fatal on failure:
      halfway through interval 1 (`reshard.device_loss(3)`, 4 -> 3 shards
      over cards 0-2), the second is the control: every series equal,
      the strict ledgers balanced, nothing booked on the lost card.
+ 23. phase U, the port's native Blaster (sendmmsg, no interpreter lock)
+     on the pump: phase A's corpus plus 5 000 `|l` keys x 32, 32 lines a
+     datagram; an interning interval sent flow-controlled, then the whole
+     corpus sent by the Blaster from its own thread at phase A's steady
+     183 640 lines/s while the smoke flushes once a second: every line
+     received and applied, every counter's total over the flushes equal
+     to what was sent, K1, K2 and K3 launched; then a 5 s unpaced pass:
+     datagrams sent and received, `ingest.kernel_drops` (received + drops
+     == sent where the host's /proc/net/udp counts drops, which a probe
+     of an unread socket decides first; else printed as not counted)
+     and lines/s.
+ 24. phase Z, the crash-replay SIGKILL soak
+     (`veneur_tpu_torch.cmd.crash_replay_soak`, two kills) on cuda:0: a
+     WAL-on local killed with its interval on disk and its send
+     unacknowledged, restarted, replayed; the faulted global's counters
+     equal to a control's, its llhist registers bit for bit, the WAL
+     drained, every strict ledger balanced; the children's K3 launches.
+ 25. phase T, the ring-failover soak
+     (`veneur_tpu_torch.cmd.ring_failover_soak`) at tests/test_ha.py's
+     soak shape on the card host's sockets: every metric accounted for
+     through a kill and a restore on the same port, an ejection and a
+     readmission.
+ 26. phase N, the self-contained alert drill
+     (`veneur_tpu_torch.cmd.alert_drill`) on cuda:0: a timer's p99 rule
+     pending -> firing -> resolved over UDP and HTTP, with its trail in
+     `/alerts`, `/debug/events` and `/metrics`; K1 launched by the
+     alert rounds' captures.
 
-Phases I, S and W run in a side process of their own on the same card,
-started where I stands in the order, beside the main process's J, O and
-P (each of them spends most of its time on one interpreter lock, so the
-two processes share the host's cores); the side process prints its
-phases' reports as one JSON line, which the main process reports after
-its own phases, and its failure is the run's. The last `phase seconds`
-line gives each phase's seconds and the smoke's wall time.
+Phases I, J, S, W, Z, T, N and U run in a side process of their own on
+the same card, in that order, started where C stands in the order,
+beside the main process's C to X (each of them spends most of its time
+on one interpreter lock or waiting on its children, so the two
+processes share the host's cores, and with J there both end together).
+U's unpaced pass waits until the main process sends no more UDP: it
+closes the side's standard input when it reaches X or its end. The side
+process prints its phases' reports as one JSON line, which the main
+process reports after its own phases, and its failure is the run's. The
+last `phase seconds` line gives each phase's seconds and the smoke's
+wall time.
 
 Two spawned worker processes build the selected phases' big corpora
-(A, B, D, F, G, H1, J1, O1, P1, M, R, X, Y) ahead, in phase order, while the kernels
-build and the earlier phases run; a phase takes its corpora from them,
-or builds them itself when run alone.
+(A, B, D, F, G, H1, O1, P1, M, R, X, Y) ahead, in phase order, while
+the kernels build and the earlier phases run; a phase takes its corpora
+from them, or builds them itself when run alone or in the side process.
 
 Before any value is checked, each phase asserts that the server received
 every line it was sent and that no ingest chunk failed to apply (phase D
@@ -6292,7 +6323,8 @@ def _phase_p3(cli, dd_fake) -> dict:
                              f"received {total_received}: {report}; the "
                              f"CLI's warnings and errors: {noted[-40:]}")
     if report["lost_share"] > 0.01:
-        raise AssertionError(f"phase P3: lost {lost} of {counts['sent']}")
+        raise AssertionError(f"phase P3: lost {lost} of {counts['sent']}: "
+                             f"{report}")
     return report
 
 
@@ -7969,6 +8001,310 @@ def _phase_w() -> dict:
     return report
 
 
+PHASE_U_SEED = 111                 # phase A's corpus plus B's `|l` keys
+PHASE_U_LL_KEYS = PHASE_F_LL_KEYS  # 5 000 `|l` keys x 32
+PHASE_U_RATE = PHASE_R2_RATE       # phase A's steady rate, lines/s
+PHASE_U_PER_DGRAM = 32             # lines in every datagram
+PHASE_U_FLUSH_S = 1.0              # the smoke flushes once a second
+PHASE_U_UNPACED_S = 5.0            # the unpaced pass
+PHASE_Z_KILLS = 2
+# tests/test_ha.py test_driver_soak's shape
+PHASE_T = {"rounds": 16, "per_round": 250, "kill_round": 4,
+           "restore_round": 10, "probe_interval": 0.05}
+# in the side process (set by _SIDE): the main process runs beside it
+_IN_SIDE = False
+# the main phase from which on the main process sends no UDP: the
+# side's unpaced flood waits for it (_main_quiet, _await_main_quiet)
+QUIET_FROM = "X"
+
+
+def _await_main_quiet() -> float:
+    """In the side process: wait until the main process sends no more UDP
+    of its own (it has reached QUIET_FROM, ended, or died), so that a
+    burst at the loopback (phase U's unpaced pass) cannot cost a main
+    phase its datagrams; the main process says so by closing the side's
+    standard input. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    if _IN_SIDE:
+        sys.stdin.read()
+    return time.perf_counter() - t0
+
+
+def _u_datagrams(lines) -> tuple:
+    """The lines padded with `smoke.upad` counter lines to a multiple of
+    PHASE_U_PER_DGRAM and packed that many to a datagram, so that lines
+    received count datagrams received; returns (padded lines, datagrams,
+    pad lines)."""
+    pad = -len(lines) % PHASE_U_PER_DGRAM
+    lines = list(lines) + ["smoke.upad:1|c"] * pad
+    dgrams = [("\n".join(lines[i:i + PHASE_U_PER_DGRAM])).encode()
+              for i in range(0, len(lines), PHASE_U_PER_DGRAM)]
+    if max(len(d) for d in dgrams) > DGRAM_BYTES:
+        raise AssertionError("phase U: a datagram over DGRAM_BYTES")
+    return lines, dgrams, pad
+
+
+def _u_counter_totals(sink, totals: dict) -> None:
+    """Add the drained counter series to `totals`."""
+    for m in sink.drain():
+        if m.name.startswith(("smoke.c", "smoke.upad")):
+            totals[m.name] = totals.get(m.name, 0.0) + m.value
+
+
+def _u_settle(server, want: int, timeout: float = 120.0) -> int:
+    """Wait until `want` lines are received, or until the count has not
+    moved for two seconds (datagrams lost); returns the count."""
+    deadline = time.monotonic() + timeout
+    last, still = -1, time.monotonic()
+    while True:
+        got = server.stats_snapshot()["lines_received"]
+        if got >= want:
+            return got
+        if got != last:
+            last, still = got, time.monotonic()
+        elif time.monotonic() - still > 2.0 or time.monotonic() > deadline:
+            return got
+        time.sleep(0.01)
+
+
+def _u_host_counts_drops(mon, n: int = 20_000) -> dict:
+    """Whether this host's /proc/net/udp counts a socket's kernel drops:
+    `n` 1000-byte datagrams at a small socket nobody reads, then its
+    drops column against the datagrams it did not queue."""
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+        rx.bind(("127.0.0.1", 0))
+        tx.connect(rx.getsockname())
+        for _ in range(n):
+            tx.send(b"x" * 1000)
+        drops = mon._read_proc().get(os.fstat(rx.fileno()).st_ino)
+        rx.setblocking(False)
+        queued = 0
+        while True:
+            try:
+                rx.recv(2048)
+            except BlockingIOError:
+                break
+            queued += 1
+    finally:
+        rx.close()
+        tx.close()
+    return {"sent": n, "queued": queued, "drops_column": drops,
+            "counted": drops is not None and n > queued
+            and drops == n - queued}
+
+
+def _u_blast(blaster, fd: int, **kw) -> tuple:
+    """Run the Blaster on a thread of its own; returns (thread, result
+    list holding the datagrams sent and the seconds of the run, or the
+    error)."""
+    out: list = []
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out.extend((blaster.run(fd, **kw), time.perf_counter() - t0))
+        except Exception as e:  # reported by the caller
+            out.append(e)
+    thread = threading.Thread(target=run, name="u-blaster", daemon=True)
+    thread.start()
+    return thread, out
+
+
+def _phase_u() -> dict:
+    """Phase U: the port's native Blaster on the pump at full width.
+    Phase A's corpus plus 5 000 `|l` keys x 32, 32 lines a datagram; an
+    interning pass (flow-controlled, interval 1), then the whole corpus
+    sent by the Blaster from its own thread at phase A's steady rate
+    while the smoke flushes once a second: every line received and
+    applied, every counter's total over the flushes equal to what was
+    sent; then an unpaced pass of PHASE_U_UNPACED_S: datagrams sent,
+    received, `ingest.kernel_drops` and lines/s, with received + drops
+    == sent where the host's /proc/net/udp counts the drops."""
+    from veneur_tpu_torch import native
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    lines, expect, _timers, _ll = _corpus(PHASE_U_SEED, PHASE_A_KEYS,
+                                          PHASE_U_LL_KEYS)
+    lines, dgrams, pad = _u_datagrams(lines)
+    n_lines = len(lines)
+    want = {k: v for k, v in expect.items() if k.startswith("smoke.c")}
+    if pad:
+        want["smoke.upad"] = float(pad)
+    sink = ChannelMetricSink()
+    server = _server({}, {"counter_capacity": 65536,
+                          "gauge_capacity": 32768, "histo_capacity": 32768,
+                          "set_capacity": 16384, "llhist_capacity": 8192},
+                     sink)
+    _zero_launches()
+    server.start()
+    report = {"datagrams": len(dgrams), "lines": n_lines}
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    blaster = native.Blaster(dgrams)
+    try:
+        addr = server.local_addr("udp")
+        sock.connect(addr)
+        # interval 1: every key interned on the slow path, flow-controlled
+        t0 = time.perf_counter()
+        _send(server, addr, lines, 0, _pump_window(server))
+        report["intern_s"] = time.perf_counter() - t0
+        server.flush()
+        totals: dict = {}
+        _u_counter_totals(sink, totals)
+        if totals != want:
+            raise AssertionError("phase U: the interning interval's "
+                                 "counters differ from what was sent")
+        # the paced pass: the Blaster alone, the smoke flushing each second
+        base = server.stats_snapshot()["lines_received"]
+        pps = PHASE_U_RATE / PHASE_U_PER_DGRAM
+        thread, out = _u_blast(blaster, sock.fileno(),
+                               max_dgrams=len(dgrams), burst=64,
+                               pace_pps=pps)
+        totals, flushes = {}, []
+        while thread.is_alive():
+            t_flush = time.perf_counter()
+            server.flush()
+            flushes.append(time.perf_counter() - t_flush)
+            _u_counter_totals(sink, totals)
+            thread.join(max(0.0, PHASE_U_FLUSH_S
+                            - (time.perf_counter() - t_flush)))
+        if not out or isinstance(out[0], Exception) or out[0] != len(dgrams):
+            raise AssertionError(f"phase U: the Blaster sent {out}, not "
+                                 f"{len(dgrams)} datagrams")
+        send_s = out[1]
+        got = _u_settle(server, base + n_lines) - base
+        server.flush()
+        flushes.append(server.last_flush_timings.get("total_s"))
+        _u_counter_totals(sink, totals)
+        stats = server.stats_snapshot()
+        report["paced"] = {
+            "pace_pps": pps, "send_s": send_s,
+            "lines_per_s": n_lines / send_s, "received": got,
+            "flushes": len(flushes), "flush_s": flushes,
+            "kernel_drops": dict(server.overload.kernel_drops.totals())}
+        if (got != n_lines or stats["lines_rejected"]
+                or stats["ingest_dispatch_errors"]):
+            raise AssertionError(
+                f"phase U: paced pass sent {n_lines} lines, received "
+                f"{got}; kernel drops {report['paced']['kernel_drops']}; "
+                f"{stats}")
+        if totals != want:
+            bad = sorted(k for k in want if totals.get(k) != want[k])
+            raise AssertionError(f"phase U: {len(bad)} counter totals "
+                                 f"differ from what was sent, e.g. "
+                                 f"{bad[:1]}")
+        report["counters_checked"] = len(want)
+        # the unpaced pass: as fast as the Blaster goes, for a while,
+        # while the main process sends no UDP of its own
+        report["unpaced_wait_s"] = _await_main_quiet()
+        mon = server.overload.kernel_drops
+        probe = _u_host_counts_drops(mon)
+        counted = probe["counted"]
+        mon.poll()
+        drops0 = sum(mon.totals().values())
+        base = server.stats_snapshot()["lines_received"]
+        blaster.reset()
+        thread, out = _u_blast(blaster, sock.fileno(), burst=64)
+        time.sleep(PHASE_U_UNPACED_S)
+        blaster.stop()
+        thread.join(60.0)
+        if thread.is_alive() or not out or isinstance(out[0], Exception):
+            raise AssertionError(f"phase U: the unpaced Blaster {out}")
+        sent, send_s = out
+        got_lines = _u_settle(server, base + sent * PHASE_U_PER_DGRAM) - base
+        mon.poll()
+        drops = sum(mon.totals().values()) - drops0
+        server.flush()
+        sink.drain()
+        received = got_lines // PHASE_U_PER_DGRAM
+        report["unpaced"] = {
+            "seconds": send_s, "sent": sent, "received": received,
+            "kernel_drops": drops, "drops_counted": counted,
+            "drop_probe": probe,
+            "lines_per_s_sent": sent * PHASE_U_PER_DGRAM / send_s,
+            "lines_per_s_received": got_lines / send_s,
+            "stalls": sum(lst.pump.stalls() for lst in server._listeners
+                          if lst.pump is not None)}
+        if got_lines % PHASE_U_PER_DGRAM or received > sent:
+            raise AssertionError(f"phase U: unpaced {report['unpaced']}")
+        if counted and received + drops != sent:
+            raise AssertionError(f"phase U: unpaced received + kernel "
+                                 f"drops != sent: {report['unpaced']}")
+    finally:
+        sock.close()
+        blaster.close()
+        server.shutdown()
+    report["launches"] = _read_launches()
+    _m_require(report["launches"], _M_KERNELS, "U")
+    return report
+
+
+def _phase_z() -> dict:
+    """Phase Z: the crash-replay SIGKILL soak on cuda:0
+    (veneur_tpu_torch/cmd/crash_replay_soak.py), PHASE_Z_KILLS kills at
+    the script's own shape: a WAL-on local killed with its interval on
+    disk and its send unacknowledged, restarted, replayed; the faulted
+    global's counters equal to the control's, its llhist registers bit
+    for bit, the WAL drained, both children's and both globals' strict
+    ledgers balanced. The children launch K3 in their own processes and
+    report their counts."""
+    from veneur_tpu_torch.cmd import crash_replay_soak
+    _zero_launches()
+    report = crash_replay_soak.run_soak(kills=PHASE_Z_KILLS,
+                                        device="cuda:0")
+    here = _read_launches()
+    if (report["kills"], report["restarts"]) != (PHASE_Z_KILLS,) * 2 \
+            or not report["counters"] or not report["llhist"]:
+        raise AssertionError(f"phase Z: soak report {report}")
+    report["launches"] = {k: here[k] + report["launches"][k]
+                          for k in _M_KERNELS}
+    _m_require(report["launches"], ("llhist_apply",), "Z")
+    return report
+
+
+def _phase_t() -> dict:
+    """Phase T: the ring-failover soak at test_driver_soak's shape
+    (veneur_tpu_torch/cmd/ring_failover_soak.py): a proxy over three
+    capture globals, global 0 killed at round 4 and restored on its port
+    at round 10, probes every 50 ms; every metric accounted for, an
+    ejection and a readmission. No device code: its place is the card
+    host's sockets."""
+    from veneur_tpu_torch.cmd import ring_failover_soak
+    report = ring_failover_soak.run_soak(**PHASE_T)
+    events = {e["event"] for e in report["events"]}
+    if report["loss_unaccounted"] or not report["settled"] or not (
+            {"ejected", "readmitted"} <= events) or not any(
+            e["event"] == "ejected" and e["confirmed"]
+            for e in report["events"]):
+        raise AssertionError(f"phase T: soak report {report}")
+    report["launches"] = {k: 0 for k in _M_KERNELS}
+    return report
+
+
+def _phase_n() -> dict:
+    """Phase N: the self-contained alert drill on cuda:0
+    (veneur_tpu_torch/cmd/alert_drill.py): a p99 rule walked pending ->
+    firing -> resolved through UDP and HTTP, the trail's three
+    assertions; each alert round's capture launches K1."""
+    import contextlib
+    import io
+    from veneur_tpu_torch.cmd import alert_drill
+    _zero_launches()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = alert_drill.main(["-device", "cuda:0"])
+    report = {"rc": rc, "drill_s": time.perf_counter() - t0,
+              "trail": text.getvalue().strip().splitlines()}
+    if rc != 0:
+        raise AssertionError(f"phase N: the drill exited {rc}: "
+                             f"{report['trail']}")
+    report["launches"] = _read_launches()
+    _m_require(report["launches"], ("tdigest_flush",), "N")
+    return report
+
+
 def _prebuild_plan() -> dict:
     """Per phase, the corpora it builds first, called exactly as the
     phase calls them (the key is the arguments' repr)."""
@@ -8016,21 +8352,26 @@ def _start_prebuild(selected, side=()):
 
 
 PHASES = ("A", "B", "C", "D", "E", "F", "F2", "G", "H", "I", "J", "S", "O",
-          "P", "M", "R", "X", "W", "Y")
+          "P", "M", "R", "X", "W", "U", "Z", "T", "N", "Y")
 # phases run only when named: Y needs four cards
 NAMED_ONLY = ("Y",)
 # phases run in a process of their own, on the same card, beside the
-# main process's later phases (J, O and P) when the run has others: each
+# main process's phases from SIDE_START on when the run has others: each
 # spends most of its time on one interpreter lock (the SSF reader, the
-# OTLP and churn slow paths), so the two processes share the host's
-# cores instead of taking turns
-SIDE_PHASES = ("I", "S", "W")
+# overload plane's senders, the OTLP and churn slow paths) or waits on
+# child processes (the soaks), so the two processes share the host's
+# cores instead of taking turns; J is here so that both end together
+SIDE_PHASES = ("I", "J", "S", "W", "Z", "T", "N", "U")
+# the main phase where the side process starts (or the first selected one
+# after it)
+SIDE_START = "C"
 
 _SIDE = r"""
 import json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
+cs._IN_SIDE = True
 from veneur_tpu_torch import native
 from veneur_tpu_torch.ops import _cuda
 _cuda.build_all()
@@ -8055,10 +8396,19 @@ def _start_side(names):
     """The side process: runs `names` in turn and prints their reports as
     one JSON line (its other output goes to the same stderr). It leads a
     process group of its own, which _kill_group stops with whatever its
-    phases started."""
+    phases started. Its standard input stays open until _main_quiet."""
     return subprocess.Popen([sys.executable, "-c", _SIDE, ",".join(names)],
-                            cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                            cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True,
                             start_new_session=True)
+
+
+def _main_quiet(proc) -> None:
+    """In the main process: tell the side process (if any) that the main
+    one sends no more UDP, by closing its standard input (once)."""
+    if proc is not None and proc.stdin is not None:
+        proc.stdin.close()
+        proc.stdin = None
 
 
 def _kill_group(proc) -> None:
@@ -8698,6 +9048,63 @@ def _report_w(name: str, rep: dict, phases: dict, smi: str) -> None:
           flush=True)
 
 
+def _report_u(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase U, the Blaster on the pump."""
+    paced, unpaced = rep["paced"], rep["unpaced"]
+    probe = unpaced["drop_probe"]
+    print(f"phase U ({smi}): {rep['datagrams']} datagrams of "
+          f"{PHASE_U_PER_DGRAM} lines ({rep['lines']} lines), interned in "
+          f"{rep['intern_s']:.2f} s; paced at {paced['pace_pps']:.1f} "
+          f"datagrams/s: {paced['lines_per_s']:.0f} lines/s over "
+          f"{paced['send_s']:.2f} s, {paced['flushes']} flushes, every "
+          f"line received, {rep['counters_checked']} counter totals "
+          f"equal, kernel drops {paced['kernel_drops']}; unpaced "
+          f"{unpaced['seconds']:.2f} s (after {rep['unpaced_wait_s']:.1f} s "
+          f"waiting for the main process's UDP to end): {unpaced['sent']} "
+          f"datagrams sent, "
+          f"{unpaced['received']} received, kernel drops "
+          + (f"{unpaced['kernel_drops']} (received + drops == sent)"
+             if unpaced["drops_counted"] else
+             f"{unpaced['kernel_drops']}, but this host does not count "
+             f"them (an unread socket lost {probe['sent'] - probe['queued']}"
+             f" of {probe['sent']} datagrams, its /proc/net/udp drops "
+             f"column read {probe['drops_column']}), "
+             f"{unpaced['sent'] - unpaced['received']} lost uncounted")
+          + f", {unpaced['lines_per_s_sent']:.0f} lines/s sent, "
+          f"{unpaced['lines_per_s_received']:.0f} received, pump stalls "
+          f"{unpaced['stalls']}; launches {rep['launches']}", flush=True)
+
+
+def _report_z(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase Z, the crash-replay soak."""
+    print(f"phase Z ({smi}): {rep['kills']} kills, {rep['restarts']} "
+          f"restarts on {rep['device']}; rounds (s) " + ", ".join(
+              f"{r['seconds']:.2f}" for r in rep["rounds"])
+          + f"; {len(rep['counters'])} counters and "
+          f"{len(rep['llhist'])} llhist rows equal to the control, "
+          f"{rep['dedupe_drops']} duplicate segments dropped; launches "
+          f"{rep['launches']}; soak {rep['seconds']:.1f} s", flush=True)
+
+
+def _report_t(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase T, the ring-failover soak."""
+    events = ", ".join(
+        f"{e['event']}@{e['round']}"
+        + (f" {e['seconds']:.3f} s" if "seconds" in e else "")
+        for e in rep["events"])
+    print(f"phase T ({smi}): {rep['sent']} sent, {rep['received']} "
+          f"received, loss unaccounted {rep['loss_unaccounted']}, "
+          f"detection-window loss {rep['detection_window_loss']}; "
+          f"{events}; soak {rep['seconds']:.1f} s", flush=True)
+
+
+def _report_n(name: str, rep: dict, phases: dict, smi: str) -> None:
+    """Print phase N, the alert drill."""
+    print(f"phase N ({smi}): drill exit {rep['rc']} in "
+          f"{rep['drill_s']:.1f} s; {rep['trail'][-1]}; launches "
+          f"{rep['launches']}", flush=True)
+
+
 # each phase's run and the report it prints
 _PHASE_RUNS = {
     "A": (_phase_a, _report_abc),
@@ -8718,6 +9125,10 @@ _PHASE_RUNS = {
     "R": (_phase_r, _report_r),
     "X": (_phase_x, _report_x),
     "W": (_phase_w, _report_w),
+    "U": (_phase_u, _report_u),
+    "Z": (_phase_z, _report_z),
+    "T": (_phase_t, _report_t),
+    "N": (_phase_n, _report_n),
     "Y": (_phase_y, _report_y),
 }
 
@@ -8810,10 +9221,12 @@ def _smoke(selected) -> int:
         for name in PHASES:
             if name not in selected:
                 continue
+            if side_names and side is None and (
+                    PHASES.index(name) >= PHASES.index(SIDE_START)):
+                side = _start_side(side_names)
+            if PHASES.index(name) >= PHASES.index(QUIET_FROM):
+                _main_quiet(side)
             if name in side_names:
-                # started where its first phase stands in the order
-                if side is None:
-                    side = _start_side(side_names)
                 continue
             run, report = _PHASE_RUNS[name]
             t0 = time.perf_counter()
@@ -8821,6 +9234,7 @@ def _smoke(selected) -> int:
             rep["seconds"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
             report(name, rep, phases, smi)
+        _main_quiet(side)
         if side is not None:
             side_reports = _finish_side(side, side_names)
             for name in side_names:

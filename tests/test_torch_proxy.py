@@ -502,6 +502,44 @@ def test_hand_driven_ejection_and_readmission():
         ft2.stop()
 
 
+
+def test_readmission_waits_for_the_members_channel(monkeypatch):
+    """A member whose probes pass again is readmitted only once its gRPC
+    channel is connected: while channel_ready says no (the reconnect
+    backoff of the outage), it stays ejected round after round, and the
+    member table reports it ejected while the prober waits on its
+    channel."""
+    ft = ForwardTestServer(lambda ms: None)
+    ft.start()
+    dests = Destinations(flush_interval=0.1)
+    dests.set_destinations([ft.address])
+    health = RingHealth(dests, interval=0.05, timeout=0.5,
+                        unhealthy_after=1, healthy_after=1)
+    ready, table = [], []
+    real = dests.channel_ready
+
+    def channel_ready(address, timeout):
+        ready.append(address)
+        table.append([m["ejected"] for m in health.member_table()])
+        return len(ready) > 2 and real(address, timeout)
+    monkeypatch.setattr(dests, "channel_ready", channel_ready)
+    try:
+        dests.eject(ft.address)
+        for _ in range(2):
+            health.run_round()
+            assert dests.ejected_addresses() == [ft.address]
+        health.run_round()
+        assert dests.ejected_addresses() == []
+        assert ready == [ft.address] * 3
+        assert table == [[True]] * 3
+        assert health.member_table()[0]["ejected"] is False
+        assert ft.address in dests.ring.members()
+        rows = {r[0]: r[2] for r in health.telemetry_rows()}
+        assert rows["proxy.ring.readmissions"] == 1.0
+    finally:
+        dests.clear()
+        ft.stop()
+
 def test_discovery_readd_does_not_bypass_ejection():
     ft = ForwardTestServer(lambda ms: None)
     ft.start()

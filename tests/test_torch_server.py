@@ -251,7 +251,10 @@ walked = {"proxy.proxy", "proxy.ring", "proxy.destinations", "proxy.health",
           "core.cardinality", "core.latency", "core.flushexec",
           "core.deviceobs", "core.profiling", "core.restart", "parallel",
           "parallel.collectives", "parallel.sharded_server",
-          "core.sharded_tables", "parallel.mesh", "forward"}
+          "core.sharded_tables", "parallel.mesh", "forward",
+          "cmd.reshard_soak", "cmd.crash_replay_soak",
+          "cmd.ring_failover_soak", "cmd.alert_drill", "testing",
+          "testing.forwardtest"}
 missing = sorted(m for m in walked if "veneur_tpu_torch." + m not in sys.modules)
 assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("veneur_tpu_torch")]))

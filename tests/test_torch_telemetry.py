@@ -326,3 +326,39 @@ def test_sink_plane_counts_go_out_through_statsd():
             ["error", "error"]
     finally:
         server.shutdown()
+
+
+def _metric_lint():
+    """scripts/check_metric_names.py, loaded as a module."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "check_metric_names", root / "scripts" / "check_metric_names.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, root
+
+
+@pytest.mark.parametrize("package", ["veneur_tpu", "veneur_tpu_torch"])
+def test_self_metric_inventory_documents_every_emitted_name(package):
+    """The self-metric lint over each package against README.md's
+    inventory: every literal name emitted (statsd call sites, collector
+    rows, HIST_ROWS, LEDGER_ROWS) is in the table, and every f-string
+    pattern matches a documented name."""
+    import re
+    lint, root = _metric_lint()
+    docs = lint.documented_names(root / "README.md")
+    assert docs, "README.md has no self-metric inventory table"
+    missing, checked = [], 0
+    for path, lineno, name, is_pattern in lint.emitted_names(
+            root / package):
+        checked += 1
+        if is_pattern:
+            pat = re.compile(f"^{name}$")
+            if not any(pat.match(doc) for doc in docs):
+                missing.append(f"{path.relative_to(root)}:{lineno} {name}")
+        elif name not in docs:
+            missing.append(f"{path.relative_to(root)}:{lineno} {name}")
+    assert checked > 200
+    assert not missing, missing

@@ -100,7 +100,11 @@ class Listener:
     pump and its dispatcher, or reader/accept threads), and for a stream
     listener its open connections."""
 
-    def __init__(self, socks: List[socket.socket], address=None):
+    def __init__(self, scheme: str, socks: List[socket.socket],
+                 address=None):
+        # "udp", "tcp", "unixgram", "ssf-udp", "ssf-tcp" or "ssf-unix",
+        # as the JAX package names its listeners (Server.local_addr)
+        self.scheme = scheme
         self.address = (address if address is not None
                         else socks[0].getsockname())
         self._socks = socks
@@ -226,7 +230,7 @@ def _start_statsd_udp(u, server, num_readers: int, rcvbuf: int) -> Listener:
     bound_port = first.getsockname()[1]
     socks = [first] + [_new_udp_socket(host, bound_port, rcvbuf)
                        for _ in range(max(0, num_readers - 1))]
-    listener = Listener(socks)
+    listener = Listener("udp", socks)
     _watch_kernel_drops(server, socks, f"statsd-udp:{bound_port}")
     ing = server._ingester
     if isinstance(ing, BatchIngester):
@@ -345,7 +349,7 @@ def _start_statsd_tcp(u, server) -> Listener:
     sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
     sock.bind((u.hostname or "127.0.0.1", u.port or 0))
     sock.listen(128)
-    listener = Listener([sock])
+    listener = Listener("tcp", [sock])
 
     def handle(conn):
         if tls_ctx is not None:
@@ -403,7 +407,7 @@ def _start_statsd_unix(u, server) -> Listener:
     path = _unix_path(u)
     sock = socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM)
     sock.bind(path)
-    listener = Listener([sock], address=path)
+    listener = Listener("unixgram", [sock], address=path)
     reader = (_read_native_datagrams
               if isinstance(server._ingester, BatchIngester)
               else _read_metric_socket)
@@ -431,7 +435,7 @@ def _start_ssf_udp(u, server, rcvbuf: int) -> Listener:
     # SO_REUSEPORT, unlike the JAX package's SSF listener: a SIGUSR2
     # replacement (core/restart.py) binds the same port beside this one
     sock = _new_udp_socket(u.hostname or "127.0.0.1", u.port or 0, rcvbuf)
-    listener = Listener([sock])
+    listener = Listener("ssf-udp", [sock])
     _watch_kernel_drops(server, [sock], f"ssf-udp:{listener.address[1]}")
     # the largest datagram read follows trace_max_length_bytes (reference
     # server.go:498's packet pool), clamped to the UDP ceiling
@@ -486,7 +490,7 @@ def _start_ssf_stream(u, server) -> Listener:
         sock.bind((u.hostname or "127.0.0.1", u.port or 0))
         address = sock.getsockname()
     sock.listen(128)
-    listener = Listener([sock], address=address)
+    listener = Listener(f"ssf-{u.scheme}", [sock], address=address)
     listener._serve_connections(
         sock, lambda conn: _read_ssf_frames(conn, server, listener),
         f"ssf-{u.scheme}")

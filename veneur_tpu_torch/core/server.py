@@ -1000,6 +1000,23 @@ class Server:
             logger.debug("could not parse %r: %s", packet[:100], e)
         self.count_lines(1, parsed)
 
+    def handle_packet_buffer(self, buf: bytes,
+                             shed_nonessential: bool = False) -> None:
+        """Newline-split one multi-line datagram through the slow path
+        (reference server.go:1116-1140). A buffer longer than
+        metric_max_length is one rejected line (the JAX server's
+        `parse_errors`); a buffer over the statsd rate limit sheds its
+        histogram and set samples."""
+        if len(buf) > self.config.metric_max_length:
+            self.count_lines(1, 0)
+            return
+        if not shed_nonessential and not self.overload.admit_statsd_packet():
+            shed_nonessential = True
+        for line in buf.split(b"\n"):
+            if line:
+                self.handle_metric_packet(
+                    line, shed_nonessential=shed_nonessential)
+
     # -- spans -----------------------------------------------------------
 
     def count_ssf(self, packets: int, errors: int) -> None:
@@ -1454,6 +1471,14 @@ class Server:
     def ssf_addresses(self) -> List:
         """The SSF listeners' bound addresses, in config order."""
         return [listener.address for listener in self._ssf_listeners]
+
+    def local_addr(self, scheme: str = "udp"):
+        """The bound address of the first listener of `scheme` ("udp",
+        "tcp", "unixgram", "ssf-udp", "ssf-tcp", "ssf-unix"), or None."""
+        for listener in self._listeners + self._ssf_listeners:
+            if listener.scheme == scheme:
+                return listener.address
+        return None
 
     def _tick_delay(self) -> float:
         """Clock-aligned tick (reference server.go:1458

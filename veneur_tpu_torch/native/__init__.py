@@ -19,9 +19,10 @@ datagram and SSF UDP listeners (`NativeReader`) and the pump (`Pump`)
 on the ingest side; the MetricList import parser (`parse_metric_list`,
 `decode_import_key`) and the digest encoder and metric wrapper
 (`vnt_digest_encode`, `vnt_metric_wrap`, called by forward/convert.py)
-on the forward tier, the proxy's route walk (`route_parse`), and the
-row unregister of idle-row reclamation (`Engine.unregister_rows_multi`).
-The load-generator entry points of the library wait for their slices.
+on the forward tier, the proxy's route walk (`route_parse`), the
+row unregister of idle-row reclamation (`Engine.unregister_rows_multi`),
+and the sendmmsg load generator (`Blaster`) that the stress tests and
+the chip smoke drive the pump with.
 """
 
 from __future__ import annotations
@@ -220,6 +221,14 @@ def _declare(lib) -> None:
     lib.vnt_metric_wrap.restype = i64
     lib.vnt_metric_wrap.argtypes = [
         u8p, i64p, u8p, i64p, u8p, i64p, i64, u8p, i64, i64p]
+    lib.vnt_blast_new.restype = ctypes.c_void_p
+    lib.vnt_blast_new.argtypes = [ctypes.c_void_p, i64, i64p, i64p, i64]
+    lib.vnt_blast_free.restype = None
+    lib.vnt_blast_free.argtypes = [ctypes.c_void_p]
+    lib.vnt_blast_run.restype = i64
+    lib.vnt_blast_run.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+        i64, ctypes.c_int32, ctypes.c_double, i64]
 
 
 def load():
@@ -635,6 +644,52 @@ class Pump:
         if getattr(self, "_p", None):
             self._lib.vnt_pump_free(self._p)
             self._p = None
+
+    def __del__(self):
+        self.close()
+
+
+class Blaster:
+    """Native UDP load generator: pre-rendered datagrams sent in sendmmsg
+    bursts from the calling thread, which holds no interpreter lock for
+    the whole `run()` (the veneur-emit-style benchmark driver; reference
+    cmd/veneur-emit). Run one `run()` per Python thread."""
+
+    def __init__(self, datagrams):
+        self._b = None
+        self._lib = load()
+        corpus = b"".join(datagrams)
+        lens = np.array([len(d) for d in datagrams], np.int64)
+        offs = np.zeros(len(datagrams), np.int64)
+        if len(datagrams) > 1:
+            np.cumsum(lens[:-1], out=offs[1:])
+        # the library copies the corpus and both arrays
+        self._b = self._lib.vnt_blast_new(
+            ctypes.cast(ctypes.c_char_p(corpus), ctypes.c_void_p),
+            len(corpus), _ptr(offs, ctypes.c_int64),
+            _ptr(lens, ctypes.c_int64), len(datagrams))
+        self.stop_flag = ctypes.c_int32(0)
+
+    def run(self, fd: int, max_dgrams: int = 0, burst: int = 64,
+            pace_pps: float = 0.0, phase: int = 0) -> int:
+        """Send the datagrams round-robin from index `phase` to the
+        connected socket `fd` until `stop()` or `max_dgrams` datagrams
+        (0: no limit), `pace_pps` datagrams a second (0: flat out);
+        returns the datagrams handed to the kernel."""
+        return self._lib.vnt_blast_run(
+            self._b, fd, ctypes.byref(self.stop_flag), max_dgrams, burst,
+            pace_pps, phase)
+
+    def stop(self) -> None:
+        self.stop_flag.value = 1
+
+    def reset(self) -> None:
+        self.stop_flag.value = 0
+
+    def close(self) -> None:
+        if self._b:
+            self._lib.vnt_blast_free(self._b)
+            self._b = None
 
     def __del__(self):
         self.close()

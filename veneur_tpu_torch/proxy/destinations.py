@@ -200,6 +200,9 @@ class Destination:
             request_serializer=lambda b: b,
             response_deserializer=_EMPTY_DESERIALIZER)
         self._v1_ok = True
+        # the health prober's pending wait for the channel to connect
+        # before a readmission (channel_ready)
+        self._ready_future = None
         self._thread = threading.Thread(
             target=self._run, name=f"proxy-dest-{address}", daemon=True)
         self._thread.start()
@@ -560,10 +563,27 @@ class Destination:
         fut.cancel()
         return True
 
+    def channel_ready(self, timeout: float) -> bool:
+        """Whether the gRPC channel is connected, waiting up to `timeout`
+        (a connection attempt starts when none runs). A member that
+        answers its probes again may still sit in its channel's
+        reconnect backoff, where a batch fails at once; the prober
+        readmits it only once this holds. Called by the prober only."""
+        if self._ready_future is None:
+            self._ready_future = grpc.channel_ready_future(self._channel)
+        try:
+            self._ready_future.result(timeout=timeout)
+        except grpc.FutureTimeoutError:
+            return False
+        self._ready_future = None
+        return True
+
     def close(self, notify: bool = False) -> None:
         if self.closed.is_set():
             return
         self.closed.set()
+        if self._ready_future is not None:
+            self._ready_future.cancel()
         with self._counter_lock:
             self._queue.sealed = True
         # final drain: items still queued at shutdown will never send —
@@ -803,6 +823,13 @@ class Destinations:
     def ejected_addresses(self) -> List[str]:
         with self._lock:
             return sorted(self._ejected)
+
+    def channel_ready(self, address: str, timeout: float) -> bool:
+        """Destination.channel_ready of `address` (True when it left the
+        pool: nothing routes to it)."""
+        with self._lock:
+            dest = self._pool.get(address)
+        return dest is None or dest.channel_ready(timeout)
 
     def group_table(self) -> List[dict]:
         """Per-shard-group membership/health snapshot (ready-state and

@@ -195,15 +195,23 @@ class RingHealth:
             if ok:
                 mh.failures = 0
                 mh.passes += 1
-                if mh.ejected and mh.passes >= self.healthy_after:
-                    mh.ejected = False
-                    readmit = True
+                readmit = mh.ejected and mh.passes >= self.healthy_after
             else:
                 mh.passes = 0
                 mh.failures += 1
                 if not mh.ejected and mh.failures >= self.unhealthy_after:
                     mh.ejected = True
                     eject = True
+        # its port answers, but its gRPC channel may still be in the
+        # reconnect backoff of the outage: a batch routed to it now would
+        # fail (and count toward its breaker), so it stays ejected, in
+        # this table too, until a round finds the channel connected
+        if readmit and self.destinations.channel_ready(address,
+                                                       self.timeout):
+            with self._lock:
+                mh.ejected = False
+        else:
+            readmit = False
         if eject:
             self.ejections_total += 1
             self.destinations.eject(address)

@@ -6387,9 +6387,13 @@ def _phase_p12(cli) -> dict:
                                f"{PHASE_P_TRACE_S}")))
                 tth.start()
                 # the capture's profiler records before the tail is sent
-                if not profiling.capturing.wait(60):
-                    raise AssertionError("phase P2: the device capture "
-                                         "never started")
+                # (it arms the span recorder inside its window)
+                t_wait = time.monotonic() + 60
+                while not profiling.armed:
+                    if time.monotonic() > t_wait:
+                        raise AssertionError("phase P2: the device capture "
+                                             "never started")
+                    time.sleep(0.01)
                 ingest_s += _send(server, addr, lines[cut:], base + cut,
                                   window)
                 t_flush = time.perf_counter()

@@ -1,9 +1,12 @@
 """The port's latency observatory (veneur_tpu_torch/core/latency.py)
 against the JAX package's: `InstrumentedQueue` dwell, `note_arrival` /
-`take_watermarks` / `observe_sample_age` on a scripted clock, egress and
-retrace bookkeeping, `report()` and `telemetry_rows()`; then the wiring:
+`take_watermarks` / `observe_sample_age` on a scripted clock, egress
+bookkeeping, `report()` and `telemetry_rows()`; then the wiring:
 `/debug/latency` on a server fed over UDP and on the proxy, whose
-destination queues it reports next to the JAX proxy's."""
+destination queues it reports next to the JAX proxy's. The JAX
+package's retrace plane (`note_retrace`, the report's
+`pending_retraces`) has no counterpart in the port, which recompiles
+nothing: the reports are compared less that key."""
 
 from __future__ import annotations
 
@@ -52,8 +55,12 @@ def clock(monkeypatch):
     return c
 
 
+# the JAX report's retrace plane, which the port does not have
+JAX_ONLY = {"pending_retraces"}
+
+
 def _strip(report: dict) -> dict:
-    out = dict(report)
+    out = {k: v for k, v in report.items() if k not in JAX_ONLY}
     out.pop("generated_unix")
     return out
 
@@ -98,7 +105,7 @@ def _planes_script(obs, clock, rng):
         clock.now += 0.3
         obs.observe_sample_age(marks, clock.now)
         obs.note_egress("datadog", 0.01 * interval, 0.02)
-        if interval == 3:
+        if interval == 3 and hasattr(obs, "note_retrace"):
             obs.note_retrace("histogram", 0.5, cache="miss")
     return takes
 
@@ -113,17 +120,16 @@ def test_sample_age_and_report_match_jax(clock, seed):
         obs.queue_hist("carry").observe(0.25)
         takes = _planes_script(obs, clock, np.random.default_rng(seed))
         obs.note_arrival("otlp", 7, t=clock.now - 1.0)  # pending mark
-        out.append((takes, _strip(obs.report()), obs.telemetry_rows(),
-                    obs.drain_retraces(), obs.drain_retraces()))
+        out.append((takes, _strip(obs.report()), obs.telemetry_rows()))
     assert out[0] == out[1]
-    takes, report, _rows, retraces, empty = out[0]
+    takes, report, _rows = out[0]
     assert "forward" not in report["sample_age"]  # rolled after going idle
     assert set(report["sample_age"]) == {"dogstatsd", "ssf"}
     assert report["pending_watermarks"]["otlp"]["samples"] == 7
     assert report["queues"]["carry"] == {
         "dwell": report["queues"]["carry"]["dwell"], "depth": 2,
         "capacity": 3}
-    assert retraces == {"histogram": (0.5, "miss")} and empty == {}
+    assert not hasattr(tlat.LatencyObservatory, "note_retrace")
 
 
 def test_disabled_observatory_hands_out_plain_queues():
@@ -192,7 +198,8 @@ def test_debug_latency_on_a_server_fed_over_udp(native):
                      >= 100)
         server.flush()
         report = _get_json(server.http_api.address, "/debug/latency")
-        assert set(report) == set(jlat.LatencyObservatory().report())
+        assert set(report) == \
+            set(jlat.LatencyObservatory().report()) - JAX_ONLY
         assert report["enabled"] is True
         age = report["sample_age"]["dogstatsd"]
         assert age["count"] == 2 and 0.0 <= age["p50"] <= age["max"]
@@ -266,7 +273,7 @@ def test_debug_latency_on_the_proxy_like_jax():
     for report in reports:
         assert report["enabled"] is True
         assert report["queues"][name]["dwell"]["count"] == 120
-    assert set(reports[0]) == set(reports[1])
+    assert set(reports[0]) == set(reports[1]) - JAX_ONLY
     assert set(reports[0]["queues"]) == set(reports[1]["queues"])
     assert reports[0]["queues"][name]["capacity"] == \
         reports[1]["queues"][name]["capacity"]

@@ -54,6 +54,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.device import pick_device
 from veneur_tpu_torch.ops import (
     batch_hll, batch_llhist, batch_tdigest, hll_ref, llhist_ref, scalars,
@@ -70,15 +71,31 @@ PAD_ROW = np.int32(2**31 - 1)
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host column as a tensor on `device`. The column is a private
-    copy (_swap_locked), so aliasing it on the CPU is safe."""
-    return torch.from_numpy(array).to(device)
+    copy (_swap_locked), so aliasing it on the CPU is safe. The span
+    `store.copy_in` while the span recorder is armed."""
+    armed = profiling.armed
+    if armed:
+        t0 = time.perf_counter()
+    out = torch.from_numpy(array).to(device)
+    if armed:
+        profiling.record("store.copy_in", t0, time.perf_counter(),
+                         {"bytes": array.nbytes})
+    return out
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy that shares no memory with `t`: on the CPU `.cpu()`
     returns the tensor itself, and a drained generation is reset in place
-    right after its readout."""
-    return t.detach().to("cpu", copy=True).numpy()
+    right after its readout. The span `store.copy_out` while the span
+    recorder is armed."""
+    armed = profiling.armed
+    if armed:
+        t0 = time.perf_counter()
+    out = t.detach().to("cpu", copy=True).numpy()
+    if armed:
+        profiling.record("store.copy_out", t0, time.perf_counter(),
+                         {"bytes": out.nbytes})
+    return out
 
 
 def _pad_cap(t: torch.Tensor, new_cap: int) -> torch.Tensor:
@@ -252,15 +269,23 @@ class _BaseTable:
     def _noted(self, kind: str, call):
         """Run `call` and book it in the observatory's kernel registry:
         the host's dispatch seconds (no synchronisation is added) and the
-        kernel launches it made on this thread."""
+        kernel launches it made on this thread. While the span recorder
+        is armed, the same two clock readings are the span
+        `store.<kind>.<family>` (`store.apply.histogram`, ...)."""
         obs = self._deviceobs
-        if obs is None:
+        armed = profiling.armed
+        if obs is None and not armed:
             return call()
         t0 = time.perf_counter()
         n0 = thread_launches()
         out = call()
-        obs.note_kernel(kind, self.family, time.perf_counter() - t0,
-                        launches=thread_launches() - n0)
+        t1 = time.perf_counter()
+        launches = thread_launches() - n0
+        if obs is not None:
+            obs.note_kernel(kind, self.family, t1 - t0, launches=launches)
+        if armed:
+            profiling.record(f"store.{kind}.{self.family}", t0, t1,
+                             {"launches": launches})
         return out
 
     def _time_first_apply(self, apply) -> None:

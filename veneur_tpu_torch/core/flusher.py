@@ -19,6 +19,12 @@ A server is local iff it forwards (`forward_address` set):
   counters tagged `le:<bound>` (JAX flusher.py:818-875); on a local
   server the non-local rows forward their bins instead.
 * Status checks emit every touched row.
+
+While the span recorder (core/profiling.py) is armed, the phases' clock
+readings, taken for the flush's timings anyway, are also its spans:
+`flush.swap`, one `flush.readout.<family>` per family's dispatch,
+`flush.sync` (the device sync and the host copies) and
+`flush.assembly`.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.core.columnstore import ColumnStore, RowMeta
 from veneur_tpu_torch.ops import llhist_ref, thread_launches
 from veneur_tpu_torch.samplers.metrics import (
@@ -206,8 +213,11 @@ def swap_columnstore(store: ColumnStore, is_local: bool,
     swap["rows"] = int(sum(
         np.count_nonzero(swap[f].get("touched", ()))
         for f in ("histogram", "counter", "gauge", "llhist", "set")))
+    t1 = time.perf_counter()
     if timings is not None:
-        timings["swap_s"] = time.perf_counter() - t0
+        timings["swap_s"] = t1 - t0
+    if profiling.armed:
+        profiling.record("flush.swap", t0, t1)
     return swap
 
 
@@ -263,6 +273,8 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
                              "dispatch_start_s": start - t0,
                              "transfer_s": 0.0, "devices": {},
                              "base_unix": start_unix}
+        if profiling.armed:
+            profiling.record(f"flush.readout.{family}", start, end)
         return end
 
     with device_lock if device_lock is not None else nullcontext():
@@ -498,6 +510,10 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
             tags=list(meta.tags), type=MetricType.STATUS,
             message=entry.message, hostname=entry.hostname))
 
+    t_end = time.perf_counter()
+    if profiling.armed:
+        profiling.record("flush.sync", t_dispatch, t_sync)
+        profiling.record("flush.assembly", t_sync, t_end)
     if timings is not None:
         if device_lock is not None:
             timings["readout_lock_wait_s"] = (
@@ -505,7 +521,7 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
         timings["dispatch_s"] = t_dispatch - t_locked
         timings["device_sync_s"] = t_sync - t_dispatch
         timings["llhist_bins_s"] = t_sync - t_bins
-        timings["assembly_s"] = time.perf_counter() - t_sync
+        timings["assembly_s"] = t_end - t_sync
         timings["families"] = families
     return FlushBatch(now, sections, extras, bucket_sections), fwd
 

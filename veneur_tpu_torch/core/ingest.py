@@ -35,6 +35,11 @@ defers replay through the Python SSF converter, which registers their
 keys, and the uniqueness and indicator metrics the flags say are owed
 derive in Python.
 
+While the span recorder (core/profiling.py) is armed, a buffer's parse
+is the span `ingest.parse`, the slow path's replay `ingest.slow_path` and
+each family's append into its table `ingest.append.<family>` (the
+applies and copies the append sets off nest inside it).
+
 Where the JAX package logs and drops a chunk whose apply raised, the port
 counts the failure in the server's `ingest_dispatch_errors`, keeps the
 first exception, and `Server.flush()` / `Server.shutdown()` re-raise it:
@@ -46,6 +51,7 @@ from __future__ import annotations
 import logging
 import random
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -54,6 +60,7 @@ from google.protobuf.message import DecodeError
 from veneur_tpu_torch import native, protocol, ssf
 from veneur_tpu_torch.core import batchdecode
 from veneur_tpu_torch.core import overload as overload_mod
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.samplers import metrics as m
 from veneur_tpu_torch.samplers.parser import ParseError
 
@@ -161,7 +168,10 @@ class _ColumnarIngesterBase:
         gauge_rows: list = []
         gauge_vals: list = []
         gauge_lines: list = []
+        armed = profiling.armed
         if unknown:
+            if armed:
+                t_slow = time.perf_counter()
             line_no = 0
             metric_cb = (server._ingest_metric_essential
                          if shed_nonessential else server.ingest_metric)
@@ -193,9 +203,21 @@ class _ColumnarIngesterBase:
                     continue
                 parsed += 1
                 self._register_line(line)
+            if armed:
+                profiling.record("ingest.slow_path", t_slow,
+                                 time.perf_counter(), {"lines": len(unknown)})
 
         if len(res.c_rows):
+            if armed:
+                t_app = time.perf_counter()
             store.counters.add_batch(res.c_rows, res.c_vals, res.c_rates)
+            if armed:
+                profiling.record("ingest.append.counter", t_app,
+                                 time.perf_counter(),
+                                 {"samples": len(res.c_rows)})
+        if armed:
+            n_gauges = len(res.g_rows) + len(gauge_rows)
+            t_app = time.perf_counter()
         if gauge_rows:
             all_rows = np.concatenate(
                 [res.g_rows, np.asarray(gauge_rows, np.int32)])
@@ -210,7 +232,10 @@ class _ColumnarIngesterBase:
             store.gauges.add_batch(all_rows[order], all_vals[order])
         elif len(res.g_rows):
             store.gauges.add_batch(res.g_rows, res.g_vals)
-        self._add_histo_set(res, shed_nonessential)
+        if armed and n_gauges:
+            profiling.record("ingest.append.gauge", t_app,
+                             time.perf_counter(), {"samples": n_gauges})
+        self._add_histo_set(res, shed_nonessential, armed)
         # processed and line stamps LAST: the columns are in pending
         # buffers now, so a waiter that sees the count and flushes emits
         # them
@@ -218,7 +243,8 @@ class _ColumnarIngesterBase:
         server.count_lines(received, parsed)
         return res.samples
 
-    def _add_histo_set(self, res, shed_nonessential: bool) -> None:
+    def _add_histo_set(self, res, shed_nonessential: bool,
+                       armed: bool = False) -> None:
         """Append the histogram, llhist and set columns under the shed
         ladder in batch form: shedding (or an over-limit batch) drops
         the columns whole, degraded keeps every `stride`-th sample of
@@ -233,18 +259,20 @@ class _ColumnarIngesterBase:
         stride = max(1, round(1.0 / keep)) if keep > 0 else 0
         shed_reason = "rate_limit" if shed_nonessential else "overload"
         groups = (
-            (overload_mod.CLASS_HISTOGRAM, res.h_rows,
+            ("ingest.append.histogram", overload_mod.CLASS_HISTOGRAM,
+             res.h_rows,
              lambda k, s: store.histos.add_batch(
                  k, res.h_vals[::s], res.h_wts[::s])),
-            (overload_mod.CLASS_HISTOGRAM, res.l_rows,
+            ("ingest.append.llhist", overload_mod.CLASS_HISTOGRAM,
+             res.l_rows,
              lambda k, s: store.llhists.add_batch_binned(
                  k, res.l_bins[::s], res.l_wts[::s],
                  res.l_clamped if s == 1 else 0)),
-            (overload_mod.CLASS_SET, res.s_rows,
+            ("ingest.append.set", overload_mod.CLASS_SET, res.s_rows,
              lambda k, s: store.sets.add_batch(
                  k, res.s_idx[::s], res.s_rho[::s])),
         )
-        for cls, rows, apply_fn in groups:
+        for span, cls, rows, apply_fn in groups:
             n = len(rows)
             if not n:
                 continue
@@ -256,7 +284,12 @@ class _ColumnarIngesterBase:
                 # booked even when 0, as the JAX ladder books it
                 overload.shed(cls, n - len(kept), reason="degraded")
             ledger.note("ingest.admitted", len(kept), key=self.LEDGER_KEY)
+            if armed:
+                t_app = time.perf_counter()
             apply_fn(kept, stride)
+            if armed:
+                profiling.record(span, t_app, time.perf_counter(),
+                                 {"samples": len(kept)})
 
     def _register_line(self, line: bytes) -> None:
         """After the slow path interned a metric line's key, teach the
@@ -307,7 +340,14 @@ class PyBatchIngester(_ColumnarIngesterBase):
     def ingest_buffer(self, buf: bytes) -> int:
         """Parse and aggregate one newline-joined packet buffer; returns
         the number of column samples taken."""
-        return self._ingest(self.decoder.parse(buf))
+        armed = profiling.armed
+        if armed:
+            t0 = time.perf_counter()
+        res = self.decoder.parse(buf)
+        if armed:
+            profiling.record("ingest.parse", t0, time.perf_counter(),
+                             {"lines": res.lines})
+        return self._ingest(res)
 
     def _register_entry(self, meta_key: bytes, family: int, row: int,
                         rate: float) -> None:
@@ -349,7 +389,14 @@ class BatchIngester(_ColumnarIngesterBase):
         """Parse and aggregate one newline-joined packet buffer; returns
         the number of column samples taken (slow-path lines not
         counted)."""
-        return self._ingest(self._parser().parse(buf))
+        armed = profiling.armed
+        if armed:
+            t0 = time.perf_counter()
+        res = self._parser().parse(buf)
+        if armed:
+            profiling.record("ingest.parse", t0, time.perf_counter(),
+                             {"lines": res.lines})
+        return self._ingest(res)
 
     def ingest_ptr(self, ptr, length: int) -> int:
         """ingest_buffer over a NativeReader's joined buffer, in place."""

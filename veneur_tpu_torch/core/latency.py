@@ -13,11 +13,11 @@ waterfall.
   carryover and spool, the pump's per-reader rings) has a depth gauge
   read at scrape time and an enqueue->dequeue dwell llhist
   (`InstrumentedQueue`, or `register_queue` + `queue_hist`).
-- **Egress**: each sink's encode-vs-send split (`note_egress`).
-- **Retraces**: `note_retrace` tags a family's next waterfall round with
-  a recompile. The port recompiles nothing, so nothing feeds it and the
-  report's `pending_retraces` stays empty, as on a JAX server without
-  retraces.
+- **Egress**: each sink's encode-vs-send split (`note_egress`), and
+  the gzip's share of the send where the sink measures it.
+
+The JAX package's retrace plane (`note_retrace`, the report's
+`pending_retraces`) has no counterpart: the port recompiles nothing.
 
 `LatencyHist` also times the HTTP routes (`http.route`), the query
 plane (`query.eval`) and the alert engine (`alert.eval`): one
@@ -171,12 +171,6 @@ class LatencyObservatory:
         # name -> (depth_fn, capacity)
         self._queues: Dict[str, tuple] = {}
         self._marks: Dict[str, _PlaneMark] = {}
-        # family -> pending recompile seconds, drained into the next
-        # flush round so retrace cost is tagged on the waterfall;
-        # _retrace_cache carries the persistent-compilation-cache
-        # outcome ("hit"/"miss") per family when the cache is enabled
-        self._retraces: Dict[str, float] = {}
-        self._retrace_cache: Dict[str, str] = {}
         # (phase, sink) -> hist; phase is "encode" or "send" — the
         # per-sink flush split reported by MetricSink.note_egress
         self._egress_hists: Dict[tuple, LatencyHist] = {}
@@ -296,45 +290,25 @@ class LatencyObservatory:
 
     # -- egress encode/send split ----------------------------------------
 
-    def note_egress(self, sink: str, encode_s: float,
-                    send_s: float) -> None:
+    def note_egress(self, sink: str, encode_s: float, send_s: float,
+                    gzip_s: Optional[float] = None) -> None:
         """Record one sink flush's encode-vs-send wall split (fed by
         MetricSink.note_egress): the waterfall's answer to whether a
-        slow sink burns CPU (encode) or waits on the network (send)."""
+        slow sink burns CPU (encode) or waits on the network (send).
+        `gzip_s`, where the sink measures it, is the compression's share
+        of the send (its `egress.gzip_s` row)."""
         if not self.enabled:
             return
-        for phase, v in (("encode", encode_s), ("send", send_s)):
+        phases = [("encode", encode_s), ("send", send_s)]
+        if gzip_s is not None:
+            phases.append(("gzip", gzip_s))
+        for phase, v in phases:
             with self._lock:
                 hist = self._egress_hists.get((phase, sink))
                 if hist is None:
                     hist = self._egress_hists[(phase, sink)] = LatencyHist(
                         f"egress.{phase}_s:{sink}")
             hist.observe(max(0.0, float(v)))
-
-    # -- retrace tagging -------------------------------------------------
-
-    def note_retrace(self, family: str, seconds: float,
-                     cache: Optional[str] = None) -> None:
-        """Record a recompile of a family's kernels; the next flush
-        round's waterfall tags the family with it, and `cache` ("hit" /
-        "miss") with where the compile came from. The port recompiles
-        nothing, so nothing calls this; it keeps the report's shape."""
-        if not self.enabled:
-            return
-        with self._lock:
-            self._retraces[family] = self._retraces.get(family, 0.0) + seconds
-            if cache:
-                self._retrace_cache[family] = cache
-
-    def drain_retraces(self) -> Dict[str, tuple]:
-        """{family: (recompile_seconds, cache_outcome_or_None)} since
-        the last drain."""
-        with self._lock:
-            out = {family: (secs, self._retrace_cache.get(family))
-                   for family, secs in self._retraces.items()}
-            self._retraces = {}
-            self._retrace_cache = {}
-        return out
 
     # -- export ----------------------------------------------------------
 
@@ -367,7 +341,10 @@ class LatencyObservatory:
                   if ph == "encode"}),
                 ("egress.send_s", "sink",
                  {s: h for (ph, s), h in egress_hists.items()
-                  if ph == "send"})):
+                  if ph == "send"}),
+                ("egress.gzip_s", "sink",
+                 {s: h for (ph, s), h in egress_hists.items()
+                  if ph == "gzip"})):
             for key, hist in hists.items():
                 snap = hist.snapshot()
                 tags = [f"{tag_key}:{key}"]
@@ -380,8 +357,7 @@ class LatencyObservatory:
 
     def report(self) -> dict:
         """The GET /debug/latency payload: full llhist summaries per
-        plane and per queue, live depths, and any pending (not yet
-        flush-tagged) retraces."""
+        plane and per queue, and live depths."""
         with self._lock:
             queues = dict(self._queues)
             q_hists = dict(self._queue_hists)
@@ -391,7 +367,6 @@ class LatencyObservatory:
                              "newest_unix": round(m.newest, 3),
                              "batches": m.batches, "samples": m.samples}
                      for plane, m in self._marks.items()}
-            retraces = dict(self._retraces)
         planes = {plane: hist.snapshot() for plane, hist in age_hists.items()}
         qs = {}
         for name, hist in q_hists.items():
@@ -413,8 +388,6 @@ class LatencyObservatory:
             "pending_watermarks": marks,
             "queues": qs,
             "egress": egress,
-            "pending_retraces": {k: round(v, 6)
-                                 for k, v in retraces.items()},
         }
 
 

@@ -14,10 +14,16 @@ the JAX package's code, unchanged):
     pprof wire format (hand-encoded profile.proto) for CPU, tracemalloc
     heap, and live-thread profiles; `go tool pprof` and speedscope read
     them directly.
+  * the span recorder (`arm` / `record` / `disarm`) — the port's own
+    spans (ingest, the tables' applies and copies, the flush's phases,
+    the sinks' encode, gzip and POST, the K1/K2 launches), recorded on
+    time.perf_counter only while a capture is armed; disarmed, a span
+    site costs one flag test.
   * capture_device_trace — a bounded `torch.profiler.profile` session
     (CPU activity, and CUDA activity when the server's device is a
     card) whose Chrome trace is returned zipped (open it in Perfetto or
-    chrome://tracing to see the kernels, copies and host ops). A CUDA
+    chrome://tracing to see the kernels, copies and host ops), with the
+    recorder's spans on a `veneur host spans` track beside them. A CUDA
     capture launches one probe kernel inside its window; when the trace
     holds no device event at all the host's CUPTI tracing gave nothing,
     and the capture raises DeviceTraceUnavailable naming that reason
@@ -449,10 +455,89 @@ def pprof_for(seconds: float, hz: float = 100.0) -> bytes:
         _cpu_profile_lock.release()
 
 
+# -- the span recorder -------------------------------------------------------
+# Spans of the program's own work: ingest batches and their parse, slow
+# path and appends, the tables' applies and copies, the flush's phases,
+# the sinks' encode, gzip and POST, and the K1/K2 launches. A span site
+# tests `armed` and, while it is False, does nothing more: no clock read,
+# no allocation. While a capture is armed it reads time.perf_counter() at
+# both ends (or reuses readings its code takes anyway) and calls
+# `record`. A record is a tuple (name, thread ident, start, end, args):
+# start and end in perf_counter seconds, args None or a small dict
+# (bytes, lines, samples, launches, a shape, thread CPU seconds). One
+# capture at a time: `arm(capacity)` ... `disarm()`.
+
+armed = False
+
+
+class _SpanBuffer:
+    """One capture's records, at most `capacity`; the rest are counted
+    as dropped. `records` is None once the capture is disarmed."""
+
+    __slots__ = ("records", "capacity", "dropped", "lock")
+
+    def __init__(self, capacity: int):
+        self.records: Optional[List[tuple]] = []
+        self.capacity = int(capacity)
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+
+_capture: Optional[_SpanBuffer] = None
+_arm_lock = threading.Lock()
+
+
+def arm(capacity: int) -> None:
+    """Start recording spans into a buffer of `capacity` records. Raises
+    RuntimeError while another capture is armed."""
+    global armed, _capture
+    with _arm_lock:
+        if _capture is not None:
+            raise RuntimeError("a span capture is already armed")
+        _capture = _SpanBuffer(capacity)
+        armed = True
+
+
+def disarm() -> Tuple[List[tuple], int]:
+    """Stop recording; returns (records, dropped) of the capture, in the
+    order they were recorded (([], 0) when none was armed)."""
+    global armed, _capture
+    with _arm_lock:
+        buf, _capture = _capture, None
+        armed = False
+    if buf is None:
+        return [], 0
+    with buf.lock:
+        records, buf.records = buf.records, None
+        return records, buf.dropped
+
+
+def record(name: str, start: float, end: float,
+           args: Optional[dict] = None) -> None:
+    """One span of the calling thread, when a capture is armed (a site
+    that saw `armed` before a disarm records nothing after it)."""
+    buf = _capture
+    if buf is None:
+        return
+    item = (name, threading.get_ident(), start, end, args)
+    with buf.lock:
+        if buf.records is None:
+            return
+        if len(buf.records) < buf.capacity:
+            buf.records.append(item)
+        else:
+            buf.dropped += 1
+
+
+# the span capacity of a device-trace capture: ~20 spans an ingest batch
+# at a few hundred batches a second, for up to the 120 s a capture takes
+DEVICE_TRACE_SPAN_CAPACITY = 2_000_000
+# the capture's marker: a range whose probe places the host spans on the
+# profiler's clock
+PROBE_RANGE = "veneur.span_clock_probe"
+HOST_SPAN_TRACK = "veneur host spans"
+
 _device_trace_lock = threading.Lock()
-# set while a device-trace capture's profiler records (for a caller in
-# this process that must act inside the window)
-capturing = threading.Event()
 
 # trace event categories of the card's own activity (CUPTI records):
 # kernels, copies and sets
@@ -471,15 +556,87 @@ def device_events(trace: dict) -> List[dict]:
             if e.get("cat") in DEVICE_EVENT_CATS]
 
 
+def _clock_probe(dev) -> Tuple[float, float]:
+    """The capture's marker: a range named PROBE_RANGE around one probe
+    kernel's launch on `dev` (around nothing on the CPU), bracketed by
+    host readings with the card synchronised; returns them."""
+    import torch
+    probe = None
+    if dev is not None:
+        probe = torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    t_a = time.perf_counter()
+    with torch.profiler.record_function(PROBE_RANGE):
+        if probe is not None:
+            probe.add_(1.0)
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+    return t_a, time.perf_counter()
+
+
+def _probe_offset(events: List[dict], host_mid: float
+                  ) -> Tuple[Optional[float], Optional[str]]:
+    """Microseconds to add to a perf_counter reading, times 1e6, to place
+    it on the trace's clock, and what placed it: the probe kernel's
+    device start (found through its launch's correlation id inside the
+    probe range) at the midpoint of the host readings around it, as
+    portbench/devtrace.py places its marker; without a kernel, the probe
+    range's own midpoint. (None, None) when the trace lacks the range."""
+    ranges = [e for e in events if e.get("name") == PROBE_RANGE
+              and e.get("cat") == "user_annotation"]
+    if not ranges:
+        return None, None
+    rng = ranges[0]
+    lo, hi = rng["ts"], rng["ts"] + rng.get("dur", 0)
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "cuda_runtime" and e.get("tid") == rng["tid"]
+            and lo <= e.get("ts", lo - 1) <= hi
+            and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in corr]
+    if kernels:
+        return kernels[0]["ts"] - host_mid * 1e6, "probe kernel"
+    return (lo + hi) / 2 - host_mid * 1e6, "probe range"
+
+
+def _host_span_events(spans: List[tuple], offset_us: float,
+                     pid: int) -> List[dict]:
+    """Chrome trace events of recorded spans: one complete event each on
+    the HOST_SPAN_TRACK process `pid`, a track per thread, placed on the
+    trace's clock by `offset_us` (_probe_offset)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+            "args": {"name": HOST_SPAN_TRACK}}]
+    tids: Dict[int, int] = {}
+    for name, ident, start, end, args in spans:
+        tid = tids.get(ident)
+        if tid is None:
+            tid = tids[ident] = len(tids) + 1
+            out.append({"ph": "M", "name": "thread_name", "pid": pid,
+                        "tid": tid, "args": {
+                            "name": names.get(ident, f"thread {ident}")}})
+        ev = {"ph": "X", "cat": "host_span", "name": name, "pid": pid,
+              "tid": tid, "ts": start * 1e6 + offset_us,
+              "dur": (end - start) * 1e6}
+        if args:
+            ev["args"] = args
+        out.append(ev)
+    return out
+
+
 def capture_device_trace(seconds: float, device=None) -> bytes:
     """Run `torch.profiler.profile` for `seconds` and return a zip of its
     Chrome trace (`trace.json`) and a summary (`summary.json`: the
-    activities traced, the device, the count of device events). `device`
-    is the server's torch device: a CUDA device adds CUDA activity, and
-    a probe kernel launched inside the window proves the tracing works;
-    a CUDA capture that recorded no device event raises
-    DeviceTraceUnavailable. One capture at a time: a second raises
-    RuntimeError (503 at the HTTP layer)."""
+    activities traced, the device, the count of device events, the host
+    spans). `device` is the server's torch device: a CUDA device adds
+    CUDA activity, and a probe kernel launched inside the window proves
+    the tracing works; a CUDA capture that recorded no device event
+    raises DeviceTraceUnavailable. The span recorder is armed for the
+    window: its spans join the trace on a `veneur host spans` track,
+    placed on the profiler's clock by the probe (_probe_offset), each
+    beside the kernels it launched. One capture at a time: a second, or
+    one while another span capture is armed, raises RuntimeError (503
+    at the HTTP layer)."""
     import json
 
     import torch
@@ -497,34 +654,41 @@ def capture_device_trace(seconds: float, device=None) -> bytes:
         try:
             path = os.path.join(tmp, "trace.json")
             with profile(activities=activities) as prof:
-                capturing.set()
+                arm(DEVICE_TRACE_SPAN_CAPACITY)
                 try:
-                    if on_card:
-                        probe = torch.zeros(1, device=dev)
-                        probe.add_(1.0)
+                    t_a, t_b = _clock_probe(dev if on_card else None)
                     time.sleep(max(0.05, seconds))
                     if on_card:
                         torch.cuda.synchronize(dev)
                 finally:
-                    capturing.clear()
+                    spans, dropped = disarm()
             prof.export_chrome_trace(path)
             with open(path) as f:
                 trace = json.load(f)
+            events = trace.setdefault("traceEvents", [])
             n_device = len(device_events(trace))
             if on_card and n_device == 0:
                 raise DeviceTraceUnavailable(
                     "torch.profiler recorded no device activity on "
                     f"{dev} (not even its probe kernel): this host's "
                     "CUPTI activity tracing returned no CUDA events")
+            offset, placed_by = _probe_offset(events, (t_a + t_b) / 2)
+            if offset is not None:
+                pid = 1 + max((e["pid"] for e in events
+                               if isinstance(e.get("pid"), int)), default=0)
+                events.extend(_host_span_events(spans, offset, pid))
             summary = {
                 "activities": [a.name for a in activities],
                 "device": str(dev) if dev is not None else None,
                 "seconds": seconds, "device_events": n_device,
-                "events": len(trace.get("traceEvents", ())),
+                "events": len(events),
+                "host_spans": len(spans) if offset is not None else 0,
+                "host_spans_dropped": dropped,
+                "host_span_clock": placed_by,
             }
             buf = io.BytesIO()
             with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
-                zf.write(path, "trace.json")
+                zf.writestr("trace.json", json.dumps(trace))
                 zf.writestr("summary.json", json.dumps(summary))
             return buf.getvalue()
         finally:

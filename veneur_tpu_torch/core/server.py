@@ -156,6 +156,7 @@ from veneur_tpu_torch.core.latency import LatencyObservatory
 from veneur_tpu_torch.core.ledger import FlowLedger
 from veneur_tpu_torch.core.networking import Listener, start_ssf, start_statsd
 from veneur_tpu_torch.core import overload as overload_mod
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.core.overload import OverloadManager, TokenBucket
 from veneur_tpu_torch.core.query import LiveQueryPlane
 from veneur_tpu_torch.device import pick_device
@@ -492,10 +493,10 @@ class Server:
         # and per metric sink a `sink:<name>` record: status, duration_s,
         # cpu_s (the sink thread's own CPU seconds: the sink threads share
         # the interpreter lock, so a wall time includes the others' turns)
-        # and the sink's note_egress (encode_s, send_s, encoder), and per
-        # span sink a `span_sink:<name>` record of the same shape. A sink
-        # thread that outlives the flush lands its record later, marked
-        # `late`.
+        # and the sink's note_egress (encode_s, send_s, encoder, gzip_s),
+        # and per span sink a `span_sink:<name>` record of the same shape.
+        # A sink thread that outlives the flush lands its record later,
+        # marked `late`.
         self.last_flush_timings: Dict[str, Any] = {}
         # the overlapped flush (`flush_async`, core/flushexec.py): the
         # readout executor, made at the first async tick; the intervals
@@ -965,7 +966,11 @@ class Server:
         the column store. The chaos ingest faults (drop, truncate,
         duplicate) apply here first; admission gates the parsed batch in
         the ingester. A datagram longer than metric_max_length is one
-        rejected line."""
+        rejected line. The call is the span `ingest.batch` while the span
+        recorder is armed, with the thread's CPU seconds."""
+        armed = profiling.armed
+        if armed:
+            t0, cpu0 = time.perf_counter(), time.thread_time()
         chaos = self.chaos
         if chaos is not None and chaos.ingest_faults_planned:
             datagrams = chaos.mangle_packets(datagrams)
@@ -976,6 +981,9 @@ class Server:
             self.count_lines(len(datagrams) - len(good), 0)
         if good:
             self._ingester.ingest_buffer(b"\n".join(good))
+        if armed:
+            profiling.record("ingest.batch", t0, time.perf_counter(),
+                             {"cpu_s": time.thread_time() - cpu0})
 
     def handle_metric_packet(self, packet: bytes,
                              shed_nonessential: bool = False) -> None:
@@ -1549,7 +1557,10 @@ class Server:
         They go into this server's span pipeline, and into its trace
         store when the interval is sampled. The trace plane rolls to the
         next interval's id last, watching the cardinality observatory's
-        top names."""
+        top names. While the span recorder (core/profiling.py) is armed,
+        the phases' readings in `last_flush_timings` are also spans:
+        core/flusher.py's, and `flush.sinks` from the sinks' dispatch to
+        their join."""
         self._flush()
 
     def _flush(self, deliver_only: bool = False) -> None:
@@ -1639,7 +1650,10 @@ class Server:
         deadline = t0 + self.interval
         for _key, thread, _record in dispatched:
             thread.join(max(0.0, deadline - time.perf_counter()))
-        timings["sinks_s"] = time.perf_counter() - t_sinks
+        t_joined = time.perf_counter()
+        timings["sinks_s"] = t_joined - t_sinks
+        if profiling.armed:
+            profiling.record("flush.sinks", t_sinks, t_joined)
         stuck = self._sweep_timed_out(dispatched)
         for thread, record in forwards:
             thread.join(max(0.0, deadline - time.perf_counter()))
@@ -2182,8 +2196,8 @@ class Server:
             record["duration_s"] = duration
             record["cpu_s"] = cpu
             if egress is not None and egress is not before:
-                record["encode_s"], record["send_s"], record["encoder"] = \
-                    egress
+                (record["encode_s"], record["send_s"], record["encoder"],
+                 record["gzip_s"]) = egress
 
     @contextlib.contextmanager
     def _sink_span(self, flush_span, key: str, traced: bool):
@@ -2447,7 +2461,7 @@ def _round_family_tree(families: dict) -> dict:
 def _sink_record() -> Dict[str, Any]:
     """One sink's record in a flush's timings, before its thread runs."""
     return {"duration_s": 0.0, "cpu_s": 0.0, "encode_s": None,
-            "send_s": None, "encoder": None}
+            "send_s": None, "encoder": None, "gzip_s": None}
 
 
 # the sink plane's counters (JAX self-metric names)

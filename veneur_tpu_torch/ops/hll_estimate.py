@@ -21,10 +21,12 @@ rounded across an integer boundary of the estimate.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.ops import _cuda, count_launch, hll_ref
 
 M = hll_ref.M  # 16384 registers per key
@@ -103,12 +105,21 @@ def estimate_cuda(regs: torch.Tensor) -> torch.Tensor:
 
 def estimate(regs: torch.Tensor) -> torch.Tensor:
     """Per-key estimates: the plain version for a CPU tensor, kernel K2
-    for a CUDA tensor."""
+    for a CUDA tensor. The call is the span `kernel.k2`, with its shape
+    (D,), while the span recorder is armed."""
+    armed = profiling.armed
+    if armed:
+        t0 = time.perf_counter()
     if regs.device.type == "cpu":
-        return estimate_plain(regs)
-    if regs.device.type == "cuda":
-        return estimate_cuda(regs)
-    raise ValueError(f"hll_estimate: unsupported device {regs.device}")
+        out = estimate_plain(regs)
+    elif regs.device.type == "cuda":
+        out = estimate_cuda(regs)
+    else:
+        raise ValueError(f"hll_estimate: unsupported device {regs.device}")
+    if armed:
+        profiling.record("kernel.k2", t0, time.perf_counter(),
+                         {"shape": (int(regs.shape[0]),)})
+    return out
 
 
 def bound_bytes(num_rows: int) -> int:

@@ -16,10 +16,12 @@ for a CPU tensor only: for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Sequence
 
 import torch
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.ops import _cuda, count_launch
 
 # column order of the scalar tail of the packed flush
@@ -152,12 +154,22 @@ def flush_packed_cuda(sm, sw, scal, ps) -> torch.Tensor:
 
 def flush_packed(sm, sw, scal, ps: Sequence[float]) -> torch.Tensor:
     """Packed (K, P+10) flush rows from mean-sorted centroids: the plain
-    version for CPU tensors, kernel K1 for CUDA tensors."""
+    version for CPU tensors, kernel K1 for CUDA tensors. The call is the
+    span `kernel.k1`, with its shape (K, W, P), while the span recorder
+    is armed."""
+    armed = profiling.armed
+    if armed:
+        t0 = time.perf_counter()
     if sm.device.type == "cpu":
-        return flush_packed_plain(sm, sw, scal, ps)
-    if sm.device.type == "cuda":
-        return flush_packed_cuda(sm, sw, scal, ps)
-    raise ValueError(f"tdigest_flush: unsupported device {sm.device}")
+        out = flush_packed_plain(sm, sw, scal, ps)
+    elif sm.device.type == "cuda":
+        out = flush_packed_cuda(sm, sw, scal, ps)
+    else:
+        raise ValueError(f"tdigest_flush: unsupported device {sm.device}")
+    if armed:
+        profiling.record("kernel.k1", t0, time.perf_counter(), {
+            "shape": (int(sm.shape[0]), int(sm.shape[1]), len(ps))})
+    return out
 
 
 def bound_bytes(num_keys: int, width: int, num_ps: int) -> int:

@@ -7,11 +7,12 @@ sink workers) and flush per interval. Factories register by kind in
 MetricSinkTypes and SpanSinkTypes (reference server.go:62-91).
 
 A sink that encodes straight from the FlushBatch columns reports its
-encode-vs-send split through `note_egress`; the server copies the last
-report into its `last_flush_timings` under `sink:<name>`, and the owning
+encode-vs-send split through `note_egress` (with the gzip's share of the
+send, where the sink measures it); the server copies the last report
+into its `last_flush_timings` under `sink:<name>`, and the owning
 server's latency observatory takes it as the sink's `egress.encode_s` /
-`egress.send_s` rows. (The JAX package also tags the ambient flush span
-with it.)
+`egress.send_s` rows (and `egress.gzip_s`). (The JAX package also tags
+the ambient flush span with it.)
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ class MetricSink(abc.ABC):
     @abc.abstractmethod
     def kind(self) -> str: ...
 
-    # the last flush's (encode_s, send_s, encoder), or None
-    last_egress: Optional[Tuple[float, float, str]] = None
+    # the last flush's (encode_s, send_s, encoder, gzip_s), or None
+    last_egress: Optional[
+        Tuple[float, float, str, Optional[float]]] = None
     # the owning server's latency observatory, bound at start()
     _latency = None
 
@@ -57,12 +59,15 @@ class MetricSink(abc.ABC):
         self.flush(batch.materialize())
 
     def note_egress(self, encode_s: float, send_s: float,
-                    encoder: str = "columnar") -> None:
-        """Report one flush's encode-vs-send split and which encoder ran
-        ("columnar", or "legacy" for the per-InterMetric path)."""
-        self.last_egress = (encode_s, send_s, encoder)
+                    encoder: str = "columnar",
+                    gzip_s: Optional[float] = None) -> None:
+        """Report one flush's encode-vs-send split, which encoder ran
+        ("columnar", or "legacy" for the per-InterMetric path) and, where
+        the sink measures it, the gzip's seconds inside the send."""
+        self.last_egress = (encode_s, send_s, encoder, gzip_s)
         if self._latency is not None:
-            self._latency.note_egress(self.name(), encode_s, send_s)
+            self._latency.note_egress(self.name(), encode_s, send_s,
+                                      gzip_s)
 
     def flush_other_samples(self, samples: Sequence[Any]) -> None:  # noqa: B027
         """Receive events/service-check samples that aren't InterMetrics."""

@@ -23,6 +23,7 @@ import threading
 import time
 from typing import Any, Dict, List, Sequence
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.samplers.metrics import InterMetric, MetricType
 from veneur_tpu_torch.sinks import (MetricSink, SpanSink, register_metric_sink,
                                     register_span_sink)
@@ -142,7 +143,12 @@ class DatadogMetricSink(MetricSink):
     def flush_columnar(self, batch) -> None:
         """Columnar fast path: pre-encoded JSON series parts straight
         from the FlushBatch arrays (core/egress.py), gzip-POSTed as raw
-        bodies — no per-InterMetric dicts, no json.dumps of the flush."""
+        bodies — no per-InterMetric dicts, no json.dumps of the flush.
+        The egress report's `gzip_s` is the series bodies' gzip seconds,
+        summed over the bodies (a part of `send_s`). While the span
+        recorder (core/profiling.py) is armed, the encode is the span
+        `sink.encode`; util/http.py's post adds `sink.gzip` and
+        `sink.post` for each body."""
         import time as _time
 
         from veneur_tpu_torch.core.egress import DatadogColumnarEncoder
@@ -152,17 +158,21 @@ class DatadogMetricSink(MetricSink):
         if enc is None:
             enc = self._encoder = DatadogColumnarEncoder(self)
         parts, checks = enc.encode(batch)
-        encode_s = _time.perf_counter() - t0
         t1 = _time.perf_counter()
+        if profiling.armed:
+            profiling.record("sink.encode", t0, t1, {"series": len(parts)})
+        gzip_seconds: List[float] = []
         if parts:
             bodies = [b'{"series":[' +
                       b",".join(parts[i:i + self.flush_max_per_body]) +
                       b"]}"
                       for i in range(0, len(parts),
                                      self.flush_max_per_body)]
-            self._post_parallel(bodies, self._post_series_body_safe)
+            self._post_parallel(bodies, lambda body: (
+                self._post_series_body_safe(body, gzip_seconds)))
         self._post_checks(checks)
-        self.note_egress(encode_s, _time.perf_counter() - t1)
+        self.note_egress(t1 - t0, _time.perf_counter() - t1,
+                         gzip_s=sum(gzip_seconds))
 
     def _post_parallel(self, chunks, post_one) -> None:
         # concurrency capped at num_workers POSTs (reference
@@ -196,10 +206,12 @@ class DatadogMetricSink(MetricSink):
                 "tags": list(self.tags) + list(check.tags),
             })
 
-    def _post_series_body_safe(self, body: bytes) -> None:
+    def _post_series_body_safe(self, body: bytes,
+                               gzip_seconds: List[float]) -> None:
         url = f"{self.api_url}/api/v1/series?api_key={self.api_key}"
         try:
-            vhttp.post(url, body, compress="gzip", timeout=self.timeout)
+            vhttp.post(url, body, compress="gzip", timeout=self.timeout,
+                       gzip_seconds=gzip_seconds)
         except Exception as e:
             logger.error("datadog POST /api/v1/series failed: %s", e)
 

@@ -19,8 +19,9 @@ import time
 import urllib.error
 import urllib.request
 import zlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.util import chaos as chaos_mod
 from veneur_tpu_torch.util.chaos import ChaosError
 
@@ -158,14 +159,29 @@ def post(url: str, body: bytes, *,
          headers: Optional[Dict[str, str]] = None,
          compress: Optional[str] = None,
          timeout: float = 10.0, method: str = "POST",
-         proxy_url: str = "") -> Tuple[int, bytes]:
+         proxy_url: str = "",
+         gzip_seconds: Optional[List[float]] = None) -> Tuple[int, bytes]:
     """Send `body` (POST by default), optionally compressed
     ("gzip"/"deflate"), returning (status, response body). Raises
     HTTPError on non-2xx. proxy_url routes the request through an
-    explicit HTTP(S) proxy, overriding environment proxies."""
+    explicit HTTP(S) proxy, overriding environment proxies.
+    `gzip_seconds`, when given, receives the gzip's seconds (appended,
+    so threads may share one list). While the span recorder
+    (core/profiling.py) is armed, the gzip is the span `sink.gzip`
+    (bytes in and out) and the request, from here to its answer,
+    `sink.post` (bytes sent)."""
+    armed = profiling.armed
     hdrs = {"Content-Type": content_type}
     if compress == "gzip":
+        # one pair of readings serves the counter and the span
+        t0, n_in = time.perf_counter(), len(body)
         body = gzip.compress(body, compresslevel=6)
+        t1 = time.perf_counter()
+        if gzip_seconds is not None:
+            gzip_seconds.append(t1 - t0)
+        if armed:
+            profiling.record("sink.gzip", t0, t1, {
+                "bytes_in": n_in, "bytes_out": len(body)})
         hdrs["Content-Encoding"] = "gzip"
     elif compress == "deflate":
         body = zlib.compress(body, 6)
@@ -178,15 +194,21 @@ def post(url: str, body: bytes, *,
     if proxy_url:
         opener = urllib.request.build_opener(urllib.request.ProxyHandler(
             {"http": proxy_url, "https": proxy_url})).open
+    if armed:
+        t_post = time.perf_counter()
     # fault-injection seam: no-op unless a chaos plan is installed
     chaos_mod.inject("http_post")
     try:
         with opener(req, timeout=timeout) as resp:
-            return resp.status, resp.read()
+            out = resp.status, resp.read()
     except urllib.error.HTTPError as e:
         raise HTTPError(e.code, e.read(),
                         retry_after=_parse_retry_after(
                             e.headers.get("Retry-After"))) from e
+    if armed:
+        profiling.record("sink.post", t_post, time.perf_counter(),
+                         {"bytes": len(body)})
+    return out
 
 
 def post_with_retry(url: str, body: bytes, *,

@@ -122,6 +122,175 @@ def test_parsers_give_the_jax_columns(kind):
     assert len(want["unknown"]) > 10 and len(want["s_rows"]) > 0
 
 
+_KINDS = (("c", 0), ("g", 1), ("ms", 2), ("h", 2), ("s", 3), ("l", 4))
+
+
+def _keyed(n: int, prefix: str = "k"):
+    """`n` distinct keys over every family, with tags and sample rates:
+    (line, meta key, family, rate), the line's value chunk one to three
+    values (timers and histograms) or a set member."""
+    out = []
+    for i in range(n):
+        kind, family = _KINDS[i % len(_KINDS)]
+        rate = 0.5 if i % 5 == 0 and kind != "g" else 1.0
+        tail = (f"|{kind}" + ("|@0.5" if rate != 1.0 else "")
+                + f"|#env:e{i % 3},endpoint:/api/v1/ep{i % 512}")
+        name = f"{prefix}.metric.{i}"
+        if kind == "s":
+            value = f"m{i % 7}"
+        elif kind in ("ms", "h"):
+            value = ":".join(f"{(i * j * 37) % 1000 / 8}"
+                             for j in range(1, 2 + i % 3))
+        else:
+            value = f"{(i * 37) % 1000 / 8}"
+        out.append((f"{name}:{value}{tail}".encode(),
+                    f"{name}{tail}".encode(), family, rate))
+    return out
+
+
+def _register(parsers, keyed, first_row: int = 0) -> None:
+    for row, (_line, meta, family, rate) in enumerate(keyed, first_row):
+        for parser in parsers:
+            parser.engine.register(meta, family, row, rate)
+
+
+def _same_columns(parsers, buf: bytes) -> dict:
+    jparse, tparse = parsers
+    want, got = _columns(jparse.parse(buf)), _columns(tparse.parse(buf))
+    assert got == want
+    return want
+
+
+# lines the native parse hands to the slow path without a lookup
+_NO_LOOKUP = [b"_e{5,4}:title|text", b"_sc|svc.ok|0", b"no_pipe_here",
+              b"no_colon|c"]
+# lines whose key resolves but whose values fail, rolled back
+_ROLLED_BACK = [b"k.metric.0:1:x|c|@0.5|#env:e0,endpoint:/api/v1/ep0",
+                b"k.metric.3:1::2|h|#env:e0,endpoint:/api/v1/ep3"]
+
+
+def _window_buffer(n_lines: int) -> bytes:
+    """`n_lines` non-empty lines across the parse window's edges: keyed,
+    unknown, rolled-back, gauge and no-lookup lines, blank lines between
+    them and at the front, and a trailing newline."""
+    rng = np.random.default_rng(n_lines)
+    pool = ([line for line, *_ in _keyed(48)]
+            + [line for line, *_ in _keyed(6, prefix="unknown")]
+            + _NO_LOOKUP + _ROLLED_BACK)
+    lines = [pool[i] for i in rng.integers(0, len(pool), n_lines)]
+    out = [b""]
+    for i, line in enumerate(lines):
+        out.append(line)
+        if i % 4 == 1:
+            out.append(b"")
+    return b"\n".join(out) + b"\n"
+
+
+@pytest.mark.parametrize("case", [
+    "grow_40k", "lines_1", "lines_15", "lines_16", "lines_17", "lines_33",
+    "registered_twice", "swept_and_recycled", "near_keys"])
+def test_native_table_gives_the_jax_columns(case):
+    """The port's flat intern table and windowed parse against the JAX
+    package's native parser, on what the table and the window change:
+    growth, the window's edges, re-registration, the sweep and keys that
+    share all but a byte."""
+    parsers = (jnative.NativeParser(engine=jnative.Engine()),
+               tnative.NativeParser(engine=tnative.Engine()))
+    tengine = parsers[1].engine
+    if case == "grow_40k":
+        keyed = _keyed(40_000)
+        _register(parsers, keyed)
+        assert tengine.stats()["capacity"] == 2 ** 17  # seven doublings
+        lines = ([line for line, *_ in keyed]
+                 + [line for line, *_ in _keyed(2000, prefix="unknown")]
+                 + _NO_LOOKUP)
+        order = np.random.default_rng(1).permutation(len(lines))
+        want = _same_columns(parsers, b"\n".join(lines[i] for i in order))
+        assert len(want["unknown"]) == 2000 + len(_NO_LOOKUP)
+    elif case.startswith("lines_"):
+        n_lines = int(case.split("_")[1])
+        _register(parsers, _keyed(48))
+        for reps in (1, 2):  # a second buffer through the same parser
+            want = _same_columns(parsers, _window_buffer(n_lines) * reps)
+            assert want["lines"] == n_lines * reps
+    elif case == "registered_twice":
+        keyed = _keyed(300)
+        _register(parsers, keyed)
+        again = [(line, meta, family, 0.25) for line, meta, family, _rate
+                 in keyed[::3]]
+        _register(parsers, again, first_row=1000)
+        assert tengine.size() == 300
+        want = _same_columns(parsers, b"\n".join(k[0] for k in keyed))
+        rows = set(want["c_rows"] + want["h_rows"] + want["s_rows"]
+                   + want["g_rows"] + want["l_rows"])
+        assert {1000, 1099} <= rows and 0 not in rows and 1 in rows
+    elif case == "swept_and_recycled":
+        keyed = _keyed(3000)
+        _register(parsers, keyed)
+        buf = b"\n".join(k[0] for k in keyed)
+        _same_columns(parsers, buf)
+        swept = [(family, row) for row, (_l, _m, family, _r)
+                 in enumerate(keyed) if row % 3 == 0]
+        for parser in parsers:
+            parser.engine.unregister_rows_multi(swept)
+        assert tengine.size() == 2000
+        recycled = _keyed(3000, prefix="recycled")[::3]
+        for (family, row), (_line, meta, _f, rate) in zip(swept, recycled):
+            for parser in parsers:
+                parser.engine.register(meta, family, row, rate)
+        want = _same_columns(
+            parsers, buf + b"\n" + b"\n".join(k[0] for k in recycled))
+        assert want["unknown"] == [k[0] for k in keyed[::3]]
+        assert tengine.size() == 3000
+    else:  # near_keys: the last byte of the name, or only the tags
+        near = []
+        for i in range(64):
+            for last in "ab":
+                near.append((f"near.x{i}{last}:1|c|#env:e0".encode(),
+                             f"near.x{i}{last}|c|#env:e0".encode(), 0, 1.0))
+            for env in ("e0", "e1"):
+                near.append((f"near.y{i}:2|c|#env:{env}".encode(),
+                             f"near.y{i}|c|#env:{env}".encode(), 0, 1.0))
+        _register(parsers, near[::2])
+        want = _same_columns(parsers, b"\n".join(k[0] for k in near))
+        assert want["unknown"] == [k[0] for k in near[1::2]]
+        assert want["c_rows"] == list(range(len(near) // 2))
+
+
+def test_native_lookups_are_counted():
+    """`ParseResult`'s lookups, misses and probe steps, and
+    `Engine.stats()`, on a corpus whose hits and misses are known."""
+    parser = tnative.NativeParser(engine=tnative.Engine())
+    engine = parser.engine
+    assert engine.stats() == dict(size=0, capacity=1024, arena_bytes=0,
+                                  lookups=0, misses=0, probes=0)
+    keyed = _keyed(6000)
+    _register([parser], keyed[:5000])
+    stats = engine.stats()
+    assert stats["size"] == 5000 and stats["capacity"] == 16_384
+    assert stats["arena_bytes"] == sum(len(k[1]) for k in keyed[:5000])
+
+    mixed = parser.parse(b"\n".join([k[0] for k in keyed] + _NO_LOOKUP
+                                    + [b""]))
+    assert (mixed.lookups, mixed.misses) == (6000, 1000)
+    assert mixed.probes >= mixed.lookups + mixed.misses
+    hits = parser.parse(b"\n".join(k[0] for k in keyed[:5000]))
+    assert (hits.lookups, hits.misses) == (5000, 0)
+    assert hits.lookups <= hits.probes <= 1.5 * hits.lookups
+    stats = engine.stats()
+    assert (stats["lookups"], stats["misses"], stats["probes"]) == (
+        11_000, 1000, mixed.probes + hits.probes)
+
+    engine.unregister_rows_multi(
+        [(family, row) for row, (_l, _m, family, _r)
+         in enumerate(keyed[:1000])])
+    stats = engine.stats()
+    assert stats["size"] == 4000 and stats["capacity"] == 16_384
+    assert stats["arena_bytes"] == sum(len(k[1]) for k in keyed[1000:5000])
+    swept = parser.parse(b"\n".join(k[0] for k in keyed[:2000]))
+    assert (swept.lookups, swept.misses) == (2000, 1000)
+
+
 class _Stats(dict):
     def inc(self, key, n=1):
         self[key] = self.get(key, 0) + n

@@ -184,6 +184,37 @@ def test_disarmed_sites_record_nothing(server, monkeypatch):
     assert profiling.disarm() == ([], 0)
 
 
+def test_parse_span_carries_the_table_lookups(server, monkeypatch):
+    """Armed, each `ingest.parse` carries its parse's intern-table
+    lookups, misses and probe steps, which add up to the engine's totals;
+    disarmed, the site records nothing and the engine still counts."""
+    engine = server._ingester._engine
+    before = engine.stats()
+    profiling.arm(100_000)
+    for grams in _batches(3):
+        server.handle_packet_batch(grams)
+    records, dropped = profiling.disarm()
+    assert dropped == 0
+    parses = [r[4] for r in records if r[0] == "ingest.parse"]
+    assert len(parses) == 3
+    assert all(set(a) == {"lines", "lookups", "misses", "probes"}
+               for a in parses)
+    # every line is a metric line; the slow path interns the first
+    # batch's keys after its parse, so only the first batch misses
+    assert [a["lookups"] for a in parses] == [a["lines"] for a in parses]
+    assert [a["misses"] for a in parses] == [parses[0]["lines"], 0, 0]
+    assert all(a["lookups"] <= a["probes"] for a in parses)
+    after = engine.stats()
+    for name in ("lookups", "misses", "probes"):
+        assert after[name] - before[name] == sum(a[name] for a in parses)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a site recorded while disarmed")
+    monkeypatch.setattr(profiling, "record", refuse)
+    server.handle_packet_batch(_batches(1, seed=5)[0])
+    assert engine.stats()["lookups"] == after["lookups"] + 16 * 8
+
+
 def test_full_buffer_counts_its_drops(server):
     profiling.arm(5)
     with pytest.raises(RuntimeError):

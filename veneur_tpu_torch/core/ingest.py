@@ -36,9 +36,11 @@ keys, and the uniqueness and indicator metrics the flags say are owed
 derive in Python.
 
 While the span recorder (core/profiling.py) is armed, a buffer's parse
-is the span `ingest.parse`, the slow path's replay `ingest.slow_path` and
-each family's append into its table `ingest.append.<family>` (the
-applies and copies the append sets off nest inside it).
+is the span `ingest.parse` (the native parse's args carry its lines and
+its intern-table lookups, misses and probe steps), the slow path's
+replay `ingest.slow_path` and each family's append into its table
+`ingest.append.<family>` (the applies and copies the append sets off
+nest inside it).
 
 Where the JAX package logs and drops a chunk whose apply raised, the port
 counts the failure in the server's `ingest_dispatch_errors`, keeps the
@@ -395,7 +397,8 @@ class BatchIngester(_ColumnarIngesterBase):
         res = self._parser().parse(buf)
         if armed:
             profiling.record("ingest.parse", t0, time.perf_counter(),
-                             {"lines": res.lines})
+                             {"lines": res.lines, "lookups": res.lookups,
+                              "misses": res.misses, "probes": res.probes})
         return self._ingest(res)
 
     def ingest_ptr(self, ptr, length: int) -> int:

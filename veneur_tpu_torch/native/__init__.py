@@ -1,6 +1,7 @@
 """Native (C++) host code of the port: the batch DogStatsD parser and the
 recvmmsg ingest pump (the ctypes binding of veneur_tpu/native, over a
-copy of its dogstatsd.cc).
+copy of its dogstatsd.cc with a flat intern table in place of its
+node-based map, see `Engine`).
 
 The shared library compiles from `dogstatsd.cc` with the system g++ at
 first use, into `build/native/` beside the package, named by a hash of
@@ -128,6 +129,8 @@ def _declare(lib) -> None:
     lib.vnt_free.argtypes = [ctypes.c_void_p]
     lib.vnt_size.restype = i64
     lib.vnt_size.argtypes = [ctypes.c_void_p]
+    lib.vnt_stats.restype = None
+    lib.vnt_stats.argtypes = [ctypes.c_void_p, i64p]
     lib.vnt_register.restype = None
     lib.vnt_register.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, i64, ctypes.c_int32,
@@ -145,6 +148,8 @@ def _declare(lib) -> None:
         i64p, i64p, i32p, i64, i64p,          # unknown lines (+line index)
         i64p,                                 # samples parsed
     ]
+    lib.vnt_parse_lookups.restype = None
+    lib.vnt_parse_lookups.argtypes = [i64p]
     lib.vnt_reader_new.restype = ctypes.c_void_p
     lib.vnt_reader_new.argtypes = [ctypes.c_int32, i64]
     lib.vnt_reader_free.restype = None
@@ -245,13 +250,15 @@ def load():
 
 class ParseResult:
     """Output of one NativeParser.parse call; arrays are views trimmed to
-    their filled lengths and valid until the parser's next parse call."""
+    their filled lengths and valid until the parser's next parse call.
+    `lookups`, `misses` and `probes` are the call's intern-table lookups,
+    those that found no key, and the slots they read."""
 
     __slots__ = ("lines", "samples", "c_rows", "c_vals", "c_rates",
                  "g_rows", "g_vals", "g_lines", "h_rows", "h_vals", "h_wts",
                  "s_rows", "s_idx", "s_rho",
                  "l_rows", "l_bins", "l_wts", "l_clamped",
-                 "unknown", "unknown_lines")
+                 "unknown", "unknown_lines", "lookups", "misses", "probes")
 
     def __init__(self):
         self.lines = 0
@@ -259,6 +266,7 @@ class ParseResult:
         self.l_clamped = 0
         self.unknown = []
         self.unknown_lines = []
+        self.lookups = self.misses = self.probes = 0
 
 
 def _ptr(arr: np.ndarray, ctype):
@@ -309,7 +317,11 @@ class NativeReader:
 class Engine:
     """Owns one C++ intern table, shareable by many NativeParsers and a
     Pump (the C table takes a shared lock for parse, exclusive for
-    register)."""
+    register). The table is flat: open addressing over a power-of-two
+    array of slots, at most half full, the keys' bytes in one arena."""
+
+    STATS = ("size", "capacity", "arena_bytes", "lookups", "misses",
+             "probes")
 
     def __init__(self):
         self._lib = load()
@@ -322,6 +334,14 @@ class Engine:
 
     def size(self) -> int:
         return self._lib.vnt_size(self.ptr)
+
+    def stats(self) -> dict:
+        """The keys, slots and arena bytes the table holds, and the
+        lookups, misses and probe steps (slots read) of every parse,
+        pump and SSF call on it so far."""
+        out = np.zeros(len(self.STATS), np.int64)
+        self._lib.vnt_stats(self.ptr, _ptr(out, ctypes.c_int64))
+        return dict(zip(self.STATS, out.tolist()))
 
     def register(self, meta_key: bytes, family: int, row: int,
                  rate: float) -> None:
@@ -354,6 +374,7 @@ class NativeParser:
         self._cap = 0
         # c,g,h,s,unk,samples,llhist,llhist_clamped
         self._outs = [ctypes.c_int64() for _ in range(8)]
+        self._lookups = (ctypes.c_int64 * 3)()
 
     def _ensure_capacity(self, cap: int) -> None:
         if cap <= self._cap:
@@ -412,8 +433,10 @@ class NativeParser:
             _ptr(self._unk_off, i64), _ptr(self._unk_len, i64),
             _ptr(self._unk_lines, i32), cap, ctypes.byref(ns[4]),
             ctypes.byref(ns[5]))
+        self._lib.vnt_parse_lookups(self._lookups)
         res = ParseResult()
         res.lines = lines
+        res.lookups, res.misses, res.probes = self._lookups
         cn, gn, hn, sn, un = (ns[i].value for i in range(5))
         ln = ns[6].value
         res.samples = ns[5].value

@@ -33,7 +33,6 @@
 #include <string>
 #include <string_view>
 #include <thread>
-#include <unordered_map>
 #include <unordered_set>
 
 #include <locale.h>
@@ -64,27 +63,141 @@ struct Entry {
   float rate;  // sample rate (1.0 if unset); weight for histos is 1/rate
 };
 
-struct SvHash {
-  using is_transparent = void;
-  size_t operator()(std::string_view s) const noexcept {
-    return std::hash<std::string_view>{}(s);
-  }
+// What a caller's lookups cost: added up in locals and handed to the
+// engine's totals once a call, never a line.
+struct Lookups {
+  int64_t lookups = 0;
+  int64_t misses = 0;
+  int64_t probes = 0;  // slots read, the home slot included
 };
-struct SvEq {
-  using is_transparent = void;
-  bool operator()(std::string_view a, std::string_view b) const noexcept {
-    return a == b;
+
+// One slot of the intern table: the key's full hash (0 marks an empty
+// slot), where its bytes sit in the arena, and what it maps to. Two slots
+// share a 64-byte cache line.
+struct Slot {
+  uint64_t hash;
+  uint64_t off;
+  uint32_t len;
+  Entry ent;
+};
+static_assert(sizeof(Slot) == 32);
+
+// The intern table: open addressing with linear probing over a
+// power-of-two array of slots, the keys' bytes appended to one arena. A
+// hit reads the home slot (prefetchable from the hash alone) and the
+// key's bytes in the arena; a node-based map reads a bucket, a node and
+// a heap string, each on the address the one before held. The load stays
+// at most 1/2: the table doubles before an insert would pass it. There is
+// no erase: `erase_rows` rebuilds the slots and compacts the arena in one
+// sweep, so no tombstone ever lengthens a probe.
+class InternTable {
+ public:
+  static uint64_t hash(std::string_view key) {
+    uint64_t h = std::hash<std::string_view>{}(key);
+    return h != 0 ? h : 1;
   }
+
+  void prefetch(uint64_t h) const {
+    __builtin_prefetch(&slots_[h & (slots_.size() - 1)]);
+  }
+
+  const Entry* find(uint64_t h, std::string_view key, Lookups* n) const {
+    const size_t mask = slots_.size() - 1;
+    n->lookups++;
+    for (size_t i = h & mask;; i = (i + 1) & mask) {
+      const Slot& s = slots_[i];
+      n->probes++;
+      if (s.hash == 0) {
+        n->misses++;
+        return nullptr;
+      }
+      if (s.hash == h && s.len == key.size() &&
+          memcmp(arena_.data() + s.off, key.data(), key.size()) == 0) {
+        return &s.ent;
+      }
+    }
+  }
+
+  void insert_or_assign(std::string_view key, Entry ent) {
+    const uint64_t h = hash(key);
+    const size_t mask = slots_.size() - 1;
+    for (size_t i = h & mask; slots_[i].hash != 0; i = (i + 1) & mask) {
+      Slot& s = slots_[i];
+      if (s.hash == h && s.len == key.size() &&
+          memcmp(arena_.data() + s.off, key.data(), key.size()) == 0) {
+        s.ent = ent;
+        return;
+      }
+    }
+    if (2 * (size_ + 1) > slots_.size()) {
+      std::vector<Slot> bigger(2 * slots_.size());
+      for (const Slot& s : slots_) {
+        if (s.hash != 0) place(bigger, s);
+      }
+      slots_.swap(bigger);
+    }
+    place(slots_, Slot{h, arena_.size(), static_cast<uint32_t>(key.size()),
+                       ent});
+    arena_.insert(arena_.end(), key.begin(), key.end());
+    size_++;
+  }
+
+  // Drops every key whose (family, row) is in `dead`.
+  void erase_rows(const std::unordered_set<int64_t>& dead) {
+    std::vector<Slot> kept(slots_.size());
+    std::vector<char> arena;
+    arena.reserve(arena_.size());
+    size_ = 0;
+    for (const Slot& s : slots_) {
+      if (s.hash == 0 ||
+          dead.count((static_cast<int64_t>(s.ent.family) << 32) |
+                     static_cast<uint32_t>(s.ent.row))) {
+        continue;
+      }
+      place(kept, Slot{s.hash, arena.size(), s.len, s.ent});
+      arena.insert(arena.end(), arena_.begin() + s.off,
+                   arena_.begin() + s.off + s.len);
+      size_++;
+    }
+    slots_.swap(kept);
+    arena_.swap(arena);
+  }
+
+  size_t size() const { return size_; }
+  size_t capacity() const { return slots_.size(); }
+  size_t arena_bytes() const { return arena_.size(); }
+
+ private:
+  static constexpr size_t kInitialSlots = 1024;
+
+  static void place(std::vector<Slot>& slots, const Slot& s) {
+    const size_t mask = slots.size() - 1;
+    size_t i = s.hash & mask;
+    while (slots[i].hash != 0) i = (i + 1) & mask;
+    slots[i] = s;
+  }
+
+  std::vector<Slot> slots_ = std::vector<Slot>(kInitialSlots);
+  std::vector<char> arena_;
+  size_t size_ = 0;
 };
 
 struct Engine {
-  std::unordered_map<std::string, Entry, SvHash, SvEq> table;
+  InternTable table;
   mutable std::shared_mutex mu;
   locale_t c_locale;
+  // every caller's lookups, added once a call
+  std::atomic<int64_t> lookups{0}, misses{0}, probes{0};
 
   Engine() : c_locale(newlocale(LC_ALL_MASK, "C", nullptr)) {}
   ~Engine() {
     if (c_locale) freelocale(c_locale);
+  }
+
+  void count(const Lookups& n) {
+    lookups.fetch_add(n.lookups, std::memory_order_relaxed);
+    misses.fetch_add(n.misses, std::memory_order_relaxed);
+    probes.fetch_add(n.probes, std::memory_order_relaxed);
   }
 };
 
@@ -314,10 +427,10 @@ inline bool push_unknown(Out* o, int64_t off, int64_t len) {
   return true;
 }
 
-// Parses one line; returns false only if it must go to the Python slow path.
-inline bool parse_line(const Engine* e, const uint8_t* line, size_t len,
-                       std::string& keybuf, Out* o) {
-  if (len == 0) return true;  // blank lines are skipped by the splitter anyway
+// Finds a non-empty line's value colon and type pipe; false for a line
+// that goes to the Python slow path whatever the table holds.
+inline bool split_line(const uint8_t* line, size_t len, size_t* value_start,
+                       size_t* type_start) {
   // events and service checks dispatch on these exact prefixes
   // (reference server.go:949-1000); other '_' names are ordinary metrics
   if (len >= 3 && line[0] == '_' &&
@@ -329,20 +442,28 @@ inline bool parse_line(const Engine* e, const uint8_t* line, size_t len,
   const uint8_t* pipe =
       static_cast<const uint8_t*>(memchr(line, '|', len));
   if (pipe == nullptr) return false;
-  size_t type_start = pipe - line;
+  *type_start = pipe - line;
   const uint8_t* colon =
-      static_cast<const uint8_t*>(memchr(line, ':', type_start));
+      static_cast<const uint8_t*>(memchr(line, ':', *type_start));
   if (colon == nullptr) return false;
-  size_t value_start = colon - line;
+  *value_start = colon - line;
+  return true;
+}
 
-  keybuf.clear();
-  keybuf.append(reinterpret_cast<const char*>(line), value_start);
-  keybuf.append(reinterpret_cast<const char*>(line + type_start),
-                len - type_start);
-  auto it = e->table.find(keybuf);
-  if (it == e->table.end()) return false;
-  const Entry& ent = it->second;
+// Appends a split line's meta key to `keys`: the line minus its value
+// chunk.
+inline void append_key(std::string& keys, const uint8_t* line, size_t len,
+                       size_t value_start, size_t type_start) {
+  keys.append(reinterpret_cast<const char*>(line), value_start);
+  keys.append(reinterpret_cast<const char*>(line + type_start),
+              len - type_start);
+}
 
+// Emits the samples of a split line whose key resolved to `ent`; returns
+// false, with everything the line emitted rolled back, when the line
+// must go to the Python slow path.
+inline bool emit_line(const Engine* e, const Entry& ent, const uint8_t* line,
+                      size_t value_start, size_t type_start, Out* o) {
   // one sample per colon-separated value; a trailing empty segment is
   // ignored, an empty segment elsewhere is an error (Python path parity)
   const uint8_t* vc = line + value_start + 1;
@@ -456,6 +577,36 @@ inline bool parse_line(const Engine* e, const uint8_t* line, size_t len,
   return true;
 }
 
+// Parses one non-empty line; returns false only if it must go to the
+// Python slow path.
+inline bool parse_line(const Engine* e, const uint8_t* line, size_t len,
+                       std::string& keybuf, Out* o, Lookups* n) {
+  size_t value_start, type_start;
+  if (!split_line(line, len, &value_start, &type_start)) return false;
+  keybuf.clear();
+  append_key(keybuf, line, len, value_start, type_start);
+  const Entry* ent = e->table.find(InternTable::hash(keybuf), keybuf, n);
+  return ent != nullptr &&
+         emit_line(e, *ent, line, value_start, type_start, o);
+}
+
+// vnt_parse resolves lines in windows of this many. The first pass over a
+// window splits each line, assembles and hashes its key and prefetches
+// its home slot; the second parses the lines in order, and finds the
+// slots in cache or on their way.
+constexpr int kWindow = 16;
+
+struct WindowLine {
+  int64_t pos, len;
+  size_t value_start, type_start;
+  size_t key_off, key_len;  // in the window's key buffer
+  uint64_t hash;
+  bool split;
+};
+
+// the lookups of this thread's last vnt_parse call (vnt_parse_lookups)
+thread_local Lookups t_last_parse;
+
 }  // namespace
 
 extern "C" {
@@ -470,13 +621,26 @@ int64_t vnt_size(void* ep) {
   return static_cast<int64_t>(e->table.size());
 }
 
+// out[0..5]: keys, slots, arena bytes, and every caller's lookups,
+// misses and probe steps since the engine was made.
+void vnt_stats(void* ep, int64_t* out) {
+  Engine* e = static_cast<Engine*>(ep);
+  std::shared_lock lock(e->mu);
+  out[0] = static_cast<int64_t>(e->table.size());
+  out[1] = static_cast<int64_t>(e->table.capacity());
+  out[2] = static_cast<int64_t>(e->table.arena_bytes());
+  out[3] = e->lookups.load(std::memory_order_relaxed);
+  out[4] = e->misses.load(std::memory_order_relaxed);
+  out[5] = e->probes.load(std::memory_order_relaxed);
+}
+
 void vnt_register(void* ep, const uint8_t* key, int64_t keylen,
                   int32_t family, int32_t row, double rate) {
   Engine* e = static_cast<Engine*>(ep);
   Entry ent{family, row, static_cast<float>(rate)};
   std::unique_lock lock(e->mu);
   e->table.insert_or_assign(
-      std::string(reinterpret_cast<const char*>(key), keylen), ent);
+      std::string_view(reinterpret_cast<const char*>(key), keylen), ent);
 }
 
 // Erases every intern mapping pointing at one of `rows` in `family` —
@@ -499,15 +663,7 @@ void vnt_unregister_rows2(void* ep, const int32_t* families,
                 static_cast<uint32_t>(rows[i]));
   }
   std::unique_lock lock(e->mu);
-  for (auto it = e->table.begin(); it != e->table.end();) {
-    int64_t key = (static_cast<int64_t>(it->second.family) << 32) |
-                  static_cast<uint32_t>(it->second.row);
-    if (dead.count(key)) {
-      it = e->table.erase(it);
-    } else {
-      ++it;
-    }
-  }
+  e->table.erase_rows(dead);
 }
 
 // Parses a newline-joined buffer of packets. Returns the number of
@@ -538,23 +694,57 @@ int64_t vnt_parse(void* ep, const uint8_t* buf, int64_t buflen,
   o.unk_cap = unk_cap;
 
   int64_t lines = 0;
-  thread_local std::string keybuf;
+  Lookups n;
+  thread_local std::string keys;
+  WindowLine win[kWindow];
   std::shared_lock lock(e->mu);
+  const InternTable& table = e->table;
   int64_t pos = 0;
   while (pos < buflen) {
-    const uint8_t* nl = static_cast<const uint8_t*>(
-        memchr(buf + pos, '\n', buflen - pos));
-    int64_t line_len = (nl == nullptr) ? (buflen - pos)
-                                       : (nl - (buf + pos));
-    if (line_len > 0) {
+    int nwin = 0;
+    keys.clear();
+    while (nwin < kWindow && pos < buflen) {
+      const uint8_t* nl = static_cast<const uint8_t*>(
+          memchr(buf + pos, '\n', buflen - pos));
+      int64_t line_len = (nl == nullptr) ? (buflen - pos)
+                                         : (nl - (buf + pos));
+      if (line_len > 0) {
+        WindowLine& w = win[nwin++];
+        w.pos = pos;
+        w.len = line_len;
+        w.split = split_line(buf + pos, line_len, &w.value_start,
+                             &w.type_start);
+        if (w.split) {
+          w.key_off = keys.size();
+          append_key(keys, buf + pos, line_len, w.value_start,
+                     w.type_start);
+          w.key_len = keys.size() - w.key_off;
+          w.hash = InternTable::hash(
+              std::string_view(keys.data() + w.key_off, w.key_len));
+          table.prefetch(w.hash);
+        }
+      }
+      pos += line_len + 1;
+    }
+    for (int i = 0; i < nwin; i++) {
+      const WindowLine& w = win[i];
       o.line_no = static_cast<int32_t>(lines);
       lines++;
-      if (!parse_line(e, buf + pos, line_len, keybuf, &o)) {
-        push_unknown(&o, pos, line_len);
+      const Entry* ent =
+          w.split ? table.find(w.hash,
+                               std::string_view(keys.data() + w.key_off,
+                                                w.key_len),
+                               &n)
+                  : nullptr;
+      if (ent == nullptr || !emit_line(e, *ent, buf + w.pos, w.value_start,
+                                       w.type_start, &o)) {
+        push_unknown(&o, w.pos, w.len);
       }
     }
-    pos += line_len + 1;
   }
+  lock.unlock();
+  e->count(n);
+  t_last_parse = n;
   *c_n = o.c_n;
   *g_n = o.g_n;
   *h_n = o.h_n;
@@ -564,6 +754,14 @@ int64_t vnt_parse(void* ep, const uint8_t* buf, int64_t buflen,
   *unk_n = o.unk_n;
   *samples_out = o.samples;
   return lines;
+}
+
+// out[0..2]: the lookups, misses and probe steps of the calling thread's
+// last vnt_parse.
+void vnt_parse_lookups(int64_t* out) {
+  out[0] = t_last_parse.lookups;
+  out[1] = t_last_parse.misses;
+  out[2] = t_last_parse.probes;
 }
 
 // ---- batched UDP reader (recvmmsg) ----------------------------------------
@@ -933,6 +1131,7 @@ inline Chunk* pump_take_free(Pump* p, ReaderLane* lane) {
 inline Chunk* pump_parse(Pump* p, ReaderLane* lane, Chunk* cur,
                          const uint8_t* buf, int64_t buflen,
                          std::string& keybuf, int64_t now) {
+  Lookups n;
   std::shared_lock lock(p->engine->mu);
   int64_t pos = 0;
   while (pos < buflen) {
@@ -964,6 +1163,7 @@ inline Chunk* pump_parse(Pump* p, ReaderLane* lane, Chunk* cur,
             q += ll + 1;
           }
           p->lost_lines.fetch_add(lost);
+          p->engine->count(n);
           return nullptr;
         }
         cur->first_ms = now;
@@ -971,7 +1171,8 @@ inline Chunk* pump_parse(Pump* p, ReaderLane* lane, Chunk* cur,
       }
       cur->o.line_no = static_cast<int32_t>(cur->lines);
       cur->lines++;
-      if (!parse_line(p->engine, buf + pos, line_len, keybuf, &cur->o)) {
+      if (!parse_line(p->engine, buf + pos, line_len, keybuf, &cur->o,
+                      &n)) {
         // deferred lines outlive the joined buffer: copy into the arena
         memcpy(cur->arena.data() + cur->arena_n, buf + pos, line_len);
         push_unknown(&cur->o, cur->arena_n, line_len);
@@ -980,6 +1181,8 @@ inline Chunk* pump_parse(Pump* p, ReaderLane* lane, Chunk* cur,
     }
     pos += line_len + 1;
   }
+  lock.unlock();
+  p->engine->count(n);
   return cur;
 }
 
@@ -1481,6 +1684,7 @@ int64_t vnt_ssf_parse(void* ep, const uint8_t* buf, const int64_t* offs,
   int64_t decoded = 0;
   int32_t line = 0;  // global sample index: keeps gauge LWW replayable
   uint64_t rng = rng_seed | 1;
+  Lookups n;
   thread_local std::string keybuf;
   thread_local SsfSpanView sp;
   thread_local SsfSampleView sv;
@@ -1530,14 +1734,15 @@ int64_t vnt_ssf_parse(void* ep, const uint8_t* buf, const int64_t* offs,
       }
       ssf_key(keybuf, sv.name, kFamilyChar[sv.metric], sv.sample_rate,
               sv.tags, sv.scope);
-      auto it = e->table.find(keybuf);
-      if (it == e->table.end()) {
+      const Entry* found =
+          e->table.find(InternTable::hash(keybuf), keybuf, &n);
+      if (found == nullptr) {
         defer(static_cast<int32_t>(i),
               reinterpret_cast<const uint8_t*>(raw.data()),
               static_cast<int64_t>(raw.size()), my_line);
         continue;
       }
-      const Entry& ent = it->second;
+      const Entry& ent = *found;
       bool emitted = false;
       switch (ent.family) {
         case FAM_COUNTER:
@@ -1611,14 +1816,15 @@ int64_t vnt_ssf_parse(void* ep, const uint8_t* buf, const int64_t* offs,
         utags.push_back({"service", sp.service});
         ssf_key(keybuf, "ssf.names_unique", 's',
                 static_cast<float>(uniq_rate), utags, 0);
-        auto uit = e->table.find(keybuf);
-        if (uit != e->table.end() && all_ascii(sp.name) &&
+        const Entry* uent =
+            e->table.find(InternTable::hash(keybuf), keybuf, &n);
+        if (uent != nullptr && all_ascii(sp.name) &&
             o.s_n < o.s_cap) {
           int32_t idx, rho;
           pos_val(hash_member(
               reinterpret_cast<const uint8_t*>(sp.name.data()),
               sp.name.size()), &idx, &rho);
-          o.s_rows[o.s_n] = uit->second.row;
+          o.s_rows[o.s_n] = uent->row;
           o.s_idx[o.s_n] = idx;
           o.s_rho[o.s_n] = rho;
           o.s_n++;
@@ -1637,6 +1843,8 @@ int64_t vnt_ssf_parse(void* ep, const uint8_t* buf, const int64_t* offs,
   *s_n = o.s_n;
   *def_n = dn;
   *samples_out = o.samples;
+  lock.unlock();
+  e->count(n);
   return decoded;
 }
 

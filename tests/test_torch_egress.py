@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
 import pytest
 
 from veneur_tpu.core.columnstore import ColumnStore as JStore
@@ -311,3 +312,99 @@ def test_encoder_failure_falls_back_to_materialize(monkeypatch, kind):
     else:
         assert sink.exposition_plain() == render_exposition(
             batch.materialize())
+
+
+# -- the compact bucket section, at many bins a row ---------------------------
+
+
+def _wide_llhist_lines():
+    """llhist keys over many bins: gamma latencies, negative values, the
+    zero bin, magnitudes collapsed to zero or clamped to the top bin,
+    sampled lines, and one key with a single sample."""
+    rng = np.random.default_rng(24)
+    lines = []
+    for k in range(12):
+        vals = np.concatenate([rng.gamma(2.0, 25.0, 60),
+                               -rng.lognormal(0.0, 3.0, 8),
+                               [0.0, 1e-12, 3e16, -3e16]])
+        suffix = b"|@0.5" if k % 3 == 0 else b""
+        lines += [b"wl.%d:%.6g|l%s|#env:t,k:%d" % (k, v, suffix, k % 4)
+                  for v in vals]
+    return lines + [b"wl.one:7.5|l|#env:t"]
+
+
+def _wide_batches():
+    out = []
+    for store, parser, flush, aggs in (
+            (JStore(**SIZES), JParser(), jflush, JAggs),
+            (TStore(device="cpu", **SIZES), Parser(), tflush,
+             HistogramAggregates)):
+        for line in _wide_llhist_lines():
+            parser.parse_metric_fast(line, store.process)
+        store.apply_all_pending()
+        batch, _ = flush(store, False, PCTS, aggs.from_names(AGG_NAMES),
+                         collect_forward=False)
+        batch.timestamp = TS
+        out.append(batch)
+    return out
+
+
+def _buckets_only(lines):
+    return [x for x in lines if "bucket" in x]
+
+
+def test_compact_buckets_materialize_as_jax_dense_ones():
+    jbatch, tbatch = _wide_batches()
+    (bs,) = tbatch.bucket_sections
+    assert bs.bins.shape == bs.cum.shape and bs.offsets[-1] == bs.cum.size
+    assert bs.cum.size > 12 * 30  # many nonzero bins a row
+    want = [(m.name, m.value, m.tags, m.type.name)
+            for m in jbatch.materialize() if m.name.endswith(".bucket")]
+    got = [(m.name, m.value, m.tags, m.type.name)
+           for m in tbatch.materialize() if m.name.endswith(".bucket")]
+    assert got == want
+    assert len(tbatch) == len(jbatch)
+    assert sum(b.line_count() for b in tbatch.bucket_sections) == len(got)
+
+
+def test_compact_buckets_encode_as_jax_dense_ones():
+    jbatch, tbatch = _wide_batches()
+    assert _buckets_only(PrometheusColumnarRenderer().render(
+        tbatch).splitlines()) == _buckets_only(
+        JPromRenderer().render(jbatch).splitlines())
+    jparts, _ = JDatadogEnc(_dd(JDatadogSink)).encode(jbatch)
+    tparts, _ = DatadogColumnarEncoder(_dd(DatadogMetricSink)).encode(tbatch)
+    assert _buckets_only([p.decode() for p in tparts]) == _buckets_only(
+        [p.decode() for p in jparts])
+    for mono in (False, True):
+        jsink = JCortexSink("cortex", "http://c/api", "h",
+                            convert_counters_to_monotonic=mono)
+        tsink = CortexMetricSink("cortex", "http://c/api", "h",
+                                 convert_counters_to_monotonic=mono)
+        jframes, jmax = JCortexEnc(jsink).encode(jbatch)
+        tframes, tmax = CortexColumnarEncoder(tsink).encode(tbatch)
+        if mono:  # the buckets are counters: totals kept per series
+            jframes = [encode_write_request([r])
+                       for r in jsink._monotonic_series(jmax)]
+            tframes = [encode_write_request([r])
+                       for r in tsink._monotonic_series(tmax)]
+        rows = [r for r in decode_write_request(b"".join(tframes))
+                if "le" in r[0]]
+        assert len(rows) > 12 * 30
+        assert rows == [r for r in decode_write_request(b"".join(jframes))
+                        if "le" in r[0]]
+
+
+def test_compact_buckets_equal_the_legacy_path():
+    _jbatch, batch = _wide_batches()
+    legacy = batch.materialize()
+    assert PrometheusColumnarRenderer().render(batch) == render_exposition(
+        legacy)
+    sink = _dd(DatadogMetricSink)
+    parts, _checks = DatadogColumnarEncoder(sink).encode(batch)
+    assert [json.loads(p) for p in parts] == json.loads(json.dumps([
+        sink._dd_metric(m) for m in legacy]))
+    cx = CortexMetricSink("cortex", "http://c/api", "myhost")
+    frames, _ = CortexColumnarEncoder(cx).encode(batch)
+    assert b"".join(frames) == encode_write_request(
+        [cx._series(m) for m in legacy])

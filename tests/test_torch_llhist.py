@@ -300,3 +300,143 @@ def test_llhist_ref_copy_matches_jax():
                                       getattr(jref, name))
     assert llhist_ref.BINS == jref.BINS == 4501
     assert tbl.BINS_PAD == jbl.BINS_PAD
+
+
+# -- the flush's compact readout ----------------------------------------------
+
+
+def _seeded_regs(seed, rows=60):
+    """Registers with empty rows, the zero bin, magnitudes collapsed to
+    zero or clamped into the top bins, negative values, and one row whose
+    total lies past int32."""
+    rng = np.random.default_rng(seed)
+    regs = np.zeros((rows, tbl.BINS_PAD), np.int32)
+    for k in range(rows):
+        if k % 7 == 0:
+            continue
+        vals = np.concatenate([rng.gamma(2.0, 25.0, rng.integers(1, 300)),
+                               -rng.lognormal(0.0, 4.0, 10),
+                               [0.0, 1e-12, 3e16, -3e16, 1e300]])
+        np.add.at(regs[k], llhist_ref.bin_index(vals),
+                  rng.integers(1, 1000, vals.size).astype(np.int32))
+    regs[5, :200] = 2**24
+    return regs, rng
+
+
+def _compact(regs, ps=PS):
+    out = tbl.flush_packed(torch.from_numpy(regs), ps, buckets=True)
+    cols = tbl.compact_buckets(out.pop("sorted"))
+    assert [c.dtype for c in cols] == [torch.int32, torch.int16, torch.int64]
+    return out, tbl.CompactBuckets.from_device(*(c.numpy() for c in cols))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compact_buckets_equal_the_dense_readout(seed):
+    """Each row's nonzero value-sorted bins and exact cumulative counts:
+    the flusher's dense cumsum and nonzero mask, row by row; the
+    registers rebuilt from them bit for bit; the readout unchanged."""
+    regs, rng = _seeded_regs(seed)
+    out, cb = _compact(regs)
+    dense = regs[:, :llhist_ref.BINS].astype(np.int64)
+    c = dense[:, llhist_ref.ORDER]
+    csum = np.cumsum(c, axis=1, dtype=np.float64)
+    for i in range(regs.shape[0]):
+        s, e = cb.offsets[i], cb.offsets[i + 1]
+        np.testing.assert_array_equal(cb.bins[s:e], np.flatnonzero(c[i]))
+        np.testing.assert_array_equal(cb.cum[s:e].astype(np.float64),
+                                      csum[i][c[i] != 0])
+    assert cb.offsets[1] == 0 and cb.totals()[0] == 0  # an empty row
+    assert cb.totals()[5] > 2**31
+    np.testing.assert_array_equal(cb.totals(), dense.sum(axis=1))
+    np.testing.assert_array_equal(cb.dense(), dense)
+    assert cb.dense().dtype == np.int64
+    np.testing.assert_array_equal(
+        cb.midpoint_sums(), dense.astype(np.float64) @ llhist_ref.BIN_MID)
+    plain = tbl.flush_packed(torch.from_numpy(regs), PS)
+    assert set(plain) == set(out)
+    for k in plain:
+        assert torch.equal(plain[k], out[k]), k
+    sel = rng.permutation(regs.shape[0])[:25]
+    np.testing.assert_array_equal(cb.take(sel).dense(), dense[sel])
+    mask = rng.random(regs.shape[0]) < 0.5
+    np.testing.assert_array_equal(cb.take(mask).dense(), dense[mask])
+
+
+def test_compact_buckets_of_empty_rows():
+    for rows in (0, 4):
+        _out, cb = _compact(np.zeros((rows, tbl.BINS_PAD), np.int32))
+        assert cb.rows == rows and cb.cum.size == 0
+        assert cb.dense().shape == (rows, llhist_ref.BINS)
+        assert not cb.totals().any()
+
+
+def _llhist_store_lines(rng):
+    lines = []
+    for k in range(8):
+        vals = np.concatenate([rng.gamma(2.0, 25.0, 40),
+                               -rng.lognormal(0.0, 3.0, 5), [0.0, 3e16]])
+        lines += [b"cb.%d:%.6g|l|#k:%d" % (k, v, k) for v in vals]
+    return lines
+
+
+def test_llhist_table_compact_snapshot_equals_the_dense_one():
+    """The same interval read out with and without `compact`: equal
+    readouts, the compact bins rebuild the dense ones, and the copy is
+    the smaller."""
+    from veneur_tpu_torch.core.columnstore import ColumnStore
+    from veneur_tpu_torch.samplers.parser import Parser
+    got = []
+    for compact in (False, True):
+        store, parser = ColumnStore(device="cpu", llhist_capacity=16), \
+            Parser()
+        for line in _llhist_store_lines(np.random.default_rng(3)):
+            parser.parse_metric_fast(line, store.process)
+        store.apply_all_pending()
+        table = store.llhists
+        snap = table.readout(table.swap_out(ps=PS, compact=compact))
+        got.append(table.snapshot_finish(snap) + (snap["copy_bytes"],))
+        table.recycle(snap)
+    (d_out, dense, d_touched, _m, d_bytes), \
+        (c_out, cb, c_touched, _m2, c_bytes) = got
+    np.testing.assert_array_equal(d_touched, c_touched)
+    for k in d_out:
+        np.testing.assert_array_equal(d_out[k], c_out[k])
+    assert isinstance(cb, tbl.CompactBuckets)
+    np.testing.assert_array_equal(cb.dense(), dense)
+    assert 0 < c_bytes < d_bytes / 20
+
+
+def test_forwarded_llhist_rows_are_the_jax_packages_bit_for_bit():
+    """A local flush forwards its non-local llhist rows: the registers
+    rebuilt from the compact bins equal the JAX package's dense ones, and
+    their metricpb wire bytes too."""
+    from veneur_tpu.core.columnstore import ColumnStore as JStore
+    from veneur_tpu.core.flusher import flush_columnstore_batch as jflush
+    from veneur_tpu.forward.convert import forwardable_to_wire as jwire
+    from veneur_tpu.samplers.metrics import HistogramAggregates as JAggs
+    from veneur_tpu.samplers.parser import Parser as JParser
+    from veneur_tpu_torch.core.columnstore import ColumnStore
+    from veneur_tpu_torch.core.flusher import flush_columnstore_batch
+    from veneur_tpu_torch.forward.convert import forwardable_to_wire
+    from veneur_tpu_torch.samplers.metrics import HistogramAggregates
+    from veneur_tpu_torch.samplers.parser import Parser
+    lines = _llhist_store_lines(np.random.default_rng(5))
+    fwds = []
+    for store, parser, flush, aggs in (
+            (JStore(llhist_capacity=16), JParser(), jflush, JAggs),
+            (ColumnStore(device="cpu", llhist_capacity=16), Parser(),
+             flush_columnstore_batch, HistogramAggregates)):
+        for line in lines:
+            parser.parse_metric_fast(line, store.process)
+        store.apply_all_pending()
+        batch, fwd = flush(store, True, PS, aggs.from_names(["count"]),
+                           collect_forward=True)
+        assert not batch.bucket_sections
+        fwds.append(fwd)
+    jfwd, tfwd = fwds
+    assert len(tfwd.llhists) == len(jfwd.llhists) == 8
+    for (tm, tregs), (jm, jregs) in zip(tfwd.llhists, jfwd.llhists):
+        assert tm.name == jm.name
+        assert tregs.dtype == jregs.dtype and tregs.shape == jregs.shape
+        np.testing.assert_array_equal(tregs, jregs)
+    assert forwardable_to_wire(tfwd) == jwire(jfwd)

@@ -178,6 +178,42 @@ def test_native_pump_and_numpy_decoder_flush_identical_series():
     assert _run_circllhist_server(False) == _run_circllhist_server(True)
 
 
+def test_circllhist_local_flushes_as_the_portbench_reference():
+    """A circllhist local fed a small seeded corpus of the benchmark's
+    `ingest` mix (portbench/statsd_corpus.py at a CPU size): every series
+    of its flush as portbench's plain reference has it
+    (portbench/reference/llhist.py through judge_llhist, every count at
+    0), in the values the Datadog sink sends (counters per second)."""
+    from portbench import judge_llhist, statsd_corpus
+    from portbench.tests.small import small_cell
+    cell = small_cell("local_circllhist.ingest")
+    pool = statsd_corpus.build(cell.config, cell.traffic, 2**31 + 77)
+    raw = dict(cell.config["server"], flush_on_shutdown=False)
+    sink = ChannelMetricSink()
+    server = Server(config_from_dict(raw), device="cpu",
+                    extra_metric_sinks=[sink])
+    try:
+        for batch in pool.batches:
+            server.handle_packet_batch(batch)
+        server.flush()
+        got = sink.wait_flush(timeout=10)
+    finally:
+        server.shutdown()
+    interval = float(raw["interval"].rstrip("s"))
+    series = [{"metric": m.name, "tags": list(m.tags),
+               "points": [[0, m.value / interval
+                           if m.type.name == "COUNTER" else m.value]]}
+              for m in got]
+    assert any(s["metric"].endswith(".bucket") for s in series)
+    rec = {"pool": pool, "flushes": 1, "feed_errors": [],
+           "log": [(0, b) for b in range(len(pool.batches))]}
+    checks = judge_llhist.judge(rec, cell.config, cell.limits,
+                                series_groups=[series])
+    assert {k: c["value"] for k, c in checks.items()
+            if c["limit"] is not None and c["value"] > c["limit"]} == {}
+    assert checks["series_judged"]["value"] == len(series)
+
+
 def test_device_defaults_to_cuda_and_never_falls_back():
     if torch.cuda.is_available():
         assert pick_device(None) == torch.device("cuda", 0)

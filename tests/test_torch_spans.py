@@ -25,7 +25,8 @@ from veneur_tpu_torch.core.server import Server
 FAMILIES = ("counter", "gauge", "histogram", "set")
 
 # every span the CPU path reaches: the K1/K2 spans come from their
-# wrappers' plain versions; no cell here takes the llhist family
+# wrappers' plain versions; the server below takes no llhist family (the
+# circllhist server's spans are LLHIST_SPANS)
 CPU_SPANS = {
     "ingest.batch", "ingest.parse", "ingest.slow_path",
     *(f"ingest.append.{f}" for f in FAMILIES),
@@ -36,6 +37,9 @@ CPU_SPANS = {
     "sink.encode", "sink.gzip", "sink.post",
     "kernel.k1", "kernel.k2",
 }
+# the llhist family's spans, on a server whose timers are circllhist
+LLHIST_SPANS = {"ingest.append.llhist", "kernel.k3", "flush.readout.llhist",
+                "flush.llhist.compact", "flush.llhist.assembly"}
 
 
 class _Intake(BaseHTTPRequestHandler):
@@ -64,9 +68,8 @@ def intake():
         thread.join(timeout=10)
 
 
-@pytest.fixture
-def server(intake):
-    cfg = config_from_dict({
+def _server_config(intake, **extra):
+    raw = {
         "interval": "10s", "hostname": "spans",
         "percentiles": [0.5, 0.99], "aggregates": ["min", "max", "count"],
         "flush_on_shutdown": False,
@@ -75,9 +78,16 @@ def server(intake):
             "datadog_flush_max_per_body": 40}}],
         "tpu": {"counter_capacity": 128, "gauge_capacity": 128,
                 "histo_capacity": 128, "set_capacity": 64,
-                "batch_cap": 64, "set_promote_samples": 4},
-    })
-    srv = Server(cfg, device="cpu")
+                "llhist_capacity": 64, "batch_cap": 64,
+                "set_promote_samples": 4},
+    }
+    raw.update(extra)
+    return config_from_dict(raw)
+
+
+@pytest.fixture
+def server(intake):
+    srv = Server(_server_config(intake), device="cpu")
     for sink in srv.metric_sinks:
         sink.start(srv)
     try:
@@ -290,3 +300,45 @@ def test_device_trace_capture_holds_the_host_span_track(server):
     batch = next(e for e in spans if e["name"] == "ingest.batch")
     assert probe["ts"] - 1e4 <= batch["ts"] <= probe["ts"] + 1e6
     assert profiling.armed is False
+
+
+def test_circllhist_server_records_the_llhist_spans_and_timings(intake):
+    """Timers as circllhist: K3's launches, the flush's compaction (its
+    rows, nonzero bins and bytes copied) and assembly are spans, and
+    their readings are in the flush's timings."""
+    srv = Server(_server_config(intake, histogram_encoding="circllhist"),
+                 device="cpu")
+    for sink in srv.metric_sinks:
+        sink.start(srv)
+    try:
+        profiling.arm(100_000)
+        for grams in _batches(6):
+            srv.handle_packet_batch(grams)
+        srv.flush()
+        records, dropped = profiling.disarm()
+        timings = srv.last_flush_timings
+    finally:
+        profiling.disarm()
+        srv.shutdown()
+    assert dropped == 0
+    names = {r[0] for r in records}
+    assert LLHIST_SPANS <= names, sorted(LLHIST_SPANS - names)
+    assert not _nesting_faults(records)
+    k3 = [r[4] for r in records if r[0] == "kernel.k3"]
+    assert k3 and all(a["rows"] == 64 and a["samples"] > 0 for a in k3)
+    # 6 batches x 128 lines, a quarter of them timers, each one sample
+    assert sum(a["samples"] for a in k3) >= 6 * 16 * 8 // 4
+    (compact,) = [r for r in records if r[0] == "flush.llhist.compact"]
+    assert compact[4]["rows"] == 20
+    assert compact[4]["nonzero_bins"] == timings["llhist_nonzero_bins"] > 0
+    assert compact[4]["bytes"] == timings["llhist_copy_bytes"] > 0
+    # the bins copied are the nonzero ones, not 20 rows of dense bins
+    assert timings["llhist_copy_bytes"] < 20 * 4501 * 4 / 20
+    (assembly,) = [r for r in records if r[0] == "flush.llhist.assembly"]
+    assert timings["llhist_assembly_s"] == assembly[3] - assembly[2]
+    assert compact[3] - compact[2] == pytest.approx(
+        timings["llhist_bins_s"], abs=1e-3)
+    (sync,) = [r for r in records if r[0] == "flush.sync"]
+    (whole,) = [r for r in records if r[0] == "flush.assembly"]
+    assert sync[2] <= compact[2] <= compact[3] <= sync[3]
+    assert whole[2] <= assembly[2] <= assembly[3] <= whole[3]

@@ -1673,25 +1673,56 @@ class LLHistTable(_BaseTable):
         rows = np.flatnonzero(snap["touched"])
         sel = torch.index_select(
             state, 0, torch.from_numpy(rows).to(self.device))
-        snap["packed"] = batch_llhist.flush_packed(sel, snap["ps"])
-        snap["bins_dev"] = sel  # the flusher's buckets, sum and count
+        self._readout_rows(sel, snap)
         snap["_recycle"] = state
+
+    @staticmethod
+    def _readout_rows(block: torch.Tensor, snap: dict) -> None:
+        """flush_packed over the touched rows' `block`. A snap that asks
+        for `compact` bins keeps the readout's value-ordered registers
+        for snapshot_finish's compaction; any other keeps the dense block
+        (a query's bins)."""
+        compact = bool(snap.get("compact"))
+        snap["packed"] = batch_llhist.flush_packed(block, snap["ps"],
+                                                   buckets=compact)
+        snap["bins_dev"] = None if compact else block
 
     @staticmethod
     def snapshot_finish(snap: dict):
         """(readout dict of np arrays over the touched rows in ascending
-        order, bins int64 (n_touched, BINS) in the same order, touched,
-        meta). Unlike the JAX package, whose readout spans every row,
-        the readout arrays are compact like the bins."""
+        order, bins in the same order, touched, meta). The bins are int64
+        (n_touched, BINS) registers, or for a snap that asked for
+        `compact` bins a batch_llhist.CompactBuckets, compacted on the
+        device so that only the nonzero bins are copied (the copy's bytes
+        go into the snap as `copy_bytes`, its nonzero bins as
+        `nonzero_bins`). Unlike the JAX package, whose readout spans every
+        row, the readout arrays are compact like the bins."""
+        compact = bool(snap.get("compact"))
         if snap["packed"] is None:  # idle-family fast path
-            return ({}, np.zeros((0, llhist_ref.BINS), np.int64),
-                    snap["touched"], snap["meta"])
-        out = {k: _host(v) for k, v in snap["packed"].items()}
-        if snap["bins_dev"] is None:  # a query that reads no bins
+            snap.update(copy_bytes=0, nonzero_bins=0)
+            empty = np.zeros(0, np.int64)
+            bins = (batch_llhist.CompactBuckets.from_device(
+                empty, empty, empty) if compact
+                else np.zeros((0, llhist_ref.BINS), np.int64))
+            return {}, bins, snap["touched"], snap["meta"]
+        packed = snap["packed"]
+        if compact:
+            # popped: the readout's dense registers die with the copy
+            dev = batch_llhist.compact_buckets(packed.pop("sorted"))
+        out = {k: _host(v) for k, v in packed.items()}
+        nbytes = sum(v.nbytes for v in out.values())
+        if compact:
+            host = [_host(t) for t in dev]
+            nbytes += sum(a.nbytes for a in host)
+            bins = batch_llhist.CompactBuckets.from_device(*host)
+            snap["nonzero_bins"] = int(bins.cum.shape[0])
+        elif snap["bins_dev"] is None:  # a query that reads no bins
             bins = np.zeros((0, llhist_ref.BINS), np.int64)
         else:
-            bins = _host(snap["bins_dev"][:, :llhist_ref.BINS]
-                         ).astype(np.int64)
+            dense = _host(snap["bins_dev"][:, :llhist_ref.BINS])
+            nbytes += dense.nbytes
+            bins = dense.astype(np.int64)
+        snap["copy_bytes"] = nbytes
         return out, bins, snap["touched"], snap["meta"]
 
 

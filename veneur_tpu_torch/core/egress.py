@@ -12,8 +12,9 @@ FlushBatch sections instead:
   the tags-list object ref that RowMeta shares with every FlushSection —
   so a steady-state flush pays only value formatting + `b"".join`;
 * value columns format in bulk off the float64 arrays;
-* llhist cumulative buckets ride the BucketSection cumsum matrix — no
-  per-line recomputation.
+* llhist cumulative buckets ride the BucketSection's compact columns
+  (each row's nonzero sorted bins and their cumulative counts) — no
+  per-line recomputation and no pass over empty bins.
 
 Parity is pinned against the legacy materialize() path and the JAX
 package's encoders by tests/test_torch_egress.py (JSON key-order-
@@ -159,20 +160,23 @@ class DatadogColumnarEncoder:
             for bs in batch.bucket_sections:
                 names = bs.names.tolist()
                 tagrows = bs.tags.tolist()
-                csum, nz = bs.csum, bs.nz
+                off, bins = bs.offsets.tolist(), bs.bins.tolist()
+                vals = [_json_num(v).encode()
+                        for v in (bs.cum / interval).tolist()]
+                tots = [_json_num(v).encode()
+                        for v in (bs.total / interval).tolist()]
                 for i, nm in enumerate(names):
                     _tags, prefix, has_tags = \
                         self._frag(nm, tagrows[i], True)
                     if prefix is None:
                         continue
-                    sep = b"," if has_tags else b""
-                    row = csum[i] / interval
-                    idxs = np.flatnonzero(nz[i]).tolist()
-                    vals_k = row[idxs].tolist() + [float(row[-1])]
-                    for k, v in zip(idxs + [-1], vals_k):
-                        parts.append(prefix + sep + les[k]
+                    head = prefix + b"," if has_tags else prefix
+                    for j in range(off[i], off[i + 1]):
+                        parts.append(head + les[bins[j]]
                                      + b'],"points":[[' + ts_b + b","
-                                     + _json_num(v).encode() + b"]]}")
+                                     + vals[j] + b"]]}")
+                    parts.append(head + les[-1] + b'],"points":[['
+                                 + ts_b + b"," + tots[i] + b"]]}")
         for m in batch.extras:
             if sink.metric_name_prefix_drops and any(
                     m.name.startswith(p)
@@ -264,15 +268,14 @@ class PrometheusColumnarRenderer:
             for bs in batch.bucket_sections:
                 names = bs.names.tolist()
                 tagrows = bs.tags.tolist()
-                csum, nz = bs.csum, bs.nz
+                off, bins = bs.offsets.tolist(), bs.bins.tolist()
+                vals, tots = bs.cum.tolist(), bs.total.tolist()
                 for i, nm in enumerate(names):
                     sname = self._name(nm)
                     interior = self._label_interior(tagrows[i])
                     pre = "{" + interior + "," if interior else "{"
-                    row = csum[i]
-                    idxs = np.flatnonzero(nz[i]).tolist()
-                    vals_k = row[idxs].tolist() + [float(row[-1])]
-                    for k, v in zip(idxs + [-1], vals_k):
+                    s, e = off[i], off[i + 1]
+                    for k, v in zip(bins[s:e] + [-1], vals[s:e] + [tots[i]]):
                         clause = ""
                         if exemplars is not None:
                             clause = exemplar_clause_for(
@@ -445,26 +448,32 @@ class CortexColumnarEncoder:
                     max_ts = ts
                 names = bs.names.tolist()
                 tagrows = bs.tags.tolist()
-                csum, nz = bs.csum, bs.nz
+                off, bins = bs.offsets.tolist(), bs.bins.tolist()
+                if mono:
+                    vals, tots = bs.cum.tolist(), bs.total.tolist()
+                else:
+                    vb = bs.cum.astype("<f8").tobytes()
+                    tb = bs.total.astype("<f8").tobytes()
                 for i, nm in enumerate(names):
+                    s, e = off[i], off[i + 1]
                     if mono:
                         base = tagrows[i]
-                        row = csum[i]
-                        for k in np.flatnonzero(nz[i]).tolist():
-                            key = (nm, tuple(sorted(base + [le_strs[k]])),
-                                   "")
+                        for j in range(s, e):
+                            key = (nm, tuple(sorted(
+                                base + [le_strs[bins[j]]])), "")
                             monotonic[key] = (monotonic.get(key, 0.0)
-                                              + float(row[k]))
+                                              + vals[j])
                         key = (nm, tuple(sorted(base + ["le:+Inf"])), "")
                         monotonic[key] = (monotonic.get(key, 0.0)
-                                          + float(row[-1]))
+                                          + tots[i])
                         continue
                     pre, post = self._bucket_block(nm, tagrows[i])
-                    row = csum[i]
-                    vrow = row.astype("<f8").tobytes()
-                    for k in np.flatnonzero(nz[i]).tolist() + [-1]:
+                    for k, v in zip(bins[s:e] + [-1],
+                                    [vb[8 * j:8 * j + 8]
+                                     for j in range(s, e)]
+                                    + [tb[8 * i:8 * i + 8]]):
                         body = (pre + les[k] + post + sample_hdr + b"\x09"
-                                + vrow[8 * k:8 * k + 8 or None] + ts_tail)
+                                + v + ts_tail)
                         if check_ex:
                             ex = self._exemplar(
                                 nm, tagrows[i] + [le_strs[k]], exemplified)

@@ -17,14 +17,20 @@ A server is local iff it forwards (`forward_address` set):
 * Log-linear histograms emit the configured percentiles, the midpoint
   `.sum`, the exact `.count`, and Prometheus-shaped cumulative `.bucket`
   counters tagged `le:<bound>` (JAX flusher.py:818-875); on a local
-  server the non-local rows forward their bins instead.
+  server the non-local rows forward their bins instead. The device
+  compacts the readout to each row's nonzero value-sorted bins and their
+  cumulative counts, and only those are copied to the host
+  (batch_llhist.CompactBuckets); a forwarded row's registers are
+  rebuilt from them exactly.
 * Status checks emit every touched row.
 
 While the span recorder (core/profiling.py) is armed, the phases' clock
 readings, taken for the flush's timings anyway, are also its spans:
 `flush.swap`, one `flush.readout.<family>` per family's dispatch,
-`flush.sync` (the device sync and the host copies) and
-`flush.assembly`.
+`flush.sync` (the device sync and the host copies), inside it
+`flush.llhist.compact` (the llhist family's compaction and copy, with
+its rows, nonzero bins and bytes), and `flush.assembly`, inside it
+`flush.llhist.assembly`.
 """
 
 from __future__ import annotations
@@ -82,7 +88,7 @@ def _fmt_le(bound: float) -> str:
 
 
 # `le:<bound>` tag strings for every sorted llhist bin plus the final
-# `le:+Inf`, index-aligned with BucketSection.csum columns
+# `le:+Inf`, indexed by BucketSection.bins (and -1 for `le:+Inf`)
 LE_TAGS = tuple([f"le:{_fmt_le(u)}" for u in llhist_ref.UPPER_SORTED]
                 + ["le:+Inf"])
 
@@ -112,21 +118,24 @@ class FlushSection:
 
 @dataclass
 class BucketSection:
-    """Cumulative llhist bucket columns: one row per emitted llhist, the
-    full cumulative sum over its value-sorted bins. A row materializes
-    as COUNTER `<name>` lines tagged `le:<bound>` for every NONZERO
-    sorted bin (mask `nz`) plus an unconditional `le:+Inf` line carrying
-    `csum[:, -1]`. The `le:` tag strings are shared and index-aligned via
-    `LE_TAGS`; `tags` rows are base tag-list refs (copy before
-    mutating)."""
+    """Cumulative llhist bucket columns, compact: one row per emitted
+    llhist, whose NONZERO value-sorted bins are bins[offsets[i]:
+    offsets[i + 1]] with cumulative counts cum[...] (a
+    batch_llhist.CompactBuckets' columns). A row materializes as COUNTER
+    `<name>` lines tagged `le:<bound>` for each of those bins plus an
+    unconditional `le:+Inf` line carrying `total[i]`. The `le:` tag
+    strings are shared and indexed by `bins` via `LE_TAGS`; `tags` rows
+    are base tag-list refs (copy before mutating)."""
 
-    names: np.ndarray  # object ndarray of str ("<base>.bucket")
-    tags: np.ndarray   # object ndarray of List[str] (base tags, no le:)
-    csum: np.ndarray   # (rows, bins) float64 cumulative counts
-    nz: np.ndarray     # (rows, bins) bool — sorted bin is nonzero
+    names: np.ndarray    # object ndarray of str ("<base>.bucket")
+    tags: np.ndarray     # object ndarray of List[str] (base tags, no le:)
+    offsets: np.ndarray  # (rows + 1,) int64 — each row's span of bins
+    bins: np.ndarray     # (nnz,) int64 — sorted bin, an index of LE_TAGS
+    cum: np.ndarray      # (nnz,) float64 cumulative counts
+    total: np.ndarray    # (rows,) float64 — the `le:+Inf` count
 
     def line_count(self) -> int:
-        return int(self.nz.sum()) + self.names.shape[0]
+        return self.cum.shape[0] + self.names.shape[0]
 
 
 class FlushBatch:
@@ -164,18 +173,18 @@ class FlushBatch:
                                            sec.tags.tolist()))
                 les = LE_TAGS
                 for bs in self.bucket_sections:
-                    nz, csum = bs.nz, bs.csum
+                    off, bins = bs.offsets.tolist(), bs.bins.tolist()
+                    cum, total = bs.cum.tolist(), bs.total.tolist()
                     for i, (nm, base) in enumerate(zip(bs.names.tolist(),
                                                        bs.tags.tolist())):
-                        row = csum[i]
                         tags = list(base)
-                        for k in np.flatnonzero(nz[i]).tolist():
+                        for j in range(off[i], off[i + 1]):
                             out.append(InterMetric(
-                                name=nm, timestamp=ts, value=float(row[k]),
-                                tags=tags + [les[k]],
+                                name=nm, timestamp=ts, value=cum[j],
+                                tags=tags + [les[bins[j]]],
                                 type=MetricType.COUNTER))
                         out.append(InterMetric(
-                            name=nm, timestamp=ts, value=float(row[-1]),
+                            name=nm, timestamp=ts, value=total[i],
                             tags=tags + ["le:+Inf"],
                             type=MetricType.COUNTER))
                 out.extend(self.extras)
@@ -202,7 +211,7 @@ def swap_columnstore(store: ColumnStore, is_local: bool,
         "all_ps": all_ps,
         "histogram": store.histos.swap_out(
             ps=all_ps, need_export=is_local and collect_forward),
-        "llhist": store.llhists.swap_out(ps=full_ps),
+        "llhist": store.llhists.swap_out(ps=full_ps, compact=True),
         "counter": store.counters.swap_out(),
         "gauge": store.gauges.swap_out(),
         "set": store.sets.swap_out(),
@@ -236,8 +245,11 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
     sync, host copies, recycle) and released before the assembly; the
     wait for it adds to `readout_lock_wait_s`.
     `timings`, when given, receives per-phase wall seconds (dispatch /
-    device_sync / assembly, and inside device_sync the llhist family's
-    device-to-host copy of its touched rows' bins, llhist_bins_s) and
+    device_sync / assembly; inside device_sync the llhist family's
+    compaction and device-to-host copy of its touched rows' nonzero
+    bins, llhist_bins_s, with its bytes, llhist_copy_bytes, and nonzero
+    bins, llhist_nonzero_bins; inside assembly the llhist family's,
+    llhist_assembly_s) and
     per family a segment record under `families` (the flush's
     `flush.family` spans): the readout's wall-clock start (`base_unix`),
     the family's dispatch seconds and start offset, and for the device
@@ -323,6 +335,12 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
         ll_out, ll_bins, ll_touched, ll_meta = finish(
             "llhist", lambda: store.llhists.snapshot_finish(ll_snap))
         t_sync = time.perf_counter()
+        ll_copy = {"rows": int(np.count_nonzero(ll_touched)),
+                   "nonzero_bins": ll_snap.get("nonzero_bins", 0),
+                   "bytes": ll_snap.get("copy_bytes", 0)}
+        if profiling.armed:
+            profiling.record("flush.llhist.compact", t_bins, t_sync,
+                             ll_copy)
         # copies done: reset the drained generations in place as the
         # next interval's spares (no-op for the set snap, whose bank
         # escaped into the register view)
@@ -448,27 +466,32 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
     # ---- log-linear histograms ------------------------------------------
     # percentiles/sum/count columnarize like every other family; the
     # variable-length cumulative buckets become a BucketSection, exploded
-    # per row only by materialize(). The readout and the bins are both
-    # compact over the touched rows, in ascending row order.
+    # per row only by materialize(). The readout and the compact bins
+    # are both over the touched rows, in ascending row order.
+    t_ll = time.perf_counter()
     bucket_sections: List[BucketSection] = []
     llr = np.flatnonzero(ll_touched)
     quants = np.asarray(ll_out.get("quantiles", ()), np.float64)
+    counts = ll_bins.totals().astype(np.float64)
     if llr.size:
         # the readout and bins are compact over llr: drop stragglers
-        # from all three together
+        # from all of them together
         keep = _live_mask(llr, ll_meta)
         if not keep.all():
-            llr, ll_bins, quants = llr[keep], ll_bins[keep], quants[keep]
+            llr, quants, counts = llr[keep], quants[keep], counts[keep]
+            ll_bins = ll_bins.take(keep)
     if is_local and llr.size:
-        # bins and readout are compact over llr: split both by scope
+        # bins and readout are compact over llr: split both by scope; a
+        # forwarded row's registers are rebuilt from its compact bins
         fwd_mask = store.llhists.scope_code[llr] != local_code
-        if need_export:
+        if need_export and fwd_mask.any():
+            regs = ll_bins.take(fwd_mask).dense()
             fwd.llhists.extend(
-                (ll_meta[row], ll_bins[j])
-                for j, row in zip(np.flatnonzero(fwd_mask).tolist(),
-                                  llr[fwd_mask].tolist()))
-        llr, ll_bins, quants = (llr[~fwd_mask], ll_bins[~fwd_mask],
-                                quants[~fwd_mask])
+                (ll_meta[row], regs[j])
+                for j, row in enumerate(llr[fwd_mask].tolist()))
+        llr, quants, counts = (llr[~fwd_mask], quants[~fwd_mask],
+                               counts[~fwd_mask])
+        ll_bins = ll_bins.take(~fwd_mask)
     if llr.size:
         lltab = store.llhists
         tags_ll = lltab.flush_tags(llr, ll_meta)
@@ -478,25 +501,25 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
                     p, llr, ll_meta,
                     lambda m, p=p: _percentile_name(m.name, p)),
                 quants[:, j], tags_ll, MetricType.GAUGE))
-        # count and sum from the HOST-side int64 bins: the count must
-        # equal the le:+Inf bucket exactly (both are the same registers)
+        # count and sum from the exact int64 counts of the compact bins:
+        # the count equals the le:+Inf bucket exactly (both are the same
+        # registers)
         sections.append(FlushSection(
             lltab.flush_names("sum", llr, ll_meta,
                               lambda m: f"{m.name}.sum"),
-            ll_bins.astype(np.float64) @ llhist_ref.BIN_MID,
-            tags_ll, MetricType.GAUGE))
+            ll_bins.midpoint_sums(), tags_ll, MetricType.GAUGE))
         sections.append(FlushSection(
             lltab.flush_names("count", llr, ll_meta,
                               lambda m: f"{m.name}.count"),
-            ll_bins.sum(axis=1).astype(np.float64),
-            tags_ll, MetricType.COUNTER))
-        c_sorted = ll_bins[:, llhist_ref.ORDER]
+            counts, tags_ll, MetricType.COUNTER))
         bucket_sections.append(BucketSection(
             lltab.flush_names("bucket", llr, ll_meta,
                               lambda m: f"{m.name}.bucket"),
-            tags_ll,
-            np.cumsum(c_sorted, axis=1, dtype=np.float64),
-            c_sorted != 0))
+            tags_ll, ll_bins.offsets, ll_bins.bins,
+            ll_bins.cum.astype(np.float64), counts))
+    t_ll_end = time.perf_counter()
+    if profiling.armed:
+        profiling.record("flush.llhist.assembly", t_ll, t_ll_end)
 
     # ---- status checks --------------------------------------------------
     extras: List[InterMetric] = []
@@ -521,6 +544,9 @@ def readout_columnstore(store: ColumnStore, swap: dict, is_local: bool,
         timings["dispatch_s"] = t_dispatch - t_locked
         timings["device_sync_s"] = t_sync - t_dispatch
         timings["llhist_bins_s"] = t_sync - t_bins
+        timings["llhist_copy_bytes"] = ll_copy["bytes"]
+        timings["llhist_nonzero_bins"] = ll_copy["nonzero_bins"]
+        timings["llhist_assembly_s"] = t_ll_end - t_ll
         timings["assembly_s"] = t_end - t_sync
         timings["families"] = families
     return FlushBatch(now, sections, extras, bucket_sections), fwd

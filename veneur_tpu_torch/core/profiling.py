@@ -458,7 +458,8 @@ def pprof_for(seconds: float, hz: float = 100.0) -> bytes:
 # -- the span recorder -------------------------------------------------------
 # Spans of the program's own work: ingest batches and their parse, slow
 # path and appends, the tables' applies and copies, the flush's phases,
-# the sinks' encode, gzip and POST, and the K1/K2 launches. A span site
+# the sinks' encode, gzip and POST, and the K1, K2 and K3 launches, the
+# llhist flush's compaction and assembly. A span site
 # tests `armed` and, while it is False, does nothing more: no clock read,
 # no allocation. While a capture is armed it reads time.perf_counter() at
 # both ends (or reuses readings its code takes anyway) and calls

@@ -491,8 +491,7 @@ class ShardedLLHistTable(_Stacked, _DigestRouted, LLHistTable):
         merged = self._merge_noted(
             lambda: collectives.merge_llhist_stacked_reset(
                 state, self.device, rows))
-        snap["packed"] = batch_llhist.flush_packed(merged, snap["ps"])
-        snap["bins_dev"] = merged  # the flusher's buckets, sum and count
+        self._readout_rows(merged, snap)
         snap["_spare"] = state
 
     def _query_readout_device(self, state, snap: dict) -> None:

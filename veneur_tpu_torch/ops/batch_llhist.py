@@ -11,7 +11,12 @@ exact in any order, so the table is bit-identical to the JAX package's.
 The flush readout (quantiles + count + midpoint sum) is one pass: gather
 the bins in value order, cumulative-sum, binary-search the rank per
 (row, percentile), interpolate inside the located bin. It is plain torch
-(the JAX package left it to XLA).
+(the JAX package left it to XLA). The same pass can keep the
+value-ordered registers for the flush's buckets, which compact_buckets
+then reduces, on the device, to each row's nonzero sorted bins and their
+exact int64 cumulative counts (CompactBuckets on the host): a flush copies
+those instead of every row's dense bins, of which at a deployment's
+width over 99 % are zeros.
 
 The table keeps the JAX package's padded width BINS_PAD; bins past
 llhist_ref.BINS are never written and every readout indexes through the
@@ -20,6 +25,7 @@ value-order gather, which covers only live bins.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Sequence
 
 import numpy as np
@@ -108,10 +114,12 @@ def apply_packed(regs: torch.Tensor, block: np.ndarray) -> torch.Tensor:
     return llhist_apply.apply(regs, rows, bins, wts)
 
 
-def flush_packed(regs: torch.Tensor, ps: Sequence[float]
-                 ) -> Dict[str, torch.Tensor]:
+def flush_packed(regs: torch.Tensor, ps: Sequence[float],
+                 buckets: bool = False) -> Dict[str, torch.Tensor]:
     """One-pass readout of `regs` (K, BINS_PAD) int32:
-    {quantiles (K, P) f32, count (K,) int32, sum (K,) f32}.
+    {quantiles (K, P) f32, count (K,) int32, sum (K,) f32}, and with
+    `buckets` also the value-ordered registers `sorted` (K, BINS) int32,
+    compact_buckets' input.
 
     Op for op the JAX package's flush_packed: the count is the exact
     int32 cumulative sum; ranks and the interpolation run in float32.
@@ -119,7 +127,8 @@ def flush_packed(regs: torch.Tensor, ps: Sequence[float]
     order, left, width, mid = _consts(regs.device)
     c = torch.index_select(regs, 1, order)            # value-ascending
     csum = torch.cumsum(c, dim=1, dtype=torch.int32)  # exact
-    del c
+    if not buckets:
+        del c
     total = csum[:, -1]
     total_f = total.to(torch.float32)
     approx_sum = regs[:, :BINS].to(torch.float32) @ mid
@@ -140,8 +149,100 @@ def flush_packed(regs: torch.Tensor, ps: Sequence[float]
     else:
         q = torch.zeros((num_keys, 0), dtype=torch.float32,
                         device=regs.device)
-    return {"quantiles": q, "count": total,
-            "sum": torch.where(total > 0, approx_sum, 0.0)}
+    out = {"quantiles": q, "count": total,
+           "sum": torch.where(total > 0, approx_sum, 0.0)}
+    if buckets:
+        out["sorted"] = c
+    return out
+
+
+def compact_buckets(c: torch.Tensor):
+    """Each row's nonzero bins of the value-ordered registers `c` (K, B)
+    int32, on c's device: (nonzero bins a row (K,) int32, their
+    sorted-bin indices (nnz,) int16, their cumulative counts (nnz,) int64,
+    summed in int64 so that a row past int32 stays exact), rows ascending
+    and bins ascending within a row. The nonzero search waits for c."""
+    nz = c != 0
+    row_nnz = nz.sum(dim=1)
+    flat = torch.nonzero(nz.view(-1)).squeeze(1)
+    bins = (flat % c.shape[1]).to(torch.int16)
+    if not flat.numel():
+        return row_nnz.to(torch.int32), bins, flat
+    run = torch.cumsum(c.view(-1)[flat].to(torch.int64), dim=0)
+    start = torch.cumsum(row_nnz, dim=0) - row_nnz
+    # each row's running total before its first bin
+    below = torch.where(start > 0, run[(start - 1).clamp_min(0)], 0)
+    return (row_nnz.to(torch.int32), bins,
+            run - below[flat // c.shape[1]])
+
+
+@dataclass
+class CompactBuckets:
+    """The host form of compact_buckets over `rows` rows: row i's nonzero
+    value-sorted bins are bins[offsets[i]:offsets[i + 1]] (indices into
+    llhist_ref.UPPER_SORTED, ascending), and cum the exact cumulative
+    count through each. A row's total is its last cum (0 for a row with
+    no nonzero bin)."""
+
+    offsets: np.ndarray  # (rows + 1,) int64
+    bins: np.ndarray     # (nnz,) int64
+    cum: np.ndarray      # (nnz,) int64
+
+    @classmethod
+    def from_device(cls, row_nnz: np.ndarray, bins: np.ndarray,
+                    cum: np.ndarray) -> "CompactBuckets":
+        offsets = np.zeros(row_nnz.shape[0] + 1, np.int64)
+        np.cumsum(row_nnz, out=offsets[1:])
+        return cls(offsets, bins.astype(np.int64), cum.astype(np.int64))
+
+    @property
+    def rows(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    def totals(self) -> np.ndarray:
+        """Each row's total count, exact int64."""
+        last = np.zeros(self.rows, np.int64)
+        has = np.diff(self.offsets) > 0
+        last[has] = self.cum[self.offsets[1:][has] - 1]
+        return last
+
+    def row_ids(self) -> np.ndarray:
+        """The row of every nonzero bin, (nnz,) int64."""
+        return np.repeat(np.arange(self.rows, dtype=np.int64),
+                         np.diff(self.offsets))
+
+    def counts(self) -> np.ndarray:
+        """Every nonzero bin's own count (its cum less the row's previous
+        cum), exact int64."""
+        prev = np.empty_like(self.cum)
+        prev[:1] = 0
+        prev[1:] = self.cum[:-1]
+        prev[self.offsets[:-1][np.diff(self.offsets) > 0]] = 0
+        return self.cum - prev
+
+    def take(self, sel: np.ndarray) -> "CompactBuckets":
+        """The rows `sel` (indices or a boolean mask), in that order."""
+        sel = np.arange(self.rows)[sel]
+        lens = np.diff(self.offsets)[sel]
+        offsets = np.zeros(sel.shape[0] + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        at = (np.repeat(self.offsets[sel] - offsets[:-1], lens)
+              + np.arange(offsets[-1]))
+        return CompactBuckets(offsets, self.bins[at], self.cum[at])
+
+    def dense(self, dtype=np.int64) -> np.ndarray:
+        """The (rows, BINS) registers in bin-id order, exactly the rows
+        this was compacted from."""
+        out = np.zeros((self.rows, BINS), dtype)
+        out[self.row_ids(), llhist_ref.ORDER[self.bins]] = self.counts()
+        return out
+
+    def midpoint_sums(self) -> np.ndarray:
+        """Each row's float64 midpoint sum, as the JAX package's flusher
+        computes it: the float64 registers times llhist_ref.BIN_MID in
+        one matrix-vector product, whose summation order (and so last
+        bit) follows the BLAS and the rows' count."""
+        return self.dense(np.float64) @ llhist_ref.BIN_MID
 
 
 def bin_batch_host(values, weights=None):

@@ -27,9 +27,11 @@ no device context is entered when the table lies on the current device.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
+from veneur_tpu_torch.core import profiling
 from veneur_tpu_torch.ops import _cuda, count_launch
 
 BINS_PAD = 4608  # the JAX package's padded width (4501 bins, 128-aligned)
@@ -126,12 +128,21 @@ def apply_cuda(regs: torch.Tensor, rows: torch.Tensor, bins: torch.Tensor,
 def apply(regs: torch.Tensor, rows: torch.Tensor, bins: torch.Tensor,
           wts: torch.Tensor) -> torch.Tensor:
     """Scatter-add in place: the plain version for a CPU tensor, kernel
-    K3 for a CUDA tensor."""
+    K3 for a CUDA tensor. The call is the span `kernel.k3`, with its
+    samples and the table's rows, while the span recorder is armed."""
+    armed = profiling.armed
+    if armed:
+        t0 = time.perf_counter()
     if regs.is_cuda:
-        return apply_cuda(regs, rows, bins, wts)
-    if regs.device.type == "cpu":
-        return apply_plain(regs, rows, bins, wts)
-    raise ValueError(f"llhist_apply: unsupported device {regs.device}")
+        out = apply_cuda(regs, rows, bins, wts)
+    elif regs.device.type == "cpu":
+        out = apply_plain(regs, rows, bins, wts)
+    else:
+        raise ValueError(f"llhist_apply: unsupported device {regs.device}")
+    if armed:
+        profiling.record("kernel.k3", t0, time.perf_counter(), {
+            "samples": int(rows.shape[0]), "rows": int(regs.shape[0])})
+    return out
 
 
 def bound_bytes(num_samples: int, num_registers: int) -> int:
